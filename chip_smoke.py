@@ -10,21 +10,27 @@ non-zero:
 1. card and build: the device name, ``nvidia-smi`` name and power limit, and
    the build of every CUDA kernel from ``llama2_tpu_torch/csrc`` (seconds,
    ptxas registers / shared memory / spills);
-2. each kernel against its plain PyTorch version on the card, fp32 and bf16,
-   at the Llama-2-7B, a GQA and the stories15M head layouts;
-3. the main path: ``Generator.generate`` at full Llama-2-7B width (random
-   weights from a seed, built on the card), bf16 then fp32, a ~200-token
-   prompt and 64 greedy tokens with ``backend="cuda"``; launch counts per
-   prefill chunk and decode step; a teacher-forced replay of the same token
-   stream through ``backend="torch"`` (the plain versions) compared logit by
-   logit; decode tok/s, TTFT and peak memory;
+2. each kernel against its plain PyTorch version on the card, fp32 and bf16:
+   the attention kernels at the Llama-2-7B, a GQA and the stories15M head
+   layouts, the INT8 dequant-matmul kernels at the five Llama-2-7B projection
+   shapes in both modes;
+3. the main paths: ``Generator.generate`` at full Llama-2-7B width (random
+   weights from a seed, built on the card), a ~200-token prompt and 64 greedy
+   tokens. INT8 (Q8) weights: ``backend="cuda"`` with bf16 activations, then
+   ``backend="cuda-accurate"`` in fp32. bf16 and fp32 weights:
+   ``backend="cuda"``. Each with launch counts per prefill chunk and decode
+   step, a teacher-forced replay of the same token stream through
+   ``backend="torch"`` (the plain versions) compared logit by logit, decode
+   tok/s, TTFT and peak memory;
 4. the CLI entry point ``python -m llama2_tpu_torch`` on a v0 checkpoint at
-   7B width with 2 layers, written from a seed;
-5. kernel timing at the main path's shapes with CUDA events, the calls
+   7B width with 2 layers, written from a seed, as it is and with
+   ``--quant int8``, and on the ak42 INT8 file converted from it;
+5. kernel timing at the main paths' shapes with CUDA events, the calls
    queued behind a device sleep so that the host's launch rate does not set
-   the time, beside the bound, the plain version and
-   ``scaled_dot_product_attention`` (a yardstick timed here only; the port
-   never calls it).
+   the time, beside the bound, the plain version and a library yardstick
+   timed here only (the port never calls it):
+   ``scaled_dot_product_attention`` for attention, ``torch.matmul`` on the
+   pre-dequantized weight for the dequant-matmuls.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a checkout
@@ -52,6 +58,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # float32 FMA outside the tensor cores for f32 work (TF32 is off: parity
 # mode); the bf16 tensor-core rate for bf16 work
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+GROUP = 64  # INT8 quant group size (llama2.c runq default)
+# the dequant-matmul shapes of a Llama-2-7B layer and classifier: (K, N)
+Q8_SHAPES = {
+    "wqkv": (4096, 12288), "wo": (4096, 4096), "w13": (4096, 22016),
+    "w2": (11008, 4096), "wcls": (4096, 32000),
+}
 PROMPT_TOKENS = 200
 GEN_TOKENS = 64
 
@@ -85,11 +97,26 @@ def tolerance(dtype) -> tuple[float, float]:
     return (2e-5, 2e-5) if dtype == torch.float32 else (2**-7, 1e-3)
 
 
-def compare(got, want, dtype) -> float:
+def q8_tolerance(dtype, mode: str, norm: bool) -> tuple[float, float]:
+    """(rtol, atol) of a dequant-matmul kernel against its plain version.
+    fp32 outputs: 4e-5, the float32 rounding of sums over K = 4096 and 11008
+    taken in another order (largest seen 2.2e-5, on outputs up to 7). Fast
+    mode with the rmsnorm prologue: a last-bit difference between the two
+    normed rows can flip the bf16 rounding of one x, which moves one product
+    by 2^-8 |x| |w| (up to 7e-4 at |x| = 4 and the largest weight here): 1e-3.
+    bf16 outputs: one flip of the last bit, as for the attention kernels."""
+    import torch
+
+    if dtype != torch.float32:
+        return tolerance(dtype)
+    return (1e-3, 1e-3) if norm and mode == "fast" else (4e-5, 4e-5)
+
+
+def compare(got, want, dtype, tol=None) -> float:
     """Max abs error of ``got`` against ``want``; raises past tolerance."""
     import torch
 
-    rtol, atol = tolerance(dtype)
+    rtol, atol = tol or tolerance(dtype)
     g, w = got.float(), want.float()
     if not bool(torch.isfinite(g).all()):
         raise AssertionError("kernel output has non-finite values")
@@ -181,6 +208,105 @@ def phase_kernels() -> None:
                 del kc, vc, k_want, v_want, k_plain, v_plain
 
 
+def rope_tables(pos, hs: int):
+    """The step's pair-duplicated (B, hs) float32 cos/sin rows for K4."""
+    from llama2_tpu_torch.ops import ref
+
+    cos, sin = ref.rope_angles(pos[:, None], hs)
+    return (cos[:, 0].repeat_interleave(2, -1).contiguous(),
+            sin[:, 0].repeat_interleave(2, -1).contiguous())
+
+
+def phase_kernels_q8() -> None:
+    """K4 against its plain version at the three head layouts; K5/K6 against
+    theirs at the five 7B shapes, M = 1, 8 and 201, both modes, fp32 and bf16
+    activations, with and without prologue and epilogue, on layers 0 and 31
+    of 32-layer stacks."""
+    import torch
+
+    from llama2_tpu_torch.io.convert import random_q8_params
+    from llama2_tpu_torch.models.llama import fuse_layer_params
+    from llama2_tpu_torch.ops.cuda.attention import (
+        flash_decode_attention_fused,
+        flash_decode_attention_fused_plain,
+    )
+    from llama2_tpu_torch.ops.cuda.quant_matmul import (
+        quant_matmul,
+        quant_matmul_plain,
+        quant_matmul_stacked,
+        quant_matmul_stacked_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        rtol, atol = tolerance(dtype)
+        for lname, (H, KVH, hs) in LAYOUTS.items():
+            L, layer = 2, 1
+            for pos_list in ([0], [1000], [S - 1], [7, 1000, S - 1]):
+                B = len(pos_list)
+                kc = randn(L, B, KVH, S, hs, dtype=dtype)
+                vc = randn(L, B, KVH, S, hs, dtype=dtype)
+                k_plain, v_plain = kc.clone(), vc.clone()
+                qkv = randn(B, H + 2 * KVH, hs, dtype=dtype)
+                pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+                cos_il, sin_il = rope_tables(pos, hs)
+                got = flash_decode_attention_fused(qkv, kc, vc, cos_il, sin_il, layer, pos, n_heads=H)
+                want = flash_decode_attention_fused_plain(
+                    qkv, k_plain, v_plain, cos_il, sin_il, layer, pos, H
+                )
+                torch.cuda.synchronize()
+                err = compare(got, want, dtype)
+                # the rotated K rows and raw V rows, bit for bit, and nothing else
+                if not (torch.equal(kc, k_plain) and torch.equal(vc, v_plain)):
+                    raise AssertionError(f"K4 cache append wrong at pos={pos_list}")
+                say("K4", dtype=dtype_name(dtype), layout=lname, B=B,
+                    pos=",".join(map(str, pos_list)), max_abs_err=f"{err:.3e}",
+                    rtol=rtol, atol=atol, append="exact")
+                del kc, vc, k_plain, v_plain
+
+    params = fuse_layer_params(random_q8_params(config_7b(), SEED + 4, "cuda", group_size=GROUP))
+    combos = ((0, False, False), (31, True, False), (31, False, True), (0, True, True))
+    for dtype in (torch.float32, torch.bfloat16):
+        for mode in ("accurate", "fast"):
+            for name, (K, N) in Q8_SHAPES.items():
+                worst = {}
+                for M in (1, 8, 201):
+                    x = randn(M, K, dtype=dtype)
+                    if name == "wcls":
+                        got = quant_matmul(x, params[name], mode=mode)
+                        want = quant_matmul_plain(x, params[name], mode=mode)
+                        torch.cuda.synchronize()
+                        worst[M] = compare(got, want, dtype, q8_tolerance(dtype, mode, False))
+                        continue
+                    rms_w = 1 + 0.1 * randn(K, dtype=dtype)
+                    res = randn(M, N, dtype=dtype)
+                    for layer, norm, resid in combos:
+                        kw = dict(mode=mode, rms_w=rms_w if norm else None,
+                                  residual=res if resid else None)
+                        got = quant_matmul_stacked(x, params[name], layer, **kw)
+                        want = quant_matmul_stacked_plain(x, params[name], layer, **kw)
+                        torch.cuda.synchronize()
+                        err = compare(got, want, dtype, q8_tolerance(dtype, mode, norm))
+                        worst[M] = max(worst.get(M, 0.0), err)
+                say("K5" if name == "wcls" else "K6", dtype=dtype_name(dtype), mode=mode,
+                    weight=name, K=K, N=N,
+                    max_abs_err_M1_M8_M201=",".join(f"{worst[M]:.3e}" for M in (1, 8, 201)),
+                    tol_plain_and_fast_prologue=f"{q8_tolerance(dtype, mode, False)},"
+                    f"{q8_tolerance(dtype, mode, True)}".replace(" ", ""))
+    # no float atomics: the same launch gives the same bits
+    x = randn(1, 4096, dtype=torch.bfloat16)
+    a = quant_matmul_stacked(x, params["wo"], 5)
+    for _ in range(3):
+        if not torch.equal(a, quant_matmul_stacked(x, params["wo"], 5)):
+            raise AssertionError("K6 gave different bits on the same inputs")
+    del params
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- phase 3
 
 
@@ -214,18 +340,23 @@ def teacher_forced_logits(params, config, stream: list[int], n_prompt: int, back
     on the host."""
     import torch
 
-    from llama2_tpu_torch.models.llama import forward, init_cache, logits_from_hidden
+    from llama2_tpu_torch.models.llama import (
+        activation_dtype,
+        forward,
+        init_cache,
+        logits_from_hidden,
+    )
 
-    dev = params["wq"].device
-    cache = init_cache(config, 1, params["wq"].dtype, dev)
+    dev = params["rms_final"].device
+    cache = init_cache(config, 1, activation_dtype(params), dev)
     out = []
     tok = torch.tensor([stream[: n_prompt + 1]], device=dev)
     h = forward(params, cache, tok, 0, config, backend)
-    out.append(logits_from_hidden(params, h[:, -1])[0].cpu())
+    out.append(logits_from_hidden(params, h[:, -1], backend)[0].cpu())
     for p in range(n_prompt + 1, len(stream)):
         tok = torch.tensor([[stream[p]]], device=dev)
         h = forward(params, cache, tok, p, config, backend)
-        out.append(logits_from_hidden(params, h[:, -1])[0].cpu())
+        out.append(logits_from_hidden(params, h[:, -1], backend)[0].cpu())
     return torch.stack(out)
 
 
@@ -269,11 +400,13 @@ def decode_profile(g, dn: str) -> None:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         say("profile", dtype=dn, kernel=e.key[:60].replace(" ", "_"), calls=e.count,
             device_ms_per_step=f"{e.self_device_time_total / 1e3 / n:.4f}")
-    # the port's decode kernel at positions 0..16, whatever its rank
+    # the port's own kernels at positions 0..16, whatever their rank
     for e in kernels:
-        if "decode_kernel" in e.key:
-            say("profile", dtype=dn, port_kernel="decode_attention", calls=e.count,
-                device_us_per_call=f"{e.self_device_time_total / e.count:.2f}")
+        for name in ("decode_kernel", "decode_fused_kernel", "gemv_kernel"):
+            if f"::{name}<" in e.key or e.key.startswith(name):
+                say("profile", dtype=dn, port_kernel=name, calls=e.count,
+                    device_us_per_call=f"{e.self_device_time_total / e.count:.2f}",
+                    device_ms_per_step=f"{e.self_device_time_total / 1e3 / n:.4f}")
 
 
 def phase_generate(dtype) -> dict:
@@ -365,10 +498,156 @@ def phase_generate(dtype) -> dict:
     return launches
 
 
+# The Q8 fast path against the plain path, bf16 activations: the plain path
+# rounds every dequantized weight to bf16 before its matmul and the kernel
+# path does not, so the two are held against the fp32-activation plain path
+# on the same INT8 weights, with the margins of the bf16-weight check above.
+# cuda-accurate in fp32 differs from the plain path only in summation order,
+# so it is held to F32_LOGIT_ATOL as the fp32-weight path is.
+
+
+def count_launches() -> dict:
+    from llama2_tpu_torch.ops.cuda.attention import (
+        flash_decode_attention_fused,
+        flash_decode_attention_stacked,
+    )
+    from llama2_tpu_torch.ops.cuda.prefill_attention import flash_prefill_attention
+    from llama2_tpu_torch.ops.cuda.quant_matmul import quant_matmul, quant_matmul_stacked
+
+    return {
+        "K1": flash_prefill_attention, "K2": flash_decode_attention_stacked,
+        "K4": flash_decode_attention_fused, "K5": quant_matmul, "K6": quant_matmul_stacked,
+    }
+
+
+def phase_generate_q8(backend: str, dtype) -> dict:
+    """The INT8-weight main path at full 7B width and depth: generate, count
+    launches, replay teacher-forced through the plain path."""
+    import torch
+
+    from llama2_tpu_torch.config import GenerationConfig
+    from llama2_tpu_torch.io.convert import random_q8_params
+    from llama2_tpu_torch.quant.q8 import QuantTensor
+    from llama2_tpu_torch.runtime.generator import BOS, Generator
+
+    config = config_7b()
+    L = config.n_layers
+    dn = f"q8/{dtype_name(dtype)}/{backend}"
+    t0 = time.perf_counter()
+    params = random_q8_params(config, SEED, "cuda", dtype, group_size=GROUP)
+    torch.cuda.synchronize()
+    say("gen", path=dn, params_built_s=f"{time.perf_counter() - t0:.1f}")
+    g = Generator(config, params, dtype=dtype, backend=backend, device="cuda")
+    prompt = prompt_tokens()
+    g.generate(prompt[:8], GenerationConfig(temperature=0.0, steps=10))  # warm-up
+
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = count_launches()
+    for w in wrappers.values():
+        w.launches = 0
+    res = g.generate(
+        prompt, GenerationConfig(temperature=0.0, steps=len(prompt) + GEN_TOKENS)
+    )
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    generated = res.tokens[len(prompt):]
+    n_gen = len(generated)
+    steps = n_gen + (1 if n_gen < GEN_TOKENS else 0)  # a BOS stop still ran its step
+    if res.tokens[: len(prompt)] != prompt or not all(0 <= t < config.vocab_size for t in generated):
+        raise AssertionError("generate returned a malformed token stream")
+    # one prefill chunk: K6 4/layer, K1 1/layer, K5 once. A decode step: K6
+    # 4/layer, K5 once, and K4 (fast, glue-fused) or K2 (accurate) 1/layer.
+    fused = backend == "cuda"
+    want = {
+        "K1": L, "K6": 4 * L * (1 + steps), "K5": 1 + steps,
+        "K4": L * steps if fused else 0, "K2": 0 if fused else L * steps,
+    }
+    if launches != want:
+        raise AssertionError(f"{dn}: launches {launches}, want {want} ({steps} decode steps)")
+    decode_s = res.total_s - res.ttft_s
+    say("gen", path=dn, prompt_tokens=len(prompt), generated=n_gen,
+        per_prefill_chunk=f"K6={4 * L},K1={L},K5=1",
+        per_decode_step=f"K6={4 * L},K5=1,K4={L if fused else 0},K2={0 if fused else L}",
+        **{f"{k}_launches": v for k, v in launches.items()})
+    say("gen", path=dn, ttft_ms=f"{res.ttft_s * 1e3:.2f}",
+        decode_tok_s=f"{n_gen / decode_s:.2f}",
+        reference_protocol_tok_s=f"{res.tokens_per_sec:.2f}",
+        peak_mem_GiB=f"{peak / 2**30:.2f}")
+    if fused:
+        decode_profile(g, dn)
+
+    stream = [BOS] + res.tokens
+    lc = teacher_forced_logits(g.params, config, stream, len(prompt), backend)
+    # the plain path runs the fused wqkv/w13 layout too
+    lt = teacher_forced_logits(g.params, config, stream, len(prompt), "torch")
+    if lc.shape != (n_gen + 1, config.vocab_size) or not bool(torch.isfinite(lc).all()):
+        raise AssertionError(f"teacher-forced logits malformed: {tuple(lc.shape)}")
+    diff = float((lc - lt).abs().max())
+    same_greedy = lt[:n_gen].argmax(-1).tolist() == generated
+    same_replay = lc[:n_gen].argmax(-1).tolist() == generated
+    say("gen", path=dn, logit_max_abs_diff_kernel_vs_plain=f"{diff:.3e}",
+        logit_absmax=f"{float(lt.abs().max()):.3f}",
+        greedy_tokens_identical=same_greedy, kernel_replay_matches_generate=same_replay)
+    if not same_replay:
+        raise AssertionError(f"{dn}: the teacher-forced kernel replay disagrees with generate")
+    if dtype == torch.float32:
+        if diff > F32_LOGIT_ATOL or not same_greedy:
+            raise AssertionError(
+                f"{dn}: kernel vs plain logits differ by {diff} (bound {F32_LOGIT_ATOL}), "
+                f"greedy tokens identical: {same_greedy}"
+            )
+    else:
+        ref = {k: v if isinstance(v, QuantTensor) else v.float() for k, v in g.params.items()}
+        lr = teacher_forced_logits(ref, config, stream, len(prompt), "torch")
+        dc, dt = (lc - lr).abs(), (lt - lr).abs()
+        max_c, max_t = float(dc.max()), float(dt.max())
+        mean_c, mean_t = float(dc.mean()), float(dt.mean())
+        say("gen", path=dn, vs_f32_activations_max_kernel=f"{max_c:.4e}",
+            vs_f32_activations_max_plain=f"{max_t:.4e}", max_margin=BF16_MAX_MARGIN,
+            vs_f32_activations_mean_kernel=f"{mean_c:.4e}",
+            vs_f32_activations_mean_plain=f"{mean_t:.4e}", mean_margin=BF16_MEAN_MARGIN)
+        if max_c > max_t + BF16_MAX_MARGIN or mean_c > mean_t * (1 + BF16_MEAN_MARGIN):
+            raise AssertionError(
+                f"{dn}: the kernel path is {max_c} (max) / {mean_c} (mean) from the fp32-"
+                f"activation logits, the plain path {max_t} / {mean_t}: past the margins"
+            )
+        del ref
+    g = params = None
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ---------------------------------------------------------------- phase 4
 
 
+def run_cli(path: str, *extra: str) -> tuple[bytes, str]:
+    """``python -m llama2_tpu_torch`` on ``path``: (stdout, a report line)."""
+    import torch
+
+    cmd = [
+        sys.executable, "-m", "llama2_tpu_torch", path, "-t", "0", "-n", "64",
+        "-i", "Once upon a time", "-z", TOKENIZER_BIN, "-v", *extra,
+    ]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, timeout=600, cwd=REPO)
+    secs = time.perf_counter() - t0
+    err = r.stderr.decode(errors="replace")
+    if r.returncode != 0:
+        raise AssertionError(f"CLI exited {r.returncode}:\n{err}")
+    tps = [line for line in err.splitlines() if "tokens per second" in line]
+    if torch.cuda.get_device_name(0) not in err or not tps or not r.stdout:
+        raise AssertionError(f"CLI output lacks the device name or a tokens/s line:\n{err}")
+    say("cli", args="_".join(extra) or "none", checkpoint_GB=f"{os.path.getsize(path) / 1e9:.2f}",
+        rc=r.returncode, seconds=f"{secs:.1f}", stdout_bytes=len(r.stdout),
+        report=tps[0].strip().replace(" ", "_"))
+    return r.stdout, err
+
+
 def phase_cli() -> None:
+    """The CLI on a v0 fp32 checkpoint at 7B width with 2 layers; the same
+    file quantized on load (``--quant int8``); and the ak42 INT8 file that
+    ``python -m llama2_tpu_torch.quant.convert`` writes from it."""
     import torch
 
     from llama2_tpu_torch.io.checkpoint import save_checkpoint
@@ -378,30 +657,26 @@ def phase_cli() -> None:
     params = random_params(config, SEED + 1, "cuda", torch.float32)
     params = {k: v.cpu().numpy() for k, v in params.items() if k != "wcls"}
     path = os.path.join(REPO, "build", "smoke", "llama2_7b_width_2_layers.bin")
+    q8_path = os.path.join(REPO, "build", "smoke", "llama2_7b_width_2_layers-q8.bin")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     try:
         save_checkpoint(path, config, params, shared_weights=True)
         del params
-        size = os.path.getsize(path)
-        cmd = [
-            sys.executable, "-m", "llama2_tpu_torch", path, "-t", "0", "-n", "64",
-            "-i", "Once upon a time", "-z", TOKENIZER_BIN, "-v",
-        ]
-        t0 = time.perf_counter()
-        r = subprocess.run(cmd, capture_output=True, timeout=600, cwd=REPO)
-        secs = time.perf_counter() - t0
+        run_cli(path)
+        run_cli(path, "--quant", "int8", "--kernels", "cuda-accurate")
+        r = subprocess.run(
+            [sys.executable, "-m", "llama2_tpu_torch.quant.convert", path, q8_path],
+            capture_output=True, timeout=600, cwd=REPO,
+        )
+        if r.returncode != 0 or not os.path.exists(q8_path):
+            raise AssertionError(f"convert exited {r.returncode}:\n{r.stderr.decode(errors='replace')}")
+        _, err = run_cli(q8_path, "--kernels", "cuda", "--dtype", "bf16")
+        if "quant: none" not in err:  # the file is INT8 already; no flag needed
+            raise AssertionError(f"unexpected CLI log:\n{err}")
     finally:
-        if os.path.exists(path):
-            os.remove(path)
-    err = r.stderr.decode(errors="replace")
-    if r.returncode != 0:
-        raise AssertionError(f"CLI exited {r.returncode}:\n{err}")
-    name = torch.cuda.get_device_name(0)
-    tps = [line for line in err.splitlines() if "tokens per second" in line]
-    if name not in err or not tps or not r.stdout:
-        raise AssertionError(f"CLI output lacks the device name or a tokens/s line:\n{err}")
-    say("cli", checkpoint_GB=f"{size / 1e9:.2f}", rc=r.returncode, seconds=f"{secs:.1f}",
-        stdout_bytes=len(r.stdout), report=tps[0].strip().replace(" ", "_"))
+        for f in (path, q8_path):
+            if os.path.exists(f):
+                os.remove(f)
 
 
 # ---------------------------------------------------------------- phase 5
@@ -557,6 +832,138 @@ def phase_timing(dtype, launches: dict, cycles_per_ms: float) -> list[dict]:
     return rows
 
 
+def phase_timing_q8(launches: dict, cycles_per_ms: float) -> list[dict]:
+    """K5/K6 at the five 7B shapes, M = 1 (a decode step) and M = 201 (the
+    prefill chunk), fast mode on bf16 activations and accurate mode on fp32,
+    and K4 at pos 256 and 4095. Call i reads layer i % 32 of a 32-layer
+    stack, as the decode step does, so weights come from device memory.
+
+    Bound: each weight byte, scale and activation once (K*N + 4*(K/G)*N +
+    activations) over the memory rate, or 2*M*K*N operations over the peak
+    of the mode's product type. The library yardstick is ``torch.matmul`` on
+    the weight dequantized ahead of time, in the activation dtype: it reads
+    2x (bf16) or 4x (fp32) the kernel's weight bytes and does no dequantizing.
+    ``launches``: the main paths' counts, ``{"fast": ..., "accurate": ...}``.
+    """
+    import torch
+    import torch.nn.functional as F
+
+    from llama2_tpu_torch.io.convert import random_q8_params
+    from llama2_tpu_torch.models.llama import fuse_layer_params
+    from llama2_tpu_torch.ops.cuda.attention import (
+        flash_decode_attention_fused,
+        flash_decode_attention_fused_plain,
+    )
+    from llama2_tpu_torch.ops.cuda.quant_matmul import (
+        quant_matmul,
+        quant_matmul_plain,
+        quant_matmul_stacked,
+        quant_matmul_stacked_plain,
+    )
+    from llama2_tpu_torch.quant.q8 import dequantize
+
+    L = 32
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    params = fuse_layer_params(random_q8_params(config_7b(L), SEED + 5, "cuda", group_size=GROUP))
+    rows = []
+    src = "llama2_tpu_torch/csrc/quant_matmul.cu"
+    for mode, dtype in (("fast", torch.bfloat16), ("accurate", torch.float32)):
+        dn = dtype_name(dtype)
+        esize = torch.tensor([], dtype=dtype).element_size()
+        for name, (K, N) in Q8_SHAPES.items():
+            w = params[name]
+            stacked = w.q.ndim == 3
+            # the yardstick's weights: 4 layers dequantized ahead (more than L2 holds)
+            wd = dequantize(w[:4], dtype) if stacked else dequantize(w, dtype)[None]
+            for M in (1, PROMPT_TOKENS + 1):
+                x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+                if stacked:
+                    def kern(i): return quant_matmul_stacked(x, w, i % L, mode=mode)
+                    def plain(i): return quant_matmul_stacked_plain(x, w, i % L, mode=mode)
+                else:
+                    def kern(i): return quant_matmul(x, w, mode=mode)
+                    def plain(i): return quant_matmul_plain(x, w, mode=mode)
+                def lib(i): return torch.matmul(x, wd[i % wd.shape[0]])
+                err = compare(kern(0), plain(0), dtype, q8_tolerance(dtype, mode, False))
+                ms, qk = time_ms(kern, 128 if M == 1 else 16, cycles_per_ms)
+                plain_ms, qp = time_ms(plain, 8, cycles_per_ms, n_warm=1)
+                lib_ms, ql = time_ms(lib, 128 if M == 1 else 16, cycles_per_ms)
+                nbytes = K * N + 4 * (K // GROUP) * N + esize * (M * K + M * N)
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_ops = 2 * M * K * N / PEAK_FLOPS["bf16" if mode == "fast" else "f32"] * 1e3
+                bound, by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+                kname = "quant_matmul_stacked" if stacked else "quant_matmul"
+                say("time", kernel=f"{kname}[{dn},{mode}]", weight=name, M=M, K=K, N=N,
+                    ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+                    library_ms_matmul_on_dequantized=f"{lib_ms:.4f}", bound_ms=f"{bound:.4f}",
+                    bound_by=by, GB_per_s=f"{nbytes / ms / 1e6:.0f}",
+                    TFLOP_per_s=f"{2 * M * K * N / ms / 1e9:.2f}", max_abs_err=f"{err:.3e}",
+                    queued_kernel_plain_library=f"{qk},{qp},{ql}")
+                if M == 1 and name in ("w13", "wcls"):  # the kernel line's rows
+                    rows.append({
+                        "name": f"{kname}[{dn},{mode},{name},M=1]", "route": "cuda", "source": src,
+                        "replaces": "llama2_tpu/ops/pallas/quant_matmul.py:"
+                        + ("340" if stacked else "476"),
+                        "launches": launches[mode]["K6" if stacked else "K5"],
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": by, "library_ms": lib_ms,
+                    })
+            del wd
+    del params
+    torch.cuda.empty_cache()
+
+    # K4 on the fast path's bf16 cache
+    dtype, dn, esize = torch.bfloat16, "bf16", 2
+    B, (H, KVH, hs) = 1, LAYOUTS["7B"]
+    kc = torch.randn((L, B, KVH, S, hs), generator=gen, device="cuda").to(dtype)
+    vc = torch.randn((L, B, KVH, S, hs), generator=gen, device="cuda").to(dtype)
+    qkv = torch.randn((B, H + 2 * KVH, hs), generator=gen, device="cuda").to(dtype)
+    q = qkv[:, None, :H].transpose(1, 2).contiguous()  # the yardstick's (B, H, 1, hs)
+    for p in (256, S - 1):
+        pos = torch.tensor([p] * B, dtype=torch.int32, device="cuda")
+        cos_il, sin_il = rope_tables(pos, hs)
+        got = flash_decode_attention_fused(qkv, kc, vc, cos_il, sin_il, 0, pos, n_heads=H)
+        want = flash_decode_attention_fused_plain(
+            qkv, kc.clone(), vc.clone(), cos_il, sin_il, 0, pos, H
+        )
+        err = compare(got, want, dtype)
+        ms, qk = time_ms(
+            lambda i: flash_decode_attention_fused(qkv, kc, vc, cos_il, sin_il, i % L, pos, n_heads=H),
+            256, cycles_per_ms,
+        )
+        plain_ms, qp = time_ms(
+            lambda i: flash_decode_attention_fused_plain(qkv, kc, vc, cos_il, sin_il, i % L, pos, H),
+            32, cycles_per_ms,
+        )
+        lib_ms, ql = time_ms(
+            lambda i: F.scaled_dot_product_attention(
+                q, kc[i % L][:, :, : p + 1], vc[i % L][:, :, : p + 1]
+            ), 256, cycles_per_ms,
+        )
+        # qkv rows and the tables in, the output and the two new rows out,
+        # and keys 0..p of K and V
+        nbytes = (esize * (B * (H + 2 * KVH) * hs + B * H * hs + 2 * B * KVH * hs
+                           + 2 * B * KVH * (p + 1) * hs) + 8 * B * hs)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 4 * hs * B * H * (p + 1) / PEAK_FLOPS[dn] * 1e3
+        bound, by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+        name = f"flash_decode_attention_fused[{dn}]"
+        if p == 256:
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": "llama2_tpu_torch/csrc/decode_attention.cu",
+                "replaces": "llama2_tpu/ops/pallas/attention.py:515",
+                "launches": launches["fast"]["K4"], "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+            })
+        say("time", kernel=name, pos=p, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=by,
+            max_abs_err=f"{err:.3e}", queued_kernel_plain_library=f"{qk},{qp},{ql}")
+    del kc, vc
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -573,6 +980,11 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_build()
     phase_kernels()
+    phase_kernels_q8()
+    q8_launches = {
+        "fast": phase_generate_q8("cuda", torch.bfloat16),
+        "accurate": phase_generate_q8("cuda-accurate", torch.float32),
+    }
     launches = {}
     for dtype in (torch.bfloat16, torch.float32):
         launches[dtype] = phase_generate(dtype)
@@ -582,6 +994,7 @@ def main() -> int:
     say("time", sleep_cycles_per_ms=f"{cycles_per_ms:.0f}")
     for dtype in (torch.bfloat16, torch.float32):
         kernels += phase_timing(dtype, launches[dtype], cycles_per_ms)
+    kernels += phase_timing_q8(q8_launches, cycles_per_ms)
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -5,9 +5,9 @@ Port of ``llama2_tpu/cli.py``: the same flags, defaults, hand-rolled arg loop
 checkpoint -> error exit 1), output framing and ``{d} tokens per second``
 verbose report. Runs on the card unless ``--platform cpu`` asks for the CPU.
 
-Flags whose path is not ported to the torch package yet (``--quant int8``,
-``--kv-cache int8``, ``--spec N``, ``--seq-shards N``, ``--save-cache``,
-``--profile``) exit 1 with a message rather than being ignored.
+Flags whose path is not ported to the torch package yet (``--kv-cache int8``,
+``--spec N``, ``--seq-shards N``, ``--save-cache``, ``--profile``) exit 1
+with a message rather than being ignored.
 """
 
 from __future__ import annotations
@@ -27,14 +27,18 @@ Options:
  -z, --tokenizer <path>    path to the tokenizer to use, default to "tokenizer.bin"
 GPU options:
  --dtype <f32|bf16>        compute/weight dtype, default f32 (f32 = parity mode)
+ --quant <none|int8>       weight-only INT8 (group-quantized Q8_0); an ak42
+                           checkpoint is used as it is, an fp one is quantized
  --prefill-chunk <int>     prefill segment length, default whole prompt
  --platform <cpu|gpu>      device to run on, default gpu
- --kernels <torch|cuda>    attention path: hand-written CUDA kernels (default)
-                           or their plain PyTorch versions
+ --kernels <torch|cuda|cuda-accurate>
+                           hand-written CUDA kernels (default; fast-mode INT8
+                           matmul), the same with the accurate-mode INT8
+                           matmul, or the plain PyTorch versions
  --warmup                  run a warmup generate before the timed one
 Not yet ported to the torch package (exit 1 when set):
- --quant int8, --kv-cache int8, --spec <int>, --seq-shards <int>,
- --save-cache <dir>, --profile <dir>
+ --kv-cache int8, --spec <int>, --seq-shards <int>, --save-cache <dir>,
+ --profile <dir>
 """
 
 
@@ -140,7 +144,7 @@ def parse_args(argv: list[str]) -> dict | None:
         elif arg == "--platform":
             opts["platform"], i = take_choice(i, "platform", ("cpu", "gpu"))
         elif arg == "--kernels":
-            opts["kernels"], i = take_choice(i, "kernels", ("torch", "cuda"))
+            opts["kernels"], i = take_choice(i, "kernels", ("torch", "cuda", "cuda-accurate"))
         elif arg == "--save-cache":
             opts["save_cache"], i = take_value(i, "save-cache")
         elif arg == "--seq-shards":
@@ -163,7 +167,6 @@ def parse_args(argv: list[str]) -> dict | None:
 def _refuse_unported(opts: dict) -> None:
     """Exit 1 for a flag whose path the torch package does not have yet."""
     for flag, key, off in (
-        ("--quant int8", "quant", "none"),
         ("--kv-cache int8", "kv_cache", "f32"),
         ("--spec", "spec", 0),
         ("--save-cache", "save_cache", None),
@@ -203,13 +206,19 @@ def main(argv: list[str] | None = None) -> int:
     log(f"temperature: {opts['temperature']}")
     log(f"top-p: {opts['top_p']}")
     log(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}")
-    log(f"dtype: {opts['dtype']}  kernels: {opts['kernels']}")
+    log(f"dtype: {opts['dtype']}  quant: {opts['quant']}  kernels: {opts['kernels']}")
     log("")
 
     tokenizer = Tokenizer.from_file(opts["tokenizer_path"], config.vocab_size)
     prompt_tokens: list[int] = []
     if opts["input"]:
         prompt_tokens = tokenizer.encode(opts["input"])
+
+    if opts["quant"] == "int8":
+        from llama2_tpu_torch.quant.q8 import QuantTensor, quantize_params
+
+        if not any(isinstance(v, QuantTensor) for v in params.values()):
+            params = quantize_params(params)
 
     generator = Generator(
         config,

@@ -2,4 +2,4 @@
 versions. ``SOURCES`` names every kernel source; ``build.build_all(SOURCES)``
 builds them all at once."""
 
-SOURCES = ("prefill_attention", "decode_attention")
+SOURCES = ("prefill_attention", "decode_attention", "quant_matmul")

@@ -27,8 +27,15 @@ import numpy as np
 import torch
 
 from llama2_tpu_torch.config import GenerationConfig, ModelConfig
-from llama2_tpu_torch.models.llama import BACKENDS, forward, init_cache, logits_from_hidden
+from llama2_tpu_torch.models.llama import (
+    BACKENDS,
+    forward,
+    fuse_layer_params,
+    init_cache,
+    logits_from_hidden,
+)
 from llama2_tpu_torch.ops import sampling
+from llama2_tpu_torch.quant.q8 import QuantTensor
 
 BOS = 1
 
@@ -63,6 +70,10 @@ class Generator:
 
     ``params``: numpy arrays or tensors in the layout of ``io/checkpoint.py``,
     moved to ``device`` as ``dtype`` (tensors already there are not copied).
+    Matmul weights may be QuantTensors (INT8 values, float32 scales, both
+    kept as they are): ``dtype`` is then the dtype of the activations, the
+    norm weights and the embedding, and with a CUDA backend the QKV and
+    W1/W3 launches are fused once here (``fuse_layer_params``).
     fp32 is the parity mode: on the card it turns TF32 off for the whole
     process, so the fp32 projections are full-precision products like the
     JAX package's ``Precision.HIGHEST``.
@@ -93,7 +104,15 @@ class Generator:
         if dtype == torch.float32 and self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.set_float32_matmul_precision("highest")
-        self.params = {k: torch.as_tensor(v).to(self.device, dtype) for k, v in params.items()}
+        self.params = {
+            k: v.to(self.device)
+            if isinstance(v, QuantTensor)
+            else torch.as_tensor(v).to(self.device, dtype)
+            for k, v in params.items()
+        }
+        # fuse the QKV and W1/W3 launches on the quantized kernel path
+        if backend.startswith("cuda") and isinstance(self.params.get("wq"), QuantTensor):
+            self.params = fuse_layer_params(self.params, backend)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -104,7 +123,7 @@ class Generator:
         (1, 1, V)."""
         tok = torch.as_tensor(np.asarray(tokens, np.int64)[None, :], device=self.device)
         hidden = forward(self.params, cache, tok, pos, self.config, self.backend)
-        return logits_from_hidden(self.params, hidden[:, -1:, :])
+        return logits_from_hidden(self.params, hidden[:, -1:, :], self.backend)
 
     def _prefill(self, cache, feed: np.ndarray, pos: int, chunk: int) -> torch.Tensor:
         """Prefill ``feed`` at ``pos`` in ``chunk``-token segments."""

@@ -5,7 +5,8 @@ port's independence from it.
   temperature 0 on fp32 parity-matrix configs, for the prompts of
   ``tests/test_parity_matrix.py``, with and without ``prefill_chunk``, and on
   the echo-only and BOS-in-prompt paths.
-* The CLI parse surface mirrors ``tests/test_cli.py``; unported flags exit 1.
+* The CLI parse surface mirrors ``tests/test_cli.py``; unported flags exit 1
+  (``--quant int8`` is ported: ``tests/test_torch_generate_q8.py``).
 * ``python -m llama2_tpu_torch ... --platform cpu`` prints the same bytes as
   ``python -m llama2_tpu ... --platform cpu``.
 * No module of ``llama2_tpu_torch`` imports ``jax`` or ``llama2_tpu``.
@@ -142,7 +143,7 @@ def run_main(capsys, *argv):
         (("ck.bin", "--kernels", "pallas"), 1, "err", "unable to parse --kernels"),
         (("ck.bin", "--platform", "tpu"), 1, "err", "unable to parse --platform"),
         (("ck.bin", "--prefill-chunk", "0"), 1, "err", "--prefill-chunk must be >= 1"),
-        (("ck.bin", "--quant", "int8"), 1, "err", "not yet ported to the torch package"),
+        (("ck.bin", "--quant", "int4"), 1, "err", "unable to parse --quant"),
         (("ck.bin", "--kv-cache", "int8"), 1, "err", "not yet ported to the torch package"),
         (("ck.bin", "--spec", "4"), 1, "err", "not yet ported to the torch package"),
         (("ck.bin", "--seq-shards", "2"), 1, "err", "not yet ported to the torch package"),
