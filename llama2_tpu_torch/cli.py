@@ -6,15 +6,15 @@ checkpoint -> error exit 1), output framing and ``{d} tokens per second``
 verbose report. Runs on the card unless ``--platform cpu`` asks for the CPU.
 
 Flags whose path is not ported to the torch package yet (``--kv-cache int8``,
-``--spec N``, ``--seq-shards N``, ``--save-cache``, ``--profile``) exit 1
-with a message rather than being ignored.
+``--spec N``, ``--seq-shards N``, ``--profile``) exit 1 with a message rather
+than being ignored.
 """
 
 from __future__ import annotations
 
 import sys
 
-USAGE = """Usage:   python -m llama2_tpu_torch <checkpoint> [options]
+USAGE = """Usage:   python -m llama2_tpu_torch <checkpoint | param-cache dir> [options]
 Example: python -m llama2_tpu_torch checkpoint.bin -n 256 -i "Once upon a time"
 Options:
  -h, --help                print this help message
@@ -35,10 +35,12 @@ GPU options:
                            hand-written CUDA kernels (default; fast-mode INT8
                            matmul), the same with the accurate-mode INT8
                            matmul, or the plain PyTorch versions
+ --save-cache <dir>        write the loaded (and quantized) params as a param-cache
+                           directory; pass it as the checkpoint path to skip
+                           the parse and the quantization next time
  --warmup                  run a warmup generate before the timed one
 Not yet ported to the torch package (exit 1 when set):
- --kv-cache int8, --spec <int>, --seq-shards <int>, --save-cache <dir>,
- --profile <dir>
+ --kv-cache int8, --spec <int>, --seq-shards <int>, --profile <dir>
 """
 
 
@@ -169,7 +171,6 @@ def _refuse_unported(opts: dict) -> None:
     for flag, key, off in (
         ("--kv-cache int8", "kv_cache", "f32"),
         ("--spec", "spec", 0),
-        ("--save-cache", "save_cache", None),
         ("--profile", "profile", None),
     ):
         if opts[key] != off:
@@ -219,6 +220,11 @@ def main(argv: list[str] | None = None) -> int:
 
         if not any(isinstance(v, QuantTensor) for v in params.values()):
             params = quantize_params(params)
+    if opts["save_cache"]:
+        from llama2_tpu_torch.io.cache import save_cache
+
+        save_cache(opts["save_cache"], config, params, shared)
+        log(f"wrote param cache to {opts['save_cache']}")
 
     generator = Generator(
         config,

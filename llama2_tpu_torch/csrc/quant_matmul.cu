@@ -19,7 +19,8 @@
 // Bound on this card: bytes for the decode rows (M <= 8: every weight byte
 // is read once and used M times), operations for a prefill chunk.
 //
-// M <= 8, gemv_kernel: a thread owns 4 consecutive columns (one 4-byte load
+// M <= 8, gemv_kernel (its inner loops are q8_gemv.cuh, shared with the FFN
+// kernels of mlp_block.cu): a thread owns 4 consecutive columns (one 4-byte load
 // per weight row; N is the contiguous axis of q and scale, so a warp reads
 // one 128-byte line per row) and all MT rows; a warp owns one quant group at
 // a time and the 8 warps of a block interleave over the block's groups, each
@@ -46,17 +47,11 @@
 // then rounds to bf16 in fast mode.
 #include <stdint.h>
 
-#include "common.cuh"
+#include "q8_gemv.cuh"
 
 namespace {
 
-using llama2::kBF16;
-using llama2::kF32;
-using llama2::warp_sum;
-
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kMaxG = 128;  // largest quant group the kernels stage
+using namespace llama2;
 
 struct Args {
   const void* x;       // (M, K) activations, dtype
@@ -71,43 +66,11 @@ struct Args {
   float eps;
 };
 
-__device__ __forceinline__ float load_act(const void* p, size_t i, int dtype) {
-  return dtype == kF32 ? static_cast<const float*>(p)[i]
-                       : __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
-}
-
-__device__ __forceinline__ void store_act(void* p, size_t i, int dtype, float v) {
-  if (dtype == kF32)
-    static_cast<float*>(p)[i] = v;
-  else
-    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// byte c of a little-endian word, as a float
-__device__ __forceinline__ float byte_f32(uint32_t word, int c) {
-  return static_cast<float>(static_cast<int8_t>(word >> (8 * c)));
-}
-
 // 1 / sqrt(mean(x[m]^2) + eps) of row m, by the whole block; `buf` is shared
 // scratch of at least kWarps floats. Every thread returns the value.
 __device__ float row_rstd(const Args& a, int m, float* buf) {
-  float ss = 0.f;
-  for (int k = threadIdx.x; k < a.K; k += kThreads) {
-    const float v = load_act(a.x, (size_t)m * a.K + k, a.dtype);
-    ss = fmaf(v, v, ss);
-  }
-  ss = warp_sum(ss);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) buf[threadIdx.x >> 5] = ss;
-  __syncthreads();
-  float t = 0.f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) t += buf[w];
-  return 1.0f / sqrtf(t / (float)a.K + a.eps);
+  return block_rstd(a.K, a.eps, buf,
+                    [&](int k) { return load_act(a.x, (size_t)m * a.K + k, a.dtype); });
 }
 
 __device__ __forceinline__ void finish(const Args& a, int m, int n, float t) {
@@ -116,20 +79,10 @@ __device__ __forceinline__ void finish(const Args& a, int m, int n, float t) {
   store_act(a.out, i, a.dtype, t);
 }
 
-constexpr int VEC = 4;            // columns a thread of the decode-row kernel
-constexpr int TILE_N = 32 * VEC;  // columns a block: one 128-byte line a row
-
-__device__ __forceinline__ uint32_t load_word(const int8_t* p) {
-  return __ldg(reinterpret_cast<const uint32_t*>(p));
-}
-
-// MT rows a thread, U weight rows loaded ahead
+// MT rows a thread, U weight rows loaded ahead (q8_gemv.cuh)
 template <int MT, int U, bool FAST>
 __global__ void __launch_bounds__(kThreads) gemv_kernel(const Args a) {
-  static_assert(TILE_N >= kMaxG, "the reduce buffer also stages x");
-  // first the per-warp staged x rows [warp][m][kMaxG], then the warps'
-  // sums [warp][m][TILE_N]
-  __shared__ float sm[kWarps * MT * TILE_N];
+  __shared__ float sm[kStripSmemFloats<MT>];
   __shared__ float rstd[MT];
   __shared__ int last;
 
@@ -158,86 +111,27 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(const Args a) {
     for (int c = 0; c < VEC; ++c) acc[m][c] = 0.f;
 
   float* xs = sm + warp * MT * kMaxG;
-  const int g_pad = (a.G + U - 1) / U * U;  // rows past G are staged as 0
   for (int g = g0 + warp; g < g1; g += kWarps) {
-    __syncwarp();
-    for (int j = lane; j < g_pad; j += 32) {
+    stage_group<MT, U>(xs, a.G, lane, [&](int m, int j) {
+      if (m >= a.M) return 0.f;
       const int k = g * a.G + j;
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        float v = 0.f;
-        if (m < a.M && j < a.G) {
-          v = load_act(a.x, (size_t)m * a.K + k, a.dtype);
-          if (norm) v = v * rstd[m] * load_act(a.rms_w, k, a.dtype);
-          if (FAST) v = round_bf16(v);
-        }
-        xs[m * kMaxG + j] = v;
-      }
-    }
-    __syncwarp();
-    if (col_ok) {
-      const float4 s4 =
-          __ldg(reinterpret_cast<const float4*>(a.scale + (size_t)g * a.N + col));
-      const float s[VEC] = {s4.x, s4.y, s4.z, s4.w};
-      float part[MT][VEC];
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int c = 0; c < VEC; ++c) part[m][c] = 0.f;
-
-      const int8_t* qp = a.q + (size_t)g * a.G * a.N + col;
-      for (int r = 0; r < a.G; r += U) {
-        uint32_t wv[U];
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          // a row past the group re-reads the group's last row; its x is 0
-          const int rr = min(r + u, a.G - 1);
-          wv[u] = load_word(qp + (size_t)rr * a.N);
-        }
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          float xv[MT];
-#pragma unroll
-          for (int m = 0; m < MT; ++m) xv[m] = xs[m * kMaxG + r + u];
-#pragma unroll
-          for (int c = 0; c < VEC; ++c) {
-            float wf = byte_f32(wv[u], c);
-            if (!FAST) wf *= s[c];
-#pragma unroll
-            for (int m = 0; m < MT; ++m) {
-              if (FAST)
-                part[m][c] = fmaf(xv[m], wf, part[m][c]);
-              else
-                acc[m][c] = fmaf(xv[m], wf, acc[m][c]);
-            }
-          }
-        }
-      }
-      if (FAST) {
-#pragma unroll
-        for (int m = 0; m < MT; ++m)
-#pragma unroll
-          for (int c = 0; c < VEC; ++c) acc[m][c] = fmaf(part[m][c], s[c], acc[m][c]);
-      }
-    }
+      float v = load_act(a.x, (size_t)m * a.K + k, a.dtype);
+      if (norm) v = v * rstd[m] * load_act(a.rms_w, k, a.dtype);
+      return FAST ? round_bf16(v) : v;
+    });
+    if (col_ok) group_dot<MT, U, FAST>(a.q, a.scale, a.N, a.G, g, col, xs, acc);
   }
 
-  // the warps' sums, added in warp order; column c of lane l sits at c*32+l
+  // the warps' sums, added in warp order
   __syncthreads();
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int c = 0; c < VEC; ++c)
-      sm[(warp * MT + m) * TILE_N + c * 32 + lane] = acc[m][c];
+  put_warp_sums<MT>(sm, warp, lane, acc);
   __syncthreads();
   for (int i = threadIdx.x; i < MT * TILE_N; i += kThreads) {
     const int m = i / TILE_N;
     const int j = i % TILE_N;
-    const int n = blockIdx.x * TILE_N + (j & 31) * VEC + (j >> 5);
+    const int n = blockIdx.x * TILE_N + strip_col(j);
     if (m >= a.M || n >= a.N) continue;
-    float t = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) t += sm[(w * MT + m) * TILE_N + j];
+    const float t = sum_warps<MT>(sm, m, j);
     if (a.ksplit == 1)
       finish(a, m, n, t);
     else

@@ -4,18 +4,18 @@ from llama2_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
 
 
 def load_any(path: str):
-    """Load a checkpoint, sniffing the format: ak42 v2 (INT8) or v0 fp32.
+    """Load a checkpoint, sniffing the format: a param-cache directory
+    (:mod:`.cache`), ak42 v2 (INT8) or v0 fp32.
 
     Returns ``(config, params, shared)`` with params in the layout of
-    :mod:`.checkpoint`; an ak42 file's matmul weights are QuantTensors. A
-    param-cache directory (``llama2_tpu/io/cache.py``) is not ported yet and
-    raises ``NotImplementedError``.
+    :mod:`.checkpoint`; the quantized formats' matmul weights are QuantTensors.
     """
+    from llama2_tpu_torch.io.cache import is_cache_dir, load_cache
+
+    if is_cache_dir(path):
+        return load_cache(path)
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path} is a directory: param-cache directories are not yet "
-            "ported to the torch package"
-        )
+        raise ValueError(f"{path} is a directory but not a param cache (no meta.json)")
     with open(path, "rb") as f:
         magic = f.read(4)
     if magic == b"24ka":  # ak42 v2 magic 0x616b3432, little-endian

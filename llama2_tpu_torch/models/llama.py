@@ -17,10 +17,15 @@ Backends (``BACKENDS``):
 
 * ``cuda``: the hand-written kernels (``ops/cuda``): flash prefill attention
   for T > 1, flash decode attention for T = 1, and for quantized weights the
-  fast-mode dequant-matmul kernels. With fused quantized params
-  (:func:`fuse_layer_params`) a decode layer is rmsnorm-fused ``wqkv`` ->
-  glue-fused attention (RoPE and append in the kernel) -> residual-fused
-  ``wo`` -> rmsnorm -> ``w13`` -> swiglu -> ``w2``. The JAX ``pallas``.
+  fast-mode dequant-matmul kernels. With quantized params fused for this
+  backend (:func:`fuse_layer_params`: ``wqkv``, separate ``w1``/``w3``) a
+  decode layer is TWO launches: the glue-fused attention (RoPE and append in
+  the kernel) on the layer's pre-RoPE QKV, then one FFN megakernel
+  (``ops/cuda/mlp_block.py``) for ``wo``, the FFN block and the NEXT layer's
+  rmsnorm-fused QKV; layer 0's QKV is one dequant-matmul launch a step. With
+  the ``w13`` layout a decode layer is the composed route: rmsnorm-fused
+  ``wqkv`` -> glue-fused attention -> residual-fused ``wo`` -> rmsnorm ->
+  ``w13`` -> swiglu -> ``w2``. The JAX ``pallas``.
 * ``cuda-accurate``: the same kernels with the accurate-mode dequant-matmul
   and no glue fusion (RoPE outside, the stacked decode kernel). The JAX
   ``pallas-accurate``.
@@ -40,6 +45,14 @@ from llama2_tpu_torch.ops.cuda.attention import (
     flash_decode_attention_fused,
     flash_decode_attention_stacked,
     flash_decode_attention_stacked_plain,
+)
+from llama2_tpu_torch.ops.cuda.mlp_block import (
+    attn_mlp_block_stacked,
+    attn_mlp_block_supported,
+    layer_tail_qkv_stacked,
+    layer_tail_qkv_supported,
+    mlp_block_stacked,
+    mlp_block_supported,
 )
 from llama2_tpu_torch.ops.cuda.prefill_attention import (
     flash_prefill_attention,
@@ -81,25 +94,30 @@ def layer_keys(params: dict) -> tuple[str, ...]:
 
 
 def use_mlp_block(params: dict, backend: str) -> bool:
-    """Whether the decode FFN runs as one fused launch. The JAX package's
-    FFN kernels (``ops/pallas/mlp_block.py``: ``mlp_block_stacked``,
-    ``attn_mlp_block_stacked``, ``layer_tail_qkv_stacked``; K10-K12 of
-    PERF.md's kernel table) are not ported yet, so the answer is no and the
-    FFN runs w13 -> swiglu -> w2."""
-    return False
+    """Whether the decode FFN runs as one fused launch (``ops/cuda/mlp_block.py``)
+    and not as w13 -> swiglu -> w2: the fast CUDA backend with separate
+    layer-stacked quantized w1/w3 (the kernel streams each matrix by itself)."""
+    return (
+        backend == "cuda"
+        and "w13" not in params
+        and isinstance(params.get("w1"), QuantTensor)
+        and mlp_block_supported(params["w1"], params["w3"], params["w2"])
+    )
 
 
 def fuse_layer_params(params: dict, backend: str = "cuda", shards: int = 1) -> dict:
-    """Concatenate QKV and W1/W3 along out-features: wqkv (L, D, D+2*KV),
-    w13 (L, D, 2*HD).
+    """Concatenate QKV (and, where the FFN megakernel will not take over,
+    W1/W3) along out-features: wqkv (L, D, D+2*KV), w13 (L, D, 2*HD).
 
     The launch analog of the reference's ``matmul_fused`` (one read of x
     across co-located matvecs, main.zig:530-605): 7 weight-applying calls per
     layer become 4. Works for fp tensors and QuantTensors (values and scales
     concatenate; same K and group size by construction). Done once at engine
-    init; checkpoints keep the 9-key layout. W1/W3 would stay separate if
-    :func:`use_mlp_block` engaged. Tensor-parallel shard-blocked layouts
-    (``shards > 1``) are not ported.
+    init; checkpoints keep the 9-key layout. W1/W3 stay separate (the same
+    tensors, no copy) when :func:`use_mlp_block` engages for ``backend``; any
+    other backend, ``"torch"`` for one, gives the ``w13`` layout, on which
+    ``backend="cuda"`` runs the composed route. Tensor-parallel shard-blocked
+    layouts (``shards > 1``) are not ported.
     """
     if shards != 1:
         raise NotImplementedError("tensor-parallel layouts are not yet ported to the torch package")
@@ -163,10 +181,17 @@ def _ffn(x, lp, config: ModelConfig, backend: str, quant_idx):
 
 def _post_attention(x, att, lp, config: ModelConfig, backend: str, quant_idx):
     """The post-attention half of a decode layer: wo projection + residual,
-    then the FFN block. With the fast CUDA backend and a stacked quantized
-    ``wo`` the residual add rides the wo launch (the kernel's epilogue); the
-    FFN is the composed route, since :func:`use_mlp_block` is False."""
+    then the FFN block, by the fewest launches that take the weights: the
+    wo + FFN megakernel (one); else wo, with its residual add in the launch's
+    epilogue where ``wo`` is a stacked quantized weight on the fast CUDA
+    backend, and the FFN megakernel (two); else wo and the composed rmsnorm /
+    w13 / swiglu / w2."""
     wo = lp["wo"]
+    mlp_block = quant_idx is not None and use_mlp_block(lp, backend)
+    if mlp_block and attn_mlp_block_supported(wo, lp["w1"], lp["w3"], lp["w2"]):
+        return attn_mlp_block_stacked(
+            att, x, wo, lp["rms_ffn"], lp["w1"], lp["w3"], lp["w2"], quant_idx, config.norm_eps
+        )
     if (
         backend == "cuda"
         and quant_idx is not None
@@ -176,6 +201,10 @@ def _post_attention(x, att, lp, config: ModelConfig, backend: str, quant_idx):
         x = quant_matmul_stacked(att, wo, quant_idx, residual=x)
     else:
         x = x + linear(att, wo, backend, quant_idx)
+    if mlp_block:
+        return mlp_block_stacked(
+            x, lp["rms_ffn"], lp["w1"], lp["w3"], lp["w2"], quant_idx, config.norm_eps
+        )
     return _ffn(x, lp, config, backend, quant_idx)
 
 
@@ -244,6 +273,33 @@ def _layer_decode_stacked(
     return _post_attention(x, att.reshape(B, T, H * hs), lp, config, backend, quant_idx)
 
 
+def _decode_two_launch(x, params, cache, pos, cos_il, sin_il, config: ModelConfig):
+    """All layers of a T=1 decode step at two launches a layer: the glue-fused
+    attention on the layer's pre-RoPE QKV, then the megakernel that runs wo,
+    the FFN block and the NEXT layer's rmsnorm-fused QKV. Layer 0's QKV is one
+    dequant-matmul launch; the last layer takes the megakernel without the
+    QKV phase, whose output nobody would read. ``x`` (B, 1, D); ``pos`` the
+    int32 (B,) row positions."""
+    B, T, D = x.shape
+    L, H, KVH, hs = config.n_layers, config.n_heads, config.n_kv_heads, config.head_size
+    eps = config.norm_eps
+    tail = [params[k] for k in ("w1", "w3", "w2")]
+    qkv = quant_matmul_stacked(x, params["wqkv"], 0, rms_w=params["rms_att"][0], eps=eps)
+    for i in range(L):
+        att = flash_decode_attention_fused(
+            qkv.reshape(B, H + 2 * KVH, hs), cache["k"], cache["v"], cos_il, sin_il, i, pos,
+            n_heads=H,
+        ).reshape(B, T, D)
+        if i < L - 1:
+            x, qkv = layer_tail_qkv_stacked(
+                att, x, params["wo"], params["rms_ffn"], *tail, params["rms_att"],
+                params["wqkv"], i, eps,
+            )
+        else:
+            x = attn_mlp_block_stacked(att, x, params["wo"], params["rms_ffn"][i], *tail, i, eps)
+    return x
+
+
 def activation_dtype(params: dict) -> torch.dtype:
     """The dtype activations run in: the fp weights', or with quantized
     weights (whose scales stay float32) the norm weights'."""
@@ -297,11 +353,18 @@ def forward(
             hs = config.head_size
             cos_il = cos.reshape(-1, hs // 2).repeat_interleave(2, dim=-1).expand(B, hs).contiguous()
             sin_il = sin.reshape(-1, hs // 2).repeat_interleave(2, dim=-1).expand(B, hs).contiguous()
-        for i in range(config.n_layers):
-            x = _layer_decode_stacked(
-                x, layer_params(i), cache["k"], cache["v"], i, pvec, cos, sin, config,
-                backend, i if stacked else None, cos_il, sin_il,
-            )
+        if (
+            cos_il is not None
+            and {"wqkv", "wo", "w1", "w3", "w2"} <= stacked
+            and layer_tail_qkv_supported(*(params[k] for k in ("wo", "w1", "w3", "w2", "wqkv")))
+        ):
+            x = _decode_two_launch(x, params, cache, pvec, cos_il, sin_il, config)
+        else:
+            for i in range(config.n_layers):
+                x = _layer_decode_stacked(
+                    x, layer_params(i), cache["k"], cache["v"], i, pvec, cos, sin, config,
+                    backend, i if stacked else None, cos_il, sin_il,
+                )
     else:
         if pos_t is not None:
             raise ValueError("a prefill segment (T > 1) takes one int start position")

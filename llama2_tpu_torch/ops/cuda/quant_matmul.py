@@ -38,26 +38,35 @@ _STRIP = 128  # columns a block of the decode-row kernel covers (TILE_N)
 _BLOCKS = 3 * 132  # blocks the decode-row kernel wants in flight: three an SM
 
 
-def _norm_rows(x2: torch.Tensor, rms_w: torch.Tensor, eps: float) -> torch.Tensor:
-    """rmsnorm as the kernel's prologue computes it: float32 throughout, eps
+def norm_rows(x2: torch.Tensor, rms_w: torch.Tensor, eps: float) -> torch.Tensor:
+    """rmsnorm as the kernels' prologue computes it: float32 throughout, eps
     after the mean, no rounding to x's dtype before the weight multiply."""
     xf = x2.float()
     ms = torch.mean(xf * xf, dim=-1, keepdim=True)
     return xf * torch.rsqrt(ms + eps) * rms_w.float()
 
 
+def fast_accum(xf: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, group_size: int) -> torch.Tensor:
+    """Fast mode's product of float32 rows ``xf (M, K)`` with ``q (K, N)``,
+    ``scale (K/G, N)``: x rounded to bf16, each quant group's products summed
+    in float32 (a bf16 x times an int8 w is exact there), the group's partial
+    times its scale, the partials summed. Returns float32 (M, N)."""
+    K, N = q.shape
+    xb = xf.to(torch.bfloat16).float()
+    xg = xb.reshape(-1, K // group_size, group_size).transpose(0, 1)  # (KG, M, G)
+    part = torch.bmm(xg, q.float().reshape(K // group_size, group_size, N))
+    return (part * scale[:, None, :]).sum(0)
+
+
 def _matmul_plain(x2, q, scale, group_size: int, mode: str, rms_w, eps, res2):
     """(M, K) x -> (M, N) in x's dtype; the kernels' arithmetic."""
     K, N = q.shape
-    xf = x2.float() if rms_w is None else _norm_rows(x2, rms_w, eps)
+    xf = x2.float() if rms_w is None else norm_rows(x2, rms_w, eps)
     if mode == "accurate":
         w = q.float().reshape(K // group_size, group_size, N) * scale[:, None, :]
         acc = torch.matmul(xf, w.reshape(K, N))
     else:
-        xb = xf.to(torch.bfloat16).float()  # bf16 x int8 products are exact in f32
-        xg = xb.reshape(-1, K // group_size, group_size).transpose(0, 1)  # (KG, M, G)
-        part = torch.bmm(xg, q.float().reshape(K // group_size, group_size, N))
-        acc = (part * scale[:, None, :]).sum(0)
+        acc = fast_accum(xf, q, scale, group_size)
     if res2 is not None:
         acc = acc + res2.float()
     return acc.to(x2.dtype)

@@ -147,7 +147,7 @@ def run_main(capsys, *argv):
         (("ck.bin", "--kv-cache", "int8"), 1, "err", "not yet ported to the torch package"),
         (("ck.bin", "--spec", "4"), 1, "err", "not yet ported to the torch package"),
         (("ck.bin", "--seq-shards", "2"), 1, "err", "not yet ported to the torch package"),
-        (("ck.bin", "--save-cache", "d"), 1, "err", "not yet ported to the torch package"),
+        (("ck.bin", "--save-cache"), 1, "err", "missing argument"),
         (("ck.bin", "--profile", "d"), 1, "err", "not yet ported to the torch package"),
     ],
 )

@@ -6,7 +6,8 @@
   ``Generator`` lane-pads its cache, so its kernel path is K6 + rope + the
   stacked decode kernel: the same arithmetic as ``cuda-accurate``.
 * ``backend="cuda"`` (fast mode) gives the port's own fast-mode tokens, which
-  must equal the ``forward``-level greedy stream, and fuses the params.
+  must equal the ``forward``-level greedy stream, and fuses the QKV params
+  (W1/W3 stay separate for the FFN megakernel).
 * ``python -m llama2_tpu_torch ... --quant int8 --platform cpu`` and the same
   on an ak42 file print the same bytes as the JAX CLI.
 """
@@ -83,7 +84,9 @@ def test_q8_generator_fuses_for_the_kernel_backends_only():
     pcfg = port_config(config)
     fast = Generator(pcfg, tp, backend="cuda", device="cpu")
     plain = Generator(pcfg, tp, backend="torch", device="cpu", dtype=torch.bfloat16)
-    assert "wqkv" in fast.params and "w13" in fast.params and "wq" not in fast.params
+    assert "wqkv" in fast.params and "wq" not in fast.params
+    # w1/w3 stay separate for the FFN megakernel: the caller's tensors, no copy
+    assert "w13" not in fast.params and fast.params["w1"].q is tp["w1"].q
     assert "wq" in plain.params and "wqkv" not in plain.params
     # INT8 values and float32 scales survive the dtype; norms and embedding take it
     assert plain.params["wq"].q.dtype == torch.int8 and plain.params["wq"].scale.dtype == torch.float32

@@ -18,6 +18,7 @@ from llama2_tpu_torch.ops.cuda.attention import (
     flash_decode_attention_stacked,
     flash_decode_attention_stacked_plain,
 )
+from llama2_tpu_torch.ops.cuda import mlp_block as mb
 from llama2_tpu_torch.ops.cuda.prefill_attention import (
     flash_prefill_attention,
     flash_prefill_attention_plain,
@@ -216,7 +217,103 @@ def test_q8_generate_on_card_matches_cpu(cuda_device):
     )
     assert got.tokens == want.tokens
     n4, n5, n6 = (f.launches for f in (flash_decode_attention_fused, quant_matmul, quant_matmul_stacked))
+    n11, n12 = mb.attn_mlp_block_stacked.launches, mb.layer_tail_qkv_stacked.launches
     fast = Generator(config, params, backend="cuda", device=cuda_device).generate(prompt, gen)
     assert fast.tokens[: len(prompt)] == prompt and len(fast.tokens) > len(prompt)
     assert flash_decode_attention_fused.launches > n4
     assert quant_matmul.launches > n5 and quant_matmul_stacked.launches > n6
+    # the 2-launch decode layer: one K11 and L - 1 = 2 K12 launches a step
+    steps = mb.attn_mlp_block_stacked.launches - n11
+    assert steps >= len(fast.tokens) - len(prompt) > 0
+    assert mb.layer_tail_qkv_stacked.launches - n12 == 2 * steps
+
+
+def _q8_stack(g, device, L, K, N, G, factor=1.0):
+    q = torch.randint(-127, 128, (L, K, N), generator=g, device=device, dtype=torch.int8)
+    scale = factor * 2.7e-4 * (0.7 + 0.6 * torch.rand((L, K // G, N), generator=g, device=device))
+    return QuantTensor(q, scale, G)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlp_block_kernels_match_plain_on_card(cuda_device, dtype):
+    """K10, K11, K12 against their plain versions: the Llama-2-7B widths and
+    two ragged shapes (HD = 1376 = 172 * 8, D = 2176 = 17 * 128), 1 to 12 rows,
+    layers 0, L-2 and L-1 (K12's next-layer index clamps), K10 with and
+    without the residual. Each call is one launch and repeats bit for bit.
+
+    Tolerance: the kernel and the plain version sum in another order, and
+    every operand of the next matmul is rounded to bf16, so a value on a
+    rounding boundary goes the other way now and then (2^-8 |x| times a
+    weight, for the whole output row; at HD = 11008 a few times a call): 2e-3
+    of the largest |want|, where a dropped quant group would show as ~1e-1 of
+    it. bf16 outputs add one flip of the last bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    L = 4
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+
+    def hold(got, want, what):
+        tol = dict(rtol=2e-5 if dtype == torch.float32 else 2**-7,
+                   atol=2e-3 * float(want.float().abs().max()))
+        _assert_close(got, want, tol, what)
+
+    def once(wrapper, *args, **kw):
+        n0 = wrapper.launches
+        a, b = wrapper(*args, **kw), wrapper(*args, **kw)
+        assert wrapper.launches == n0 + 2
+        for u, v in zip(*((a, b) if isinstance(a, tuple) else ((a,), (b,)))):
+            assert torch.equal(u, v), f"{wrapper.__name__}: bits differ on the same inputs"
+        return a
+
+    for D, HD, Dq, G, factor in ((4096, 11008, 12288, 64, 1.0), (256, 1376, 384, 8, 2.0),
+                                 (2176, 256, 2304, 64, 2.0)):
+        wo, w1, w3 = (_q8_stack(g, cuda_device, L, D, n, G, factor) for n in (D, HD, HD))
+        w2, wqkv = _q8_stack(g, cuda_device, L, HD, D, G, factor), _q8_stack(g, cuda_device, L, D, Dq, G, factor)
+        rms_ffn, rms_att = 1 + 0.1 * randn(L, D), 1 + 0.1 * randn(L, D)
+        for M in (1, 3, 8, 12):
+            x, att = randn(2, M, D)[1], randn(M, D)  # a storage offset
+            for layer in (0, L - 2, L - 1):
+                what = f"{D=} {HD=} {M=} {layer=}"
+                for residual in (True, False):
+                    got = once(mb.mlp_block_stacked, x, rms_ffn[layer], w1, w3, w2, layer, residual=residual)
+                    hold(got, mb.mlp_block_plain(x, rms_ffn[layer], w1, w3, w2, layer, residual=residual),
+                         f"K10 {what} {residual=}")
+                got = once(mb.attn_mlp_block_stacked, att, x, wo, rms_ffn[layer], w1, w3, w2, layer)
+                hold(got, mb.attn_mlp_block_plain(att, x, wo, rms_ffn[layer], w1, w3, w2, layer), f"K11 {what}")
+                out, qkv = once(mb.layer_tail_qkv_stacked, att, x, wo, rms_ffn, w1, w3, w2, rms_att, wqkv, layer)
+                want = mb.layer_tail_qkv_plain(att, x, wo, rms_ffn, w1, w3, w2, rms_att, wqkv, layer)
+                torch.cuda.synchronize()
+                assert out.shape == (M, D) and qkv.shape == (M, Dq) and out.dtype == qkv.dtype == dtype
+                hold(out, want[0], f"K12 out {what}")
+                hold(qkv, want[1], f"K12 qkv {what}")
+        del wo, w1, w3, w2, wqkv
+
+
+@pytest.mark.gpu
+def test_mlp_block_wrappers_raise_on_card_and_do_not_fall_back(cuda_device):
+    """On a CUDA tensor a wrapper launches its kernel or raises: what the
+    kernel does not take (a width not divisible by 4, quant groups past 128, a
+    dtype other than fp32 and bf16, a tensor on another device) is a
+    ValueError, never the plain version or the composed route."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn((1, 256), generator=g, device=cuda_device)
+    rms = torch.ones(256, device=cuda_device)
+    ok = [_q8_stack(g, cuda_device, 2, k, n, 64) for k, n in ((256, 384), (256, 384), (384, 256))]
+    before = mb.mlp_block_stacked.launches
+    assert mb.mlp_block_stacked(x, rms, *ok, 0).shape == (1, 256)
+    assert mb.mlp_block_stacked.launches == before + 1
+    odd = [_q8_stack(g, cuda_device, 2, k, n, 2) for k, n in ((256, 386), (256, 386), (386, 256))]
+    wide = [_q8_stack(g, cuda_device, 2, k, n, 256) for k, n in ((256, 512), (256, 512), (512, 256))]
+    for bad in (odd, wide):
+        assert not mb.mlp_block_supported(*bad)
+        with pytest.raises(ValueError):
+            mb.mlp_block_stacked(x, rms, *bad, 0)
+    with pytest.raises(ValueError):
+        mb.mlp_block_stacked(x.double(), rms.double(), *ok, 0)
+    with pytest.raises(ValueError):
+        mb.mlp_block_stacked(x, rms.cpu(), *ok, 0)
+    with pytest.raises(ValueError):
+        mb.mlp_block_stacked(x, rms.bfloat16(), *ok, 0)
+    assert mb.mlp_block_stacked.launches == before + 1

@@ -190,13 +190,13 @@ def test_checkpoint_roundtrip_across_packages(tmp_path, shared):
 
 
 def test_load_any_refuses_unported_formats(tmp_path):
-    """A param-cache directory is the one format still unported; an ak42
-    file is sniffed and goes to its loader (which refuses a stub of one)."""
+    """An ak42 file is sniffed and goes to its loader (which refuses a stub
+    of one); a directory without ``meta.json`` is no param cache."""
     q8 = tmp_path / "model-q8.bin"
     q8.write_bytes(b"24ka" + b"\0" * 64)
     with pytest.raises(ValueError, match="too short for v2 header"):
         load_any(str(q8))
-    with pytest.raises(NotImplementedError, match="param-cache"):
+    with pytest.raises(ValueError, match="not a param cache"):
         load_any(str(tmp_path))
 
 

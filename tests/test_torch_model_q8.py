@@ -5,7 +5,11 @@ feeds both packages: the JAX side as its ``QuantTensor`` pytree, the port
 through ``params_from_numpy``. ``forward`` + ``logits_from_hidden`` (a prefill
 segment, then decode steps, then a batched per-row decode) are compared for
 the three backend pairs, the kernel pairs on params fused to the
-``wqkv``/``w13`` layout:
+``wqkv``/``w13`` layout (at these narrow widths the JAX package's FFN
+megakernel is not eligible, so ``pallas`` runs the composed route; the port's
+megakernel has no such limit, so the port gets the ``w13`` layout by fusing
+for ``torch``, and ``tests/test_torch_model_mlp_block.py`` holds the
+megakernel route at widths where both engage):
 
 * ``torch`` <-> ``xla``: dequantize beside the dot. 1e-4.
 * ``cuda-accurate`` <-> ``pallas-accurate``: accurate-mode kernels, RoPE
@@ -84,7 +88,9 @@ def jax_params(tree: dict) -> dict:
 def both_params(tree: dict, backend: str, jax_backend: str):
     jp, tp = jax_params(tree), params_from_numpy(tree, "cpu", torch.float32)
     if backend != "torch":
-        jp, tp = jm.fuse_layer_params(jp, jax_backend), tm.fuse_layer_params(tp, backend)
+        jp = jm.fuse_layer_params(jp, jax_backend)
+        # the JAX side's layout: w13 here
+        tp = tm.fuse_layer_params(tp, "torch" if "w13" in jp else backend)
     return jp, tp
 
 
@@ -247,13 +253,20 @@ def test_fuse_layer_params_layout():
     config = CONFIGS["gqa"]
     tree = quantized_tree(config, seed=6)
     tp = params_from_numpy(tree, "cpu", torch.float32)
-    fused = tm.fuse_layer_params(tp)
-    jf = jm.fuse_layer_params(jax_params(tree), "pallas")
+    fused = tm.fuse_layer_params(tp, "cuda-accurate")
+    jf = jm.fuse_layer_params(jax_params(tree), "pallas-accurate")
     assert set(fused) == set(jf)
     for k in ("wqkv", "w13"):
         np.testing.assert_array_equal(fused[k].q.numpy(), np.asarray(jf[k].q))
         np.testing.assert_array_equal(fused[k].scale.numpy(), np.asarray(jf[k].scale))
         assert fused[k].group_size == jf[k].group_size
+    # the fast backend keeps w1/w3 (the same tensors) for the FFN megakernel
+    # and gives the w13 layout to any other backend
+    fast = tm.fuse_layer_params(tp)
+    assert tm.use_mlp_block(fast, "cuda") and not tm.use_mlp_block(fast, "cuda-accurate")
+    assert tm.layer_keys(fast) == ("rms_att", "wqkv", "wo", "rms_ffn", "w1", "w3", "w2")
+    assert fast["w1"].q is tp["w1"].q and fast["w3"].scale is tp["w3"].scale
+    assert set(tm.fuse_layer_params(tp, "torch")) == set(fused)
     # fp tensors fuse too
     fp = params_from_numpy(random_params(config, seed=1), "cpu", torch.float32)
     ff = tm.fuse_layer_params(fp)
