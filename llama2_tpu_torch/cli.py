@@ -5,9 +5,10 @@ Port of ``llama2_tpu/cli.py``: the same flags, defaults, hand-rolled arg loop
 checkpoint -> error exit 1), output framing and ``{d} tokens per second``
 verbose report. Runs on the card unless ``--platform cpu`` asks for the CPU.
 
-Flags whose path is not ported to the torch package yet (``--kv-cache int8``,
-``--spec N``, ``--seq-shards N``, ``--profile``) exit 1 with a message rather
-than being ignored.
+``--kv-cache int8`` runs with the int8 KV cache and ``--spec N`` with exact
+speculative decoding (greedy only). Flags whose path is not ported to the
+torch package yet (``--seq-shards N``, ``--profile``) exit 1 with a message
+rather than being ignored.
 """
 
 from __future__ import annotations
@@ -38,9 +39,13 @@ GPU options:
  --save-cache <dir>        write the loaded (and quantized) params as a param-cache
                            directory; pass it as the checkpoint path to skip
                            the parse and the quantization next time
+ --kv-cache <f32|int8>     KV cache storage: the activation dtype, or int8 rows
+                           with a float32 scale a row
+ --spec <int>              exact speculative decoding: 2..64 tokens per verify
+                           window (prompt-lookup drafts), greedy (-t 0) only
  --warmup                  run a warmup generate before the timed one
 Not yet ported to the torch package (exit 1 when set):
- --kv-cache int8, --spec <int>, --seq-shards <int>, --profile <dir>
+ --seq-shards <int>, --profile <dir>
 """
 
 
@@ -168,13 +173,8 @@ def parse_args(argv: list[str]) -> dict | None:
 
 def _refuse_unported(opts: dict) -> None:
     """Exit 1 for a flag whose path the torch package does not have yet."""
-    for flag, key, off in (
-        ("--kv-cache int8", "kv_cache", "f32"),
-        ("--spec", "spec", 0),
-        ("--profile", "profile", None),
-    ):
-        if opts[key] != off:
-            _die(f"{flag} is not yet ported to the torch package")
+    if opts["profile"] is not None:
+        _die("--profile is not yet ported to the torch package")
     if opts["seq_shards"] >= 2:
         _die("--seq-shards is not yet ported to the torch package")
 
@@ -207,7 +207,8 @@ def main(argv: list[str] | None = None) -> int:
     log(f"temperature: {opts['temperature']}")
     log(f"top-p: {opts['top_p']}")
     log(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}")
-    log(f"dtype: {opts['dtype']}  quant: {opts['quant']}  kernels: {opts['kernels']}")
+    log(f"dtype: {opts['dtype']}  quant: {opts['quant']}  kernels: {opts['kernels']}  "
+        f"kv-cache: {opts['kv_cache']}  spec: {opts['spec']}")
     log("")
 
     tokenizer = Tokenizer.from_file(opts["tokenizer_path"], config.vocab_size)
@@ -232,6 +233,8 @@ def main(argv: list[str] | None = None) -> int:
         dtype=torch.float32 if opts["dtype"] == "f32" else torch.bfloat16,
         backend=opts["kernels"],
         device=device,
+        kv_quant=opts["kv_cache"] == "int8",
+        speculative=opts["spec"],
     )
     del params
     gen = GenerationConfig(
@@ -240,6 +243,11 @@ def main(argv: list[str] | None = None) -> int:
         steps=opts["seq_len"],
         seed=opts["seed"],
     )
+    if opts["spec"] >= 2 and opts["temperature"] != 0.0:
+        print(
+            "warning: --spec applies to greedy decoding only (-t 0); ignored",
+            file=sys.stderr,
+        )
     if opts["warmup"]:
         generator.generate(
             [],

@@ -7,7 +7,21 @@
 //
 // Replaces llama2_tpu/ops/pallas/mlp_block.py::mlp_block_stacked (neither
 // bracketed phase; r = x, and `out` optionally without the residual),
-// ::attn_mlp_block_stacked (the wo phase) and ::layer_tail_qkv_stacked (both).
+// ::attn_mlp_block_stacked (the wo phase) and ::layer_tail_qkv_stacked (both);
+// and, with a leading attention phase, llama2_tpu/ops/pallas/layer_block.py::
+// layer_block_stacked (K13, the whole decode layer over the int8 KV cache):
+//
+//   att  = attention(rope(qkv), int8 cache; append this step's rows)  (att)
+//
+// then the wo phase on the float32 `att` (rounded to bf16 where it is used, as
+// every matmul operand), with or without the qkv phase. The attention phase is
+// attention_q8.cuh's work items (b, kv head, query-row group, key split) dealt
+// to the blocks round-robin, merged by the last split of each (b, kv head)
+// into a float32 workspace, then one more grid-wide barrier. It differs from
+// the glue-fused attention kernel (K9) followed by this kernel in two ways,
+// as the Pallas kernel does: this step's row joins as a virtual row with a
+// float32 value (attention_q8.cuh), and `att` is never rounded to the
+// activation dtype.
 //
 // Arithmetic, as the Pallas kernels have it (fast mode only): every matmul
 // operand (att, the normed rows, the swiglu product) is rounded to bf16 where
@@ -49,6 +63,7 @@
 
 #include <algorithm>
 
+#include "attention_q8.cuh"
 #include "q8_gemv.cuh"
 
 namespace cg = cooperative_groups;
@@ -63,7 +78,9 @@ struct Mat {
 };
 
 struct Args {
-  const void* att;      // (M, D) dtype, or null: no wo phase
+  const void* att;      // (M, D) dtype, or null: no wo phase (unless att32)
+  const float* att32;   // (M, D) float32 from the attention phase, or null
+  q8a::Params q8;       // the attention phase (kLayer), when att32
   const void* x;        // (M, D) dtype
   const void* rms_ffn;  // (D,) dtype, at its layer
   const void* rms_att;  // (D,) dtype, at layer l', or null: no qkv phase
@@ -176,13 +193,26 @@ __device__ __forceinline__ void rows_rstd(float* rstd, int rows, int K, float ep
 template <int MT>
 constexpr int kMinBlocks = MT <= 2 ? 3 : 2;
 
-template <int MT, int U>
+// shared memory of one block: the gemv phases' buffer, or (ATT) the
+// attention phase's, which the barrier after it frees
+template <int MT, bool ATT>
+constexpr size_t kSmemBytes = ATT && sizeof(q8a::Smem) > kStripSmemFloats<MT> * sizeof(float)
+                                  ? sizeof(q8a::Smem)
+                                  : kStripSmemFloats<MT> * sizeof(float);
+
+template <int MT, int U, bool ATT>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<MT>) mlp_block_kernel(const Args a) {
-  __shared__ float sm[kStripSmemFloats<MT>];
+  __shared__ __align__(16) unsigned char smem[kSmemBytes<MT, ATT>];
+  float* sm = reinterpret_cast<float*>(smem);
   __shared__ float rstd[MT];
   __shared__ int last;
   cg::grid_group grid = cg::this_grid();
-  const bool has_wo = a.att != nullptr;
+  if constexpr (ATT) {
+    for (int item = blockIdx.x; item < q8a::items(a.q8); item += gridDim.x)
+      q8a::att_item(a.q8, item, *reinterpret_cast<q8a::Smem*>(smem));
+    grid.sync();
+  }
+  const bool has_wo = ATT || a.att != nullptr;
   const bool has_qkv = a.qkv != nullptr;
   const int D = a.D, HD = a.HD;
 
@@ -199,7 +229,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<MT>) mlp_block_kernel(con
       gemv_phase<MT, U>(
           &a.wo, 1, D, D, a.G0, a.ks0, rows, a.partial, a.tickets, sm, &last,
           [&](int m, int k) {
-            return round_bf16(load_act(a.att, row0 + (size_t)m * D + k, a.dtype));
+            const size_t i = row0 + (size_t)m * D + k;
+            return round_bf16(ATT ? __ldcg(&a.att32[i]) : load_act(a.att, i, a.dtype));
           },
           [&](int m, int n, float t, float) { a.r[(size_t)m * D + n] = load_x(m, n) + t; });
       grid.sync();
@@ -243,16 +274,28 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<MT>) mlp_block_kernel(con
 }
 
 template <int MT, int U>
-cudaError_t occupancy(int* blocks_per_sm) {
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, mlp_block_kernel<MT, U>,
-                                                       kThreads, 0);
+cudaError_t occupancy(int* blocks_per_sm, bool att) {
+  return att ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   blocks_per_sm, mlp_block_kernel<MT, U, true>, kThreads, 0)
+             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   blocks_per_sm, mlp_block_kernel<MT, U, false>, kThreads, 0);
 }
 
 template <int MT, int U>
 cudaError_t launch(Args& a, int grid, cudaStream_t st) {
   void* params[] = {&a};
-  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(&mlp_block_kernel<MT, U>),
-                                     dim3(grid), dim3(kThreads), params, 0, st);
+  const void* fn = a.att32 ? reinterpret_cast<const void*>(&mlp_block_kernel<MT, U, true>)
+                           : reinterpret_cast<const void*>(&mlp_block_kernel<MT, U, false>);
+  return cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kThreads), params, 0, st);
+}
+
+cudaError_t launch_mt(Args& a, int mt, int grid, cudaStream_t st) {
+  switch (mt) {
+    case 1: return launch<1, 16>(a, grid, st);
+    case 2: return launch<2, 16>(a, grid, st);
+    case 4: return launch<4, 16>(a, grid, st);
+    default: return launch<8, 8>(a, grid, st);
+  }
 }
 
 bool bad_matrix(int K, int N, int G, int ksplit) {
@@ -262,23 +305,91 @@ bool bad_matrix(int K, int N, int G, int ksplit) {
 
 }  // namespace
 
-// The most blocks of the kernel for `mt` rows a thread (1, 2, 4 or 8) that
-// are resident together on the current device: *blocks_per_sm times *sms. A
-// cooperative launch takes no more. Returns a cudaError_t.
-extern "C" int mlp_block_occupancy(int mt, int* blocks_per_sm, int* sms) {
+// The most blocks of the kernel for `mt` rows a thread (1, 2, 4 or 8), with
+// the attention phase (att != 0) or without, that are resident together on
+// the current device: *blocks_per_sm times *sms. A cooperative launch takes
+// no more. Returns a cudaError_t.
+extern "C" int mlp_block_occupancy(int mt, int att, int* blocks_per_sm, int* sms) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   switch (mt) {
-    case 1: return occupancy<1, 16>(blocks_per_sm);
-    case 2: return occupancy<2, 16>(blocks_per_sm);
-    case 4: return occupancy<4, 16>(blocks_per_sm);
-    case 8: return occupancy<8, 8>(blocks_per_sm);
+    case 1: return occupancy<1, 16>(blocks_per_sm, att);
+    case 2: return occupancy<2, 16>(blocks_per_sm, att);
+    case 4: return occupancy<4, 16>(blocks_per_sm, att);
+    case 8: return occupancy<8, 8>(blocks_per_sm, att);
     default: return cudaErrorInvalidValue;
   }
 }
+
+namespace {
+
+// Args of one launch, checked; `att32` non-null adds the wo phase without
+// `att` (the attention phase fills it). Returns 0 or a cudaError_t; *need is
+// the workspace floats and *strips the tickets that the gemv phases use.
+int make_args(Args& a, const void* att, const float* att32, const void* x, const void* wo_q,
+              const void* wo_s, const void* rms_ffn, const void* w1_q, const void* w1_s,
+              const void* w3_q, const void* w3_s, const void* w2_q, const void* w2_s,
+              const void* rms_att, const void* wqkv_q, const void* wqkv_s, void* out, void* qkv,
+              void* ws, void* tickets, int dtype, int layer, int L, int M, int D, int HD, int Dq,
+              int G0, int G1, int G2, int Gq, int ks0, int ks1, int ks2, int ksq, int mt, int grid,
+              int residual, int rms_stacked, float eps, size_t* need, int* strips) {
+  const bool has_wo = att != nullptr || att32 != nullptr, has_qkv = qkv != nullptr;
+  if (layer < 0 || layer >= L || M <= 0 || grid < 1) return cudaErrorInvalidValue;
+  if (dtype != kF32 && dtype != kBF16) return cudaErrorInvalidValue;
+  if (mt != 1 && mt != 2 && mt != 4 && mt != 8) return cudaErrorInvalidValue;
+  if (bad_matrix(D, HD, G1, ks1) || bad_matrix(HD, D, G2, ks2)) return cudaErrorInvalidValue;
+  if (has_wo && bad_matrix(D, D, G0, ks0)) return cudaErrorInvalidValue;
+  if (has_qkv && (bad_matrix(D, Dq, Gq, ksq) || rms_att == nullptr)) return cudaErrorInvalidValue;
+  if (!residual && (has_wo || has_qkv)) return cudaErrorInvalidValue;
+  if (ws == nullptr || tickets == nullptr) return cudaErrorInvalidValue;
+
+  const size_t l = (size_t)layer, lq = (size_t)std::min(layer + 1, L - 1);
+  const size_t esize = dtype == kF32 ? 4 : 2;
+  const size_t d = (size_t)D, hd = (size_t)HD, dq = (size_t)Dq;
+  auto mat = [](const void* q, const void* s, size_t layer_i, size_t K, size_t N, size_t G) {
+    return Mat{static_cast<const int8_t*>(q) + layer_i * K * N,
+               static_cast<const float*>(s) + layer_i * (K / G) * N};
+  };
+  auto rms = [&](const void* p, size_t layer_i) {
+    return static_cast<const char*>(p) + (rms_stacked ? layer_i * d * esize : 0);
+  };
+
+  a.att = att;
+  a.att32 = att32;
+  a.x = x;
+  a.rms_ffn = rms(rms_ffn, l);
+  a.rms_att = has_qkv ? rms(rms_att, lq) : nullptr;
+  if (has_wo) a.wo = mat(wo_q, wo_s, l, d, d, G0);
+  a.w13[0] = mat(w1_q, w1_s, l, d, hd, G1);
+  a.w13[1] = mat(w3_q, w3_s, l, d, hd, G1);
+  a.w2 = mat(w2_q, w2_s, l, hd, d, G2);
+  if (has_qkv) a.wqkv = mat(wqkv_q, wqkv_s, lq, d, dq, Gq);
+  a.out = out;
+  a.qkv = qkv;
+
+  size_t part = std::max((size_t)2 * ks1 * hd, (size_t)ks2 * d);
+  if (has_wo) part = std::max(part, (size_t)ks0 * d);
+  if (has_qkv) part = std::max(part, (size_t)ksq * dq);
+  *need = (size_t)mt * (3 * d + hd + part);
+  *strips = (std::max(std::max(D, HD), has_qkv ? Dq : 0) + TILE_N - 1) / TILE_N;
+  a.r = static_cast<float*>(ws);
+  a.hs = a.r + mt * d;
+  a.o32 = a.hs + mt * hd;
+  a.partial = a.o32 + mt * d;
+  a.tickets = static_cast<int*>(tickets);
+  a.M = M; a.D = D; a.HD = HD; a.Dq = Dq;
+  a.G0 = G0; a.G1 = G1; a.G2 = G2; a.Gq = Gq;
+  a.ks0 = ks0; a.ks1 = ks1; a.ks2 = ks2; a.ksq = ksq;
+  a.dtype = dtype;
+  a.residual = residual;
+  a.eps = eps;
+  return cudaSuccess;
+}
+
+}  // namespace
 
 // One cooperative launch of the whole block on layer `layer` of the stacks
 // (L, K, N) int8 / (L, K / G, N) f32.
@@ -305,63 +416,80 @@ extern "C" int mlp_block(const void* att, const void* x, const void* wo_q, const
                          int D, int HD, int Dq, int G0, int G1, int G2, int Gq, int ks0, int ks1,
                          int ks2, int ksq, int mt, int grid, int residual, int rms_stacked,
                          float eps, void* stream) {
-  const bool has_wo = att != nullptr, has_qkv = qkv != nullptr;
-  if (layer < 0 || layer >= L || M <= 0 || grid < 1) return cudaErrorInvalidValue;
-  if (dtype != kF32 && dtype != kBF16) return cudaErrorInvalidValue;
-  if (mt != 1 && mt != 2 && mt != 4 && mt != 8) return cudaErrorInvalidValue;
-  if (bad_matrix(D, HD, G1, ks1) || bad_matrix(HD, D, G2, ks2)) return cudaErrorInvalidValue;
-  if (has_wo && bad_matrix(D, D, G0, ks0)) return cudaErrorInvalidValue;
-  if (has_qkv && (bad_matrix(D, Dq, Gq, ksq) || rms_att == nullptr)) return cudaErrorInvalidValue;
-  if (!residual && (has_wo || has_qkv)) return cudaErrorInvalidValue;
-
-  const size_t l = (size_t)layer, lq = (size_t)std::min(layer + 1, L - 1);
-  const size_t esize = dtype == kF32 ? 4 : 2;
-  const size_t d = (size_t)D, hd = (size_t)HD, dq = (size_t)Dq;
-  auto mat = [](const void* q, const void* s, size_t layer_i, size_t K, size_t N, size_t G) {
-    return Mat{static_cast<const int8_t*>(q) + layer_i * K * N,
-               static_cast<const float*>(s) + layer_i * (K / G) * N};
-  };
-  auto rms = [&](const void* p, size_t layer_i) {
-    return static_cast<const char*>(p) + (rms_stacked ? layer_i * d * esize : 0);
-  };
-
   Args a{};
-  a.att = att;
-  a.x = x;
-  a.rms_ffn = rms(rms_ffn, l);
-  a.rms_att = has_qkv ? rms(rms_att, lq) : nullptr;
-  if (has_wo) a.wo = mat(wo_q, wo_s, l, d, d, G0);
-  a.w13[0] = mat(w1_q, w1_s, l, d, hd, G1);
-  a.w13[1] = mat(w3_q, w3_s, l, d, hd, G1);
-  a.w2 = mat(w2_q, w2_s, l, hd, d, G2);
-  if (has_qkv) a.wqkv = mat(wqkv_q, wqkv_s, lq, d, dq, Gq);
-  a.out = out;
-  a.qkv = qkv;
+  size_t need = 0;
+  int strips = 0;
+  int err = make_args(a, att, nullptr, x, wo_q, wo_s, rms_ffn, w1_q, w1_s, w3_q, w3_s, w2_q, w2_s,
+                      rms_att, wqkv_q, wqkv_s, out, qkv, ws, tickets, dtype, layer, L, M, D, HD,
+                      Dq, G0, G1, G2, Gq, ks0, ks1, ks2, ksq, mt, grid, residual, rms_stacked, eps,
+                      &need, &strips);
+  if (err != cudaSuccess) return err;
+  if ((size_t)ws_floats < need || n_tickets < strips) return cudaErrorInvalidValue;
+  return launch_mt(a, mt, grid, static_cast<cudaStream_t>(stream));
+}
 
-  size_t part = std::max((size_t)2 * ks1 * hd, (size_t)ks2 * d);
-  if (has_wo) part = std::max(part, (size_t)ks0 * d);
-  if (has_qkv) part = std::max(part, (size_t)ksq * dq);
-  const size_t need = (size_t)mt * (3 * d + hd + part);
-  const int strips = (std::max(std::max(D, HD), has_qkv ? Dq : 0) + TILE_N - 1) / TILE_N;
-  if (ws == nullptr || tickets == nullptr || (size_t)ws_floats < need || n_tickets < strips)
-    return cudaErrorInvalidValue;
-  a.r = static_cast<float*>(ws);
-  a.hs = a.r + mt * d;
-  a.o32 = a.hs + mt * hd;
-  a.partial = a.o32 + mt * d;
-  a.tickets = static_cast<int*>(tickets);
-  a.M = M; a.D = D; a.HD = HD; a.Dq = Dq;
-  a.G0 = G0; a.G1 = G1; a.G2 = G2; a.Gq = Gq;
-  a.ks0 = ks0; a.ks1 = ks1; a.ks2 = ks2; a.ksq = ksq;
-  a.dtype = dtype;
-  a.residual = residual;
-  a.eps = eps;
-
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (mt) {
-    case 1: return launch<1, 16>(a, grid, st);
-    case 2: return launch<2, 16>(a, grid, st);
-    case 4: return launch<4, 16>(a, grid, st);
-    default: return launch<8, 8>(a, grid, st);
-  }
+// The whole decode layer over the int8 KV cache in one cooperative launch
+// (K13): the attention phase on qkv3 (M, H + 2 KVH, hs), pre-RoPE, with
+// cos_il / sin_il (M, hs) float32 and pos (M,) int32 on the device, appending
+// this step's quantized K/V rows and scales to layer `layer` of the caches
+// k8 / v8 (L, M, KVH, S, hs) int8 and ks / vs (L, M, KVH, S) float32 in place;
+// then mlp_block's phases with att from it (x, weights, rms_*, out, qkv as
+// there; rms_* layer-stacked; qkv null for the last layer).
+//   ws: float32 workspace of ws_floats >= mlp_block's need + M * D + items *
+//     16 * (hs + 2), items = M * KVH * n_rg * nsplit, n_rg = ceil(H / KVH /
+//     16); tickets: n_tickets >= the strips + M * KVH * n_rg, zero on entry,
+//     left zero. D = H * hs. Returns the launch's cudaError_t.
+extern "C" int layer_block(const void* qkv3, const void* cos_il, const void* sin_il, void* k8,
+                           void* ks, void* v8, void* vs, const void* pos, const void* x,
+                           const void* wo_q, const void* wo_s, const void* rms_ffn,
+                           const void* w1_q, const void* w1_s, const void* w3_q,
+                           const void* w3_s, const void* w2_q, const void* w2_s,
+                           const void* rms_att, const void* wqkv_q, const void* wqkv_s,
+                           void* out, void* qkv, void* ws, void* tickets, long long ws_floats,
+                           int n_tickets, int dtype, int layer, int L, int M, int D, int HD,
+                           int Dq, int G0, int G1, int G2, int Gq, int ks0, int ks1, int ks2,
+                           int ksq, int mt, int grid, float eps, int H, int KVH, int S, int hs,
+                           int nsplit, float scale, void* stream) {
+  if (H <= 0 || KVH <= 0 || H % KVH != 0 || H * hs != D) return cudaErrorInvalidValue;
+  if (!qkv3 || !cos_il || !sin_il || !k8 || !ks || !v8 || !vs || !pos) return cudaErrorInvalidValue;
+  Args a{};
+  size_t need = 0;
+  int strips = 0;
+  // att32 is placed after the gemv workspace below; any non-null value marks the wo phase here
+  int err = make_args(a, nullptr, static_cast<const float*>(ws), x, wo_q, wo_s, rms_ffn, w1_q,
+                      w1_s, w3_q, w3_s, w2_q, w2_s, rms_att, wqkv_q, wqkv_s, out, qkv, ws,
+                      tickets, dtype, layer, L, M, D, HD, Dq, G0, G1, G2, Gq, ks0, ks1, ks2, ksq,
+                      mt, grid, 1, 1, eps, &need, &strips);
+  if (err != cudaSuccess) return err;
+  float* att32 = static_cast<float*>(ws) + need;
+  q8a::Params& p = a.q8;
+  p.qkv = qkv3;
+  p.cos_il = static_cast<const float*>(cos_il);
+  p.sin_il = static_cast<const float*>(sin_il);
+  p.k8 = static_cast<int8_t*>(k8);
+  p.ks = static_cast<float*>(ks);
+  p.v8 = static_cast<int8_t*>(v8);
+  p.vs = static_cast<float*>(vs);
+  p.pos = static_cast<const int*>(pos);
+  p.out32 = att32;
+  p.ws = att32 + (size_t)M * D;
+  p.tickets = static_cast<int*>(tickets) + strips;
+  p.mode = q8a::kLayer;
+  p.dtype = dtype;
+  p.layer = layer;
+  p.L = L;
+  p.B = M;
+  p.T = 1;
+  p.H = H;
+  p.KVH = KVH;
+  p.S = S;
+  p.hs = hs;
+  p.nsplit = nsplit;
+  p.scale = scale;
+  p.n_rg = (q8a::rows_per_head(q8a::kLayer, 1, H, KVH) + q8a::kRB - 1) / q8a::kRB;
+  a.att32 = att32;
+  const long long att_floats = ws_floats - (long long)need - (long long)M * D;
+  err = q8a::check(p, att_floats, n_tickets - strips);
+  if (err != cudaSuccess) return err;
+  return launch_mt(a, mt, grid, static_cast<cudaStream_t>(stream));
 }

@@ -35,22 +35,6 @@ static_assert(TILE_N >= kMaxG, "the reduce buffer also stages x");
 template <int MT>
 constexpr int kStripSmemFloats = kWarps * MT * TILE_N;
 
-__device__ __forceinline__ float load_act(const void* p, size_t i, int dtype) {
-  return dtype == kF32 ? static_cast<const float*>(p)[i]
-                       : __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
-}
-
-__device__ __forceinline__ void store_act(void* p, size_t i, int dtype, float v) {
-  if (dtype == kF32)
-    static_cast<float*>(p)[i] = v;
-  else
-    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 // byte c of a little-endian word, as a float
 __device__ __forceinline__ float byte_f32(uint32_t word, int c) {
   return static_cast<float>(static_cast<int8_t>(word >> (8 * c)));

@@ -31,8 +31,26 @@ NVCC_FLAGS = (
 # dtype codes of the C interface (csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+MAX_TICKETS = 8192  # the tickets of one launch's fixed-order reductions
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_workspaces: dict = {}
+
+
+def workspace(device: torch.device, n_floats: int):
+    """The per-device float32 workspace of the kernels' split reductions
+    (grown on demand) and the zeroed int32 tickets every kernel leaves
+    zeroed: ``(ws, tickets)``. One launch at a time uses them: launches on
+    one stream are ordered."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    ws, tickets = _workspaces.get(index, (None, None))
+    if ws is None or ws.numel() < n_floats:
+        ws = torch.empty(max(n_floats, 1 << 20), dtype=torch.float32, device=device)
+        if tickets is None:
+            tickets = torch.zeros(MAX_TICKETS, dtype=torch.int32, device=device)
+        _workspaces[index] = (ws, tickets)
+    return ws, tickets
 
 
 class KernelBuildError(RuntimeError):

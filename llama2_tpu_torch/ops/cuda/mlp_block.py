@@ -37,7 +37,6 @@ import torch
 from llama2_tpu_torch.ops.cuda import build
 from llama2_tpu_torch.ops.cuda.quant_matmul import (
     _MAX_GROUP_GEMV,
-    _MAX_TICKETS,
     _STRIP,
     _cdiv,
     _check_layer,
@@ -192,30 +191,17 @@ def plan(M: int, D: int, HD: int, Dq: int, groups: tuple, blocks: int) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def _grid(mt: int, device_index: int) -> int:
+def _grid(mt: int, device_index: int, att: bool = False) -> int:
     """Blocks of one launch on this device: three an SM, or fewer where fewer
-    are resident together (a cooperative launch takes no more)."""
+    are resident together (a cooperative launch takes no more). ``att``: the
+    instance with the attention phase (``ops/cuda/layer_block.py``)."""
     per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        build.check(_entries()[1](mt, ctypes.byref(per_sm), ctypes.byref(sms)), "mlp_block_occupancy")
+        err = _entries()[1](mt, int(att), ctypes.byref(per_sm), ctypes.byref(sms))
+        build.check(err, "mlp_block_occupancy")
     if per_sm.value < 1:
         raise RuntimeError(f"mlp_block: no block of the mt={mt} kernel fits an SM")
     return min(per_sm.value, _BLOCKS_PER_SM) * sms.value
-
-
-_scratch: dict = {}
-
-
-def _scratch_for(device: torch.device, ws_floats: int):
-    """The per-device workspace (float32, grown on demand) and the zeroed
-    tickets the kernel leaves zeroed. One launch at a time uses them: launches
-    on one stream are ordered."""
-    entry = _scratch.get(device)
-    if entry is None or entry[0].numel() < ws_floats:
-        ws = torch.empty(max(ws_floats, 1 << 20), dtype=torch.float32, device=device)
-        tickets = entry[1] if entry else torch.zeros(_MAX_TICKETS, dtype=torch.int32, device=device)
-        entry = _scratch[device] = (ws, tickets)
-    return entry
 
 
 def _launch(which, att, x, wo, rms_ffn, w1, w3, w2, rms_att, wqkv, layer, eps, residual, rms_stacked):
@@ -260,7 +246,7 @@ def _launch(which, att, x, wo, rms_ffn, w1, w3, w2, rms_att, wqkv, layer, eps, r
                           else torch.cuda.current_device())
     grid = _grid(row_tile(M), device.index)
     p = plan(M, D, HD, Dq, groups, grid)
-    ws, tickets = _scratch_for(device, p["ws_floats"])
+    ws, tickets = build.workspace(device, p["ws_floats"])
 
     def qs(w):
         return (None, None) if w is None else (w.q.data_ptr(), w.scale.data_ptr())
@@ -358,6 +344,8 @@ def _entries():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.mlp_block.argtypes = [p] * 18 + [ctypes.c_longlong] + [i] * 20 + [f, p]
     lib.mlp_block.restype = i
-    lib.mlp_block_occupancy.argtypes = [i, ctypes.POINTER(i), ctypes.POINTER(i)]
+    lib.mlp_block_occupancy.argtypes = [i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
     lib.mlp_block_occupancy.restype = i
-    return lib.mlp_block, lib.mlp_block_occupancy
+    lib.layer_block.argtypes = [p] * 25 + [ctypes.c_longlong] + [i] * 18 + [f] + [i] * 5 + [f, p]
+    lib.layer_block.restype = i
+    return lib.mlp_block, lib.mlp_block_occupancy, lib.layer_block

@@ -33,7 +33,6 @@ from llama2_tpu_torch.quant.q8 import QuantTensor
 _LIB = "quant_matmul"
 MODES = ("accurate", "fast")
 _MAX_GROUP_GEMV = 128  # kMaxG of the decode-row kernel
-_MAX_TICKETS = 8192  # column strips one launch may have
 _STRIP = 128  # columns a block of the decode-row kernel covers (TILE_N)
 _BLOCKS = 3 * 132  # blocks the decode-row kernel wants in flight: three an SM
 
@@ -164,27 +163,11 @@ def plan(M: int, K: int, N: int, G: int) -> dict:
         raise ValueError(f"the decode-row kernel takes group sizes up to {_MAX_GROUP_GEMV} (got {G})")
     mt = 1 if M == 1 else 2 if M == 2 else 4 if M <= 4 else 8
     strips = _cdiv(N, _STRIP)
-    if strips > _MAX_TICKETS:
-        raise ValueError(f"out-features {N}: more than {_MAX_TICKETS} column strips")
+    if strips > build.MAX_TICKETS:
+        raise ValueError(f"out-features {N}: more than {build.MAX_TICKETS} column strips")
     want = _cdiv(_BLOCKS, strips)
     per = max(8, _cdiv(_cdiv(KG, want), 8) * 8)  # groups a block: whole rounds of 8 warps
     return {"mt": mt, "ksplit": max(1, _cdiv(KG, per)), "kc": 0, "strips": strips}
-
-
-_scratch: dict = {}
-
-
-def _scratch_for(device: torch.device, n_partial: int):
-    """The per-device scratch of the split-K reduce: float32 partial sums,
-    grown on demand, and the zeroed tickets the kernel leaves zeroed. One
-    launch at a time uses it: launches on one stream are ordered."""
-    key = (device.type, device.index if device.index is not None else torch.cuda.current_device())
-    entry = _scratch.get(key)
-    if entry is None or entry[0].numel() < n_partial:
-        partial = torch.empty(max(n_partial, 1 << 20), dtype=torch.float32, device=device)
-        tickets = entry[1] if entry else torch.zeros(_MAX_TICKETS, dtype=torch.int32, device=device)
-        entry = _scratch[key] = (partial, tickets)
-    return entry
 
 
 def _launch(which, x2, q, scale, group_size, mode, layer, rms_w, eps, res2):
@@ -215,7 +198,7 @@ def _launch(which, x2, q, scale, group_size, mode, layer, rms_w, eps, res2):
     out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
     partial = tickets = None
     if p["ksplit"] > 1:
-        partial, tickets = _scratch_for(x2.device, p["ksplit"] * M * N)
+        partial, tickets = build.workspace(x2.device, p["ksplit"] * M * N)
     head = (
         x2.data_ptr(), q.data_ptr(), scale.data_ptr(), _ptr(rms_w), _ptr(res2),
         out.data_ptr(), _ptr(partial), _ptr(tickets),

@@ -3,7 +3,9 @@
 Port of ``llama2_tpu/runtime/generator.py`` (the reference's host generation
 loop, main.zig:987-1042) for one stream. The prompt is prefilled as one
 segment (or ``prefill_chunk``-sized segments); the decode loop is a plain
-Python loop of one forward step per token.
+Python loop of one forward step per token, or, with ``speculative=d`` in
+greedy mode, of one forward of a d-token verify window per trip (exact
+self-speculation: the token stream is plain greedy's).
 
 Loop semantics match the reference and the JAX package exactly: the
 effective sequence is ``[BOS] + prompt + generated``; prompt tokens are
@@ -47,6 +49,7 @@ class GenerateResult:
     ttft_s: float  # prefill time, up to the first sampled token's logits
     total_s: float
     tokens_per_sec: float  # reference protocol: (emitted-1)/time-after-first (main.zig:1043-1047)
+    spec_trips: int = 0  # verify windows run by speculative decoding
 
 
 def resolve_device(device=None) -> torch.device:
@@ -91,13 +94,12 @@ class Generator:
     ):
         if backend not in BACKENDS:
             raise ValueError(f"backend {backend!r}: want one of {BACKENDS}")
-        if kv_quant:
-            raise NotImplementedError("the int8 KV cache is not yet ported to the torch package")
-        if speculative >= 2:
-            raise NotImplementedError(
-                "speculative decoding is not yet ported to the torch package"
-            )
         self.config = config
+        # int8 K/V rows with per-row float32 scales (models/llama.py::init_cache)
+        self.kv_quant = kv_quant
+        # speculative >= 2: greedy decode commits up to this many tokens per
+        # forward pass by prompt-lookup drafting; ignored in sampled modes
+        self.speculative = speculative
         self.dtype = dtype
         self.backend = backend
         self.device = resolve_device(device)
@@ -165,7 +167,7 @@ class Generator:
                     tokens=[], prompt_len=len(prompt), ttft_s=0.0,
                     total_s=0.0, tokens_per_sec=0.0,
                 )
-            cache = init_cache(config, 1, self.dtype, self.device)
+            cache = init_cache(config, 1, self.dtype, self.device, self.kv_quant)
             feed = np.asarray([BOS] + emit[:-1], dtype=np.int64)
             self._forward(cache, feed[:1], 0)
             self._sync()
@@ -184,29 +186,20 @@ class Generator:
                 tokens_per_sec=(n - 1) / decode_s if n > 1 and decode_s > 0 else 0.0,
             )
 
+        spec = self.speculative if self.speculative >= 2 and mode == sampling.ARGMAX else 0
         t0 = time.perf_counter()
-        cache = init_cache(config, 1, self.dtype, self.device)
+        # past seq_len, room for a verify window that starts at the last position
+        cache = init_cache(config, 1, self.dtype, self.device, self.kv_quant, pad=spec)
         feed = np.asarray([BOS] + prompt, dtype=np.int64)  # positions 0..P
         logits = self._prefill(cache, feed, 0, prefill_chunk or len(feed))
         self._sync()
         t_prefill = time.perf_counter()
 
-        temperature = gen.temperature if gen.temperature != 0 else 1.0
-        generated: list[int] = []
-        pos = len(prompt)
-        while pos < steps:
-            r = None if mode == sampling.ARGMAX else uniform_draw(seed, pos)
-            nxt = int(sampling.sample(logits[0, -1], mode, temperature, top_p, r))
-            stop = nxt == BOS
-            if not stop:
-                generated.append(nxt)
-            # the forward runs unconditionally, as in the JAX loop: on the
-            # last trip its KV row lands past the emitted sequence (clamped to
-            # the cache), where no emitted token attends
-            logits = self._forward(cache, [nxt], min(pos + 1, config.seq_len - 1))
-            pos += 1
-            if stop:
-                break
+        trips = 0
+        if spec:
+            generated, trips = self._spec_decode(cache, logits, prompt, steps, spec)
+        else:
+            generated = self._decode(cache, logits, len(prompt), steps, mode, gen, seed, top_p)
         self._sync()
         t1 = time.perf_counter()
         tokens = prompt + generated
@@ -218,4 +211,74 @@ class Generator:
             ttft_s=t_prefill - t0,
             total_s=t1 - t0,
             tokens_per_sec=(n - 1) / decode_s if n > 1 and decode_s > 0 else 0.0,
+            spec_trips=trips,
         )
+
+    def _decode(self, cache, logits, pos: int, steps: int, mode: int, gen, seed: int, top_p: float):
+        """The plain decode loop from ``pos``: one forward step per token.
+        Returns the generated tokens."""
+        temperature = gen.temperature if gen.temperature != 0 else 1.0
+        generated: list[int] = []
+        while pos < steps:
+            r = None if mode == sampling.ARGMAX else uniform_draw(seed, pos)
+            nxt = int(sampling.sample(logits[0, -1], mode, temperature, top_p, r))
+            stop = nxt == BOS
+            if not stop:
+                generated.append(nxt)
+            # the forward runs unconditionally, as in the JAX loop: on the
+            # last trip its KV row lands past the emitted sequence (clamped to
+            # the cache), where no emitted token attends
+            logits = self._forward(cache, [nxt], min(pos + 1, self.config.seq_len - 1))
+            pos += 1
+            if stop:
+                break
+        return generated
+
+    def _spec_decode(self, cache, logits, prompt: list[int], steps: int, d: int) -> tuple[list[int], int]:
+        """Greedy decode with exact self-speculation (prompt-lookup drafting),
+        the JAX package's ``_spec_decode_loop`` as a host loop.
+
+        Each trip commits up to ``d`` tokens with ONE forward of T = d at
+        ``pos + 1``: token 0 is the argmax of the carried logits (always
+        right); tokens 1..d-1 are the continuation of the latest earlier
+        occurrence of token 0 in the history (prompt and emitted tokens); the
+        longest prefix that the window's own argmaxes confirm is accepted, cut
+        at a BOS and at the ``steps`` budget exactly as the plain loop cuts.
+        The stream equals plain greedy decoding wherever the T = 1 and T = d
+        forwards agree on every argmax. One host sync a trip: the window's
+        argmaxes. Returns the generated tokens and the trips run."""
+        hist = list(prompt)
+        pos = len(prompt)
+        trips = 0
+        first = int(sampling.sample_argmax(logits[0, -1]))
+        while pos < steps:
+            seg = [first] + prompt_lookup(hist, first, d)
+            tok = torch.as_tensor([seg], dtype=torch.int64, device=self.device)
+            hidden = forward(self.params, cache, tok, pos + 1, self.config, self.backend)
+            trips += 1
+            targets = sampling.sample_argmax(logits_from_hidden(self.params, hidden[0], self.backend)).tolist()
+            acc = 1
+            while acc < d and seg[acc] == targets[acc - 1]:
+                acc += 1
+            n_emit = 0
+            while n_emit < acc and seg[n_emit] != BOS and pos + n_emit < steps:
+                n_emit += 1
+            hist += seg[:n_emit]
+            if n_emit < acc:  # a BOS or the budget cut the accepted prefix
+                break
+            first = targets[n_emit - 1]
+            pos += n_emit
+        return hist[len(prompt):], trips
+
+
+def prompt_lookup(hist: list[int], first: int, d: int) -> list[int]:
+    """The d - 1 draft tokens after ``first``: the tokens that followed the
+    latest occurrence of ``first`` in ``hist`` before its last element, as
+    far as ``hist`` goes, padded with ``first``."""
+    n = len(hist)
+    j = -1
+    for i in range(n - 2, -1, -1):
+        if hist[i] == first:
+            j = i
+            break
+    return [hist[j + 1 + k] if j >= 0 and j + 1 + k < n else first for k in range(d - 1)]

@@ -111,10 +111,13 @@ def test_entry_points_need_a_card_or_an_explicit_cpu():
 
 
 def test_generator_refuses_unported_options():
+    """A backend the port does not have is refused; the int8 KV cache and
+    speculative decoding (ported with slice 4) are taken."""
     params = random_params(_cfg())
-    for kw in ({"speculative": 4}, {"kv_quant": True}, {"backend": "pallas"}):
-        with pytest.raises((NotImplementedError, ValueError)):
-            Generator(port_config(_cfg()), params, device="cpu", **kw)
+    with pytest.raises(ValueError):
+        Generator(port_config(_cfg()), params, device="cpu", backend="pallas")
+    g = Generator(port_config(_cfg()), params, device="cpu", kv_quant=True, speculative=4)
+    assert g.kv_quant and g.speculative == 4
 
 
 # ---- CLI ----
@@ -144,8 +147,8 @@ def run_main(capsys, *argv):
         (("ck.bin", "--platform", "tpu"), 1, "err", "unable to parse --platform"),
         (("ck.bin", "--prefill-chunk", "0"), 1, "err", "--prefill-chunk must be >= 1"),
         (("ck.bin", "--quant", "int4"), 1, "err", "unable to parse --quant"),
-        (("ck.bin", "--kv-cache", "int8"), 1, "err", "not yet ported to the torch package"),
-        (("ck.bin", "--spec", "4"), 1, "err", "not yet ported to the torch package"),
+        (("ck.bin", "--kv-cache", "int4"), 1, "err", "unable to parse --kv-cache"),
+        (("ck.bin", "--spec", "65"), 1, "err", "--spec must be 0 (off) or 2..64"),
         (("ck.bin", "--seq-shards", "2"), 1, "err", "not yet ported to the torch package"),
         (("ck.bin", "--save-cache"), 1, "err", "missing argument"),
         (("ck.bin", "--profile", "d"), 1, "err", "not yet ported to the torch package"),

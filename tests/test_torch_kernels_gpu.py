@@ -1,8 +1,10 @@
 """Card-only tests of the torch port: the CUDA kernels against their plain
 versions, and generation on the card against generation on the CPU.
 
-They carry the ``gpu`` marker and skip without a CUDA device. This file
-imports no JAX, so it also runs where JAX is absent:
+They carry the ``gpu`` marker and skip without a CUDA device; one test
+without it checks on the CPU that the int8-cache attention tolerance fails
+planted faults. This file imports no JAX, so it also runs where JAX is
+absent:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 """
@@ -90,7 +92,10 @@ def _assert_close(got, want, tol, what):
     err = (got.float() - want.float()).abs()
     bound = tol["atol"] + tol["rtol"] * want.float().abs()
     assert bool(torch.isfinite(got.float()).all()), what
-    assert bool((err <= bound).all()), f"{what}: max abs err {float(err.max()):.3e} past {tol}"
+    atol = tol["atol"]
+    if isinstance(atol, torch.Tensor):
+        atol = f"{float(atol.min()):.3e}..{float(atol.max()):.3e}"
+    assert bool((err <= bound).all()), f"{what}: max abs err {float(err.max()):.3e} past rtol={tol['rtol']} atol={atol}"
 
 
 @pytest.mark.gpu
@@ -317,3 +322,273 @@ def test_mlp_block_wrappers_raise_on_card_and_do_not_fall_back(cuda_device):
     with pytest.raises(ValueError):
         mb.mlp_block_stacked(x, rms.bfloat16(), *ok, 0)
     assert mb.mlp_block_stacked.launches == before + 1
+
+
+def _int8_cache(g, device, *shape):
+    from llama2_tpu_torch.ops.cuda.attention_q8 import quantize_kv_rows
+
+    k8, ks = quantize_kv_rows(torch.randn(shape, generator=g, device=device))
+    v8, vs = quantize_kv_rows(torch.randn(shape, generator=g, device=device))
+    return [k8, ks, v8, vs]
+
+
+def _q8kv_terms(q4, k8, ks, v8, vs, horizon, weight=None):
+    """The plain int8-cache attention of q4 (B, T, H, hs) over one layer's
+    cache, row t of batch b seeing keys 0..horizon[b, t], each key's p times
+    ``weight`` (S,) where given (a planted fault). Returns float32 (out, A,
+    R), each (B, T, H, hs): A = sum_t w_t |v_t|, R = sqrt(sum_t w_t^2 v_t^2),
+    w the softmax weights and v the dequantized values."""
+    B, T, H, hs = q4.shape
+    KVH = k8.shape[1]
+    n = int(horizon.max()) + 1
+    qb = q4.to(torch.bfloat16).float().reshape(B, T, KVH, H // KVH, hs)
+    s = torch.einsum("btkgd,bksd->bkgts", qb, k8[:, :, :n].float())
+    s = s * (ks[:, :, None, None, :n] * (1.0 / hs**0.5))
+    visible = torch.arange(n, device=q4.device)[None, None, :] <= horizon[:, :, None]
+    s = s.masked_fill(~visible[:, None, None], float("-inf"))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    if weight is not None:
+        p = p * weight[:n]
+    l = p.sum(dim=-1, keepdim=True)
+    pv = (p * vs[:, :, None, None, :n]).to(torch.bfloat16).float()
+    v = v8[:, :, :n].float()
+    out = torch.einsum("bkgts,bksd->bkgtd", pv, v) / l
+    w, vd = p / l, v * vs[:, :, :n, None]
+    A = torch.einsum("bkgts,bksd->bkgtd", w, vd.abs())
+    R = torch.einsum("bkgts,bksd->bkgtd", w * w, vd * vd).sqrt()
+    return tuple(t.permute(0, 3, 1, 2, 4).reshape(B, T, H, hs) for t in (out, A, R))
+
+
+def _q8kv_tol(dtype, q4, k8, ks, v8, vs, horizon, shape=lambda t: t):
+    """The int8-cache attention kernels against their plain versions, element
+    by element: both round each term ``p * v_scale`` to bf16, p taken against
+    the running maximum in the kernel and the row's maximum in the plain
+    version, so the two roundings of a term differ by at most 2^-7 of it
+    (2^-7 A in all), and over many keys, independent and of mean 0, their sum
+    passes 2^-4 R with probability under 1e-13 (Hoeffding). The atol is the
+    smaller, plus 2^-16 A for the float32 steps. fp32 outputs rtol 2e-5 on
+    top, bf16 outputs one flip of the last bit. ``shape`` takes (B, T, H, hs)
+    to the output's shape."""
+    _, A, R = _q8kv_terms(q4, k8, ks, v8, vs, horizon)
+    atol = torch.minimum(2**-7 * A, 2**-4 * R) + 2**-16 * A
+    return dict(rtol=2e-5 if dtype == torch.float32 else 2**-7, atol=shape(atol))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_q8kv_tolerance_fails_planted_faults(dtype):
+    """At pos 4095 the int8-cache tolerance passes the plain version's own
+    output recomputed, and fails it with one 32-key chunk dropped, one
+    256-key split dropped, or that split's weight doubled in the merge."""
+    from llama2_tpu_torch.ops.cuda import attention_q8 as aq
+
+    g = torch.Generator().manual_seed(11)
+    S, H, KVH, hs = 4096, 4, 4, 128
+    k8, ks = aq.quantize_kv_rows(torch.randn((1, KVH, S, hs), generator=g))
+    v8, vs = aq.quantize_kv_rows(torch.randn((1, KVH, S, hs), generator=g))
+    q = torch.randn((1, 1, H, hs), generator=g).to(dtype)
+    horizon = torch.tensor([[S - 1]])
+    want = aq.flash_decode_attention_q8_plain(q, k8, ks, v8, vs, S - 1)
+    tol = _q8kv_tol(dtype, q, k8, ks, v8, vs, horizon)
+    _assert_close(_q8kv_terms(q, k8, ks, v8, vs, horizon)[0].to(dtype), want, tol, "plain recomputed")
+    for first, end, factor in ((2048, 2080, 0.0), (1024, 1280, 0.0), (1024, 1280, 2.0)):
+        weight = torch.ones(S)
+        weight[first:end] = factor
+        bad = _q8kv_terms(q, k8, ks, v8, vs, horizon, weight)[0].to(dtype)
+        with pytest.raises(AssertionError):
+            _assert_close(bad, want, tol, f"keys {first}..{end} times {factor}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_cache_attention_kernels_match_plain_on_card(cuda_device, dtype):
+    """K7 (T = 1, 4, 16), K8 and K9 against their plain versions at the
+    Llama-2-7B and a GQA head layout, a batch of two rows at their own
+    positions; the appended bytes and scales equal the plain version's, and
+    a second run of each call gives the same bits."""
+    from llama2_tpu_torch.ops import ref
+    from llama2_tpu_torch.ops.cuda import attention_q8 as aq
+
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    S, L = 4096, 3
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+
+    for H, KVH, hs in ((32, 32, 128), (32, 4, 64)):
+        k8, ks, v8, vs = _int8_cache(g, cuda_device, 2, KVH, S, hs)
+        for T in (1, 4, 16):
+            for p0 in (T - 1, 127, S - 1):
+                pos = torch.tensor([p0, max(T - 1, p0 // 2)], dtype=torch.int32, device=cuda_device)
+                q = randn(2, T, H, hs)
+                n0 = aq.flash_decode_attention_q8.launches
+                got = aq.flash_decode_attention_q8(q, k8, ks, v8, vs, pos)
+                assert aq.flash_decode_attention_q8.launches == n0 + 1
+                assert torch.equal(got, aq.flash_decode_attention_q8(q, k8, ks, v8, vs, pos))
+                horizon = pos.long()[:, None] - (T - 1) + torch.arange(T, device=cuda_device)[None, :]
+                tol = _q8kv_tol(dtype, q, k8, ks, v8, vs, horizon)
+                _assert_close(got, aq.flash_decode_attention_q8_plain(q, k8, ks, v8, vs, pos), tol,
+                              f"K7 {H=} {KVH=} {T=} {p0=}")
+        caches = _int8_cache(g, cuda_device, L, 2, KVH, S, hs)
+        for layer in (0, L - 1):
+            for pos_list in ([0, 5], [127, S - 1]):
+                pos = torch.tensor(pos_list, dtype=torch.int32, device=cuda_device)
+                q = randn(2, H, hs)
+                kn, ksn = aq.quantize_kv_rows(randn(2, KVH, 1, hs).float())
+                vn, vsn = aq.quantize_kv_rows(randn(2, KVH, 1, hs).float())
+                runs = [[t.clone() for t in caches] for _ in range(3)]
+                n0 = aq.flash_decode_attention_q8_stacked.launches
+                got = [aq.flash_decode_attention_q8_stacked(q, *c, kn, ksn, vn, vsn, layer, pos) for c in runs[:2]]
+                assert aq.flash_decode_attention_q8_stacked.launches == n0 + 2
+                want = aq.flash_decode_attention_q8_stacked_plain(q, *runs[2], kn, ksn, vn, vsn, layer, pos)
+                assert torch.equal(got[0], got[1])
+                at_layer = [t[layer] for t in runs[2]]
+                tol = _q8kv_tol(dtype, q[:, None], *at_layer, pos.long()[:, None], lambda t: t[:, 0])
+                _assert_close(got[0], want, tol, f"K8 {H=} {KVH=} {layer=} {pos_list=}")
+                assert all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(*runs))
+
+                qkv = randn(2, H + 2 * KVH, hs)
+                cos, sin = ref.rope_angles(pos[:, None], hs)
+                cos_il = cos[:, 0].repeat_interleave(2, -1).contiguous()
+                sin_il = sin[:, 0].repeat_interleave(2, -1).contiguous()
+                runs = [[t.clone() for t in caches] for _ in range(3)]
+                n0 = aq.flash_decode_attention_q8_fused.launches
+                got = [aq.flash_decode_attention_q8_fused(qkv, *c, cos_il, sin_il, layer, pos, n_heads=H)
+                       for c in runs[:2]]
+                assert aq.flash_decode_attention_q8_fused.launches == n0 + 2
+                want = aq.flash_decode_attention_q8_fused_plain(qkv, *runs[2], cos_il, sin_il, layer, pos, H)
+                assert torch.equal(got[0], got[1])
+                q_rot = aq.rope_quantize_plain(qkv, cos_il, sin_il, H)[0]
+                tol = _q8kv_tol(dtype, q_rot[:, None], *[t[layer] for t in runs[2]], pos.long()[:, None],
+                                lambda t: t[:, 0])
+                _assert_close(got[0], want, tol, f"K9 {H=} {KVH=} {layer=} {pos_list=}")
+                assert all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(*runs))
+        del caches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_block_kernel_matches_plain_on_card(cuda_device, dtype):
+    """K13 at the Llama-2-7B widths, with and without the qkv phase, at pos 0
+    (only this step's row), 256 and 4095: within 1e-2 of the largest |want|
+    of its plain version and within 2e-2 of it of K9 + K12 (the bound of
+    tests/test_layer_block.py; the two differ in how this step's row joins
+    and in the rounding of att), bf16 outputs one flip of the last bit more;
+    its appends equal to both bit for bit, and the same bits on a second
+    run."""
+    from llama2_tpu_torch.ops import ref
+    from llama2_tpu_torch.ops.cuda import attention_q8 as aq
+    from llama2_tpu_torch.ops.cuda import layer_block as lb
+
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    H, KVH, hs, L, S = 32, 32, 128, 2, 4096
+    D, HD = H * hs, 11008
+    wo, w1, w3 = (_q8_stack(g, cuda_device, L, D, n, 64) for n in (D, HD, HD))
+    w2, wqkv = _q8_stack(g, cuda_device, L, HD, D, 64), _q8_stack(g, cuda_device, L, D, (H + 2 * KVH) * hs, 64)
+    rms_ffn = (1 + 0.1 * torch.randn((L, D), generator=g, device=cuda_device)).to(dtype)
+    rms_att = (1 + 0.1 * torch.randn((L, D), generator=g, device=cuda_device)).to(dtype)
+    caches = _int8_cache(g, cuda_device, L, 1, KVH, S, hs)
+    for p in (0, 256, S - 1):
+        pos = torch.tensor([p], dtype=torch.int32, device=cuda_device)
+        cos, sin = ref.rope_angles(pos[:, None], hs)
+        cos_il = cos[:, 0].repeat_interleave(2, -1).contiguous()
+        sin_il = sin[:, 0].repeat_interleave(2, -1).contiguous()
+        qkv3 = torch.randn((1, H + 2 * KVH, hs), generator=g, device=cuda_device).to(dtype)
+        x = torch.randn((1, D), generator=g, device=cuda_device).to(dtype)
+        for with_qkv in (True, False):
+            layer = 0 if with_qkv else L - 1
+            args = (cos_il, sin_il, wo, rms_ffn, w1, w3, w2, rms_att, wqkv, layer, pos)
+            runs = [[t.clone() for t in caches] for _ in range(4)]
+            n0 = lb.layer_block_stacked.launches
+            got = [lb.layer_block_stacked(qkv3, x, *c, *args, n_heads=H, with_qkv=with_qkv) for c in runs[:2]]
+            assert lb.layer_block_stacked.launches == n0 + 2
+            want = lb.layer_block_stacked_plain(qkv3, x, *runs[2], *args, n_heads=H, with_qkv=with_qkv)
+            att = aq.flash_decode_attention_q8_fused(qkv3, *runs[3], cos_il, sin_il, layer, pos, n_heads=H)
+            if with_qkv:
+                pair = mb.layer_tail_qkv_stacked(att.reshape(1, D), x, wo, rms_ffn, w1, w3, w2, rms_att, wqkv, layer)
+            else:
+                pair = (mb.attn_mlp_block_stacked(att.reshape(1, D), x, wo, rms_ffn[layer], w1, w3, w2, layer), None)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, d) for a, b, c, d in zip(*runs))
+            for i in range(2 if with_qkv else 1):
+                assert torch.equal(got[0][i], got[1][i])
+                scale = float(want[i].float().abs().max())
+                rtol = 0.0 if dtype == torch.float32 else 2**-7  # bf16: one flip of the last bit
+                _assert_close(got[0][i], want[i], dict(rtol=rtol, atol=1e-2 * scale), f"K13 vs plain {p=} {i=}")
+                _assert_close(got[0][i], pair[i], dict(rtol=rtol, atol=2e-2 * scale), f"K13 vs K9+K12 {p=} {i=}")
+            if not with_qkv:
+                assert got[0][1] is None
+
+
+@pytest.mark.gpu
+def test_int8_cache_wrappers_raise_on_card_and_do_not_fall_back(cuda_device):
+    """On a CUDA tensor the int8-cache wrappers launch or raise: a window
+    past 16 rows, an unported dtype, an odd head size, new rows of the wrong
+    dtype, weights the whole-layer kernel does not take are ValueErrors, and
+    no refused call counts a launch."""
+    from llama2_tpu_torch.ops.cuda import attention_q8 as aq
+    from llama2_tpu_torch.ops.cuda import layer_block as lb
+
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    k8, ks, v8, vs = _int8_cache(g, cuda_device, 1, 2, 64, 16)
+    counts = (aq.flash_decode_attention_q8.launches, aq.flash_decode_attention_q8_stacked.launches,
+              lb.layer_block_stacked.launches)
+    q = torch.randn((1, 17, 4, 16), generator=g, device=cuda_device)
+    for bad in (q, q[:, :2].double(), q[:, :2, :, :15].contiguous()):
+        kk, vv = (k8, v8) if bad.shape[-1] == 16 else (k8[..., :15].contiguous(), v8[..., :15].contiguous())
+        with pytest.raises(ValueError):
+            aq.flash_decode_attention_q8(bad, kk, ks, vv, vs, 20)
+    stack = [t[None] for t in (k8, ks, v8, vs)]
+    pos = torch.tensor([20], dtype=torch.int32, device=cuda_device)
+    rows = aq.quantize_kv_rows(torch.randn((1, 2, 1, 16), generator=g, device=cuda_device))
+    with pytest.raises(ValueError):  # float32 rows where int8 rows belong
+        aq.flash_decode_attention_q8_stacked(q[:, 0], *stack, rows[0].float(), rows[1], rows[0], rows[1], 0, pos)
+    wide = [_q8_stack(g, cuda_device, 1, 64, n, 8) for n in (64, 128, 128)]
+    w2, wqkv = _q8_stack(g, cuda_device, 1, 128, 64, 8), _q8_stack(g, cuda_device, 1, 64, 96, 8)
+
+    class Cfg:  # two query heads of 16 do not span the width 64
+        n_heads, n_kv_heads, head_size = 2, 2, 16
+
+    assert not lb.layer_block_supported(wide[0], wide[1], wide[2], w2, wqkv, Cfg)
+    with pytest.raises(ValueError):
+        lb.layer_block_stacked(torch.randn((1, 6, 16), generator=g, device=cuda_device),
+                               torch.randn((1, 64), generator=g, device=cuda_device), *stack,
+                               torch.ones((1, 16), device=cuda_device), torch.zeros((1, 16), device=cuda_device),
+                               wide[0], torch.ones((1, 64), device=cuda_device), wide[1], wide[2], w2,
+                               torch.ones((1, 64), device=cuda_device), wqkv, 0, pos, n_heads=2)
+    assert counts == (aq.flash_decode_attention_q8.launches, aq.flash_decode_attention_q8_stacked.launches,
+                      lb.layer_block_stacked.launches)
+
+
+@pytest.mark.gpu
+def test_kv_quant_and_speculative_generate_on_card(cuda_device):
+    """fp32 greedy Q8 generation over the int8 cache through
+    ``cuda-accurate`` (K8) gives the CPU plain path's tokens on a small model
+    with clear logit margins; with ``speculative=4`` (verify windows through
+    K7) the card gives the same tokens again, and the ``cuda`` path runs the
+    whole-layer kernel (K13) a layer per step."""
+    from llama2_tpu_torch.ops.cuda import attention_q8 as aq
+    from llama2_tpu_torch.ops.cuda import layer_block as lb
+
+    config = ModelConfig(dim=256, hidden_dim=704, n_layers=3, n_heads=2, n_kv_heads=2,
+                         vocab_size=512, seq_len=128)
+    params = random_q8_params(config, 3, "cpu", torch.float32, group_size=64)
+    for k, v in params.items():  # widen the scales: logits with clear margins
+        if isinstance(v, QuantTensor):
+            params[k] = QuantTensor(v.q, v.scale * 4, v.group_size)
+    gen = GenerationConfig(temperature=0.0, steps=60)
+    prompt = [5, 17, 320, 9, 44, 2, 100]
+    want = Generator(config, params, backend="cuda-accurate", device="cpu", kv_quant=True).generate(prompt, gen)
+    n7, n8 = aq.flash_decode_attention_q8.launches, aq.flash_decode_attention_q8_stacked.launches
+    got = Generator(config, params, backend="cuda-accurate", device=cuda_device, kv_quant=True).generate(prompt, gen)
+    assert got.tokens == want.tokens
+    assert aq.flash_decode_attention_q8.launches > n7 and aq.flash_decode_attention_q8_stacked.launches > n8
+    n7 = aq.flash_decode_attention_q8.launches
+    spec = Generator(config, params, backend="cuda-accurate", device=cuda_device, kv_quant=True,
+                     speculative=4).generate(prompt, gen)
+    assert spec.tokens == want.tokens and spec.spec_trips > 0
+    assert aq.flash_decode_attention_q8.launches - n7 >= spec.spec_trips * config.n_layers
+    n13 = lb.layer_block_stacked.launches
+    fast = Generator(config, params, dtype=torch.bfloat16, backend="cuda", device=cuda_device,
+                     kv_quant=True).generate(prompt, gen)
+    steps = len(fast.tokens) - len(prompt)
+    assert steps > 0 and lb.layer_block_stacked.launches - n13 >= config.n_layers * steps

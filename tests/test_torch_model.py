@@ -138,8 +138,8 @@ def test_bf16_forward_close_to_jax():
 
 def test_unported_paths_raise():
     pcfg = port_config(_cfg())
-    with pytest.raises(NotImplementedError):
-        tm.init_cache(pcfg, kv_quant=True)
+    c = tm.init_cache(pcfg, kv_quant=True)  # ported with slice 4: int8 rows, float32 scales
+    assert c["k"].dtype == torch.int8 and c["k_scale"].dtype == torch.float32
     with pytest.raises(NotImplementedError):
         tm.fuse_layer_params({}, shards=2)  # tensor-parallel layouts
     assert tm.layer_keys({"wqkv": None}) == ("rms_att", "wqkv", "wo", "rms_ffn", "w1", "w3", "w2")
