@@ -19,8 +19,21 @@ non-zero:
    kernel (K13) at the 7B widths, against K9 + K12 too, with the cache
    appends bit-equal, and its attention phase alone; the int8-cache
    attention is held to an elementwise bound that faults planted at pos
-   4095 (a dropped chunk, a dropped or misweighted split) fail;
-3. the main paths: ``Generator.generate`` at full Llama-2-7B width (random
+   4095 (a dropped chunk, a dropped or misweighted split) fail; K4, K9 and
+   K13 at the 8 rows of the batched engines, each at its own position; the
+   paged kernels K15-K18 over fp and int8 page pools (8 slots, two of them
+   inactive on the scratch page, shuffled pages of 256 and 128 rows, layers
+   0 and 31, the 7B and a GQA layout);
+3. the served path, this slice's main path: ``PagedBatchEngine`` at full
+   Llama-2-7B width and 32 layers, INT8 weights, bf16 activations,
+   ``backend="cuda"``, 8 slots, 256-row pages, the prefix cache, serving 16
+   requests over a bf16 and over an int8 page pool, with the launches of
+   every decode tick asserted (K6 1, K17 or K18 32, K12 31, K11 1, K5 1),
+   reruns and pipeline depth 1 against 2 bit-equal, the greedy streams held
+   to their plain replays, ticks profiled at short and long positions, and
+   the dense ``BatchEngine`` on the same requests for its memory;
+   ``cuda-accurate`` in fp32 at 8 layers over both pools (K15, K16). Then
+   the earlier main paths: ``Generator.generate`` at full Llama-2-7B width (random
    weights from a seed, built on the card), a ~200-token prompt and 64 greedy
    tokens. INT8 (Q8) weights, ``backend="cuda"``, bf16 activations, all 32
    layers: over the fp cache (the 2-launch decode layer: glue-fused attention
@@ -46,19 +59,24 @@ non-zero:
    ``--quant int8``, on the ak42 INT8 file converted from it, on the
    param-cache directory that ``--save-cache`` writes from that, and on the
    INT8 file with ``--kv-cache int8`` with and without ``--spec 4``, each
-   against ``Generator.generate`` in this process;
+   against ``Generator.generate`` in this process; and the HTTP server
+   (``python -m llama2_tpu_torch.runtime.server ... --quant int8 --paged``)
+   as a subprocess, its greedy answers against ``Generator.generate``;
 5. kernel timing at the main paths' shapes with CUDA events, the calls
    queued behind a device sleep so that the host's launch rate does not set
    the time, beside the bound, the plain version and a library yardstick
    timed here only (the port never calls it):
    ``scaled_dot_product_attention`` for attention, ``torch.matmul`` on the
    pre-dequantized weight for the dequant-matmuls. No one PyTorch call
-   computes an FFN megakernel, an int8-cache attention or the whole layer:
-   their lines give the route each replaces (the composed route; SDPA on a
-   bf16 cache of the same length; K9 + K12) instead.
+   computes an FFN megakernel, an int8-cache attention, the whole layer or
+   a paged attention: their lines give the route each replaces (the
+   composed route; SDPA on a bf16 cache of the same length; K9 + K12; the
+   dense twin kernel and SDPA on the same rows gathered) instead.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
-``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a checkout
+``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py --dense-timing``
+builds the kernels and times only the dense decode attention kernels (to
+compare two checkouts in one call, see ``phase_dense_timing``). Without a CUDA device, or outside a checkout
 of the repository, it fails before printing any result.
 """
 
@@ -784,6 +802,303 @@ def phase_kernels_q8kv() -> None:
     torch.cuda.empty_cache()
 
 
+# the paged kernel checks' 8 slots: positions by page size; the last
+# N_INACTIVE are inactive (all-zero table rows: the scratch page 0), writing
+# rows 5 and 9 of it
+N_INACTIVE = 2
+
+
+def paged_positions(page: int) -> list[int]:
+    return [0, page - 1, page, 1000, S - 1, 2 * page + 77, 5, 9]
+
+
+def paged_table(pos_list, page: int, n_pages: int, gen):
+    """A (B, S // page) int32 table for ``pos_list``: each active slot takes
+    the pages its position needs from a shuffled order of 1..n_pages - 1 (so
+    no slot's pages ascend), the slot at S - 1 including the pool's last
+    page (the largest offsets); inactive rows all 0."""
+    import torch
+
+    n_active = len(pos_list) - N_INACTIVE
+    perm = (torch.randperm(n_pages - 1, generator=gen) + 1).tolist()
+    table = torch.zeros((len(pos_list), S // page), dtype=torch.int32)
+    at = 0
+    for b, p in enumerate(pos_list[:n_active]):
+        n = p // page + 1
+        table[b, :n] = torch.tensor(perm[at : at + n], dtype=torch.int32)
+        at += n
+    top = (table == n_pages - 1).nonzero().tolist()
+    b4, c4 = pos_list.index(S - 1), (S - 1) // page  # the S - 1 slot's last page
+    if top:  # swap the pool's last page there
+        (tb, tc), = top
+        table[tb, tc], table[b4, c4] = table[b4, c4].item(), n_pages - 1
+    else:
+        table[b4, c4] = n_pages - 1
+    return table
+
+
+def phase_kernels_paged() -> None:
+    """K15-K18 against their plain versions on the card.
+
+    8 slots at paged_positions (0, page - 1, page, 1000, 4095, a mid-page
+    row; two inactive slots on the scratch page), pages handed out shuffled,
+    pages of 256 and 128 rows, the 7B and a GQA head layout, layers 0 and 31
+    of a 32-layer pool; fp32 and bf16 pools (K15, K17) and int8 pools on
+    fp32 and bf16 activations (K16, K18). The bf16 and int8 pools of the 7B
+    layout with 256-row pages hold 72 pages, so the last layer's offsets pass
+    2^31 elements. Each call is one launch; a second run on the same inputs
+    gives the same bits (outputs of the active slots, and the pools); the
+    appended rows and scales equal the plain version's, and nothing else of
+    the pools changes. Outputs of the active slots: the fp kernels to
+    ``tolerance``, the int8 ones to ``q8kv_tolerance``, with the planted
+    faults failing it at pos 4095; the inactive slots' outputs (a harmless
+    race on the scratch page) must be finite."""
+    import torch
+
+    from llama2_tpu_torch.ops.cuda import attention_q8 as aq
+    from llama2_tpu_torch.ops.cuda import paged_attention as tpa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    cpu_gen = torch.Generator().manual_seed(SEED + 11)
+    L, B = 32, 8
+    act = B - N_INACTIVE
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def pool(shape, kind):
+        """Random pool contents, drawn in place (no float32 copy of a big pool)."""
+        if kind == "int8":
+            k8 = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+            ks = 0.02 + 0.01 * torch.rand(shape[:-1], generator=gen, device="cuda")
+            return [k8, ks]
+        t = torch.empty(shape, dtype=torch.float32 if kind == "f32" else torch.bfloat16, device="cuda")
+        return [t.normal_(generator=gen)]
+
+    def run(wrapper, plain, pre, pools, post, kw, coords, layer):
+        """The kernel twice on copies of ``pools`` (one launch each, the same
+        bits), the rows it changed checked against the write coordinates,
+        then the plain version on ``pools`` in place: (got, want)."""
+        n0 = wrapper.launches
+        c1 = [t.clone() for t in pools]
+        got = wrapper(*pre, *c1, *post, **kw)[0]
+        c2 = [t.clone() for t in pools]
+        again = wrapper(*pre, *c2, *post, **kw)[0]
+        torch.cuda.synchronize()
+        if wrapper.launches != n0 + 2:
+            raise AssertionError(f"{wrapper.__name__}: {wrapper.launches - n0} launches for 2 calls")
+        if not (torch.equal(got[:act], again[:act]) and all(torch.equal(a, b) for a, b in zip(c1, c2))):
+            raise AssertionError(f"{wrapper.__name__} gave different bits on the same inputs")
+        del c2
+        if not bool(torch.isfinite(got.float()).all()):
+            raise AssertionError(f"{wrapper.__name__}: non-finite outputs (inactive slots included)")
+        allowed = {(layer, p, r) for p, r in coords}
+        for new, old in zip(c1, pools):
+            diff = new != old
+            touched = (diff.any(-1) if diff.ndim == 5 else diff).nonzero()[:, [0, 1, 3]].tolist()
+            if any(tuple(t) not in allowed for t in touched):
+                raise AssertionError(f"{wrapper.__name__} wrote outside the write rows: {touched[:4]}")
+            del diff
+        want = plain(*pre, *pools, *post, **kw)[0]
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(c1, pools)):
+            raise AssertionError(f"{wrapper.__name__}: appended rows differ from the plain version's")
+        return got, want
+
+    for lname in ("7B", "GQA"):
+        H, KVH, hs = LAYOUTS[lname]
+        for page in (256, 128):
+            pos_list = paged_positions(page)
+            pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+            cos_il, sin_il = rope_tables(pos, hs)
+            for kind in ("f32", "bf16", "int8"):
+                big = lname == "7B" and page == 256 and kind != "f32"
+                need = sum(p // page + 1 for p in pos_list[:act]) + 1
+                n_pages = 72 if big else need
+                table = paged_table(pos_list, page, n_pages, cpu_gen).cuda()
+                wpage = table[torch.arange(B, device="cuda"), (pos // page).long()].contiguous()
+                wrow = (pos % page).contiguous()
+                coords = list(zip(wpage.tolist(), wrow.tolist()))
+                shape = (L, n_pages, KVH, page, hs)
+                pools = pool(shape, kind) + pool(shape, kind)
+                dtypes = (torch.float32, torch.bfloat16) if kind == "int8" else (pools[0].dtype,)
+                worst = {}
+                for dtype in dtypes:
+                    for layer in (0, L - 1):
+                        q = randn(B, H, hs, dtype=dtype)
+                        qkv = randn(B, H + 2 * KVH, hs, dtype=dtype)
+                        args = (table, wpage, wrow, layer, pos)
+                        if kind == "int8":
+                            k8, ks = aq.quantize_kv_rows(randn(B, KVH, 1, hs))
+                            v8, vs = aq.quantize_kv_rows(randn(B, KVH, 1, hs))
+                            cases = (
+                                ("K16", tpa.paged_decode_attention_q8_stacked,
+                                 tpa.paged_decode_attention_q8_stacked_plain, (q,),
+                                 (table, k8, ks, v8, vs, wpage, wrow, layer, pos), {}, q),
+                                ("K18", tpa.paged_decode_attention_q8_fused,
+                                 tpa.paged_decode_attention_q8_fused_plain, (qkv,),
+                                 (table, cos_il, sin_il, wpage, wrow, layer, pos), {"n_heads": H},
+                                 aq.rope_quantize_plain(qkv, cos_il, sin_il, H)[0]),
+                            )
+                        else:
+                            kn = randn(B, KVH, 1, hs, dtype=dtype)
+                            vn = randn(B, KVH, 1, hs, dtype=dtype)
+                            cases = (
+                                ("K15", tpa.paged_decode_attention_stacked,
+                                 tpa.paged_decode_attention_stacked_plain, (q,),
+                                 (table, kn, vn, *args[1:]), {}, None),
+                                ("K17", tpa.paged_decode_attention_fused,
+                                 tpa.paged_decode_attention_fused_plain, (qkv,),
+                                 (table, cos_il, sin_il, *args[1:]), {"n_heads": H}, None),
+                            )
+                        for tag, wrapper, plain, pre, post, kw, q_terms in cases:
+                            c = [t.clone() for t in pools]
+                            got, want = run(wrapper, plain, pre, c, post, kw, coords, layer)
+                            if kind == "int8":
+                                n = (S - 1) // page + 1
+                                dense = [tpa.gather_pages(t[layer], table, n)[:act] for t in c]
+                                terms = (q_terms[:act, None], *dense, pos.long()[:act, None])
+                                _, A, R = q8kv_terms(*terms)
+                                tol = q8kv_tolerance(dtype, A[:, 0], R[:, 0])
+                                err = compare(got[:act], want[:act], dtype, tol)
+                                bound = tol[1] + tol[0] * want[:act].float().abs()
+                                share = float(((got[:act].float() - want[:act].float()).abs() / bound).max())
+                                planted_faults_fail(want[:act], dtype, tol, terms,
+                                                    lambda o: o[:, 0].to(dtype), f"{tag} {lname}")
+                            else:
+                                err = compare(got[:act], want[:act], dtype)
+                                share = 0.0
+                            del c
+                            old = worst.get((tag, dtype), (0.0, 0.0))
+                            worst[(tag, dtype)] = (max(old[0], err), max(old[1], share))
+                for (tag, dtype), (err, share) in worst.items():
+                    say(tag, dtype=dtype_name(dtype), pool=kind, layout=lname, page=page,
+                        pool_pages=n_pages, layers="0,31", pos=",".join(map(str, pos_list)),
+                        inactive=N_INACTIVE, max_abs_err=f"{err:.3e}",
+                        **({"err_over_bound": f"{share:.3f}", "planted_faults_at_4095": "fail"}
+                           if kind == "int8" else {}),
+                        append="equal_to_plain", bits="equal_on_rerun")
+                del pools
+                torch.cuda.empty_cache()
+    # a CUDA tensor launches or raises: operands the kernels do not take
+    z = torch.zeros
+    pools = [z(1, 3, 2, 16, 33, device="cuda"), z(1, 3, 2, 16, 33, device="cuda")]
+    ti = z(2, 2, dtype=torch.int32, device="cuda")
+    ci = z(2, dtype=torch.int32, device="cuda")
+    n0 = tpa.paged_decode_attention_fused.launches
+    for bad in ((z(2, 8, 33, device="cuda"), *pools),  # odd head size
+                (z(2, 8, 32, device="cuda", dtype=torch.float64), pools[0][..., :32], pools[1][..., :32])):
+        try:
+            tpa.paged_decode_attention_fused(*bad, ti, z(2, bad[0].shape[-1], device="cuda"),
+                                             z(2, bad[0].shape[-1], device="cuda"), ci, ci, 0, ci,
+                                             n_heads=4)
+        except ValueError:
+            continue
+        raise AssertionError("K17 accepted operands its kernel does not take")
+    if tpa.paged_decode_attention_fused.launches != n0:
+        raise AssertionError("a refused K17 call counted a launch")
+
+
+BATCH8_POS = [0, 255, 256, 1000, S - 1, 77, 3000, 2047]
+
+
+def phase_kernels_batch8() -> None:
+    """The kernels the batched engines run at 8 rows with positions of their
+    own, against their plain versions at their tolerances: K4 (fp32 and bf16
+    caches) and K9 (int8 cache, planted faults at 4095) at the 7B and the
+    GQA layout, and K13 at the 7B widths with and without the qkv phase;
+    appends equal to the plain version's."""
+    import torch
+
+    from llama2_tpu_torch.ops.cuda import attention_q8 as aq
+    from llama2_tpu_torch.ops.cuda import layer_block as lb
+    from llama2_tpu_torch.ops.cuda.attention import (
+        flash_decode_attention_fused,
+        flash_decode_attention_fused_plain,
+    )
+    from llama2_tpu_torch.quant.q8 import QuantTensor
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    L, B = 2, len(BATCH8_POS)
+    pos = torch.tensor(BATCH8_POS, dtype=torch.int32, device="cuda")
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    for lname in ("7B", "GQA"):
+        H, KVH, hs = LAYOUTS[lname]
+        cos_il, sin_il = rope_tables(pos, hs)
+        for dtype in (torch.float32, torch.bfloat16):
+            kc, vc = randn(L, B, KVH, S, hs, dtype=dtype), randn(L, B, KVH, S, hs, dtype=dtype)
+            qkv = randn(B, H + 2 * KVH, hs, dtype=dtype)
+            k1, v1 = kc.clone(), vc.clone()
+            got = flash_decode_attention_fused(qkv, k1, v1, cos_il, sin_il, 1, pos, n_heads=H)
+            want = flash_decode_attention_fused_plain(qkv, kc, vc, cos_il, sin_il, 1, pos, H)
+            torch.cuda.synchronize()
+            err = compare(got, want, dtype)
+            if not (torch.equal(k1, kc) and torch.equal(v1, vc)):
+                raise AssertionError(f"K4 at 8 rows: appends differ from the plain version's ({lname})")
+            say("K4", dtype=dtype_name(dtype), layout=lname, B=B, pos=",".join(map(str, BATCH8_POS)),
+                max_abs_err=f"{err:.3e}", append="equal_to_plain")
+            del kc, vc, k1, v1
+            caches = [*aq.quantize_kv_rows(randn(L, B, KVH, S, hs)), *aq.quantize_kv_rows(randn(L, B, KVH, S, hs))]
+            c1 = [t.clone() for t in caches]
+            got = aq.flash_decode_attention_q8_fused(qkv, *c1, cos_il, sin_il, 1, pos, n_heads=H)
+            want = aq.flash_decode_attention_q8_fused_plain(qkv, *caches, cos_il, sin_il, 1, pos, H)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(c1, caches)):
+                raise AssertionError(f"K9 at 8 rows: appends differ from the plain version's ({lname})")
+            q_rot = aq.rope_quantize_plain(qkv, cos_il, sin_il, H)[0]
+            terms = (q_rot[:, None], *[t[1] for t in caches], pos.long()[:, None])
+            _, A, R = q8kv_terms(*terms)
+            tol = q8kv_tolerance(dtype, A[:, 0], R[:, 0])
+            err = compare(got, want, dtype, tol)
+            planted_faults_fail(want, dtype, tol, terms, lambda o: o[:, 0].to(dtype), f"K9 B=8 {lname}")
+            say("K9", dtype=dtype_name(dtype), layout=lname, B=B, pos=",".join(map(str, BATCH8_POS)),
+                max_abs_err=f"{err:.3e}", planted_faults_at_4095="fail", append="equal_to_plain")
+            del caches, c1
+            torch.cuda.empty_cache()
+
+    # K13 at the 7B widths, 8 rows
+    def qt(L, K, N):
+        q = torch.randint(-127, 128, (L, K, N), generator=gen, device="cuda", dtype=torch.int8)
+        return QuantTensor(q, 2.7e-4 * (0.7 + 0.6 * torch.rand((L, K // GROUP, N), generator=gen, device="cuda")),
+                           GROUP)
+
+    H, KVH, hs = LAYOUTS["7B"]
+    D, HD = H * hs, 11008
+    weights = [qt(L, D, D), None, qt(L, D, HD), qt(L, D, HD), qt(L, HD, D), None, qt(L, D, (H + 2 * KVH) * hs)]
+    cos_il, sin_il = rope_tables(pos, hs)
+    for dtype in (torch.float32, torch.bfloat16):
+        weights[1], weights[5] = 1 + 0.1 * randn(L, D, dtype=dtype), 1 + 0.1 * randn(L, D, dtype=dtype)
+        caches = [*aq.quantize_kv_rows(randn(L, B, KVH, S, hs)), *aq.quantize_kv_rows(randn(L, B, KVH, S, hs))]
+        qkv3, x = randn(B, H + 2 * KVH, hs, dtype=dtype), randn(B, D, dtype=dtype)
+        worst = {}
+        for with_qkv in (True, False):
+            layer = 0 if with_qkv else L - 1
+            c1 = [t.clone() for t in caches]
+            got = lb.layer_block_stacked(qkv3, x, *c1, cos_il, sin_il, *weights, layer, pos, n_heads=H,
+                                         with_qkv=with_qkv)
+            c2 = [t.clone() for t in caches]
+            want = lb.layer_block_stacked_plain(qkv3, x, *c2, cos_il, sin_il, *weights, layer, pos, n_heads=H,
+                                                with_qkv=with_qkv)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(c1, c2)):
+                raise AssertionError("K13 at 8 rows: appends differ from the plain version's")
+            rtol = 0.0 if dtype == torch.float32 else 2**-7
+            for i, tag in enumerate(("out", "qkv")[: 2 if with_qkv else 1]):
+                scale = float(want[i].float().abs().max())
+                e = compare(got[i], want[i], dtype, (rtol, K13_PLAIN_TOL * scale))
+                worst[f"{tag}_with_qkv" if with_qkv else tag] = e / scale
+            del c1, c2
+        say("K13", dtype=dtype_name(dtype), B=B, pos=",".join(map(str, BATCH8_POS)), with_qkv="true,false",
+            tol=f"{K13_PLAIN_TOL}*max|want|", append="equal_to_plain",
+            **{f"{k}_err_over_max": f"{v:.2e}" for k, v in worst.items()})
+        del caches
+    del weights
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- phase 3
 
 
@@ -882,8 +1197,9 @@ def profile_steps(dn: str, where: str, run) -> None:
     # the port's own kernels, whatever their rank
     for e in kernels:
         for name in ("decode_kernel", "decode_fused_kernel", "attention_q8_kernel", "gemv_kernel",
-                     "mlp_block_kernel"):
-            if f"::{name}<" in e.key or e.key.startswith(name):
+                     "mlp_block_kernel", "paged_decode_kernel", "paged_decode_fused_kernel",
+                     "paged_attention_q8_kernel"):
+            if f"::{name}<" in e.key or f"::{name}(" in e.key or e.key.startswith(name):
                 say("profile", dtype=dn, where=where, port_kernel=name, calls=e.count,
                     device_us_per_call=f"{e.self_device_time_total / e.count:.2f}",
                     device_ms_per_step=f"{e.self_device_time_total / 1e3 / n:.4f}")
@@ -1058,6 +1374,12 @@ def count_launches() -> dict:
         flash_decode_attention_q8_stacked,
     )
     from llama2_tpu_torch.ops.cuda.layer_block import layer_block_stacked
+    from llama2_tpu_torch.ops.cuda.paged_attention import (
+        paged_decode_attention_fused,
+        paged_decode_attention_q8_fused,
+        paged_decode_attention_q8_stacked,
+        paged_decode_attention_stacked,
+    )
     from llama2_tpu_torch.ops.cuda.prefill_attention import flash_prefill_attention
     from llama2_tpu_torch.ops.cuda.quant_matmul import quant_matmul, quant_matmul_stacked
 
@@ -1067,6 +1389,8 @@ def count_launches() -> dict:
         "K7": flash_decode_attention_q8, "K8": flash_decode_attention_q8_stacked,
         "K9": flash_decode_attention_q8_fused, "K10": mlp_block_stacked,
         "K11": attn_mlp_block_stacked, "K12": layer_tail_qkv_stacked, "K13": layer_block_stacked,
+        "K15": paged_decode_attention_stacked, "K16": paged_decode_attention_q8_stacked,
+        "K17": paged_decode_attention_fused, "K18": paged_decode_attention_q8_fused,
     }
 
 
@@ -1427,6 +1751,412 @@ def speculative_check(g, config, backend, dn, kv_quant, prompt, plain_res, l1, p
     return launches
 
 
+# ---------------------------------------------------------------- phase 3, served
+
+
+SERVE_REQUESTS = 16
+SERVE_SLOTS = 8
+SERVE_PAGE = 256
+SYSTEM_TOKENS = 256
+LONG_SUFFIX = 200  # request 2's suffix after the shared prefix: a hit with a suffix past 128 tokens
+SAMPLED = (3, 6, 9, 12)  # the workload's sampled requests; the other 12 are greedy
+
+
+def serve_workload() -> list:
+    """The served path's SERVE_REQUESTS requests, from a seed: (prompt,
+    GenerationConfig). Prompts of 16-600 tokens, 64-128 new tokens each; the
+    SAMPLED requests at temperature 0.8, top-p 0.9, seeded, the rest greedy;
+    the even requests share one 256-token system prefix (request 2 with a
+    suffix of LONG_SUFFIX tokens)."""
+    import numpy as np
+
+    from llama2_tpu_torch.config import GenerationConfig
+
+    rng = np.random.default_rng(SEED + 20)
+
+    def toks(n):
+        return rng.integers(2, 32000, n).tolist()
+
+    system = toks(SYSTEM_TOKENS)
+    out = []
+    for i in range(SERVE_REQUESTS):
+        if i % 2 == 0:
+            prompt = system + toks(LONG_SUFFIX if i == 2 else int(rng.integers(16, 600 - SYSTEM_TOKENS + 1)))
+        else:
+            prompt = toks(int(rng.integers(16, 601)))
+        sampled = i in SAMPLED
+        steps = len(prompt) + int(rng.integers(64, 129))
+        out.append((prompt, GenerationConfig(temperature=0.8 if sampled else 0.0, top_p=0.9, steps=steps,
+                                             seed=SEED + i if sampled else None)))
+    return out
+
+
+# launches per decode tick of the served paths at L layers (a kernel not
+# named launches 0 times): on `cuda` the two-launch paged layer (glue-fused
+# paged attention + the wo/FFN/next-QKV megakernel); on `cuda-accurate` the
+# composed layer; the dense engine at 8 rows: the whole-layer kernel over
+# the int8 cache, the two-launch layer over the fp cache
+SERVE_TICKS = {
+    ("cuda", False): lambda L: {"K6": 1, "K17": L, "K12": L - 1, "K11": 1, "K5": 1},
+    ("cuda", True): lambda L: {"K6": 1, "K18": L, "K12": L - 1, "K11": 1, "K5": 1},
+    ("cuda-accurate", False): lambda L: {"K6": 4 * L, "K15": L, "K5": 1},
+    ("cuda-accurate", True): lambda L: {"K6": 4 * L, "K16": L, "K5": 1},
+    ("dense", False): lambda L: {"K6": 1, "K4": L, "K12": L - 1, "K11": 1, "K5": 1},
+    ("dense", True): lambda L: {"K6": 1, "K13": L, "K5": 1},
+}
+
+
+def served_run(eng, reqs, log: bool = False) -> dict:
+    """Serve ``reqs`` on ``eng``, all submitted at once and driven to idle,
+    with every launch counter set to 0 just before and read just after; each
+    decode window's launches recorded apart (admission prefills launch too).
+    With ``log``, every sampled logits row is kept, per request in order:
+    its first token's, then one a tick it was seated in (meant for
+    ticks_per_sync 1 and pipeline depth 1, where each such row gives the
+    request's next token)."""
+    import torch
+
+    wrappers = count_launches()
+    ticks, admit_s = [], [0.0]
+    rows: dict = {}
+    dispatch, start, sample, sample_first = (
+        eng._dispatch_tick, eng._start_request, eng._sample, eng._sample_first)
+
+    def counted_dispatch(active):
+        before = {k: w.launches for k, w in wrappers.items()}
+        dispatch(active)
+        ticks.append({k: w.launches - before[k] for k, w in wrappers.items()})
+
+    def timed_start(slot, req):
+        t0 = time.perf_counter()
+        start(slot, req)
+        admit_s[0] += time.perf_counter() - t0
+
+    def logged_sample(logits, sampled, draws):
+        for b, r in enumerate(eng.slots):
+            if r is not None:
+                rows.setdefault(id(r), []).append(logits[b].detach().float().clone())
+        return sample(logits, sampled, draws)
+
+    def logged_first(logits, req, pos):
+        rows[id(req)] = [logits.detach().float().clone()]
+        return sample_first(logits, req, pos)
+
+    eng._dispatch_tick, eng._start_request = counted_dispatch, timed_start
+    if log:
+        eng._sample, eng._sample_first = logged_sample, logged_first
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        queues = [eng.submit(p, g) for p, g in reqs]
+        submitted = list(eng.waiting.queue)  # the Request objects, in order
+        eng.run_until_idle()
+        results = [q.get(timeout=600) for q in queues]
+        torch.cuda.synchronize()
+    finally:
+        for name in ("_dispatch_tick", "_start_request", "_sample", "_sample_first"):
+            eng.__dict__.pop(name, None)
+    wall = time.perf_counter() - t0
+    for r in results:
+        if isinstance(r, Exception):
+            raise AssertionError(f"a served request failed: {r!r}")
+    return {
+        "launches": {k: w.launches for k, w in wrappers.items()}, "ticks": ticks, "wall_s": wall,
+        "admit_s": admit_s[0], "peak": torch.cuda.max_memory_allocated(),
+        "tokens": [r.tokens for r in results], "results": results,
+        "logits": [torch.stack(rows[id(r)]).cpu() for r in submitted] if log else None,
+    }
+
+
+def assert_ticks(run: dict, per_tick: dict, dn: str) -> int:
+    """Every decode window (ticks_per_sync 1) launched exactly ``per_tick``."""
+    want = {k: per_tick.get(k, 0) for k in run["launches"]}
+    bad = [t for t in run["ticks"] if t != want]
+    if not run["ticks"] or bad:
+        raise AssertionError(f"{dn}: launches per decode tick {bad[:1]}, want {want}")
+    return len(run["ticks"])
+
+
+def plain_replay(config, params, reqs, run: dict, kv_quant: bool, dtype) -> list:
+    """The served streams of ``run``, teacher-forced through the plain path:
+    the same paged engine (8 slots, 256-row pages, the prefix cache, so the
+    same admissions, prefix hits and fp-prefill-then-quantize rows) on
+    ``backend="torch"``, whose samplers return each request's served tokens
+    instead of sampling. Returns each request's logits rows, as a logged run
+    keeps them."""
+    import torch
+
+    from llama2_tpu_torch.runtime.generator import BOS
+    from llama2_tpu_torch.runtime.paged_engine import PagedBatchEngine
+
+    eng = PagedBatchEngine(config, params, batch_size=SERVE_SLOTS, page_size=SERVE_PAGE, prefix_cache=True,
+                           dtype=dtype, backend="torch", device="cuda", kv_quant=kv_quant, pipeline_depth=1)
+    served = {tuple(p): toks for (p, _), toks in zip(reqs, run["tokens"])}
+    rows: dict = {}
+
+    def forced(req, n):
+        toks = served[tuple(req.prompt)]
+        return toks[n] if n < len(toks) else BOS
+
+    def sample(logits, sampled, draws):
+        nxt = []
+        for b, r in enumerate(eng.slots):
+            if r is not None:
+                rows[id(r)].append(logits[b].float().cpu())
+            nxt.append(0 if r is None else forced(r, len(r.tokens)))
+        return torch.tensor(nxt, dtype=torch.int32, device=logits.device)
+
+    def sample_first(logits, req, pos):
+        rows[id(req)] = [logits.float().cpu()]
+        return forced(req, len(req.prompt))
+
+    eng._sample, eng._sample_first = sample, sample_first
+    queues = [eng.submit(p, g) for p, g in reqs]
+    submitted = list(eng.waiting.queue)
+    eng.run_until_idle()
+    if [q.get(timeout=600).tokens for q in queues] != run["tokens"]:
+        raise AssertionError("the forced replay did not follow the served streams")
+    return [torch.stack(rows[id(r)]) for r in submitted]
+
+
+def check_served_tokens(params, config, reqs, run: dict, kv_quant: bool, dtype, dn: str, rule: str) -> None:
+    """Each greedy stream of a logged run against its teacher-forced replay
+    through the plain path (``plain_replay``). The distance is the largest
+    |engine logits - plain logits| over every greedy stream (PERF.md section
+    2): ``rule="margin"``: each token equals the plain argmax wherever the
+    plain top-2 margin exceeds twice it; ``"fp32-int8"``: that, and the
+    distance within F32_FAST_LOGIT_RTOL of the largest logit; ``"exact"``
+    (fp32 over an fp pool): every token, and the distance within
+    F32_LOGIT_ATOL."""
+    import torch
+
+    plain = plain_replay(config, params, reqs, run, kv_quant, dtype)
+    dist, absmax, pairs = 0.0, 0.0, []
+    for (prompt, gen), toks, lk, lp in zip(reqs, run["tokens"], run["logits"], plain):
+        if gen.temperature != 0.0:
+            continue
+        generated = toks[len(prompt):]
+        n = len(generated)
+        if lk[:n].argmax(-1).tolist() != generated or lp.shape != lk.shape:
+            raise AssertionError(f"{dn}: a served stream is not the argmax of its own logits")
+        dist = max(dist, float((lk - lp).abs().max()))
+        absmax = max(absmax, float(lp.abs().max()))
+        pairs.append((generated, lp[:n]))
+    checked = agree = total = 0
+    for generated, lp in pairs:
+        top2 = lp.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * dist
+        if rule == "exact":
+            clear[:] = True
+        ok = lp.argmax(-1) == torch.tensor(generated)
+        checked, agree, total = checked + int(clear.sum()), agree + int(ok[clear].sum()), total + len(generated)
+        if not bool(ok[clear].all()):
+            raise AssertionError(f"{dn}: a served token differs from the plain replay where it must not")
+    if (rule == "exact" and dist > F32_LOGIT_ATOL) or (rule == "fp32-int8" and dist > F32_FAST_LOGIT_RTOL * absmax):
+        raise AssertionError(f"{dn}: served logits {dist} from the plain path, past the {rule} bound")
+    say("serve", path=dn, greedy_streams=len(pairs), logit_max_abs_diff_vs_plain=f"{dist:.3e}",
+        logit_absmax=f"{absmax:.3f}", rule=rule, tokens_checked=f"{checked}/{total}",
+        equal_to_plain_there=f"{agree}/{checked}")
+
+
+def seat_long(eng, pos0: int) -> None:
+    """Seat a greedy request in every slot of ``eng`` at position pos0 over
+    pages of random contents (as if prefilled); each then runs to the end of
+    the context, S - pos0 ticks."""
+    import queue
+
+    import torch
+
+    from llama2_tpu_torch.config import GenerationConfig
+    from llama2_tpu_torch.runtime.batch_engine import Request
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    for name in ("k", "v", "ks", "vs"):
+        t = getattr(eng.pool, name)
+        if t is None:
+            continue
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=g, device="cuda", dtype=torch.int8))
+        elif name in ("ks", "vs"):
+            t.copy_(0.02 + 0.01 * torch.rand(t.shape, generator=g, device="cuda"))
+        else:
+            t.normal_(generator=g)
+    for b in range(eng.batch_size):
+        req = Request(prompt=[5] * (pos0 - 1), gen=GenerationConfig(temperature=0.0, steps=S),
+                      result_q=queue.Queue())
+        req.tokens, req.steps, req.ttft_s, req.admitted_at = [5] * pos0, S, 0.0, req.submitted_at
+        pages = eng._alloc(pos0 // eng.page_size + 1)
+        eng._slot_pages[b] = pages
+        eng._tables[b, : len(pages)] = pages
+        eng.slots[b] = req
+        eng._tokens[b], eng._pos[b], eng._argmax[b] = 5, pos0, True
+
+
+def profile_ticks(eng, dn: str, where: str, n: int = 16) -> None:
+    """``profile_steps`` over ``n`` decode ticks of the seated slots."""
+    import torch
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            eng._step()
+        eng._drain(0)
+        torch.cuda.synchronize()
+        return n, time.perf_counter() - t0
+
+    profile_steps(dn, where, run)
+
+
+def phase_serve(kv_quant: bool) -> dict:
+    """This slice's main path: ``PagedBatchEngine`` at full Llama-2-7B width,
+    32 layers, INT8 weights, bf16 activations, backend ``cuda``, 8 slots,
+    256-row pages, the prefix cache on, over a bf16 or an int8 pool, serving
+    serve_workload(). Three runs on fresh engines (the prefix cache starts
+    empty each time): timed, at pipeline depth 2; at depth 1 with every
+    logits row kept; at depth 2 again. Asserted: the launches of every decode
+    tick (SERVE_TICKS); the three runs' tokens equal; a prefix hit (request 2
+    hits with a suffix past 128 tokens); each greedy stream against its plain
+    replay (``check_served_tokens``). Printed: served and decode tok/s, TTFT
+    p50/p95 with queue wait and prefill apart, device and host ms a tick at
+    positions 17-32 and 4080-4095 (profiled), and peak memory against the
+    dense ``BatchEngine`` on the same requests. Returns the timed run's
+    launches."""
+    import torch
+
+    from llama2_tpu_torch.config import GenerationConfig
+    from llama2_tpu_torch.io.convert import random_q8_params
+    from llama2_tpu_torch.runtime.batch_engine import BatchEngine
+    from llama2_tpu_torch.runtime.paged_engine import PagedBatchEngine
+
+    config = config_7b(32)
+    L = config.n_layers
+    dn = f"q8/bf16/cuda/paged-{'int8' if kv_quant else 'bf16'}-pool/{L}L"
+    t0 = time.perf_counter()
+    params = random_q8_params(config, SEED, "cuda", torch.bfloat16, group_size=GROUP)
+    torch.cuda.synchronize()
+    say("serve", path=dn, params_built_s=f"{time.perf_counter() - t0:.1f}")
+    kw = dict(batch_size=SERVE_SLOTS, dtype=torch.bfloat16, backend="cuda", device="cuda",
+              kv_quant=kv_quant)
+
+    def engine(**extra):
+        eng = PagedBatchEngine(config, params, page_size=SERVE_PAGE, prefix_cache=True, **kw, **extra)
+        return eng
+
+    reqs = serve_workload()
+    eng = engine()
+    params = eng.params  # fused once; the later engines take the same tensors
+    # warm-up: kernels loaded, workspaces and the allocator's pools grown
+    served_run(eng, [(p[:40], GenerationConfig(temperature=0.0, steps=48)) for p, _ in reqs[:SERVE_SLOTS]])
+    eng = None
+    torch.cuda.empty_cache()
+
+    eng = engine()
+    timed = served_run(eng, reqs)
+    per_tick = SERVE_TICKS[("cuda", kv_quant)](L)
+    n_ticks = assert_ticks(timed, per_tick, dn)
+    hits = eng.metrics["prefix_hit_pages"]
+    if hits < 1:
+        raise AssertionError(f"{dn}: no prefix-cache hit")
+    pool_bytes = sum(t.nbytes for t in eng.pool.tensors)
+    pct = eng.ttft_percentiles()
+    n_tok = sum(len(t) - len(p) for t, (p, _) in zip(timed["tokens"], reqs))
+    say("serve", path=dn, requests=len(reqs), slots=SERVE_SLOTS, page=SERVE_PAGE, pool_pages=eng.pool.n_pages,
+        decode_ticks=n_ticks, per_tick=",".join(f"{k}={v}" for k, v in per_tick.items()),
+        prefix_hit_pages=hits, **{f"{k}_launches": v for k, v in timed["launches"].items() if v})
+    say("serve", path=dn, generated=n_tok, wall_s=f"{timed['wall_s']:.3f}",
+        served_tok_s=f"{n_tok / timed['wall_s']:.2f}",
+        decode_tok_s=f"{eng.metrics['tokens'] / (timed['wall_s'] - timed['admit_s']):.2f}",
+        admission_s=f"{timed['admit_s']:.3f}",
+        ttft_p50_ms=f"{pct['p50'] * 1e3:.2f}", ttft_p95_ms=f"{pct['p95'] * 1e3:.2f}",
+        queue_wait_p50_ms=f"{pct['queue_wait_p50'] * 1e3:.2f}",
+        queue_wait_p95_ms=f"{pct['queue_wait_p95'] * 1e3:.2f}",
+        prefill_p50_ms=f"{pct['prefill_p50'] * 1e3:.2f}", prefill_p95_ms=f"{pct['prefill_p95'] * 1e3:.2f}",
+        pool_GiB=f"{pool_bytes / 2**30:.2f}", peak_mem_GiB=f"{timed['peak'] / 2**30:.2f}")
+    eng = None
+    torch.cuda.empty_cache()
+
+    logged = served_run(engine(pipeline_depth=1), reqs, log=True)
+    torch.cuda.empty_cache()
+    again = served_run(engine(), reqs)
+    torch.cuda.empty_cache()
+    if not logged["tokens"] == timed["tokens"] == again["tokens"]:
+        raise AssertionError(f"{dn}: a rerun, or pipeline depth 1, gave other tokens")
+    say("serve", path=dn, rerun="tokens_equal", pipeline_depth_1_vs_2="tokens_equal")
+    check_served_tokens(params, config, reqs, logged, kv_quant, torch.bfloat16, dn, "margin")
+    logged = again = None
+
+    # device and host time a tick, short and long positions
+    eng = engine()
+    for p, g in reqs[:SERVE_SLOTS]:
+        eng.submit(p[:16], GenerationConfig(temperature=0.0, steps=16 + 40))
+    eng._admit()
+    profile_ticks(eng, dn, "pos_17_to_32")
+    eng._fail_all(RuntimeError("profile done"))
+    eng = None
+    torch.cuda.empty_cache()
+    eng = PagedBatchEngine(config, params, page_size=SERVE_PAGE,
+                           n_pages=SERVE_SLOTS * (S // SERVE_PAGE) + 1, **kw)
+    seat_long(eng, S - 16)
+    profile_ticks(eng, dn, f"pos_{S - 16}_to_{S - 1}")
+    eng = None
+    torch.cuda.empty_cache()
+
+    # the dense engine on the same requests: 8 slots of seq_len rows
+    dense = BatchEngine(config, params, **kw)
+    served_run(dense, [(p[:40], GenerationConfig(temperature=0.0, steps=48)) for p, _ in reqs[:SERVE_SLOTS]])
+    run = served_run(dense, reqs)
+    assert_ticks(run, SERVE_TICKS[("dense", kv_quant)](L), f"{dn} dense")
+    cache_bytes = sum(t.nbytes for t in dense.cache.values())
+    same = sum(a == b for x, y in zip(run["tokens"], timed["tokens"]) for a, b in zip(x, y))
+    say("serve", path=f"q8/bf16/cuda/dense-{'int8' if kv_quant else 'bf16'}-cache/{L}L",
+        per_tick=",".join(f"{k}={v}" for k, v in SERVE_TICKS[("dense", kv_quant)](L).items()),
+        served_tok_s=f"{n_tok / run['wall_s']:.2f}", cache_GiB=f"{cache_bytes / 2**30:.2f}",
+        peak_mem_GiB=f"{run['peak'] / 2**30:.2f}", paged_peak_mem_GiB=f"{timed['peak'] / 2**30:.2f}",
+        tokens_equal_to_paged=f"{same}/{sum(len(t) for t in timed['tokens'])}")
+    dense = None
+    params = None
+    torch.cuda.empty_cache()
+    return timed["launches"]
+
+
+def phase_serve_accurate(kv_quant: bool) -> dict:
+    """``cuda-accurate`` in fp32 at 8 layers, the paged engine over an fp32 or
+    an int8 pool (the composed layer: K6 four a layer, K15 or K16 one a
+    layer, K5): launches per tick asserted, and the greedy streams of a
+    logged run held to the plain path by the fp32 rules of PERF.md section 2
+    (fp pool: every token, logits within F32_LOGIT_ATOL; int8 pool: within
+    F32_FAST_LOGIT_RTOL of the largest logit, tokens where the margin is
+    clear). Returns the launches."""
+    import torch
+
+    from llama2_tpu_torch.io.convert import random_q8_params
+    from llama2_tpu_torch.runtime.paged_engine import PagedBatchEngine
+
+    config = config_7b(8)
+    L = config.n_layers
+    dn = f"q8/f32/cuda-accurate/paged-{'int8' if kv_quant else 'f32'}-pool/{L}L"
+    params = random_q8_params(config, SEED, "cuda", torch.float32, group_size=GROUP)
+    eng = PagedBatchEngine(config, params, batch_size=SERVE_SLOTS, page_size=SERVE_PAGE, prefix_cache=True,
+                           dtype=torch.float32, backend="cuda-accurate", device="cuda", kv_quant=kv_quant,
+                           pipeline_depth=1)
+    reqs = serve_workload()
+    run = served_run(eng, reqs, log=True)
+    per_tick = SERVE_TICKS[("cuda-accurate", kv_quant)](L)
+    n_ticks = assert_ticks(run, per_tick, dn)
+    say("serve", path=dn, decode_ticks=n_ticks, per_tick=",".join(f"{k}={v}" for k, v in per_tick.items()),
+        served_tok_s=f"{sum(len(t) - len(p) for t, (p, _) in zip(run['tokens'], reqs)) / run['wall_s']:.2f}",
+        **{f"{k}_launches": v for k, v in run["launches"].items() if v})
+    check_served_tokens(eng.params, config, reqs, run, kv_quant, torch.float32, dn,
+                        "fp32-int8" if kv_quant else "exact")
+    eng = params = None
+    torch.cuda.empty_cache()
+    return run["launches"]
+
+
 # ---------------------------------------------------------------- phase 4
 
 
@@ -1487,6 +2217,93 @@ def generate_bytes(path: str, spec: int) -> bytes:
     return tok.decode(res.tokens, first_prev=BOS)
 
 
+SERVER_PROMPTS = ("Once upon a time", "The little dog ran", "She opened the door")
+
+
+def phase_server(path: str) -> None:
+    """The HTTP server on the 2-layer checkpoint at ``path``, as a user
+    starts it: ``python -m llama2_tpu_torch.runtime.server <path> --quant int8
+    --paged --kernels cuda --dtype f32 --port 0``. Three concurrent greedy
+    requests must return ``Generator.generate``'s tokens and text for the
+    same prompts (fp32 activations, 2 layers), one sampled request its
+    budget; /health and /metrics answer; SIGINT stops it with exit 0."""
+    import signal
+    import threading
+    import urllib.request
+
+    import torch
+
+    from llama2_tpu_torch.config import GenerationConfig
+    from llama2_tpu_torch.io import load_any
+    from llama2_tpu_torch.quant.q8 import quantize_params
+    from llama2_tpu_torch.runtime.generator import Generator
+    from llama2_tpu_torch.tokenizer.tokenizer import Tokenizer
+
+    cmd = [sys.executable, "-m", "llama2_tpu_torch.runtime.server", path, "-z", TOKENIZER_BIN,
+           "--quant", "int8", "--paged", "--kernels", "cuda", "--dtype", "f32", "--port", "0"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, stderr=subprocess.PIPE, text=True)
+    killer = threading.Timer(600, proc.kill)  # a server that never comes up is killed
+    killer.start()
+    try:
+        lines = []
+        for line in proc.stderr:
+            lines.append(line)
+            if "serving on http://" in line:
+                break
+        url = next((w for w in lines[-1].split() if w.startswith("http://")), None) if lines else None
+        if url is None:
+            raise AssertionError("the server printed no address:\n" + "".join(lines))
+        up_s = time.perf_counter() - t0
+
+        def post(body):
+            req = urllib.request.Request(url + "/generate", data=json.dumps(body).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return json.loads(r.read())
+
+        results = {}
+        bodies = [{"prompt": p, "temperature": 0.0, "steps": 48} for p in SERVER_PROMPTS]
+        bodies.append({"prompt": SERVER_PROMPTS[0], "temperature": 0.8, "top_p": 0.9, "steps": 48, "seed": 7})
+        threads = [threading.Thread(target=lambda i=i, b=b: results.__setitem__(i, post(b)))
+                   for i, b in enumerate(bodies)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        if len(results) != len(bodies):
+            raise AssertionError(f"the server answered {len(results)} of {len(bodies)} requests")
+        with urllib.request.urlopen(url + "/health", timeout=30) as r:
+            health = json.loads(r.read())
+        with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+            metrics = json.loads(r.read())
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            rc = proc.wait(timeout=120)
+        finally:
+            killer.cancel()
+            if proc.poll() is None:
+                proc.kill()
+            proc.stderr.close()
+    if rc != 0:
+        raise AssertionError(f"the server exited {rc} on SIGINT")
+    config, params, _ = load_any(path)
+    tok = Tokenizer.from_file(TOKENIZER_BIN, config.vocab_size)
+    g = Generator(config, quantize_params(params), dtype=torch.float32, backend="cuda", device="cuda")
+    for i, prompt in enumerate(SERVER_PROMPTS):
+        want = g.generate(tok.encode(prompt), GenerationConfig(temperature=0.0, steps=48)).tokens
+        if results[i]["tokens"] != want or results[i]["text"] != tok.decode(want).decode("utf-8", "replace"):
+            raise AssertionError(f"served tokens for {prompt!r} differ from Generator.generate's")
+    sampled = results[len(SERVER_PROMPTS)]["tokens"]
+    if not 1 <= len(sampled) <= 48 or health.get("status") != "ok" or metrics.get("requests", 0) < len(bodies):
+        raise AssertionError(f"server answers malformed: {sampled}, {health}, {metrics}")
+    say("server", args="--quant_int8_--paged_--kernels_cuda_--dtype_f32", up_s=f"{up_s:.1f}",
+        greedy_requests=len(SERVER_PROMPTS), tokens_equal_to_generator="all", sampled_tokens=len(sampled),
+        health=health["status"], metrics_requests=metrics["requests"],
+        ttft_p50_ms=f"{metrics['ttft_p50_ms']:.2f}", sigint_exit=rc)
+
+
 def phase_cli() -> None:
     """The CLI on a v0 fp32 checkpoint at 7B width with 2 layers; the same
     file quantized on load (``--quant int8``); the ak42 INT8 file that
@@ -1531,6 +2348,7 @@ def phase_cli() -> None:
             out_kv, _ = run_cli(q8_path, "--kernels", "cuda", "--dtype", "bf16", *extra)
             if out_kv != generate_bytes(q8_path, spec):
                 raise AssertionError(f"the CLI with {' '.join(extra)} prints other bytes than Generator.generate")
+        phase_server(path)
     finally:
         for f in (path, q8_path):
             if os.path.exists(f):
@@ -2024,6 +2842,178 @@ def phase_timing_q8kv(params, launches: dict, cycles_per_ms: float) -> list[dict
     return rows
 
 
+PAGED_LINES = {"K15": 364, "K16": 629, "K17": 824, "K18": 1015}
+
+
+def phase_timing_paged(launches: dict, cycles_per_ms: float) -> list[dict]:
+    """K15-K18 at the served path's shapes: 8 slots at the 7B head layout,
+    256-row pages handed out shuffled, every slot at pos 256 and at 4095,
+    bf16 activations over a bf16 pool (K15, K17) and an int8 pool (K16,
+    K18). Four layers of pool; call i uses layer i % 4, and a layer's K/V
+    (34-537 MB) passes the 50 MB L2. Bound: each byte once, the K/V rows of
+    keys 0..pos of every slot (int8 plus two float32 scales a row) and the
+    activations, over the memory rate; or 4 * hs operations a (query head,
+    key) pair over the bf16 peak. No PyTorch call computes paged attention,
+    so ``library_ms`` is null; printed beside it are SDPA on a dense bf16
+    cache of the same lengths and the dense twin kernel (K2, K8, K4, K9) on
+    the same rows gathered into a dense cache."""
+    import torch
+    import torch.nn.functional as F
+
+    from llama2_tpu_torch.ops.cuda import attention as fa
+    from llama2_tpu_torch.ops.cuda import attention_q8 as aq
+    from llama2_tpu_torch.ops.cuda import paged_attention as tpa
+
+    dtype, dn, esize = torch.bfloat16, "bf16", 2
+    L, B, page, (H, KVH, hs) = 4, SERVE_SLOTS, SERVE_PAGE, LAYOUTS["7B"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    cpu_gen = torch.Generator().manual_seed(SEED + 13)
+    rows, src = [], "llama2_tpu_torch/csrc/paged_attention.cu"
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q, qkv = randn(B, H, hs), randn(B, H + 2 * KVH, hs)
+    kn, vn = randn(B, KVH, 1, hs), randn(B, KVH, 1, hs)
+    k8n, ksn = aq.quantize_kv_rows(kn.float())
+    v8n, vsn = aq.quantize_kv_rows(vn.float())
+    for p in (256, S - 1):
+        n = p // page + 1
+        n_pages = B * n + 1
+        perm = (torch.randperm(n_pages - 1, generator=cpu_gen) + 1).reshape(B, n)
+        table = torch.zeros((B, S // page), dtype=torch.int32)
+        table[:, :n] = perm
+        table = table.cuda()
+        pos = torch.full((B,), p, dtype=torch.int32, device="cuda")
+        wpage = table[:, p // page].contiguous()
+        wrow = (pos % page).contiguous()
+        cos_il, sin_il = rope_tables(pos, hs)
+        shape = (L, n_pages, KVH, page, hs)
+        kp = torch.empty(shape, dtype=dtype, device="cuda").normal_(generator=gen)
+        vp = torch.empty(shape, dtype=dtype, device="cuda").normal_(generator=gen)
+        k8 = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+        v8 = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+        ks = 0.02 + 0.01 * torch.rand(shape[:-1], generator=gen, device="cuda")
+        vs = 0.02 + 0.01 * torch.rand(shape[:-1], generator=gen, device="cuda")
+        # the dense twins' caches: the same rows, gathered (L, B, KVH, n * page, hs)
+        kd, vd = (torch.stack([tpa.gather_pages(t[l], table, n) for l in range(L)]) for t in (kp, vp))
+        k8d, v8d = (torch.stack([tpa.gather_pages(t[l], table, n) for l in range(L)]) for t in (k8, v8))
+        ksd, vsd = (torch.stack([tpa.gather_pages(t[l], table, n) for l in range(L)]) for t in (ks, vs))
+        q8 = (k8, ks, v8, vs)
+        coords = (wpage, wrow)
+
+        def sdpa(i):
+            return F.scaled_dot_product_attention(q[:, :, None], kd[i % L][:, :, : p + 1], vd[i % L][:, :, : p + 1])
+
+        kv_fp = esize * 2 * B * KVH * (p + 1) * hs
+        kv_q8 = 2 * B * KVH * (p + 1) * (hs + 4)
+        ops = 4 * hs * B * H * (p + 1)
+        cases = (
+            ("K15", "paged_decode_attention_stacked",
+             lambda i: tpa.paged_decode_attention_stacked(q, kp, vp, table, kn, vn, *coords, i % L, pos),
+             lambda i: tpa.paged_decode_attention_stacked_plain(q, kp, vp, table, kn, vn, *coords, i % L, pos),
+             lambda i: fa.flash_decode_attention_stacked(q, kd, vd, kn, vn, i % L, pos), "K2",
+             kv_fp + esize * (2 * B * H * hs + 2 * B * KVH * hs)),
+            ("K16", "paged_decode_attention_q8_stacked",
+             lambda i: tpa.paged_decode_attention_q8_stacked(q, *q8, table, k8n, ksn, v8n, vsn, *coords, i % L, pos),
+             lambda i: tpa.paged_decode_attention_q8_stacked_plain(q, *q8, table, k8n, ksn, v8n, vsn, *coords,
+                                                                   i % L, pos),
+             lambda i: aq.flash_decode_attention_q8_stacked(q, k8d, ksd, v8d, vsd, k8n, ksn, v8n, vsn, i % L, pos),
+             "K8", kv_q8 + esize * 2 * B * H * hs + B * KVH * (2 * hs + 8)),
+            ("K17", "paged_decode_attention_fused",
+             lambda i: tpa.paged_decode_attention_fused(qkv, kp, vp, table, cos_il, sin_il, *coords, i % L, pos,
+                                                        n_heads=H),
+             lambda i: tpa.paged_decode_attention_fused_plain(qkv, kp, vp, table, cos_il, sin_il, *coords,
+                                                              i % L, pos, H),
+             lambda i: fa.flash_decode_attention_fused(qkv, kd, vd, cos_il, sin_il, i % L, pos, n_heads=H), "K4",
+             kv_fp + esize * B * (H + 2 * KVH + H) * hs + 8 * B * hs),
+            ("K18", "paged_decode_attention_q8_fused",
+             lambda i: tpa.paged_decode_attention_q8_fused(qkv, *q8, table, cos_il, sin_il, *coords, i % L, pos,
+                                                           n_heads=H),
+             lambda i: tpa.paged_decode_attention_q8_fused_plain(qkv, *q8, table, cos_il, sin_il, *coords,
+                                                                 i % L, pos, H),
+             lambda i: aq.flash_decode_attention_q8_fused(qkv, k8d, ksd, v8d, vsd, cos_il, sin_il, i % L, pos,
+                                                          n_heads=H), "K9",
+             kv_q8 + esize * B * (H + 2 * KVH + H) * hs + 8 * B * hs),
+        )
+        for tag, name, kern, plain, twin, twin_tag, nbytes in cases:
+            got, want = kern(0)[0], plain(0)[0]
+            torch.cuda.synchronize()
+            if tag in ("K16", "K18"):
+                qt = q if tag == "K16" else aq.rope_quantize_plain(qkv, cos_il, sin_il, H)[0]
+                dense = [tpa.gather_pages(t[0], table, n) for t in q8]
+                _, A, R = q8kv_terms(qt[:, None], *dense, pos.long()[:, None])
+                err = compare(got, want, dtype, q8kv_tolerance(dtype, A[:, 0], R[:, 0]))
+            else:
+                err = compare(got, want, dtype)
+            n_iter = 256 if p == 256 else 64
+            ms, qk = time_ms(kern, n_iter, cycles_per_ms)
+            plain_ms, qp = time_ms(plain, 4, cycles_per_ms, n_warm=1)
+            twin_ms, qt_ = time_ms(twin, n_iter, cycles_per_ms)
+            sdpa_ms, qs = time_ms(sdpa, n_iter, cycles_per_ms)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / PEAK_FLOPS["bf16"] * 1e3
+            bound, by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+            say("time", kernel=f"{name}[{dn},B={B}]", pos=p, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+                **{f"dense_twin_{twin_tag}_ms": f"{twin_ms:.4f}"}, yardstick_SDPA_bf16_cache_ms=f"{sdpa_ms:.4f}",
+                library_ms="none_(no_single_call)", bound_ms=f"{bound:.4f}", bound_by=by,
+                MB=f"{nbytes / 1e6:.2f}", GB_per_s=f"{nbytes / ms / 1e6:.0f}", max_abs_err=f"{err:.3e}",
+                queued_kernel_plain_twin_sdpa=f"{qk},{qp},{qt_},{qs}")
+            if p == 256:  # the kernel line's rows; full context is printed and kept in PERF.md
+                rows.append({
+                    "name": f"{name}[{dn},B={B}]", "route": "cuda", "source": src,
+                    "replaces": f"llama2_tpu/ops/pallas/paged_attention.py:{PAGED_LINES[tag]}",
+                    "launches": launches[tag], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound, "bound_by": by, "library_ms": None,
+                })
+        del kp, vp, k8, v8, ks, vs, kd, vd, k8d, v8d, ksd, vsd, q8
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_dense_timing(cycles_per_ms: float) -> None:
+    """The dense decode attention kernels alone (K2, K4, K8, K9; bf16, the 7B
+    head layout, 1 and 8 rows, every row at pos 256 and at 4095, call i on
+    layer i % 4 of a 4-layer cache), for comparing two trees in one call:
+    ``python3 chip_smoke.py --dense-timing`` runs it and nothing else. It
+    uses only wrappers every tree since slice 4 has, so this script can time
+    an older checkout's kernels from that checkout's root."""
+    import torch
+
+    from llama2_tpu_torch.ops.cuda import attention as fa
+    from llama2_tpu_torch.ops.cuda import attention_q8 as aq
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    L, (H, KVH, hs) = 4, LAYOUTS["7B"]
+    for B in (1, 8):
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+        kc, vc = randn(L, B, KVH, S, hs), randn(L, B, KVH, S, hs)
+        k8, ks = aq.quantize_kv_rows(kc.float())
+        v8, vs = aq.quantize_kv_rows(vc.float())
+        q, qkv = randn(B, H, hs), randn(B, H + 2 * KVH, hs)
+        kn, vn = randn(B, KVH, 1, hs), randn(B, KVH, 1, hs)
+        k8n, ksn = aq.quantize_kv_rows(kn.float())
+        v8n, vsn = aq.quantize_kv_rows(vn.float())
+        for p in (256, S - 1):
+            pos = torch.full((B,), p, dtype=torch.int32, device="cuda")
+            cos_il, sin_il = rope_tables(pos, hs)
+            for tag, fn in (
+                ("K2", lambda i: fa.flash_decode_attention_stacked(q, kc, vc, kn, vn, i % L, pos)),
+                ("K4", lambda i: fa.flash_decode_attention_fused(qkv, kc, vc, cos_il, sin_il, i % L, pos,
+                                                                 n_heads=H)),
+                ("K8", lambda i: aq.flash_decode_attention_q8_stacked(q, k8, ks, v8, vs, k8n, ksn, v8n, vsn,
+                                                                      i % L, pos)),
+                ("K9", lambda i: aq.flash_decode_attention_q8_fused(qkv, k8, ks, v8, vs, cos_il, sin_il, i % L,
+                                                                    pos, n_heads=H)),
+            ):
+                ms, queued = time_ms(fn, 256 if p == 256 else 64, cycles_per_ms)
+                say("dense-time", kernel=tag, dtype="bf16", B=B, pos=p, ms=f"{ms:.4f}", queued=queued)
+        del kc, vc, k8, v8
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2039,10 +3029,19 @@ def main() -> int:
         torch=torch.__version__, cuda=torch.version.cuda)
     t_start = time.perf_counter()
     phase_build()
+    if sys.argv[1:] == ["--dense-timing"]:
+        phase_dense_timing(sleep_cycles_per_ms())
+        print(smi)
+        return 0
     phase_kernels()
     phase_kernels_q8()
     phase_kernels_mlp()
     phase_kernels_q8kv()
+    phase_kernels_batch8()
+    phase_kernels_paged()
+    # this slice's main path, served: the paged engine over both pools
+    served = {kv: phase_serve(kv) for kv in (False, True)}
+    accurate = {kv: phase_serve_accurate(kv) for kv in (False, True)}
     # the fp-cache main path of slice 3, then this slice's: the int8 cache
     fast = phase_generate_q8("two-launch", "cuda", torch.bfloat16, speculative=True)
     q8_launches = {
@@ -2071,6 +3070,8 @@ def main() -> int:
     for dtype in (torch.bfloat16, torch.float32):
         kernels += phase_timing(dtype, launches[dtype], cycles_per_ms)
     kernels += phase_timing_q8(q8_launches, cycles_per_ms)
+    kernels += phase_timing_paged({"K15": accurate[False]["K15"], "K16": accurate[True]["K16"],
+                                   "K17": served[False]["K17"], "K18": served[True]["K18"]}, cycles_per_ms)
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

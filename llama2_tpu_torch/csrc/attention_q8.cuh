@@ -1,6 +1,8 @@
 // Attention over the int8 KV cache: the device code shared by the kernels of
-// attention_q8.cu (K7 window, K8 stacked append, K9 glue-fused) and by the
-// attention phase of the whole-layer kernel in mlp_block.cu (K13).
+// attention_q8.cu (K7 window, K8 stacked append, K9 glue-fused), by the
+// attention phase of the whole-layer kernel in mlp_block.cu (K13) and, over
+// page pools read through a page table (att_item<true>), by the paged kernels
+// of paged_attention.cu (K16 append, K18 glue-fused).
 //
 // Cache: int8 K/V rows (L, B, KVH, S, hs) with one float32 scale per row,
 // (L, B, KVH, S). Arithmetic, as the Pallas kernels of
@@ -84,6 +86,13 @@ struct Params {
   int* tickets;         // B * KVH * n_rg; zero on entry and on exit
   int mode, dtype, layer, L, B, T, H, KVH, S, hs, nsplit, n_rg;
   float scale;
+  // paged pools (att_item<true>): k8/v8 (L, P, KVH, page, hs) and ks/vs
+  // (L, P, KVH, page); row t of slot b in page table[b, t / page] at row
+  // t % page; this step's row written at (wpage[b], wrow[b])
+  const int* table;  // (B, max_pages)
+  const int* wpage;  // (B,)
+  const int* wrow;   // (B,)
+  int P, page, max_pages;
 };
 
 struct Smem {
@@ -163,7 +172,12 @@ __device__ __forceinline__ void stage_rows(const int8_t* src, int8_t* dst, int n
 }
 
 // One work item: (b, kv head, row group, split). Called by all threads of a
-// block of kThreads; `sm` is the block's shared memory.
+// block of kThreads; `sm` is the block's shared memory. kPaged: the caches
+// are page pools read through the table (K16, K18), else dense planes. Key
+// rows are staged a chunk at a time, a chunk one contiguous run of rows: of
+// the plane, or of one page (a chunk ends at a page boundary; with
+// page % 32 == 0 every chunk is a whole kCK rows of one page).
+template <bool kPaged = false>
 __device__ void att_item(const Params& a, int item, Smem& sm) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int hs = a.hs, H = a.H, KVH = a.KVH, G = H / KVH;
@@ -183,7 +197,20 @@ __device__ void att_item(const Params& a, int item, Smem& sm) {
   const int rsb = round4(hs) + 4;  // staged row stride, bytes (4-byte words, no bank conflicts at 128)
   const bool fused = a.mode == kFused || a.mode == kLayer;
   const bool has_new = a.mode != kWindow;
-  const size_t row0 = (((size_t)a.layer * a.B + b) * KVH + kvh) * (size_t)a.S;  // plane's first row
+  // the row index (of the scale arrays; times hs for the rows) of key t
+  const size_t row0 = (((size_t)a.layer * a.B + b) * KVH + kvh) * (size_t)a.S;  // dense plane's row 0
+  const int* table = kPaged ? a.table + (size_t)b * a.max_pages : nullptr;
+  auto row_at = [&](int pg, int r) -> size_t {
+    return (((size_t)a.layer * a.P + pg) * KVH + kvh) * (size_t)a.page + r;
+  };
+  auto key_row = [&](int t) -> size_t {
+    if constexpr (kPaged) return row_at(table[t / a.page], t % a.page);
+    return row0 + t;
+  };
+  // where this step's row is written; the key whose row this is takes the
+  // new row from shared memory and never reads it back
+  size_t new_row = row0 + pos;
+  if constexpr (kPaged) new_row = row_at(a.wpage[b], a.wrow[b]);
   const size_t qkv_row = (size_t)b * (H + 2 * KVH);
   // the splits this row's context fills, a chunk each at least (the launch
   // has nsplit for the whole cache): the others return at once, and the last
@@ -259,7 +286,7 @@ __device__ void att_item(const Params& a, int item, Smem& sm) {
   // the append: one item of each (b, kv head) writes the new row; no item
   // reads that row back from the cache
   if (has_new && split == 0 && rg == 0) {
-    const size_t at = row0 + pos;
+    const size_t at = new_row;
     for (int d = tid; d < hs; d += kThreads) {
       a.k8[at * hs + d] = sm.kn[d];
       a.v8[at * hs + d] = sm.vn[d];
@@ -283,18 +310,21 @@ __device__ void att_item(const Params& a, int item, Smem& sm) {
 #pragma unroll
   for (int j = 0; j < kNJ; ++j) acc[j] = 0.f;
 
-  for (int c0 = t_begin; c0 < t_end; c0 += kCK) {
-    const int nvalid = min(kCK, t_end - c0);
+  int nvalid = 0;
+  for (int c0 = t_begin; c0 < t_end; c0 += nvalid) {
+    nvalid = min(kCK, t_end - c0);
+    if constexpr (kPaged) nvalid = min(nvalid, a.page - c0 % a.page);
+    const size_t rc = key_row(c0);  // the chunk's rows are rc .. rc + nvalid - 1
     __syncthreads();  // the previous chunk's rows and products are read
-    stage_rows(a.k8 + (row0 + c0) * hs, sm.k, nvalid * hs, hs, rsb, vec16);
-    stage_rows(a.v8 + (row0 + c0) * hs, sm.v, nvalid * hs, hs, rsb, vec16);
+    stage_rows(a.k8 + rc * hs, sm.k, nvalid * hs, hs, rsb, vec16);
+    stage_rows(a.v8 + rc * hs, sm.v, nvalid * hs, hs, rsb, vec16);
     for (int c = tid; c < nvalid; c += kThreads) {
-      sm.ks[c] = a.ks[row0 + c0 + c];
-      sm.vs[c] = a.vs[row0 + c0 + c];
+      sm.ks[c] = a.ks[rc + c];
+      sm.vs[c] = a.vs[rc + c];
     }
     __syncthreads();
-    if ((a.mode == kAppend || a.mode == kFused) && pos >= c0 && pos < c0 + nvalid) {
-      const int c = pos - c0;  // the new row, from the operand
+    if ((a.mode == kAppend || a.mode == kFused) && new_row >= rc && new_row < rc + nvalid) {
+      const int c = static_cast<int>(new_row - rc);  // the new row, from the operand
       for (int d = tid; d < hs; d += kThreads) {
         sm.k[c * rsb + d] = sm.kn[d];
         sm.v[c * rsb + d] = sm.vn[d];

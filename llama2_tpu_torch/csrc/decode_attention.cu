@@ -35,119 +35,18 @@
 // shared memory BEFORE it is dotted, because the TPU kernel reads it back
 // from the cache; the value row is the raw qkv row. The same loop then runs
 // with the new rows taken from shared memory and qkv instead of k_new/v_new.
-#include <math.h>
-
-#include "common.cuh"
+// The loop and the prologue live in decode_attention.cuh, shared with the
+// paged kernels of paged_attention.cu, which differ only in where a key row
+// lives.
+#include "decode_attention.cuh"
 
 namespace {
 
-using llama2::from_f32;
+using llama2::fpa::attend;
+using llama2::fpa::DenseRows;
+using llama2::fpa::kWarps;
+using llama2::fpa::rope_prologue;
 using llama2::to_f32;
-using llama2::warp_sum;
-
-constexpr int kWarps = 8;
-
-// The online-softmax read over keys 0..p of one (b, query head), then the
-// append and the merge of the warps. qr: this lane's query elements, scaled.
-// kn/vn: the step's new rows (row p is taken from them, never from the
-// cache); they may point to global or shared memory.
-// NPL: head elements per lane (hs <= 32 * NPL); KC: keys per warp chunk
-template <typename T, int NPL, int KC>
-__device__ __forceinline__ void attend(const float (&qr)[NPL], T* k_cache, T* v_cache,
-                                       const T* kn, const T* vn, T* oh,
-                                       size_t plane, int p, int hs, bool write_back) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const T* kp = k_cache + plane;
-  const T* vp = v_cache + plane;
-
-  float m = -INFINITY, l = 0.f;
-  float acc[NPL];
-#pragma unroll
-  for (int i = 0; i < NPL; ++i) acc[i] = 0.f;
-
-  for (int base = warp * KC; base <= p; base += kWarps * KC) {
-    // Every load is unconditional and raw, converted only after all are
-    // issued, so the chunk's loads are in flight together (predicated bf16
-    // loads converted one at a time compile to loads that wait on each
-    // other). A chunk row past p re-reads row p (its score is masked
-    // below); a lane past hs re-reads element hs-1 (its q is 0).
-    T kraw[KC][NPL], vraw[KC][NPL];
-#pragma unroll
-    for (int c = 0; c < KC; ++c) {
-      const int t = min(base + c, p);
-      const T* kr = t == p ? kn : kp + (size_t)t * hs;
-      const T* vr = t == p ? vn : vp + (size_t)t * hs;
-#pragma unroll
-      for (int i = 0; i < NPL; ++i) {
-        const int d = min(lane + 32 * i, hs - 1);
-        kraw[c][i] = kr[d];
-        vraw[c][i] = vr[d];
-      }
-    }
-    float s[KC];
-    float smax = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < KC; ++c) {
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < NPL; ++i) part = fmaf(qr[i], to_f32(kraw[c][i]), part);
-      s[c] = base + c <= p ? warp_sum(part) : -INFINITY;
-      smax = fmaxf(smax, s[c]);
-    }
-    // finite: key `base` <= p is always in the window
-    const float m_new = fmaxf(m, smax);
-    const float alpha = expf(m - m_new);
-    l *= alpha;
-#pragma unroll
-    for (int i = 0; i < NPL; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int c = 0; c < KC; ++c) {
-      const float pc = expf(s[c] - m_new);
-      l += pc;
-#pragma unroll
-      for (int i = 0; i < NPL; ++i) acc[i] = fmaf(pc, to_f32(vraw[c][i]), acc[i]);
-    }
-    m = m_new;
-  }
-
-  if (write_back) {
-    T* kw = k_cache + plane + (size_t)p * hs;
-    T* vw = v_cache + plane + (size_t)p * hs;
-    for (int d = threadIdx.x; d < hs; d += blockDim.x) {
-      kw[d] = kn[d];
-      vw[d] = vn[d];
-    }
-  }
-
-  // merge the warps' partial softmax states
-  __shared__ float sm_m[kWarps], sm_l[kWarps];
-  __shared__ float sm_acc[kWarps][NPL * 32];
-  if (lane == 0) {
-    sm_m[warp] = m;
-    sm_l[warp] = l;
-  }
-#pragma unroll
-  for (int i = 0; i < NPL; ++i) sm_acc[warp][lane + 32 * i] = acc[i];
-  __syncthreads();
-
-  float M = -INFINITY;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sm_m[w]);
-  float L = 0.f;
-  float wscale[kWarps];  // a warp that saw no key has m = -inf: weight 0
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    wscale[w] = expf(sm_m[w] - M);
-    L = fmaf(sm_l[w], wscale[w], L);
-  }
-  for (int d = threadIdx.x; d < hs; d += blockDim.x) {
-    float o = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) o = fmaf(sm_acc[w][d], wscale[w], o);
-    oh[d] = from_f32<T>(o / L);
-  }
-}
 
 template <typename T, int NPL, int KC>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -160,7 +59,7 @@ decode_kernel(const T* __restrict__ q, T* k_cache, T* v_cache,
   const int G = H / KVH;
   const int kvh = h / G;
   const int lane = threadIdx.x & 31;
-  const size_t plane = (((size_t)layer * B + b) * KVH + kvh) * (size_t)S * hs;
+  const DenseRows rows{(((size_t)layer * B + b) * KVH + kvh) * (size_t)S * hs, hs, pos[b]};
 
   // q pre-scaled in f32, as the JAX kernel does before its dot
   float qr[NPL];
@@ -172,17 +71,7 @@ decode_kernel(const T* __restrict__ q, T* k_cache, T* v_cache,
   }
   attend<T, NPL, KC>(qr, k_cache, v_cache, k_new + ((size_t)b * KVH + kvh) * hs,
                      v_new + ((size_t)b * KVH + kvh) * hs,
-                     out + ((size_t)b * H + h) * hs, plane, pos[b], hs, h % G == 0);
-}
-
-// one interleaved-pair rotation: the pair's other element is one lane away
-// (the lane's element index has the lane's parity); products are rounded
-// separately so no FMA contraction changes the bits
-__device__ __forceinline__ float rope_interleaved(float x, float c, float s, int lane) {
-  const float other = __shfl_xor_sync(0xffffffffu, x, 1);
-  const float xc = __fmul_rn(x, c);
-  const float os = __fmul_rn(other, s);
-  return (lane & 1) ? __fadd_rn(os, xc) : __fsub_rn(xc, os);
+                     out + ((size_t)b * H + h) * hs, rows, rows.pos, hs, h % G == 0);
 }
 
 template <typename T, int NPL, int KC>
@@ -195,31 +84,14 @@ decode_fused_kernel(const T* __restrict__ qkv, const float* __restrict__ cos_il,
   const int b = blockIdx.y;
   const int G = H / KVH;
   const int kvh = h / G;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int rows = H + 2 * KVH;
-  const size_t plane = (((size_t)layer * B + b) * KVH + kvh) * (size_t)S * hs;
-  const T* q_raw = qkv + ((size_t)b * rows + h) * hs;
-  const T* k_raw = qkv + ((size_t)b * rows + H + kvh) * hs;
-  const T* v_raw = qkv + ((size_t)b * rows + H + KVH + kvh) * hs;
+  const DenseRows rows{(((size_t)layer * B + b) * KVH + kvh) * (size_t)S * hs, hs, pos[b]};
+  const T* v_raw = qkv + ((size_t)b * (H + 2 * KVH) + H + KVH + kvh) * hs;
 
   __shared__ T k_roped[NPL * 32];
   float qr[NPL];
-#pragma unroll
-  for (int i = 0; i < NPL; ++i) {
-    const int d = lane + 32 * i;
-    const bool ok = d < hs;  // hs is even: a pair is in or out whole
-    const float c = ok ? cos_il[(size_t)b * hs + d] : 0.f;
-    const float s = ok ? sin_il[(size_t)b * hs + d] : 0.f;
-    const float xq = ok ? to_f32(q_raw[d]) : 0.f;
-    const float xk = ok ? to_f32(k_raw[d]) : 0.f;
-    qr[i] = rope_interleaved(xq, c, s, lane) * scale;
-    const float kr = rope_interleaved(xk, c, s, lane);
-    if (warp == 0 && ok) k_roped[d] = from_f32<T>(kr);
-  }
-  __syncthreads();
+  rope_prologue<T, NPL>(qkv, cos_il, sin_il, b, h, kvh, H, KVH, hs, scale, qr, k_roped);
   attend<T, NPL, KC>(qr, k_cache, v_cache, k_roped, v_raw,
-                     out + ((size_t)b * H + h) * hs, plane, pos[b], hs, h % G == 0);
+                     out + ((size_t)b * H + h) * hs, rows, rows.pos, hs, h % G == 0);
 }
 
 template <typename T, int NPL>

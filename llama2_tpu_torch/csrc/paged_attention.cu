@@ -1,0 +1,258 @@
+// Paged decode attention over layer-stacked page pools, with this step's K/V
+// rows appended in place at per-slot write coordinates (K15, K16, K17, K18).
+//
+// Replaces, in llama2_tpu/ops/pallas/paged_attention.py:
+//   ::paged_decode_attention_stacked (K15): fp pools; the roped query
+//     (B, H, hs) and this step's rows k_new/v_new (B, KVH, hs) in the pool
+//     dtype;
+//   ::paged_decode_attention_q8_stacked (K16): int8 pools with float32 scale
+//     pools; this step's rows already quantized, with their scales;
+//   ::paged_decode_attention_fused (K17): K15 on the QKV projection's raw
+//     pre-RoPE rows (B, H + 2 KVH, hs), RoPE on q and k in the kernel, the
+//     rotated K row rounded to the pool dtype before it is dotted;
+//   ::paged_decode_attention_q8_fused (K18): K16 on the raw rows, with RoPE
+//     and the float32 row quantization (__fdiv_rn, rintf) in the kernel.
+//
+// Pools (L, P, KVH, page, hs), scale pools (L, P, KVH, page). Row t of slot b
+// lives at [layer, table[b, t / page], kvh, t % page]; table entries past
+// pos[b] / page are never read. This step's row is written at
+// [layer, write_page[b], kvh, write_row[b]], and attention runs over keys
+// 0..pos[b]; a key whose address is the write address takes the new row.
+//
+// The device code is the dense kernels' own, with a row-address policy that
+// reads through the table: decode_attention.cuh for the fp pools (one block
+// a (b, query head), 8 warps over the keys; the dense K2/K4) and
+// attention_q8.cuh for the int8 pools (work items of (b, kv head, split of
+// the keys) merged in split order by a ticketed last split, no float atomics,
+// the same bits on a rerun; the dense K8/K9). A chunk of the int8 kernels'
+// staged keys ends at a page boundary, so each is one contiguous run of rows.
+// Offsets are 64-bit: at Llama-2-7B widths a pool of 64 pages holds 2^31
+// elements over its 32 layers.
+//
+// Bound on this card: bytes. A step reads the K/V rows of keys 0..pos[b] of
+// every (b, kv head) once (plus two float32 scales a row over an int8 pool):
+// at 7B widths, 8 slots at pos 4095 and a bf16 pool, 537 MB, 0.160 ms at
+// 3.35 TB/s. The table lookup costs an integer division a key (fp) or a chunk
+// (int8): these are no faster than the dense kernels.
+//
+// Inactive slots: the engine gives them all-zero table rows, so they read
+// the scratch page 0 and write their rows there; several may write the same
+// scratch row in one launch, and read rows another writes. That race is
+// harmless only because nothing live reads page 0 (the engine never hands it
+// out): those slots' outputs are discarded, and they stay finite because
+// every row ever written to page 0 is a finite row.
+//
+// The Pallas kernels' TPU rules have no counterpart: no aligned
+// read-modify-write window around an int8 row (a block writes the row's
+// bytes and scale directly), so no page_size % 128 for int8 pools; no
+// hs % 128; no padding of the new rows to 8.
+#include "attention_q8.cuh"
+#include "decode_attention.cuh"
+
+namespace {
+
+using llama2::to_f32;
+using llama2::fpa::attend;
+using llama2::fpa::kWarps;
+using llama2::fpa::PagedRows;
+using llama2::fpa::rope_prologue;
+
+__device__ __forceinline__ PagedRows paged_rows(const int* table, const int* wpage, const int* wrow,
+                                                int b, int layer, int P, int page, int max_pages,
+                                                int KVH, int kvh, int hs) {
+  PagedRows r{table + (size_t)b * max_pages, (size_t)layer * P, KVH, kvh, page, hs, 0};
+  r.woff = r.at(wpage[b], wrow[b]);
+  return r;
+}
+
+struct PagedArgs {
+  const void* table;
+  const void* wpage;
+  const void* wrow;
+  const void* pos;
+  int layer, B, H, KVH, P, page, max_pages, hs;
+  float scale;
+};
+
+template <typename T, int NPL, int KC>
+__global__ void __launch_bounds__(kWarps * 32)
+paged_decode_kernel(const T* __restrict__ q, T* k_pool, T* v_pool, const T* __restrict__ k_new,
+                    const T* __restrict__ v_new, T* __restrict__ out, const PagedArgs a) {
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int G = a.H / a.KVH;
+  const int kvh = h / G;
+  const int lane = threadIdx.x & 31;
+  const int hs = a.hs;
+  const PagedRows rows = paged_rows(static_cast<const int*>(a.table), static_cast<const int*>(a.wpage),
+                                    static_cast<const int*>(a.wrow), b, a.layer, a.P, a.page,
+                                    a.max_pages, a.KVH, kvh, hs);
+  // q pre-scaled in f32, as the Pallas kernel does before its dot
+  float qr[NPL];
+  const T* qh = q + ((size_t)b * a.H + h) * hs;
+#pragma unroll
+  for (int i = 0; i < NPL; ++i) {
+    const int d = lane + 32 * i;
+    qr[i] = d < hs ? to_f32(qh[d]) * a.scale : 0.f;
+  }
+  attend<T, NPL, KC>(qr, k_pool, v_pool, k_new + ((size_t)b * a.KVH + kvh) * hs,
+                     v_new + ((size_t)b * a.KVH + kvh) * hs, out + ((size_t)b * a.H + h) * hs, rows,
+                     static_cast<const int*>(a.pos)[b], hs, h % G == 0);
+}
+
+template <typename T, int NPL, int KC>
+__global__ void __launch_bounds__(kWarps * 32)
+paged_decode_fused_kernel(const T* __restrict__ qkv, const float* __restrict__ cos_il,
+                          const float* __restrict__ sin_il, T* k_pool, T* v_pool,
+                          T* __restrict__ out, const PagedArgs a) {
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int G = a.H / a.KVH;
+  const int kvh = h / G;
+  const int hs = a.hs;
+  const PagedRows rows = paged_rows(static_cast<const int*>(a.table), static_cast<const int*>(a.wpage),
+                                    static_cast<const int*>(a.wrow), b, a.layer, a.P, a.page,
+                                    a.max_pages, a.KVH, kvh, hs);
+  const T* v_raw = qkv + ((size_t)b * (a.H + 2 * a.KVH) + a.H + a.KVH + kvh) * hs;
+  __shared__ T k_roped[NPL * 32];
+  float qr[NPL];
+  rope_prologue<T, NPL>(qkv, cos_il, sin_il, b, h, kvh, a.H, a.KVH, hs, a.scale, qr, k_roped);
+  attend<T, NPL, KC>(qr, k_pool, v_pool, k_roped, v_raw, out + ((size_t)b * a.H + h) * hs, rows,
+                     static_cast<const int*>(a.pos)[b], hs, h % G == 0);
+}
+
+// fused: q is the raw qkv, kn/vn are the cos/sin tables
+template <typename T, int NPL>
+cudaError_t launch(bool fused, const void* q, void* kp, void* vp, const void* kn, const void* vn,
+                   void* out, const PagedArgs& a, cudaStream_t stream) {
+  constexpr int KC = NPL >= 8 ? 4 : 8;  // keeps the chunk within registers
+  const dim3 grid(a.H, a.B);
+  if (fused)
+    paged_decode_fused_kernel<T, NPL, KC><<<grid, kWarps * 32, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const float*>(kn), static_cast<const float*>(vn),
+        static_cast<T*>(kp), static_cast<T*>(vp), static_cast<T*>(out), a);
+  else
+    paged_decode_kernel<T, NPL, KC><<<grid, kWarps * 32, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<T*>(kp), static_cast<T*>(vp),
+        static_cast<const T*>(kn), static_cast<const T*>(vn), static_cast<T*>(out), a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(bool fused, const void* q, void* kp, void* vp, const void* kn, const void* vn,
+                     void* out, const PagedArgs& a, cudaStream_t st) {
+  if (a.hs <= 32) return launch<T, 1>(fused, q, kp, vp, kn, vn, out, a, st);
+  if (a.hs <= 64) return launch<T, 2>(fused, q, kp, vp, kn, vn, out, a, st);
+  if (a.hs <= 128) return launch<T, 4>(fused, q, kp, vp, kn, vn, out, a, st);
+  if (a.hs <= 256) return launch<T, 8>(fused, q, kp, vp, kn, vn, out, a, st);
+  return cudaErrorInvalidValue;
+}
+
+int paged_fp(bool fused, const void* q, void* kp, void* vp, const void* kn, const void* vn,
+             void* out, int dtype, const PagedArgs& a, void* stream) {
+  if (a.B <= 0 || a.H <= 0 || a.KVH <= 0 || a.H % a.KVH != 0 || a.hs <= 0 || a.hs % 2 != 0 ||
+      a.P <= 0 || a.page <= 0 || a.max_pages <= 0 || a.layer < 0)
+    return cudaErrorInvalidValue;
+  if (!q || !kp || !vp || !kn || !vn || !out || !a.table || !a.wpage || !a.wrow || !a.pos)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == llama2::kF32) return dispatch<float>(fused, q, kp, vp, kn, vn, out, a, st);
+  if (dtype == llama2::kBF16) return dispatch<__nv_bfloat16>(fused, q, kp, vp, kn, vn, out, a, st);
+  return cudaErrorInvalidValue;
+}
+
+__global__ void __launch_bounds__(llama2::q8a::kThreads) paged_attention_q8_kernel(const llama2::q8a::Params a) {
+  __shared__ llama2::q8a::Smem sm;
+  llama2::q8a::att_item<true>(a, blockIdx.x, sm);
+}
+
+}  // namespace
+
+// K15. q (B, H, hs); pools (L, P, KVH, page, hs), updated in place; k_new /
+// v_new (B, KVH, hs); table (B, max_pages), write_page / write_row / pos (B,)
+// int32 on the device; out (B, H, hs). One dtype, contiguous; hs even and
+// <= 256. Returns the launch's cudaError_t.
+extern "C" int paged_decode_attention_stacked(
+    const void* q, void* k_pool, void* v_pool, const void* k_new, const void* v_new,
+    const void* table, const void* write_page, const void* write_row, const void* pos, void* out,
+    int dtype, int layer, int B, int H, int KVH, int P, int page, int max_pages, int hs,
+    float scale, void* stream) {
+  const PagedArgs a{table, write_page, write_row, pos, layer, B, H, KVH, P, page, max_pages, hs, scale};
+  return paged_fp(false, q, k_pool, v_pool, k_new, v_new, out, dtype, a, stream);
+}
+
+// K17. qkv (B, H + 2 KVH, hs), the raw pre-RoPE rows; cos_il / sin_il (B, hs)
+// float32, each pair's value on both of its elements (in K15's k_new / v_new
+// places); the rest as K15's.
+extern "C" int paged_decode_attention_fused(
+    const void* qkv, void* k_pool, void* v_pool, const void* cos_il, const void* sin_il,
+    const void* table, const void* write_page, const void* write_row, const void* pos, void* out,
+    int dtype, int layer, int B, int H, int KVH, int P, int page, int max_pages, int hs,
+    float scale, void* stream) {
+  const PagedArgs a{table, write_page, write_row, pos, layer, B, H, KVH, P, page, max_pages, hs, scale};
+  return paged_fp(true, qkv, k_pool, v_pool, cos_il, sin_il, out, dtype, a, stream);
+}
+
+// K16 (mode 1: q (B, H, hs); k_new / v_new (B, KVH, hs) int8 and ks_new /
+// vs_new (B, KVH) float32) and K18 (mode 2: qkv (B, H + 2 KVH, hs) pre-RoPE,
+// cos_il / sin_il (B, hs) float32). Pools: k8 / v8 (L, P, KVH, page, hs) int8
+// and ks / vs (L, P, KVH, page) float32, updated in place; table
+// (B, max_pages), write_page / write_row / pos (B,) int32; out (B, H, hs) in
+// the activation dtype. ws / tickets as attention_q8.cu's, for items =
+// B * KVH * n_rg * nsplit, n_rg = ceil((H / KVH) / 16). Returns the launch's
+// cudaError_t.
+extern "C" int paged_attention_q8(
+    int mode, const void* q, const void* qkv, const void* cos_il, const void* sin_il, void* k8,
+    void* ks, void* v8, void* vs, const void* k_new, const void* ks_new, const void* v_new,
+    const void* vs_new, const void* table, const void* write_page, const void* write_row,
+    const void* pos, void* out, void* ws, void* tickets, long long ws_floats, int n_tickets,
+    int dtype, int layer, int L, int B, int H, int KVH, int P, int page, int max_pages, int hs,
+    int nsplit, float scale, void* stream) {
+  using namespace llama2;
+  if (mode != q8a::kAppend && mode != q8a::kFused) return cudaErrorInvalidValue;
+  if (P <= 0 || page <= 0 || max_pages <= 0 || !table || !write_page || !write_row)
+    return cudaErrorInvalidValue;
+  q8a::Params a{};
+  a.q = q;
+  a.qkv = qkv;
+  a.cos_il = static_cast<const float*>(cos_il);
+  a.sin_il = static_cast<const float*>(sin_il);
+  a.k8 = static_cast<int8_t*>(k8);
+  a.ks = static_cast<float*>(ks);
+  a.v8 = static_cast<int8_t*>(v8);
+  a.vs = static_cast<float*>(vs);
+  a.k_new = static_cast<const int8_t*>(k_new);
+  a.ks_new = static_cast<const float*>(ks_new);
+  a.v_new = static_cast<const int8_t*>(v_new);
+  a.vs_new = static_cast<const float*>(vs_new);
+  a.pos = static_cast<const int*>(pos);
+  a.out = out;
+  a.ws = static_cast<float*>(ws);
+  a.tickets = static_cast<int*>(tickets);
+  a.mode = mode;
+  a.dtype = dtype;
+  a.layer = layer;
+  a.L = L;
+  a.B = B;
+  a.T = 1;
+  a.H = H;
+  a.KVH = KVH;
+  a.S = max_pages * page;  // the table's reach: what the key splits cover
+  a.hs = hs;
+  a.nsplit = nsplit;
+  a.scale = scale;
+  a.table = static_cast<const int*>(table);
+  a.wpage = static_cast<const int*>(write_page);
+  a.wrow = static_cast<const int*>(write_row);
+  a.P = P;
+  a.page = page;
+  a.max_pages = max_pages;
+  if (H > 0 && KVH > 0) a.n_rg = (q8a::rows_per_head(mode, 1, H, KVH) + q8a::kRB - 1) / q8a::kRB;
+  const int err = q8a::check(a, ws_floats, n_tickets);
+  if (err != cudaSuccess) return err;
+  const bool need_q = mode == q8a::kFused ? (qkv && cos_il && sin_il) : q != nullptr;
+  const bool need_new = mode != q8a::kAppend || (k_new && ks_new && v_new && vs_new);
+  if (!need_q || !need_new || !k8 || !ks || !v8 || !vs || !pos || !out) return cudaErrorInvalidValue;
+  paged_attention_q8_kernel<<<q8a::items(a), q8a::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
+}

@@ -355,22 +355,21 @@ def _layer_decode_stacked(
     return _post_attention(x, att.reshape(B, T, H * hs), lp, config, backend, quant_idx)
 
 
-def _decode_two_launch(x, params, cache, pos, cos_il, sin_il, config: ModelConfig):
+def decode_two_launch(x, params, attend, config: ModelConfig):
     """All layers of a T=1 decode step at two launches a layer: the glue-fused
-    attention (int8 or fp, by the cache) on the layer's pre-RoPE QKV, then the
-    megakernel that runs wo, the FFN block and the NEXT layer's rmsnorm-fused
-    QKV. Layer 0's QKV is one dequant-matmul launch; the last layer takes the
-    megakernel without the QKV phase, whose output nobody would read. ``x``
-    (B, 1, D); ``pos`` the int32 (B,) row positions."""
+    attention ``attend(qkv3, layer)`` on the layer's pre-RoPE QKV rows
+    (B, H + 2*KVH, hs), then the megakernel that runs wo, the FFN block and
+    the NEXT layer's rmsnorm-fused QKV. Layer 0's QKV is one dequant-matmul
+    launch; the last layer takes the megakernel without the QKV phase, whose
+    output nobody would read. ``x`` (B, 1, D). The dense cache's attention is
+    :func:`_fused_attention`; the paged engine's is ``models/paged.py``'s."""
     B, T, D = x.shape
     L, H, KVH, hs = config.n_layers, config.n_heads, config.n_kv_heads, config.head_size
     eps = config.norm_eps
     tail = [params[k] for k in ("w1", "w3", "w2")]
     qkv = quant_matmul_stacked(x, params["wqkv"], 0, rms_w=params["rms_att"][0], eps=eps)
     for i in range(L):
-        att = _fused_attention(
-            qkv.reshape(B, H + 2 * KVH, hs), cache, cos_il, sin_il, i, pos, H
-        ).reshape(B, T, D)
+        att = attend(qkv.reshape(B, H + 2 * KVH, hs), i).reshape(B, T, D)
         if i < L - 1:
             x, qkv = layer_tail_qkv_stacked(
                 att, x, params["wo"], params["rms_ffn"], *tail, params["rms_att"],
@@ -468,7 +467,10 @@ def forward(
             if kv_quant and layer_block_supported(*(params[k] for k in tail), config):
                 x = _decode_layer_block(x, params, cache, pvec, cos_il, sin_il, config)
             else:
-                x = _decode_two_launch(x, params, cache, pvec, cos_il, sin_il, config)
+                def attend(qkv3, i):
+                    return _fused_attention(qkv3, cache, cos_il, sin_il, i, pvec, config.n_heads)
+
+                x = decode_two_launch(x, params, attend, config)
         else:
             for i in range(config.n_layers):
                 x = _layer_decode_stacked(

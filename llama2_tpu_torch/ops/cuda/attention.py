@@ -134,6 +134,20 @@ def flash_decode_attention_stacked(
 flash_decode_attention_stacked.launches = 0
 
 
+def rope_rows_plain(qkv, cos_il, sin_il, n_heads: int, cache_dtype):
+    """The glue-fused kernels' prologue (K4, K17): RoPE in float32 on the raw
+    rows (as ``ref.apply_rope``): the query (B, H, hs) kept float32, the
+    rotated K rows rounded to the cache dtype and the raw V rows, each
+    (B, KVH, hs)."""
+    H = n_heads
+    KVH = (qkv.shape[1] - H) // 2
+    cos, sin = cos_il[:, None, 0::2], sin_il[:, None, 0::2]  # (B, 1, hs/2)
+    x = qkv.float()
+    q = ref.apply_rope(x[:, None, :H], cos, sin)[:, 0]
+    k = ref.apply_rope(x[:, None, H : H + KVH], cos, sin)[:, 0].to(cache_dtype)
+    return q, k, qkv[:, H + KVH :].to(cache_dtype)
+
+
 def flash_decode_attention_fused_plain(
     qkv: torch.Tensor,
     k_cache: torch.Tensor,
@@ -148,19 +162,14 @@ def flash_decode_attention_fused_plain(
     raw rows (``x0*c - x1*s``, ``x0*s + x1*c``, as ``ref.apply_rope``); the
     query stays float32 and is scaled in float32; the rotated K row is rounded
     to the cache dtype and written, with the raw V row, before the read."""
-    B, rows, hs = qkv.shape
-    H, KVH = n_heads, k_cache.shape[2]
-    cos, sin = cos_il[:, None, 0::2], sin_il[:, None, 0::2]  # (B, 1, hs/2)
-    x = qkv.float()
-    q = ref.apply_rope(x[:, None, :H], cos, sin)  # (B, 1, H, hs) float32
-    k_new = ref.apply_rope(x[:, None, H : H + KVH], cos, sin)[:, 0].to(k_cache.dtype)
-    v_new = qkv[:, H + KVH :].to(v_cache.dtype)
+    hs = qkv.shape[-1]
+    q, k_new, v_new = rope_rows_plain(qkv, cos_il, sin_il, n_heads, k_cache.dtype)
     for b, p in enumerate(pos.tolist()):
         k_cache[layer, b, :, p] = k_new[b]
         v_cache[layer, b, :, p] = v_new[b]
     n = int(pos.max()) + 1
     out = ref.attention(
-        q * (1.0 / (hs**0.5)),
+        q[:, None] * (1.0 / (hs**0.5)),
         k_cache[layer, :, :, :n].float(),
         v_cache[layer, :, :, :n].float(),
         pos,

@@ -68,6 +68,25 @@ def uniform_draw(seed: int, pos: int) -> float:
     return float(torch.rand((), generator=gen))
 
 
+def prepare_params(params: dict, dtype, backend: str, device: torch.device) -> dict:
+    """``params`` (numpy arrays, tensors or QuantTensors) on ``device``: fp
+    entries as ``dtype`` (tensors already there are not copied), QuantTensors
+    as they are; with a CUDA backend the QKV and W1/W3 launches of quantized
+    weights fused (``fuse_layer_params``). fp32 on the card turns TF32 off
+    for the whole process, so the fp32 projections are full-precision
+    products like the JAX package's ``Precision.HIGHEST``."""
+    if dtype == torch.float32 and device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+    out = {
+        k: v.to(device) if isinstance(v, QuantTensor) else torch.as_tensor(v).to(device, dtype)
+        for k, v in params.items()
+    }
+    if backend.startswith("cuda") and isinstance(out.get("wq"), QuantTensor):
+        out = fuse_layer_params(out, backend)
+    return out
+
+
 class Generator:
     """One model's prefill and decode loop; the host API for the CLI.
 
@@ -76,10 +95,8 @@ class Generator:
     Matmul weights may be QuantTensors (INT8 values, float32 scales, both
     kept as they are): ``dtype`` is then the dtype of the activations, the
     norm weights and the embedding, and with a CUDA backend the QKV and
-    W1/W3 launches are fused once here (``fuse_layer_params``).
-    fp32 is the parity mode: on the card it turns TF32 off for the whole
-    process, so the fp32 projections are full-precision products like the
-    JAX package's ``Precision.HIGHEST``.
+    W1/W3 launches are fused once here (:func:`prepare_params`). fp32 is
+    the parity mode: on the card it turns TF32 off.
     """
 
     def __init__(
@@ -103,18 +120,7 @@ class Generator:
         self.dtype = dtype
         self.backend = backend
         self.device = resolve_device(device)
-        if dtype == torch.float32 and self.device.type == "cuda":
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.set_float32_matmul_precision("highest")
-        self.params = {
-            k: v.to(self.device)
-            if isinstance(v, QuantTensor)
-            else torch.as_tensor(v).to(self.device, dtype)
-            for k, v in params.items()
-        }
-        # fuse the QKV and W1/W3 launches on the quantized kernel path
-        if backend.startswith("cuda") and isinstance(self.params.get("wq"), QuantTensor):
-            self.params = fuse_layer_params(self.params, backend)
+        self.params = prepare_params(params, dtype, backend, self.device)
 
     def _sync(self):
         if self.device.type == "cuda":

@@ -592,3 +592,225 @@ def test_kv_quant_and_speculative_generate_on_card(cuda_device):
                      kv_quant=True).generate(prompt, gen)
     steps = len(fast.tokens) - len(prompt)
     assert steps > 0 and lb.layer_block_stacked.launches - n13 >= config.n_layers * steps
+
+
+def _paged_setup(g, device, pos_list, page, n_inactive, S):
+    """A (B, S // page) int32 table for ``pos_list`` (the last ``n_inactive``
+    rows all zero: the scratch page), the active slots' pages handed out in
+    a shuffled order of 1.., and the write coordinates; returns (table,
+    write_page, write_row, pos, pool pages)."""
+    B = len(pos_list)
+    need = [p // page + 1 for p in pos_list[: B - n_inactive]]
+    n_pages = sum(need) + 1
+    perm = (torch.randperm(n_pages - 1, generator=g) + 1).tolist()
+    table = torch.zeros((B, S // page), dtype=torch.int32)
+    at = 0
+    for b, n in enumerate(need):
+        table[b, :n] = torch.tensor(perm[at : at + n], dtype=torch.int32)
+        at += n
+    table = table.to(device)
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=device)
+    wpage = table[torch.arange(B, device=device), (pos // page).long()].contiguous()
+    return table, wpage, (pos % page).contiguous(), pos, n_pages
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernels_match_plain_on_card(cuda_device, dtype):
+    """K15 and K17 over fp pools, K16 and K18 over int8 pools, against their
+    plain versions: 8 slots (positions 0, page - 1, page, a mid-page row,
+    S - 1 and another; two inactive slots on the scratch page), shuffled
+    pages of 256 and 128 rows, the 7B and a GQA head layout, the last layer
+    of a 2-layer pool. The active slots' outputs within the fp tolerance, or
+    the int8-cache one; the pools equal to the plain version's; one launch
+    a call and the same bits on a rerun."""
+    from llama2_tpu_torch.ops import ref
+    from llama2_tpu_torch.ops.cuda import attention_q8 as aq
+    from llama2_tpu_torch.ops.cuda import paged_attention as tpa
+
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    cpu_g = torch.Generator().manual_seed(12)
+    S, L, act = 2048, 2, 6
+    tol = dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32 else dict(rtol=2**-7, atol=1e-3)
+
+    def randn(*shape, dt=dtype):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dt)
+
+    def twice_then_plain(wrapper, plain, pre, pools, post, kw):
+        runs = [[t.clone() for t in pools] for _ in range(2)]
+        n0 = wrapper.launches
+        got = [wrapper(*pre, *c, *post, **kw)[0] for c in runs]
+        assert wrapper.launches == n0 + 2
+        want = plain(*pre, *pools, *post, **kw)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(got[0][:act], got[1][:act]) and torch.isfinite(got[0].float()).all()
+        assert all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(*runs, pools))
+        return got[0], want
+
+    for H, KVH, hs in ((32, 32, 128), (32, 4, 64)):
+        for page in (256, 128):
+            pos_list = [0, page - 1, page, 1000, S - 1, page // 2 + 3, 5, 9]
+            table, wpage, wrow, pos, P = _paged_setup(cpu_g, cuda_device, pos_list, page, 2, S)
+            cos, sin = ref.rope_angles(pos[:, None], hs)
+            cos_il = cos[:, 0].repeat_interleave(2, -1).contiguous()
+            sin_il = sin[:, 0].repeat_interleave(2, -1).contiguous()
+            q, qkv = randn(8, H, hs), randn(8, H + 2 * KVH, hs)
+            coords = (wpage, wrow, L - 1, pos)
+            fp = [randn(L, P, KVH, page, hs), randn(L, P, KVH, page, hs)]
+            kn, vn = randn(8, KVH, 1, hs), randn(8, KVH, 1, hs)
+            got, want = twice_then_plain(tpa.paged_decode_attention_stacked, tpa.paged_decode_attention_stacked_plain,
+                                         (q,), fp, (table, kn, vn, *coords), {})
+            _assert_close(got[:act], want[:act], tol, f"K15 {H=} {KVH=} {page=}")
+            got, want = twice_then_plain(tpa.paged_decode_attention_fused, tpa.paged_decode_attention_fused_plain,
+                                         (qkv,), fp, (table, cos_il, sin_il, *coords), {"n_heads": H})
+            _assert_close(got[:act], want[:act], tol, f"K17 {H=} {KVH=} {page=}")
+            del fp
+            q8 = _int8_cache(g, cuda_device, L, P, KVH, page, hs)
+            k8n, ksn = aq.quantize_kv_rows(randn(8, KVH, 1, hs, dt=torch.float32))
+            v8n, vsn = aq.quantize_kv_rows(randn(8, KVH, 1, hs, dt=torch.float32))
+            n = (S - 1) // page + 1
+            for wrapper, plain, pre, post, kw, qt in (
+                (tpa.paged_decode_attention_q8_stacked, tpa.paged_decode_attention_q8_stacked_plain, (q,),
+                 (table, k8n, ksn, v8n, vsn, *coords), {}, q),
+                (tpa.paged_decode_attention_q8_fused, tpa.paged_decode_attention_q8_fused_plain, (qkv,),
+                 (table, cos_il, sin_il, *coords), {"n_heads": H}, aq.rope_quantize_plain(qkv, cos_il, sin_il, H)[0]),
+            ):
+                pools = [t.clone() for t in q8]
+                got, want = twice_then_plain(wrapper, plain, pre, pools, post, kw)
+                dense = [tpa.gather_pages(t[L - 1], table, n)[:act] for t in pools]
+                t8 = _q8kv_tol(dtype, qt[:act, None], *dense, pos.long()[:act, None], lambda t: t[:, 0])
+                _assert_close(got[:act], want[:act], t8, f"{wrapper.__name__} {H=} {KVH=} {page=}")
+            del q8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernels_at_8_rows_match_plain_on_card(cuda_device, dtype):
+    """The batched engines run K4, K9 and K13 at 8 rows, each at its own
+    position: against their plain versions at their tolerances (K13 to 1e-2
+    of the largest output, with and without the qkv phase), appends equal."""
+    from llama2_tpu_torch.ops import ref
+    from llama2_tpu_torch.ops.cuda import attention_q8 as aq
+    from llama2_tpu_torch.ops.cuda import layer_block as lb
+
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    H, KVH, hs, L, S = 32, 32, 128, 2, 4096
+    pos = torch.tensor([0, 255, 256, 1000, S - 1, 77, 3000, 2047], dtype=torch.int32, device=cuda_device)
+    B = pos.shape[0]
+    cos, sin = ref.rope_angles(pos[:, None], hs)
+    cos_il = cos[:, 0].repeat_interleave(2, -1).contiguous()
+    sin_il = sin[:, 0].repeat_interleave(2, -1).contiguous()
+    tol = dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32 else dict(rtol=2**-7, atol=1e-3)
+    qkv = torch.randn((B, H + 2 * KVH, hs), generator=g, device=cuda_device).to(dtype)
+    kc = torch.randn((L, B, KVH, S, hs), generator=g, device=cuda_device).to(dtype)
+    vc = torch.randn((L, B, KVH, S, hs), generator=g, device=cuda_device).to(dtype)
+    k1, v1 = kc.clone(), vc.clone()
+    got = flash_decode_attention_fused(qkv, k1, v1, cos_il, sin_il, 1, pos, n_heads=H)
+    want = flash_decode_attention_fused_plain(qkv, kc, vc, cos_il, sin_il, 1, pos, H)
+    _assert_close(got, want, tol, "K4 at 8 rows")
+    assert torch.equal(k1, kc) and torch.equal(v1, vc)
+    del kc, vc, k1, v1
+    caches = _int8_cache(g, cuda_device, L, B, KVH, S, hs)
+    c1 = [t.clone() for t in caches]
+    got = aq.flash_decode_attention_q8_fused(qkv, *c1, cos_il, sin_il, 1, pos, n_heads=H)
+    want = aq.flash_decode_attention_q8_fused_plain(qkv, *caches, cos_il, sin_il, 1, pos, H)
+    assert all(torch.equal(a, b) for a, b in zip(c1, caches))
+    q_rot = aq.rope_quantize_plain(qkv, cos_il, sin_il, H)[0]
+    t8 = _q8kv_tol(dtype, q_rot[:, None], *[t[1] for t in caches], pos.long()[:, None], lambda t: t[:, 0])
+    _assert_close(got, want, t8, "K9 at 8 rows")
+    D, HD = H * hs, 11008
+    wo, w1, w3 = (_q8_stack(g, cuda_device, L, D, n, 64) for n in (D, HD, HD))
+    w2, wqkv = _q8_stack(g, cuda_device, L, HD, D, 64), _q8_stack(g, cuda_device, L, D, (H + 2 * KVH) * hs, 64)
+    rms_ffn = (1 + 0.1 * torch.randn((L, D), generator=g, device=cuda_device)).to(dtype)
+    rms_att = (1 + 0.1 * torch.randn((L, D), generator=g, device=cuda_device)).to(dtype)
+    x = torch.randn((B, D), generator=g, device=cuda_device).to(dtype)
+    for with_qkv in (True, False):
+        layer = 0 if with_qkv else L - 1
+        args = (cos_il, sin_il, wo, rms_ffn, w1, w3, w2, rms_att, wqkv, layer, pos)
+        c1, c2 = [t.clone() for t in caches], [t.clone() for t in caches]
+        got = lb.layer_block_stacked(qkv, x, *c1, *args, n_heads=H, with_qkv=with_qkv)
+        want = lb.layer_block_stacked_plain(qkv, x, *c2, *args, n_heads=H, with_qkv=with_qkv)
+        assert all(torch.equal(a, b) for a, b in zip(c1, c2))
+        rtol = 0.0 if dtype == torch.float32 else 2**-7
+        for i in range(2 if with_qkv else 1):
+            scale = float(want[i].float().abs().max())
+            _assert_close(got[i], want[i], dict(rtol=rtol, atol=1e-2 * scale), f"K13 at 8 rows {with_qkv=} {i=}")
+
+
+@pytest.mark.gpu
+def test_paged_engine_on_card_matches_cpu(cuda_device):
+    """The paged engine on the card against the same engine on the CPU (the
+    plain versions), fp32 greedy, Q8 weights, ``cuda-accurate`` (K15 or K16
+    a layer): the card's logits with the CPU's tokens forced on it, within
+    1e-3 over an fp pool, where the tokens must be the CPU's, and within
+    3e-2 of the largest logit over an int8 pool, where they must be the
+    CPU's wherever its top-2 margin exceeds twice that distance (the int8
+    kernels round ``p * v_scale`` to bf16 against another running maximum
+    than the plain version: PERF.md section 2's rules). ``cuda`` then runs
+    the glue-fused paged kernels (K17, K18) a layer per decode tick."""
+    from llama2_tpu_torch.ops.cuda import paged_attention as tpa
+    from llama2_tpu_torch.runtime.paged_engine import PagedBatchEngine
+
+    config = ModelConfig(dim=256, hidden_dim=704, n_layers=3, n_heads=2, n_kv_heads=2,
+                         vocab_size=512, seq_len=256)
+    params = random_q8_params(config, 4, "cpu", torch.float32, group_size=64)
+    for k, v in params.items():  # widen the scales: logits with clear margins
+        if isinstance(v, QuantTensor):
+            params[k] = QuantTensor(v.q, v.scale * 4, v.group_size)
+    gen = GenerationConfig(temperature=0.0, steps=60)
+    prompts = [[5, 17, 320, 9], [7], [44, 2, 100, 3, 8, 11]]
+
+    def serve(device, backend, kv_quant, dtype=torch.float32, forced=None):
+        """Tokens and every request's logits rows; with ``forced`` (the
+        streams to follow), the samplers return those streams' tokens."""
+        eng = PagedBatchEngine(config, params, batch_size=2, page_size=32, n_pages=24, backend=backend,
+                               device=device, kv_quant=kv_quant, dtype=dtype, pipeline_depth=1)
+        log, sample, first = {}, eng._sample, eng._sample_first
+
+        def nxt(req, n):
+            toks = forced[tuple(req.prompt)]
+            return toks[n] if n < len(toks) else 1
+
+        def logged(logits, sampled, draws):
+            for b, r in enumerate(eng.slots):
+                if r is not None:
+                    log[tuple(r.prompt)].append(logits[b].float().cpu())
+            if forced is None:
+                return sample(logits, sampled, draws)
+            return torch.tensor([0 if r is None else nxt(r, len(r.tokens)) for r in eng.slots],
+                                dtype=torch.int32, device=logits.device)
+
+        def logged_first(logits, req, pos):
+            log[tuple(req.prompt)] = [logits.float().cpu()]
+            return first(logits, req, pos) if forced is None else nxt(req, len(req.prompt))
+
+        eng._sample, eng._sample_first = logged, logged_first
+        qs = [eng.submit(p, gen) for p in prompts]
+        eng.run_until_idle()
+        return [q.get(timeout=300).tokens for q in qs], {k: torch.stack(v) for k, v in log.items()}
+
+    for kv_quant in (False, True):
+        want, lw = serve("cpu", "cuda-accurate", kv_quant)
+        wrapper = tpa.paged_decode_attention_q8_stacked if kv_quant else tpa.paged_decode_attention_stacked
+        n0 = wrapper.launches
+        forced = {tuple(p): t for p, t in zip(prompts, want)}
+        toks, lg = serve(cuda_device, "cuda-accurate", kv_quant, forced=forced)
+        assert toks == want and wrapper.launches > n0
+        dist = max(float((lw[k] - lg[k]).abs().max()) for k in lw)
+        absmax = max(float(v.abs().max()) for v in lw.values())
+        if not kv_quant:
+            assert dist <= 1e-3, dist
+            assert serve(cuda_device, "cuda-accurate", kv_quant)[0] == want
+        else:
+            assert dist <= 3e-2 * absmax, (dist, absmax)
+            for p, t in zip(prompts, want):
+                top2 = lw[tuple(p)].topk(2, dim=-1).values
+                clear = (top2[:, 0] - top2[:, 1]) > 2 * dist
+                n = len(t) - len(p)
+                agree = lg[tuple(p)][:n].argmax(-1) == torch.tensor(t[len(p):])
+                assert bool(agree[clear[:n]].all()), p
+        fused = tpa.paged_decode_attention_q8_fused if kv_quant else tpa.paged_decode_attention_fused
+        n0 = fused.launches
+        got = serve(cuda_device, "cuda", kv_quant, torch.bfloat16)[0]
+        assert all(len(t) > len(p) for t, p in zip(got, prompts))
+        assert fused.launches - n0 >= config.n_layers * max(len(t) - len(p) - 1 for t, p in zip(got, prompts))
