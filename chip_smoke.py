@@ -23,7 +23,10 @@ non-zero:
    K13 at the 8 rows of the batched engines, each at its own position; the
    paged kernels K15-K18 over fp and int8 page pools (8 slots, two of them
    inactive on the scratch page, shuffled pages of 256 and 128 rows, layers
-   0 and 31, the 7B and a GQA layout);
+   0 and 31, the 7B and a GQA layout); the kernel benchmarks' kernels: K3
+   over one layer's caches at the three layouts with per-row and scalar
+   positions, K14 over one layer's shuffled pools whose unused table entries
+   name a NaN page, K19 and K20 at the benchmark's and ragged widths;
 3. the served path, this slice's main path: ``PagedBatchEngine`` at full
    Llama-2-7B width and 32 layers, INT8 weights, bf16 activations,
    ``backend="cuda"``, 8 slots, 256-row pages, the prefix cache, serving 16
@@ -71,7 +74,14 @@ non-zero:
    computes an FFN megakernel, an int8-cache attention, the whole layer or
    a paged attention: their lines give the route each replaces (the
    composed route; SDPA on a bf16 cache of the same length; K9 + K12; the
-   dense twin kernel and SDPA on the same rows gathered) instead.
+   dense twin kernel and SDPA on the same rows gathered) instead. K3, K14,
+   K19 and K20 at the kernel benchmarks' shapes, on its inputs (rotated
+   through 512 MB), beside SDPA, SDPA on the gathered rows, ``F.rms_norm``
+   and ``F.silu(h1) * h3``;
+6. the kernel benchmarks' entry point, this slice's path:
+   ``python -m llama2_tpu_torch.benchmarks.kernels all`` as a subprocess,
+   every expected line present, none over 105% of the card's memory rate or
+   peak, every kernel it runs launched (its own counts, from 0).
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py --dense-timing``
@@ -84,9 +94,14 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
+
+# the port itself: absent outside a checkout of the repository
+from llama2_tpu_torch.benchmarks.kernels import rope_tables
+from llama2_tpu_torch.benchmarks.timing import sleep_cycles_per_ms, time_ms
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 TOKENIZER_BIN = os.path.join(REPO, "tests", "fixtures", "tokenizer.bin")
@@ -277,15 +292,6 @@ def phase_kernels() -> None:
                     pos=",".join(map(str, pos_list)), max_abs_err=f"{err:.3e}",
                     rtol=rtol, atol=atol, append="exact")
                 del kc, vc, k_want, v_want, k_plain, v_plain
-
-
-def rope_tables(pos, hs: int):
-    """The step's pair-duplicated (B, hs) float32 cos/sin rows for K4."""
-    from llama2_tpu_torch.ops import ref
-
-    cos, sin = ref.rope_angles(pos[:, None], hs)
-    return (cos[:, 0].repeat_interleave(2, -1).contiguous(),
-            sin[:, 0].repeat_interleave(2, -1).contiguous())
 
 
 def all_layouts(params: dict) -> dict:
@@ -997,6 +1003,127 @@ def phase_kernels_paged() -> None:
         raise AssertionError("K17 accepted operands its kernel does not take")
     if tpa.paged_decode_attention_fused.launches != n0:
         raise AssertionError("a refused K17 call counted a launch")
+
+
+# the rmsnorm (K19) and swiglu (K20) check shapes: the benchmark's, then the
+# JAX tests' ragged ones (288, 64, 172 wide; 768, 64, 172)
+NORM_SHAPES = ((256, 4096), (1024, 8192), (1, 1, 288), (2, 7, 64), (1, 300, 172))
+SWIGLU_SHAPES = ((256, 11008), (512, 11008), (1, 1, 768), (2, 7, 64), (1, 300, 172))
+
+
+def norm_tolerance(dtype) -> tuple[float, float]:
+    """(rtol, atol) of K19 against its plain version. fp32: ``tolerance``.
+    bf16: the norm rounds twice, to bf16 after the scale and again after the
+    weight, and the kernel's float32 sum of squares is taken in another order
+    than the plain version's, which can tip the first rounding by one step;
+    the weight carries that step into the second: two last-bit steps, 2^-6
+    of |want|."""
+    import torch
+
+    return tolerance(dtype) if dtype == torch.float32 else (2**-6, 1e-3)
+
+
+def phase_kernels_bench() -> None:
+    """K3, K14, K19 and K20 (the kernel benchmarks' path) against their plain
+    versions on the card, fp32 and bf16.
+
+    K3 over one layer's S = 4096 caches at the three head layouts: three rows
+    at pos 0, 256 and 4095 (a per-row tensor), then each of those as an int;
+    the caches unchanged. K14 over one layer's pools of 256- and 128-row
+    pages at 8 slots (``paged_positions``, pages shuffled by ``paged_table``,
+    the last two slots on the scratch page 0), the 7B and GQA layouts: past
+    each row's last page the kernel's table names a NaN-filled page; the
+    plain version, which gathers the longest row's page count for every row,
+    gets the same table with valid pages there. Outputs equal within
+    ``tolerance`` and finite, the pools unchanged. K19 and K20 at
+    ``NORM_SHAPES`` and ``SWIGLU_SHAPES``, K19 under a weight of the rows'
+    dtype and a float32 one, to ``norm_tolerance``; the output in the rows'
+    dtype. Each call one launch."""
+    import torch
+
+    from llama2_tpu_torch.ops.cuda import attention as fa
+    from llama2_tpu_torch.ops.cuda import paged_attention as tpa
+    from llama2_tpu_torch.ops.cuda.rmsnorm import rmsnorm, rmsnorm_plain
+    from llama2_tpu_torch.ops.cuda.swiglu import swiglu, swiglu_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    cpu_gen = torch.Generator().manual_seed(SEED + 15)
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def launched(wrapper, *args):
+        n0 = wrapper.launches
+        out = wrapper(*args)
+        if wrapper.launches != n0 + 1:
+            raise AssertionError(f"{wrapper.__name__}: {wrapper.launches - n0} launches for one call")
+        return out
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = dtype_name(dtype)
+        rtol, atol = tolerance(dtype)
+        for lname, (H, KVH, hs) in LAYOUTS.items():
+            k, v = randn(3, KVH, S, hs, dtype=dtype), randn(3, KVH, S, hs, dtype=dtype)
+            k0, v0 = k.clone(), v.clone()
+            rows = [0, 256, S - 1]
+            worst = 0.0
+            for q, pos in [(randn(3, 1, H, hs, dtype=dtype), torch.tensor(rows, dtype=torch.int32, device="cuda"))] + [
+                    (randn(3, H, hs, dtype=dtype), p) for p in rows]:
+                got = launched(fa.flash_decode_attention, q, k, v, pos)
+                want = fa.flash_decode_attention_plain(q, k, v, pos)
+                torch.cuda.synchronize()
+                if got.shape != q.shape or got.dtype != dtype:
+                    raise AssertionError(f"K3 gave {got.dtype} {tuple(got.shape)} for q {tuple(q.shape)}")
+                worst = max(worst, compare(got, want, dtype))
+            if not (torch.equal(k, k0) and torch.equal(v, v0)):
+                raise AssertionError("K3 wrote to its read-only caches")
+            say("K3", dtype=dn, layout=lname, B=3, pos=",".join(map(str, rows)) + "_per_row_and_each_as_int",
+                max_abs_err=f"{worst:.3e}", rtol=rtol, atol=atol, caches="unchanged")
+            del k, v, k0, v0
+        for lname in ("7B", "GQA"):
+            H, KVH, hs = LAYOUTS[lname]
+            for page in (256, 128):
+                pos_list = paged_positions(page)
+                n_pages = sum(p // page + 1 for p in pos_list[: len(pos_list) - N_INACTIVE]) + 1
+                table = paged_table(pos_list, page, n_pages, cpu_gen).cuda()
+                pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+                kp = randn(n_pages + 1, KVH, page, hs, dtype=dtype)
+                vp = randn(n_pages + 1, KVH, page, hs, dtype=dtype)
+                kp[n_pages], vp[n_pages] = float("nan"), float("nan")
+                used = torch.arange(table.shape[1], device="cuda")[None] <= (pos // page)[:, None]
+                nan_table = torch.where(used, table, torch.full_like(table, n_pages))
+                q = randn(len(pos_list), H, hs, dtype=dtype)
+                kp0 = kp.clone()
+                got = launched(tpa.paged_decode_attention, q, kp, vp, nan_table, pos)
+                want = tpa.paged_decode_attention_plain(q, kp, vp, table, pos)
+                torch.cuda.synchronize()
+                err = compare(got, want, dtype)
+                if not torch.equal(kp.nan_to_num(), kp0.nan_to_num()):
+                    raise AssertionError("K14 wrote to its read-only pool")
+                say("K14", dtype=dn, layout=lname, page=page, pool_pages=n_pages + 1,
+                    pos=",".join(map(str, pos_list)), unused_entries="a_NaN_page", max_abs_err=f"{err:.3e}",
+                    rtol=rtol, atol=atol, finite=True)
+                del kp, vp, kp0
+        nrtol, natol = norm_tolerance(dtype)
+        for shape in NORM_SHAPES:
+            x = randn(*shape, dtype=dtype)
+            for wdt in dict.fromkeys((dtype, torch.float32)):
+                w = 1 + 0.1 * randn(shape[-1], dtype=wdt)
+                got = launched(rmsnorm, x, w)
+                if got.dtype != dtype or got.shape != x.shape:
+                    raise AssertionError(f"K19 gave {got.dtype} {tuple(got.shape)} for {dtype} rows")
+                err = compare(got, rmsnorm_plain(x, w), dtype, (nrtol, natol))
+                say("K19", dtype=dn, weight=dtype_name(wdt), shape="x".join(map(str, shape)),
+                    out_dtype=dtype_name(got.dtype), max_abs_err=f"{err:.3e}", rtol=nrtol, atol=natol)
+        for shape in SWIGLU_SHAPES:
+            h1, h3 = randn(*shape, dtype=dtype), randn(*shape, dtype=dtype)
+            got = launched(swiglu, h1, h3)
+            if got.dtype != dtype or got.shape != h1.shape:
+                raise AssertionError(f"K20 gave {got.dtype} {tuple(got.shape)} for {dtype} rows")
+            err = compare(got, swiglu_plain(h1, h3), dtype)
+            say("K20", dtype=dn, shape="x".join(map(str, shape)), out_dtype=dtype_name(got.dtype),
+                max_abs_err=f"{err:.3e}", rtol=rtol, atol=atol)
+    torch.cuda.empty_cache()
 
 
 BATCH8_POS = [0, 255, 256, 1000, S - 1, 77, 3000, 2047]
@@ -2359,54 +2486,6 @@ def phase_cli() -> None:
 # ---------------------------------------------------------------- phase 5
 
 
-def sleep_cycles_per_ms() -> float:
-    """Clock cycles of ``torch.cuda._sleep`` per device millisecond."""
-    import torch
-
-    cycles = 10**7
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    torch.cuda._sleep(cycles)
-    end.record()
-    torch.cuda.synchronize()
-    return cycles / start.elapsed_time(end)
-
-
-def time_ms(fn, n_iter: int, cycles_per_ms: float, n_warm: int = 3, slack: float = 1.5) -> tuple[float, bool]:
-    """Mean device ms per call of ``fn(i)`` over ``n_iter`` calls, after
-    ``n_warm`` warm-up calls, and whether the calls were queued ahead.
-
-    One Python call takes tens of microseconds on the host, longer than a
-    short kernel runs, so events around calls issued one by one would time
-    the host's launch rate. The stream is first held by a device sleep longer
-    than the host takes to send the calls (``slack`` times the time a first
-    round took): the events then see the calls back to back. A function that
-    waits on the device inside (the plain K2 reads ``pos`` on the host) cannot
-    be queued ahead, and its time includes the host's gaps; the second value
-    says which case it was."""
-    import torch
-
-    for i in range(n_warm):
-        fn(i)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(n_iter):
-        fn(i)
-    issue_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int((slack * issue_ms + 1.0) * cycles_per_ms))
-    start.record()
-    for i in range(n_iter):
-        fn(i)
-    end.record()
-    queued = not start.query()  # the device had not reached the first call yet
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n_iter, queued
-
-
 def phase_timing(dtype, launches: dict, cycles_per_ms: float) -> list[dict]:
     """Each kernel at the main path's 7B shapes. The caches hold all 32
     layers and call i uses layer i % 32, as the decode step does, so K/V rows
@@ -2971,13 +3050,159 @@ def phase_timing_paged(launches: dict, cycles_per_ms: float) -> list[dict]:
     return rows
 
 
+def phase_timing_bench() -> dict:
+    """K3, K14, K19 and K20 at the kernel benchmarks' shapes, on the
+    benchmark's own inputs (``llama2_tpu_torch/benchmarks/kernels.py``: the
+    operands rotate through 512 MB or more, so no call finds them in the 50
+    MB L2), beside the bound, the plain version and a library yardstick timed
+    here only: ``scaled_dot_product_attention`` (``enable_gqa``) on the
+    caches cut to pos + 1 for K3; SDPA on the same rows gathered into a
+    dense cache ahead for K14 (as the K15 line); ``F.rms_norm`` for K19; for
+    K20, which no single call computes, the composed ``F.silu(h1) * h3``.
+    Bound: the case's bytes (each input read once, each output written once)
+    over the memory rate, or its operations over the dtype's peak. Returns
+    the kernel line's row for each, by tag, ``launches`` still to be filled
+    from the benchmark run (phase 6)."""
+    import torch
+    import torch.nn.functional as F
+
+    from llama2_tpu_torch.benchmarks import kernels as kb
+    from llama2_tpu_torch.ops.cuda import paged_attention as tpa
+
+    b = kb.Bench("cuda", seed=SEED + 16)
+    rows = {}
+
+    def timed(tag, name, src, line, case, lib, lib_name, iters, dtype, tol=None, **extra):
+        (_, kern, _), (_, plain, _) = case.variants[:2]
+        err = compare(kern(0), plain(0), dtype, tol)
+        ms, qk = b.time(kern, iters, case.copies)
+        plain_ms, qp = b.time(plain, iters, case.copies, kernel=False)
+        lib_ms, ql = b.time(lib, iters, case.copies)
+        t_bytes = case.nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = case.flops / PEAK_FLOPS[dtype_name(case.dtype)] * 1e3
+        bound, by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+        say("time", kernel=f"{name}[{dtype_name(case.dtype)}]", shape=case.name, ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", **{f"{lib_name}_ms": f"{lib_ms:.4f}"}, bound_ms=f"{bound:.4f}",
+            bound_by=by, MB=f"{case.nbytes / 1e6:.2f}", GB_per_s=f"{case.nbytes / ms / 1e6:.0f}",
+            max_abs_err=f"{err:.3e}", rotation=case.copies, queued_kernel_plain_library=f"{qk},{qp},{ql}",
+            **extra)
+        if tag not in rows:  # the kernel line takes each kernel's first shape
+            rows[tag] = {
+                "name": f"{name}[{dtype_name(case.dtype)},{case.name[case.name.index('[') + 1:-1]}]",
+                "route": "cuda", "source": src,
+                "replaces": line, "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": by,
+                "library_ms": lib_ms if lib_name == "library" else None,
+            }
+
+    for R, D in ((256, 4096), (1024, 8192)):
+        c = kb.rmsnorm_case(b, R, D)
+        x, w = c.inputs["x"], c.inputs["w"]
+        timed("K19", "rmsnorm", "llama2_tpu_torch/csrc/rmsnorm.cu", "llama2_tpu/ops/pallas/rmsnorm.py:46",
+              c, lambda i: F.rms_norm(x[i % c.copies], (D,), w, 1e-5), "library", 200, torch.float32,
+              norm_tolerance(torch.float32), library_call="F.rms_norm")
+    for R, D in ((256, 11008), (512, 11008)):
+        c = kb.swiglu_case(b, R, D)
+        h1, h3 = c.inputs["h1"], c.inputs["h3"]
+        timed("K20", "swiglu", "llama2_tpu_torch/csrc/swiglu.cu", "llama2_tpu/ops/pallas/swiglu.py:43",
+              c, lambda i: F.silu(h1[i % c.copies]) * h3[i % c.copies], "composed_silu_mul", 200,
+              torch.float32, library_ms="none_(no_single_call)")
+    for S_, p in ((2048, 2047), (8192, 8191), (8192, 1023)):
+        c = kb.attention_case(b, S_, p)
+        q4, k, v = c.inputs["q"].transpose(1, 2), c.inputs["k"], c.inputs["v"]
+        timed("K3", "flash_decode_attention", "llama2_tpu_torch/csrc/decode_attention.cu",
+              "llama2_tpu/ops/pallas/attention.py:562", c,
+              lambda i: F.scaled_dot_product_attention(q4, k[i % c.copies][:, :, : p + 1],
+                                                       v[i % c.copies][:, :, : p + 1], enable_gqa=True),
+              "library", 128, torch.float32, library_call="SDPA_enable_gqa")
+        del c, k, v
+    for p in (256, S - 1):
+        c = kb.paged_cases(b, p)[0]
+        t = c.inputs
+        kd, vd = (torch.stack([tpa.gather_pages(pool[l], t["table"], t["n_used"]) for l in range(t["L"])])
+                  for pool in (t["k"], t["v"]))
+        q4 = t["q"][:, :, None]
+        timed("K14", "paged_decode_attention", "llama2_tpu_torch/csrc/paged_attention.cu",
+              "llama2_tpu/ops/pallas/paged_attention.py:150", c,
+              lambda i: F.scaled_dot_product_attention(q4, kd[i % t["L"]][:, :, : p + 1],
+                                                       vd[i % t["L"]][:, :, : p + 1]),
+              "yardstick_SDPA_gathered", 64, torch.bfloat16, library_ms="none_(no_single_call)")
+        del c, t, kd, vd
+    torch.cuda.empty_cache()
+    return rows
+
+
+BENCH_LINE = re.compile(
+    r"^(?P<name>.+?) +(?P<us>\d+\.\d+) us/op"
+    r"(?: +(?P<gbs>\d+\.\d) GB/s +(?P<hbm>\d+\.\d)% of 3\.35 TB/s)?"
+    r"(?: +(?P<tf>\d+\.\d+) TFLOP/s +(?P<peak>\d+\.\d)% of \d+ TFLOP/s)?(?P<gaps>  \[host gaps\])?$"
+)
+
+
+def bench_expected() -> list[str]:
+    """The lines ``python -m llama2_tpu_torch.benchmarks.kernels all`` must
+    print, by name: each suite's shapes and variants."""
+    two = ("cuda", "plain")
+    names = [f"rmsnorm[{r}x{d}] {v}" for r, d in ((256, 4096), (1024, 8192)) for v in two]
+    names += [f"swiglu[{r}x11008] {v}" for r in (256, 512) for v in two]
+    names += [f"q8matmul[{m}x4096x{n}] {v}" for m, n in ((1, 11008), (8, 11008), (1, 4096))
+              for v in ("cuda fused", "torch dequant+matmul")]
+    names += [f"attn[S{s},pos{p}] {v}" for s, p in ((2048, 2047), (8192, 8191), (8192, 1023)) for v in two]
+    names += [f"attn-stacked[{k} B8 S2048,pos{p}] {v}" for k in ("f32", "int8") for p in (2040, 512)
+              for v in two]
+    names += [f"mlp-block[B8 4096x11008] {v}" for v in ("fused", "split")]
+    names += [f"prefill[T2048,S{s}] {v}" for s in (2048, 8192) for v in two]
+    names += [f"sample[32000] {v}" for v in ("argmax", "multinomial", "top_p 0.9 (full sort)")]
+    names += [f"paged[K{k} B8 page256,pos{p}] {v}" for p in (256, 4095) for k in range(14, 19) for v in two]
+    return names
+
+
+def phase_bench(smi: str) -> dict:
+    """The kernel benchmarks' entry point, this slice's path, as a user runs
+    it: ``python -m llama2_tpu_torch.benchmarks.kernels all`` in a subprocess.
+    It must exit 0, print the card's ``nvidia-smi`` line first, then every
+    line of ``bench_expected`` and no other, none of them over 105% of the
+    memory rate or of the peak it is read against, and last its launch
+    counts (from 0 at its start): every kernel it runs at least once.
+    Returns the launch counts by tag."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "llama2_tpu_torch.benchmarks.kernels", "all"],
+                       capture_output=True, text=True, timeout=900, cwd=REPO)
+    seconds = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"the kernel benchmarks exited {r.returncode}:\n{r.stderr[-4000:]}")
+    lines = r.stdout.splitlines()
+    if lines[0] != smi.splitlines()[0]:
+        raise AssertionError(f"benchmark header {lines[0]!r}, not the card's {smi!r}")
+    names = []
+    for line in lines[1:-1]:
+        say("bench", line=line)
+        m = BENCH_LINE.match(line)
+        if m is None:
+            raise AssertionError(f"malformed benchmark line {line!r}")
+        names.append(m["name"])
+        for key in ("hbm", "peak"):
+            if m[key] is not None and float(m[key]) > 105.0:
+                raise AssertionError(f"impossible reading, {m[key]}% of the card's rate: {line!r}")
+    if names != bench_expected():
+        missing = sorted(set(bench_expected()) - set(names))
+        raise AssertionError(f"benchmark lines differ from the expected ones; missing {missing}")
+    launches = json.loads(lines[-1])["launches"]
+    idle = sorted(tag for tag, n in launches.items() if n == 0)
+    if idle:
+        raise AssertionError(f"the kernel benchmarks never launched {idle}")
+    say("bench", entry="python_-m_llama2_tpu_torch.benchmarks.kernels_all", exit=0, lines=len(names),
+        seconds=f"{seconds:.1f}", launches=",".join(f"{t}:{n}" for t, n in launches.items()))
+    return launches
+
+
 def phase_dense_timing(cycles_per_ms: float) -> None:
     """The dense decode attention kernels alone (K2, K4, K8, K9; bf16, the 7B
     head layout, 1 and 8 rows, every row at pos 256 and at 4095, call i on
     layer i % 4 of a 4-layer cache), for comparing two trees in one call:
-    ``python3 chip_smoke.py --dense-timing`` runs it and nothing else. It
-    uses only wrappers every tree since slice 4 has, so this script can time
-    an older checkout's kernels from that checkout's root."""
+    ``python3 chip_smoke.py --dense-timing`` runs it and nothing else. Every
+    tree since slice 5 has it: run each checkout's own script from its
+    root."""
     import torch
 
     from llama2_tpu_torch.ops.cuda import attention as fa
@@ -3020,9 +3245,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    # the port itself: absent outside a checkout of the repository
-    import llama2_tpu_torch  # noqa: F401
-
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
     say("card", name=name.replace(" ", "_"), count=torch.cuda.device_count(),
@@ -3039,6 +3261,7 @@ def main() -> int:
     phase_kernels_q8kv()
     phase_kernels_batch8()
     phase_kernels_paged()
+    phase_kernels_bench()
     # this slice's main path, served: the paged engine over both pools
     served = {kv: phase_serve(kv) for kv in (False, True)}
     accurate = {kv: phase_serve_accurate(kv) for kv in (False, True)}
@@ -3072,6 +3295,11 @@ def main() -> int:
     kernels += phase_timing_q8(q8_launches, cycles_per_ms)
     kernels += phase_timing_paged({"K15": accurate[False]["K15"], "K16": accurate[True]["K16"],
                                    "K17": served[False]["K17"], "K18": served[True]["K18"]}, cycles_per_ms)
+    bench_rows = phase_timing_bench()
+    # this slice's path: the kernel benchmarks' entry point, counted in its own process
+    bench_launches = phase_bench(smi)
+    for tag in ("K3", "K14", "K19", "K20"):
+        kernels.append({**bench_rows[tag], "launches": bench_launches[tag]})
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -3,7 +3,9 @@
 //
 // Replaces llama2_tpu/ops/pallas/attention.py::flash_decode_attention_stacked
 // (decode_kernel) and ::flash_decode_attention_fused (decode_fused_kernel,
-// which takes the raw fused-QKV rows and applies RoPE itself; see below).
+// which takes the raw fused-QKV rows and applies RoPE itself; see below), and
+// ::flash_decode_attention (decode_read_kernel, K3: one layer's read-only
+// (B, KVH, S, hs) cache, no append; see the end of this header).
 //
 // Computes, for each batch row b and query head h (one query token):
 //   k_cache[layer, b, kvh, pos_b] = k_new[b, kvh];  v likewise
@@ -38,11 +40,19 @@
 // The loop and the prologue live in decode_attention.cuh, shared with the
 // paged kernels of paged_attention.cu, which differ only in where a key row
 // lives.
+//
+// K3 is the same loop over one layer's cache with a read-only row policy
+// (DenseReadRows): no new-row operands, no write, each row b at its own
+// pos[b]. Bound on this card: bytes, the K and V rows 0..pos[b] of every
+// (b, kv head) once: 4.2 MB at B = 1, KVH = 4, hs = 128, f32 and pos 1023,
+// 1.25 us at 3.35 TB/s. At B = 1 and H = 32 the grid is 32 blocks on 132
+// SMs, K2's underfill at batch 1.
 #include "decode_attention.cuh"
 
 namespace {
 
 using llama2::fpa::attend;
+using llama2::fpa::DenseReadRows;
 using llama2::fpa::DenseRows;
 using llama2::fpa::kWarps;
 using llama2::fpa::rope_prologue;
@@ -148,7 +158,67 @@ cudaError_t dispatch_fused(const void* qkv, const void* c, const void* s, void* 
   return cudaErrorInvalidValue;
 }
 
+template <typename T, int NPL, int KC>
+__global__ void __launch_bounds__(kWarps * 32)
+decode_read_kernel(const T* __restrict__ q, const T* k_cache, const T* v_cache,
+                   const int* __restrict__ pos, T* __restrict__ out, int H, int KVH,
+                   int S, int hs, float scale) {
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int kvh = h / (H / KVH);
+  const int lane = threadIdx.x & 31;
+  const DenseReadRows rows{{((size_t)b * KVH + kvh) * (size_t)S * hs, hs, 0}};
+  float qr[NPL];
+  const T* qh = q + ((size_t)b * H + h) * hs;
+#pragma unroll
+  for (int i = 0; i < NPL; ++i) {
+    const int d = lane + 32 * i;
+    qr[i] = d < hs ? to_f32(qh[d]) * scale : 0.f;
+  }
+  attend<T, NPL, KC>(qr, k_cache, v_cache, nullptr, nullptr,
+                     out + ((size_t)b * H + h) * hs, rows, pos[b], hs, false);
+}
+
+template <typename T, int NPL>
+cudaError_t launch_read(const void* q, const void* kc, const void* vc, const void* pos,
+                        void* out, int B, int H, int KVH, int S, int hs, float scale,
+                        cudaStream_t stream) {
+  constexpr int KC = NPL >= 8 ? 4 : 8;
+  decode_read_kernel<T, NPL, KC><<<dim3(H, B), kWarps * 32, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc),
+      static_cast<const int*>(pos), static_cast<T*>(out), H, KVH, S, hs, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_read(const void* q, const void* kc, const void* vc, const void* pos,
+                          void* out, int B, int H, int KVH, int S, int hs, float scale,
+                          cudaStream_t st) {
+  if (hs <= 32) return launch_read<T, 1>(q, kc, vc, pos, out, B, H, KVH, S, hs, scale, st);
+  if (hs <= 64) return launch_read<T, 2>(q, kc, vc, pos, out, B, H, KVH, S, hs, scale, st);
+  if (hs <= 128) return launch_read<T, 4>(q, kc, vc, pos, out, B, H, KVH, S, hs, scale, st);
+  if (hs <= 256) return launch_read<T, 8>(q, kc, vc, pos, out, B, H, KVH, S, hs, scale, st);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
+
+// K3. q (B, H, hs); one layer's caches (B, KVH, S, hs), read only; pos (B,)
+// int32 on the device, 0 <= pos[b] < S; out (B, H, hs). All contiguous, one
+// dtype. Returns the launch's cudaError_t.
+extern "C" int flash_decode_attention(const void* q, const void* k_cache, const void* v_cache,
+                                      const void* pos, void* out, int dtype, int B, int H,
+                                      int KVH, int S, int hs, float scale, void* stream) {
+  if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 || S <= 0 || hs <= 0)
+    return cudaErrorInvalidValue;
+  if (!q || !k_cache || !v_cache || !pos || !out) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == llama2::kF32)
+    return dispatch_read<float>(q, k_cache, v_cache, pos, out, B, H, KVH, S, hs, scale, st);
+  if (dtype == llama2::kBF16)
+    return dispatch_read<__nv_bfloat16>(q, k_cache, v_cache, pos, out, B, H, KVH, S, hs, scale, st);
+  return cudaErrorInvalidValue;
+}
 
 // q (B, H, hs); caches (L, B, KVH, S, hs), updated in place; k_new/v_new
 // (B, KVH, 1, hs); pos (B,) int32 on the device; out (B, H, hs). All

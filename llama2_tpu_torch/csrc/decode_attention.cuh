@@ -1,12 +1,15 @@
 // Single-query decode attention over an fp KV cache: the device code shared
-// by the dense kernels of decode_attention.cu (K2, K4) and the paged kernels
-// of paged_attention.cu (K15, K17). The two differ only in where key row t of
-// a (b, kv head) lives, which a row-address policy says:
+// by the dense kernels of decode_attention.cu (K2, K3, K4) and the paged
+// kernels of paged_attention.cu (K14, K15, K17). They differ only in where
+// key row t of a (b, kv head) lives, which a row-address policy says:
 //   DenseRows: the (layer, b, kv head) plane of an (L, B, KVH, S, hs) cache,
 //     row t at plane + t * hs; this step's row is the one at pos;
 //   PagedRows: an (L, P, KVH, page, hs) pool, row t in page table[t / page]
 //     at row t % page; this step's row is the one at the write coordinates
-//     (write_page, write_row), whatever position it holds.
+//     (write_page, write_row), whatever position it holds;
+//   DenseReadRows, PagedReadRows: the same addresses with no step's row
+//     (K3, K14: the caches are read-only; kAppends is false, so the new-row
+//     operands are never dereferenced and nothing is written).
 // A key whose address is this step's row is taken from the new-row operand
 // (registers, shared or global memory of the caller's choice), never from the
 // cache, so no block depends on another block's write; the caller names the
@@ -30,6 +33,7 @@ constexpr int kWarps = 8;
 
 // Rows of one (layer, b, kv head) plane of a dense (L, B, KVH, S, hs) cache.
 struct DenseRows {
+  static constexpr bool kAppends = true;
   size_t plane;  // element offset of the plane's row 0
   int hs, pos;
   __device__ __forceinline__ size_t row(int t) const { return plane + (size_t)t * hs; }
@@ -41,6 +45,7 @@ struct DenseRows {
 // pool. Offsets are 64-bit: a pool of 64 pages at Llama-2-7B widths holds
 // 2^31 elements over its 32 layers.
 struct PagedRows {
+  static constexpr bool kAppends = true;
   const int* table;  // this slot's row of the (B, max_pages) table
   size_t layer_pages;  // layer * P
   int KVH, kvh, page, hs;
@@ -53,12 +58,25 @@ struct PagedRows {
   __device__ __forceinline__ size_t new_row() const { return woff; }
 };
 
+// The read-only forms (K3: one layer's (B, KVH, S, hs) cache is the plane of
+// layer 0; K14: one layer's (P, KVH, page, hs) pool has layer_pages 0).
+struct DenseReadRows : DenseRows {
+  static constexpr bool kAppends = false;
+  __device__ __forceinline__ bool is_new(int, size_t) const { return false; }
+};
+
+struct PagedReadRows : PagedRows {
+  static constexpr bool kAppends = false;
+  __device__ __forceinline__ bool is_new(int, size_t) const { return false; }
+};
+
 // The online-softmax read over keys 0..p of one (b, query head), then the
 // append and the merge of the warps. qr: this lane's query elements, scaled.
-// kn/vn: the step's new rows. NPL: head elements per lane (hs <= 32 * NPL);
-// KC: keys per warp chunk.
-template <typename T, int NPL, int KC, typename Rows>
-__device__ __forceinline__ void attend(const float (&qr)[NPL], T* k_cache, T* v_cache,
+// kn/vn: the step's new rows (unused, and may be null, where the policy does
+// not append). C: T, or const T for a read-only cache. NPL: head elements per
+// lane (hs <= 32 * NPL); KC: keys per warp chunk.
+template <typename T, int NPL, int KC, typename Rows, typename C>
+__device__ __forceinline__ void attend(const float (&qr)[NPL], C* k_cache, C* v_cache,
                                        const T* kn, const T* vn, T* oh, const Rows& rows,
                                        int p, int hs, bool write_back) {
   const int lane = threadIdx.x & 31;
@@ -116,12 +134,14 @@ __device__ __forceinline__ void attend(const float (&qr)[NPL], T* k_cache, T* v_
     m = m_new;
   }
 
-  if (write_back) {
-    T* kw = k_cache + rows.new_row();
-    T* vw = v_cache + rows.new_row();
-    for (int d = threadIdx.x; d < hs; d += blockDim.x) {
-      kw[d] = kn[d];
-      vw[d] = vn[d];
+  if constexpr (Rows::kAppends) {
+    if (write_back) {
+      T* kw = k_cache + rows.new_row();
+      T* vw = v_cache + rows.new_row();
+      for (int d = threadIdx.x; d < hs; d += blockDim.x) {
+        kw[d] = kn[d];
+        vw[d] = vn[d];
+      }
     }
   }
 

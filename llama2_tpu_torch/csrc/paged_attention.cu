@@ -1,7 +1,12 @@
 // Paged decode attention over layer-stacked page pools, with this step's K/V
-// rows appended in place at per-slot write coordinates (K15, K16, K17, K18).
+// rows appended in place at per-slot write coordinates (K15, K16, K17, K18),
+// and over one layer's read-only pools (K14).
 //
 // Replaces, in llama2_tpu/ops/pallas/paged_attention.py:
+//   ::paged_decode_attention (K14): one layer's fp pools (P, KVH, page, hs),
+//     the query (B, H, hs), no append: K15's loop with a read-only row
+//     policy (PagedReadRows), so it writes nothing and reads no table entry
+//     past pos[b] / page;
 //   ::paged_decode_attention_stacked (K15): fp pools; the roped query
 //     (B, H, hs) and this step's rows k_new/v_new (B, KVH, hs) in the pool
 //     dtype;
@@ -54,6 +59,7 @@ namespace {
 using llama2::to_f32;
 using llama2::fpa::attend;
 using llama2::fpa::kWarps;
+using llama2::fpa::PagedReadRows;
 using llama2::fpa::PagedRows;
 using llama2::fpa::rope_prologue;
 
@@ -161,12 +167,72 @@ int paged_fp(bool fused, const void* q, void* kp, void* vp, const void* kn, cons
   return cudaErrorInvalidValue;
 }
 
+template <typename T, int NPL, int KC>
+__global__ void __launch_bounds__(kWarps * 32)
+paged_read_kernel(const T* __restrict__ q, const T* k_pool, const T* v_pool,
+                  T* __restrict__ out, const PagedArgs a) {
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int kvh = h / (a.H / a.KVH);
+  const int lane = threadIdx.x & 31;
+  const int hs = a.hs;
+  const PagedReadRows rows{{static_cast<const int*>(a.table) + (size_t)b * a.max_pages, 0, a.KVH,
+                            kvh, a.page, hs, 0}};
+  float qr[NPL];
+  const T* qh = q + ((size_t)b * a.H + h) * hs;
+#pragma unroll
+  for (int i = 0; i < NPL; ++i) {
+    const int d = lane + 32 * i;
+    qr[i] = d < hs ? to_f32(qh[d]) * a.scale : 0.f;
+  }
+  attend<T, NPL, KC>(qr, k_pool, v_pool, nullptr, nullptr, out + ((size_t)b * a.H + h) * hs, rows,
+                     static_cast<const int*>(a.pos)[b], hs, false);
+}
+
+template <typename T, int NPL>
+cudaError_t launch_read(const void* q, const void* kp, const void* vp, void* out, const PagedArgs& a,
+                        cudaStream_t stream) {
+  constexpr int KC = NPL >= 8 ? 4 : 8;
+  paged_read_kernel<T, NPL, KC><<<dim3(a.H, a.B), kWarps * 32, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
+      static_cast<T*>(out), a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_read(const void* q, const void* kp, const void* vp, void* out, const PagedArgs& a,
+                          cudaStream_t st) {
+  if (a.hs <= 32) return launch_read<T, 1>(q, kp, vp, out, a, st);
+  if (a.hs <= 64) return launch_read<T, 2>(q, kp, vp, out, a, st);
+  if (a.hs <= 128) return launch_read<T, 4>(q, kp, vp, out, a, st);
+  if (a.hs <= 256) return launch_read<T, 8>(q, kp, vp, out, a, st);
+  return cudaErrorInvalidValue;
+}
+
 __global__ void __launch_bounds__(llama2::q8a::kThreads) paged_attention_q8_kernel(const llama2::q8a::Params a) {
   __shared__ llama2::q8a::Smem sm;
   llama2::q8a::att_item<true>(a, blockIdx.x, sm);
 }
 
 }  // namespace
+
+// K14. q (B, H, hs); one layer's pools (P, KVH, page, hs), read only; table
+// (B, max_pages), pos (B,) int32 on the device; out (B, H, hs). One dtype,
+// contiguous; hs <= 256. Returns the launch's cudaError_t.
+extern "C" int paged_decode_attention(const void* q, const void* k_pool, const void* v_pool,
+                                      const void* table, const void* pos, void* out, int dtype,
+                                      int B, int H, int KVH, int P, int page, int max_pages, int hs,
+                                      float scale, void* stream) {
+  if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 || hs <= 0 || P <= 0 || page <= 0 ||
+      max_pages <= 0)
+    return cudaErrorInvalidValue;
+  if (!q || !k_pool || !v_pool || !table || !pos || !out) return cudaErrorInvalidValue;
+  const PagedArgs a{table, nullptr, nullptr, pos, 0, B, H, KVH, P, page, max_pages, hs, scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == llama2::kF32) return dispatch_read<float>(q, k_pool, v_pool, out, a, st);
+  if (dtype == llama2::kBF16) return dispatch_read<__nv_bfloat16>(q, k_pool, v_pool, out, a, st);
+  return cudaErrorInvalidValue;
+}
 
 // K15. q (B, H, hs); pools (L, P, KVH, page, hs), updated in place; k_new /
 // v_new (B, KVH, hs); table (B, max_pages), write_page / write_row / pos (B,)

@@ -4,5 +4,5 @@ builds them all at once."""
 
 SOURCES = (
     "prefill_attention", "decode_attention", "attention_q8", "quant_matmul", "mlp_block",
-    "paged_attention",
+    "paged_attention", "rmsnorm", "swiglu",
 )

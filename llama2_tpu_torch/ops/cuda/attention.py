@@ -16,6 +16,14 @@ the QKV projection's raw pre-RoPE rows, rotates the query and key rows by the
 step's pair-duplicated cos/sin tables inside the kernel, appends the rotated
 K row and the raw V row, and runs the same read.
 ``flash_decode_attention_fused_plain`` is its plain version.
+
+``flash_decode_attention`` (K3) replaces
+``llama2_tpu/ops/pallas/attention.py::flash_decode_attention``: single-query
+attention over one layer's read-only ``(B, KVH, S, hs)`` cache, each row at
+its own position, no append; the same device loop as K2 with a read-only row
+policy. ``flash_decode_attention_plain`` is its plain version. No model path
+calls it (the JAX model sends every T = 1 step to the stacked kernel); the
+kernel benchmarks (``llama2_tpu_torch/benchmarks/kernels.py``) do.
 """
 
 from __future__ import annotations
@@ -250,6 +258,99 @@ def flash_decode_attention_fused(
 
 
 flash_decode_attention_fused.launches = 0
+
+
+def pos_rows(pos, B: int, device) -> torch.Tensor:
+    """``pos`` (an int, or a tensor of 1 or B positions) as an int32 (B,)
+    tensor on ``device``, as the JAX wrappers broadcast it; a tensor that is
+    one already is returned as it is."""
+    return torch.as_tensor(pos, dtype=torch.int32, device=device).reshape(-1).expand(B).contiguous()
+
+
+def flash_decode_attention_plain(q, k_cache, v_cache, pos, *, scale=None) -> torch.Tensor:
+    """K3's arithmetic in plain PyTorch: float32 attention with q scaled
+    before the dot, over keys 0..pos[b] of each row. q (B, 1, H, hs) or
+    (B, H, hs); caches (B, KVH, S, hs); ``pos`` an int or a (B,) tensor."""
+    q3 = q[:, 0] if q.ndim == 4 else q
+    if scale is None:
+        scale = 1.0 / q3.shape[-1] ** 0.5
+    if not isinstance(pos, torch.Tensor):
+        pos = int(pos)
+    n = pos + 1 if isinstance(pos, int) else int(pos.max()) + 1
+    out = ref.attention(
+        q3[:, None].float() * scale,
+        k_cache[:, :, :n].float(),
+        v_cache[:, :, :n].float(),
+        pos if isinstance(pos, int) else pos_rows(pos, q3.shape[0], q.device),
+        scale=1.0,
+    ).to(q.dtype)
+    return out.reshape(q.shape)
+
+
+def flash_decode_attention(q, k_cache, v_cache, pos, *, scale=None) -> torch.Tensor:
+    """Single-query decode attention over one layer's cache, no append.
+
+    q (B, 1, H, hs) or (B, H, hs); k_cache/v_cache (B, KVH, S, hs) in q's
+    dtype, read only; ``pos`` the query's position, an int or a per-row (B,)
+    tensor (0 <= pos < S is the caller's contract; a tensor's values are not
+    read back to check); ``scale`` defaults to 1/sqrt(hs) (a caller that
+    zero-pads the head dim passes the real one). Returns q's shape and dtype.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel (and
+    count the launch in ``flash_decode_attention.launches``) or raise.
+    """
+    if q.ndim == 4 and q.shape[1] != 1:
+        raise ValueError("flash_decode_attention is single-query (T=1)")
+    q3 = q[:, 0] if q.ndim == 4 else q
+    if q3.ndim != 3 or k_cache.ndim != 4 or k_cache.shape != v_cache.shape:
+        raise ValueError(
+            f"want q (B,[1,]H,hs) and caches (B,KVH,S,hs); got {tuple(q.shape)}, "
+            f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}"
+        )
+    B, H, hs = q3.shape
+    Bc, KVH, S, hs_c = k_cache.shape
+    if Bc != B or hs_c != hs or H % KVH != 0:
+        raise ValueError(f"q {tuple(q.shape)} does not match cache {tuple(k_cache.shape)}")
+    if not isinstance(pos, torch.Tensor):
+        pos = int(pos)
+        if not 0 <= pos < S:
+            raise ValueError(f"pos {pos} outside 0..{S - 1}")
+    if scale is None:
+        scale = 1.0 / hs**0.5
+    if q.device.type == "cpu":
+        return flash_decode_attention_plain(q, k_cache, v_cache, pos, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if q.dtype not in build.DTYPE_CODES or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+        raise ValueError(f"dtypes {q.dtype}, {k_cache.dtype}, {v_cache.dtype}: want one of f32, bf16")
+    if k_cache.device != q.device or v_cache.device != q.device:
+        raise ValueError("all operands must be on one device")
+    if not all(t.is_contiguous() for t in (q3, k_cache, v_cache)):
+        raise ValueError("operands must be contiguous")
+    if hs > 256:
+        raise ValueError(f"kernel takes hs <= 256 (got {hs})")
+    posv = pos_rows(pos, B, q.device)
+    out = torch.empty_like(q3)
+    err = _entry_read()(
+        q3.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), posv.data_ptr(), out.data_ptr(),
+        build.DTYPE_CODES[q.dtype], B, H, KVH, S, hs, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(err, "flash_decode_attention")
+    flash_decode_attention.launches += 1
+    return out.view(q.shape)
+
+
+flash_decode_attention.launches = 0
+
+
+@functools.cache
+def _entry_read():
+    fn = build.load_library(_LIB).flash_decode_attention
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 5 + [i] * 6 + [ctypes.c_float, p]
+    fn.restype = i
+    return fn
 
 
 @functools.cache

@@ -1,4 +1,4 @@
-"""Paged decode attention over layer-stacked page pools (kernels K15-K18).
+"""Paged decode attention over page pools (kernels K14-K18).
 
 The KV cache of the paged serving engine is a pool of fixed-size pages,
 ``(L, P, KVH, page, hs)`` for K and V (and, for an int8 pool, float32 scale
@@ -11,6 +11,9 @@ then runs single-query attention over keys ``0..pos[b]`` through the table.
 The wrappers launch the hand-written CUDA kernels of ``csrc/paged_attention.cu``,
 which replace, in ``llama2_tpu/ops/pallas/paged_attention.py``:
 
+* ``paged_decode_attention`` (K14): the read alone, over ONE layer's fp pools
+  ``(P, KVH, page, hs)``, no append; table entries past ``pos[b] // page``
+  are never read. No model path calls it; the kernel benchmarks do;
 * ``paged_decode_attention_stacked`` (K15): roped ``q (B, H, hs)`` and rows
   ``k_new/v_new (B, KVH, 1, hs)`` in the pool dtype;
 * ``paged_decode_attention_q8_stacked`` (K16): int8 pools; the rows already
@@ -45,7 +48,7 @@ import torch
 
 from llama2_tpu_torch.ops import ref
 from llama2_tpu_torch.ops.cuda import build
-from llama2_tpu_torch.ops.cuda.attention import rope_rows_plain
+from llama2_tpu_torch.ops.cuda.attention import pos_rows, rope_rows_plain
 from llama2_tpu_torch.ops.cuda.attention_q8 import (
     ROWS_PER_ITEM,
     _sms,
@@ -91,6 +94,21 @@ def paged_attention_oracle(q, k_pool, v_pool, table, pos, scale=None, ks_pool=No
     else:
         out = ref.attention(q4, k, v, pos, scale=scale)
     return out[:, 0] if q.ndim == 3 else out
+
+
+def _attend_pages_plain(q3, k_pool, v_pool, table, pos, scale: float) -> torch.Tensor:
+    """The fp kernels' read in plain PyTorch: float32 attention of q3
+    (B, H, hs), scaled before the dot, over keys 0..pos[b] of one layer's
+    pools (P, KVH, page, hs) gathered through the table. Returns float32
+    (B, H, hs)."""
+    n = _pages_read(pos, k_pool.shape[2])
+    return ref.attention(
+        q3[:, None].float() * scale,
+        gather_pages(k_pool, table, n).float(),
+        gather_pages(v_pool, table, n).float(),
+        pos,
+        scale=1.0,
+    )[:, 0]
 
 
 def write_rows(pools, rows, layer: int, write_page, write_row) -> None:
@@ -146,15 +164,8 @@ def paged_decode_attention_stacked_plain(
     layer = int(layer)
     q3 = _q3(q)
     write_rows((k_pool, v_pool), (k_new[:, :, 0], v_new[:, :, 0]), layer, write_page, write_row)
-    n = _pages_read(pos, k_pool.shape[3])
-    out = ref.attention(
-        q3[:, None].float() * (1.0 / q3.shape[-1] ** 0.5),
-        gather_pages(k_pool[layer], table, n).float(),
-        gather_pages(v_pool[layer], table, n).float(),
-        pos,
-        scale=1.0,
-    ).to(q.dtype)
-    return out.reshape(q.shape), k_pool, v_pool
+    out = _attend_pages_plain(q3, k_pool[layer], v_pool[layer], table, pos, 1.0 / q3.shape[-1] ** 0.5)
+    return out.to(q.dtype).reshape(q.shape), k_pool, v_pool
 
 
 def paged_decode_attention_q8_stacked_plain(
@@ -180,18 +191,10 @@ def paged_decode_attention_fused_plain(
     write the rows, attend in float32. Returns att (B, H, hs) in qkv's dtype
     and the pools."""
     layer = int(layer)
-    hs = qkv.shape[-1]
     q, k, v = rope_rows_plain(qkv, cos_il, sin_il, n_heads, k_pool.dtype)
     write_rows((k_pool, v_pool), (k, v), layer, write_page, write_row)
-    n = _pages_read(pos, k_pool.shape[3])
-    out = ref.attention(
-        q[:, None] * (1.0 / hs**0.5),
-        gather_pages(k_pool[layer], table, n).float(),
-        gather_pages(v_pool[layer], table, n).float(),
-        pos,
-        scale=1.0,
-    )
-    return out[:, 0].to(qkv.dtype), k_pool, v_pool
+    out = _attend_pages_plain(q, k_pool[layer], v_pool[layer], table, pos, 1.0 / qkv.shape[-1] ** 0.5)
+    return out.to(qkv.dtype), k_pool, v_pool
 
 
 def paged_decode_attention_q8_fused_plain(
@@ -206,6 +209,65 @@ def paged_decode_attention_q8_fused_plain(
     write_rows(pools, rows, layer, write_page, write_row)
     out = _attend_pages_q8_plain(q, *(p[layer] for p in pools), table, pos, 1.0 / qkv.shape[-1] ** 0.5)
     return (out.to(qkv.dtype), *pools)
+
+
+def paged_decode_attention_plain(q, k_pool, v_pool, table, pos, *, scale=None) -> torch.Tensor:
+    """K14's arithmetic in plain PyTorch: :func:`paged_attention_oracle`'s
+    gather and attend, in float32 with q scaled before the dot, as the fp
+    kernels compute it. Returns q's shape and dtype."""
+    q3 = _q3(q)
+    if scale is None:
+        scale = 1.0 / q3.shape[-1] ** 0.5
+    pos = pos_rows(pos, q3.shape[0], q.device)
+    return _attend_pages_plain(q3, k_pool, v_pool, table, pos, scale).to(q.dtype).reshape(q.shape)
+
+
+def paged_decode_attention(q, k_pool, v_pool, table, pos, *, scale=None) -> torch.Tensor:
+    """Paged decode attention over one layer's fp pools, no append.
+
+    q (B, 1, H, hs) or (B, H, hs); k_pool/v_pool (P, KVH, page, hs) in q's
+    dtype, read only; table (B, max_pages) int32, the physical page of each
+    row's logical page (entries past ``pos[b] // page`` are never read, and
+    may name any page); ``pos`` (B,) int32 (or an int), 0 <= pos[b] <
+    max_pages * page by the caller's contract; ``scale`` defaults to
+    1/sqrt(hs). Returns q's shape and dtype.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel (and
+    count the launch in ``paged_decode_attention.launches``) or raise.
+    """
+    q3 = _q3(q)
+    if q3.ndim != 3 or k_pool.ndim != 4 or k_pool.shape != v_pool.shape or k_pool.dtype != v_pool.dtype:
+        raise ValueError(f"want q (B,[1,]H,hs) and one layer's pools (P,KVH,page,hs) of one dtype; got "
+                         f"{tuple(q.shape)}, {k_pool.dtype} {tuple(k_pool.shape)}, "
+                         f"{v_pool.dtype} {tuple(v_pool.shape)}")
+    B, H, hs = q3.shape
+    P, KVH, page, hs_c = k_pool.shape
+    if hs_c != hs or H % KVH != 0:
+        raise ValueError(f"q {tuple(q.shape)} does not match pools {tuple(k_pool.shape)}")
+    if table.ndim != 2 or table.shape[0] != B or table.dtype != torch.int32:
+        raise ValueError(f"table must be an int32 ({B}, max_pages) tensor, got {table.dtype} {tuple(table.shape)}")
+    if scale is None:
+        scale = 1.0 / hs**0.5
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pool, v_pool, table, pos, scale=scale)
+    posv = pos_rows(pos, B, q.device)
+    if hs > 256:
+        raise ValueError(f"kernel takes hs <= 256 (got {hs})")
+    if k_pool.dtype != q.dtype:
+        raise ValueError(f"pool dtype {k_pool.dtype} differs from the query's {q.dtype}")
+    _check_device(q3, (q3, k_pool, v_pool, table, posv))
+    out = torch.empty_like(q3)
+    err = _entry_read()(
+        q3.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(), posv.data_ptr(),
+        out.data_ptr(), build.DTYPE_CODES[q.dtype], B, H, KVH, P, page, table.shape[1], hs,
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(err, "paged_decode_attention")
+    paged_decode_attention.launches += 1
+    return out.view(q.shape)
+
+
+paged_decode_attention.launches = 0
 
 
 def _check(B: int, H: int, hs: int, k_pool, v_pool, table, write_page, write_row, layer: int, pos,
@@ -470,6 +532,15 @@ def _entry(name: str):
     fn = getattr(build.load_library(_LIB), name)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p] * 10 + [i] * 9 + [ctypes.c_float, p]
+    fn.restype = i
+    return fn
+
+
+@functools.cache
+def _entry_read():
+    fn = build.load_library(_LIB).paged_decode_attention
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 6 + [i] * 8 + [ctypes.c_float, p]
     fn.restype = i
     return fn
 

@@ -9,13 +9,17 @@ attention kernels (``ops/cuda/paged_attention.py``).
 
 Rows are written by indexed assignment, ``pool[:, page_ids, :, row_ids] =
 rows`` (see :func:`write_pages`), in place: the JAX package scans row by row
-only to keep XLA from copying the pool.
+only to keep XLA from copying the pool. :func:`write_segment` and
+:func:`append` are the JAX package's public writers of fp pools, with its
+signatures; where two rows of one call share an address, the later row
+wins, as in the JAX scans.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from llama2_tpu_torch.config import ModelConfig
@@ -175,6 +179,63 @@ def write_pages(pool: torch.Tensor, rows: torch.Tensor, page_ids: torch.Tensor,
     ``[:, page_ids[r], :, row_ids[r]]``, in place. Coordinates two rows share
     (the scratch page's) get one of them."""
     pool[:, page_ids, :, row_ids] = rows.to(pool.dtype)
+
+
+def _check_fp(pool: PagePool, what: str) -> None:
+    if pool.kv_quant:
+        raise ValueError(f"{what} writes fp pools; an int8 pool takes quantized rows and scales")
+
+
+def write_segment(pool: PagePool, k_rows: torch.Tensor, v_rows: torch.Tensor, table,
+                  pos0: int) -> PagePool:
+    """Write a prefilled segment's K/V rows (L, T, KVH, hs), positions
+    ``pos0 .. pos0 + T - 1``, through the slot's page table (host ints in
+    logical order), in place; returns the pool.
+
+    The JAX version pads the rows to a power-of-two bucket by repeating the
+    last row at its own address, an idempotent rewrite that bounds its jit
+    specializations; nothing here needs it. Of rows sharing an address (a
+    table that names one page twice), the later is kept.
+    """
+    _check_fp(pool, "write_segment")
+    T = k_rows.shape[1]
+    logical = np.arange(pos0, pos0 + T)
+    page_ids = np.asarray(table, dtype=np.int64)[logical // pool.page_size]
+    row_ids = logical % pool.page_size
+    addr = page_ids * pool.page_size + row_ids
+    _, first_from_end = np.unique(addr[::-1], return_index=True)
+    keep = np.sort(T - 1 - first_from_end)  # each address's last row
+    device = pool.k.device
+    pages_t = torch.from_numpy(page_ids[keep]).to(device)
+    rows_t = torch.from_numpy(row_ids[keep]).to(device)
+    idx = torch.from_numpy(keep).to(k_rows.device)
+    for dst, rows in ((pool.k, k_rows), (pool.v, v_rows)):
+        write_pages(dst, rows.transpose(0, 1)[idx], pages_t, rows_t)
+    return pool
+
+
+def append(pool: PagePool, k_rows: torch.Tensor, v_rows: torch.Tensor, page_ids, row_ids,
+           active=None) -> PagePool:
+    """Batched decode append: slot b's rows ``k_rows[:, b]`` (L, KVH, hs) at
+    ``[:, page_ids[b], :, row_ids[b]]``, in place; returns the pool.
+
+    Slots write in batch order, so a later slot wins an address two slots
+    share: each slot writes the rows of the last slot with its address, so
+    the one indexed write is exact, with no host read of the coordinates.
+    ``active`` is taken for the JAX signature and unused, as there: an
+    inactive slot writes its frozen coordinates.
+    """
+    _check_fp(pool, "append")
+    device = pool.k.device
+    page_ids = torch.as_tensor(page_ids, device=device).long()
+    row_ids = torch.as_tensor(row_ids, device=device).long()
+    addr = page_ids * pool.page_size + row_ids
+    order = torch.arange(addr.shape[0], device=device)
+    last = torch.where(addr[:, None] == addr[None, :], order[None, :], -1).amax(1)
+    last = last.to(k_rows.device)
+    for dst, rows in ((pool.k, k_rows), (pool.v, v_rows)):
+        write_pages(dst, rows[:, last].transpose(0, 1), page_ids, row_ids)
+    return pool
 
 
 def _bucket(T: int) -> int:

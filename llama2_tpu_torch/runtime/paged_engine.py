@@ -18,10 +18,12 @@ tokens it has. ``prefix_cache`` shares the full pages of prompt prefixes
 across requests (``runtime/paged_cache.py::PrefixCache``).
 
 With an int8 pool the staging plane stays fp and rows are quantized once,
-on their way into pages; a prefix hit dequantizes the cached pages back into
-the plane, so the suffix attends to the values decode reads (which is why
-paged int8 streams may differ from dense int8 ones, whose prefill chunks
-attend to their own unquantized rows).
+on their way into pages: a prompt's prefill chunks attend to their own
+unquantized rows here, where the dense int8 engine's chunks write their
+quantized rows first and attend through them (``models/llama.py::_layer``,
+as the JAX package's), which is why paged int8 streams may differ from dense
+int8 ones. A prefix hit dequantizes the cached pages back into the plane, so
+the suffix attends to the values decode reads.
 
 Not ported: speculative windows and the mesh (``dp`` pools).
 """

@@ -814,3 +814,101 @@ def test_paged_engine_on_card_matches_cpu(cuda_device):
         got = serve(cuda_device, "cuda", kv_quant, torch.bfloat16)[0]
         assert all(len(t) > len(p) for t, p in zip(got, prompts))
         assert fused.launches - n0 >= config.n_layers * max(len(t) - len(p) - 1 for t, p in zip(got, prompts))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_read_only_decode_kernels_match_plain_on_card(cuda_device, dtype):
+    """K3 over one layer's dense caches (per-row positions 0, 300 and S - 1,
+    and an int position) and K14 over one layer's shuffled pools, whose
+    table names a NaN-filled page past each row's last page (the plain
+    version, which gathers the longest row's page count for every row, gets
+    valid pages there): outputs within the fp tolerance and finite, one
+    launch a call, the caches and pools untouched."""
+    from llama2_tpu_torch.ops.cuda import attention as fa
+    from llama2_tpu_torch.ops.cuda import paged_attention as tpa
+
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    cpu_g = torch.Generator().manual_seed(13)
+    tol = dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32 else dict(rtol=2**-7, atol=1e-3)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+
+    S = 1024
+    for H, KVH, hs in ((32, 32, 128), (32, 4, 64), (6, 6, 48)):
+        k, v = randn(3, KVH, S, hs), randn(3, KVH, S, hs)
+        k0, v0 = k.clone(), v.clone()
+        for q, pos in ((randn(3, 1, H, hs), torch.tensor([0, 300, S - 1], dtype=torch.int32, device=cuda_device)),
+                       (randn(3, H, hs), 700)):
+            n0 = fa.flash_decode_attention.launches
+            got = fa.flash_decode_attention(q, k, v, pos)
+            assert fa.flash_decode_attention.launches == n0 + 1
+            want = fa.flash_decode_attention_plain(q, k, v, pos)
+            torch.cuda.synchronize()
+            assert got.shape == q.shape and got.dtype == dtype
+            _assert_close(got, want, tol, f"K3 {H=} {KVH=} {hs=}")
+        assert torch.equal(k, k0) and torch.equal(v, v0)
+
+        page = 128
+        pos_list = [0, page - 1, page, 1000, S - 1, 77, 5, 9]
+        table, _, _, pos, P = _paged_setup(cpu_g, cuda_device, pos_list, page, 0, S)
+        kp, vp = randn(P + 1, KVH, page, hs), randn(P + 1, KVH, page, hs)
+        kp[P], vp[P] = float("nan"), float("nan")  # the page past every row's last
+        used = torch.arange(table.shape[1], device=cuda_device)[None] <= (pos // page)[:, None]
+        nan_table = torch.where(used, table, torch.full_like(table, P))
+        q = randn(8, H, hs)
+        kp0 = kp.clone()
+        n0 = tpa.paged_decode_attention.launches
+        got = tpa.paged_decode_attention(q, kp, vp, nan_table, pos)
+        assert tpa.paged_decode_attention.launches == n0 + 1
+        want = tpa.paged_decode_attention_plain(q, kp, vp, table, pos)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all()
+        _assert_close(got, want, tol, f"K14 {H=} {KVH=} {hs=}")
+        assert torch.equal(kp.nan_to_num(), kp0.nan_to_num())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_and_swiglu_kernels_match_plain_on_card(cuda_device, dtype):
+    """K19 and K20 against their plain versions at the JAX tests' ragged
+    widths (288, 64, 172; 768, 64, 172; no 16-byte vectors for some) and the
+    benchmark widths, the output in the rows' dtype. K19 in bf16 is held to
+    two last-bit steps (it rounds twice, and its float32 sum of squares is
+    taken in another order than the plain version's); the rest to the
+    kernels' usual tolerance."""
+    from llama2_tpu_torch.ops.cuda.rmsnorm import rmsnorm, rmsnorm_plain
+    from llama2_tpu_torch.ops.cuda.swiglu import swiglu, swiglu_plain
+
+    g = torch.Generator(device=cuda_device).manual_seed(14)
+    f32 = dtype == torch.float32
+    tol = dict(rtol=2e-5, atol=2e-5) if f32 else dict(rtol=2**-7, atol=1e-3)
+    norm_tol = tol if f32 else dict(rtol=2**-6, atol=1e-3)
+
+    def randn(*shape, dt=dtype):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dt)
+
+    for shape in ((1, 1, 288), (2, 7, 64), (1, 300, 172), (256, 4096), (3, 8192)):
+        x = randn(*shape)
+        for w in (1 + 0.1 * randn(shape[-1]), 1 + 0.1 * randn(shape[-1], dt=torch.float32)):
+            n0 = rmsnorm.launches
+            got = rmsnorm(x, w)
+            assert rmsnorm.launches == n0 + 1 and got.dtype == dtype and got.shape == x.shape
+            _assert_close(got, rmsnorm_plain(x, w), norm_tol, f"K19 {shape} w {w.dtype}")
+    for shape in ((1, 1, 768), (2, 7, 64), (1, 300, 172), (3, 11008), (5,)):
+        h1, h3 = randn(*shape), randn(*shape)
+        n0 = swiglu.launches
+        got = swiglu(h1, h3)
+        assert swiglu.launches == n0 + 1 and got.dtype == dtype and got.shape == h1.shape
+        _assert_close(got, swiglu_plain(h1, h3), tol, f"K20 {shape}")
+    # views one element in: no 16-byte alignment, the scalar paths
+    x = randn(2 * 4096 + 1)[1:].view(2, 4096)
+    w = 1 + 0.1 * randn(4096)
+    _assert_close(rmsnorm(x, w), rmsnorm_plain(x, w), norm_tol, "K19 unaligned")
+    h = randn(4097)[1:]
+    _assert_close(swiglu(h, h), swiglu_plain(h, h), tol, "K20 unaligned")
+    with pytest.raises(ValueError):
+        swiglu(randn(4), randn(4, dt=torch.float64 if f32 else torch.float32))
+    with pytest.raises(ValueError):
+        rmsnorm(randn(2, 8).t(), randn(2))  # not contiguous
