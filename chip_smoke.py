@@ -31,9 +31,11 @@ non-zero:
    Llama-2-7B width and 32 layers, INT8 weights, bf16 activations,
    ``backend="cuda"``, 8 slots, 256-row pages, the prefix cache, serving 16
    requests over a bf16 and over an int8 page pool, with the launches of
-   every decode tick asserted (K6 1, K17 or K18 32, K12 31, K11 1, K5 1),
-   reruns and pipeline depth 1 against 2 bit-equal, the greedy streams held
-   to their plain replays, ticks profiled at short and long positions, and
+   every decode tick asserted (K6 1, K17 or K18 32, K12 31, K11 1, K5 1)
+   and every admission prefill's K1 through its tensor-core variant (fp32's
+   through the FMA one), reruns and pipeline depth 1 against 2 bit-equal,
+   the greedy streams held to their plain replays, ticks profiled at short
+   and long positions, and
    the dense ``BatchEngine`` on the same requests for its memory;
    ``cuda-accurate`` in fp32 at 8 layers over both pools (K15, K16). Then
    the earlier main paths: ``Generator.generate`` at full Llama-2-7B width (random
@@ -51,7 +53,8 @@ non-zero:
    dequant-matmul route (the ``w13`` layout); a 2-layer model whose ``wo``
    is left in bf16, which takes the FFN-only megakernel. bf16 and fp32
    weights: ``backend="cuda"``, 8 layers. Each with launch counts per
-   prefill chunk and decode step (per verify trip for speculative decoding),
+   prefill chunk and decode step (per verify trip for speculative decoding;
+   K1's by variant: bf16 on the tensor cores, fp32 on FMA),
    a teacher-forced replay of the same token stream through
    ``backend="torch"`` (the plain versions) over the same kind of cache,
    compared logit by logit, decode tok/s, TTFT and peak memory; each
@@ -85,8 +88,10 @@ non-zero:
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py --dense-timing``
-builds the kernels and times only the dense decode attention kernels (to
-compare two checkouts in one call, see ``phase_dense_timing``). Without a CUDA device, or outside a checkout
+builds the kernels and times only the dense decode attention kernels,
+``--prefill-timing`` only the prefill segment's K1, K5 and K6 (to compare two
+checkouts in one call, see ``phase_dense_timing`` and
+``phase_prefill_timing``). Without a CUDA device, or outside a checkout
 of the repository, it fails before printing any result.
 """
 
@@ -254,15 +259,23 @@ def phase_kernels() -> None:
         for lname, (H, KVH, hs) in LAYOUTS.items():
             k = randn(1, KVH, S, hs, dtype=dtype)
             v = randn(1, KVH, S, hs, dtype=dtype)
+            # bf16 takes the tensor-core variant at every head size here (hs
+            # % 16 == 0), fp32 the float32 FMA one: counted apart
+            variant = "launches_mma" if dtype == torch.bfloat16 else "launches_fma"
             for T in (2, 7, 128, 300):
                 q = randn(1, T, H, hs, dtype=dtype)
                 for pos0 in (0, 13, 1000):
+                    n_var = getattr(flash_prefill_attention, variant)
                     got = flash_prefill_attention(q, k, v, pos0)
+                    if getattr(flash_prefill_attention, variant) != n_var + 1:
+                        raise AssertionError(f"K1 {dtype_name(dtype)} did not launch its {variant[9:]} variant")
                     want = flash_prefill_attention_plain(q, k, v, pos0)
                     torch.cuda.synchronize()
                     err = compare(got, want, dtype)
+                    if not torch.equal(got, flash_prefill_attention(q, k, v, pos0)):
+                        raise AssertionError("K1 gave different bits on the same inputs")
                     say("K1", dtype=dtype_name(dtype), layout=lname, T=T, pos0=pos0,
-                        max_abs_err=f"{err:.3e}", rtol=rtol, atol=atol)
+                        variant=variant[9:], max_abs_err=f"{err:.3e}", rtol=rtol, atol=atol)
             del k, v
             L = 2
             for pos_list in ([0], [1], [1000], [S - 1], [7, 1000, S - 1]):
@@ -380,12 +393,16 @@ def phase_kernels_q8() -> None:
                     max_abs_err_M1_M8_M201=",".join(f"{worst[M]:.3e}" for M in (1, 8, 201)),
                     tol_plain_and_fast_prologue=f"{q8_tolerance(dtype, mode, False)},"
                     f"{q8_tolerance(dtype, mode, True)}".replace(" ", ""))
-    # no float atomics: the same launch gives the same bits
-    x = randn(1, 4096, dtype=torch.bfloat16)
-    a = quant_matmul_stacked(x, params["wo"], 5)
-    for _ in range(3):
-        if not torch.equal(a, quant_matmul_stacked(x, params["wo"], 5)):
-            raise AssertionError("K6 gave different bits on the same inputs")
+    # no float atomics: the same launch gives the same bits, at a decode row
+    # and at the prefill chunk (the wgmma tile splits K over blocks at N = 4096)
+    for M in (1, PROMPT_TOKENS + 1):
+        x = randn(M, 4096, dtype=torch.bfloat16)
+        rms_w = 1 + 0.1 * randn(4096, dtype=torch.bfloat16)
+        for w, kw in ((params["wo"], {}), (params["wqkv"], {"rms_w": rms_w})):
+            a = quant_matmul_stacked(x, w, 5, **kw)
+            for _ in range(3):
+                if not torch.equal(a, quant_matmul_stacked(x, w, 5, **kw)):
+                    raise AssertionError(f"K6 gave different bits on the same inputs (M={M})")
     del params
     torch.cuda.empty_cache()
 
@@ -1409,12 +1426,17 @@ def phase_generate(dtype, n_layers: int = 32) -> dict:
     g.generate(prompt[:8], GenerationConfig(temperature=0.0, steps=10))
 
     torch.cuda.reset_peak_memory_stats()
-    k1.launches = 0
+    k1.launches = k1.launches_mma = k1.launches_fma = 0
     k2.launches = 0
     res = g.generate(
         prompt, GenerationConfig(temperature=0.0, steps=len(prompt) + GEN_TOKENS)
     )
     launches = {"K1": k1.launches, "K2": k2.launches}
+    # the 7B head (hs 128): bf16 through the tensor-core variant, fp32 through FMA
+    variant = k1.launches_mma if dtype == torch.bfloat16 else k1.launches_fma
+    if variant != launches["K1"]:
+        raise AssertionError(f"{dtype_name(dtype)}: {variant} of {launches['K1']} K1 launches "
+                             "took the variant of its dtype")
     peak = torch.cuda.max_memory_allocated()
 
     generated = res.tokens[len(prompt):]
@@ -1485,6 +1507,32 @@ def phase_generate(dtype, n_layers: int = 32) -> dict:
 # so it is held to F32_LOGIT_ATOL as the fp32-weight path is.
 
 
+class VariantCount:
+    """One variant's launch count of a kernel wrapper (``attr`` on it), read
+    and reset as a wrapper's ``launches`` is."""
+
+    def __init__(self, fn, attr: str):
+        self.fn, self.attr = fn, attr
+
+    @property
+    def launches(self) -> int:
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        setattr(self.fn, self.attr, n)
+
+
+def k1_variants(counts: dict, dtype) -> dict:
+    """``counts`` with K1's launches also under the variant a 7B head (hs 128)
+    takes in ``dtype``: "K1-mma" for bf16, "K1-fma" for fp32."""
+    import torch
+
+    if "K1" not in counts:
+        return counts
+    return {**counts, ("K1-mma" if dtype == torch.bfloat16 else "K1-fma"): counts["K1"]}
+
+
 def count_launches() -> dict:
     from llama2_tpu_torch.ops.cuda.attention import (
         flash_decode_attention_fused,
@@ -1511,7 +1559,10 @@ def count_launches() -> dict:
     from llama2_tpu_torch.ops.cuda.quant_matmul import quant_matmul, quant_matmul_stacked
 
     return {
-        "K1": flash_prefill_attention, "K2": flash_decode_attention_stacked,
+        "K1": flash_prefill_attention,
+        "K1-mma": VariantCount(flash_prefill_attention, "launches_mma"),
+        "K1-fma": VariantCount(flash_prefill_attention, "launches_fma"),
+        "K2": flash_decode_attention_stacked,
         "K4": flash_decode_attention_fused, "K5": quant_matmul, "K6": quant_matmul_stacked,
         "K7": flash_decode_attention_q8, "K8": flash_decode_attention_q8_stacked,
         "K9": flash_decode_attention_q8_fused, "K10": mlp_block_stacked,
@@ -1644,6 +1695,7 @@ def _generate_q8(g, config, route, backend, dtype, dn, kv_quant, speculative, fp
     if res.tokens[: len(prompt)] != prompt or not all(0 <= t < config.vocab_size for t in generated):
         raise AssertionError("generate returned a malformed token stream")
     per_chunk, per_step = (f(L) for f in Q8_ROUTES[route])
+    per_chunk = k1_variants(per_chunk, dtype)
     want = {k: per_chunk.get(k, 0) + steps * per_step.get(k, 0) for k in launches}
     if launches != want:
         raise AssertionError(f"{dn}: launches {launches}, want {want} ({steps} decode steps)")
@@ -1820,6 +1872,7 @@ def speculative_check(g, config, backend, dn, kv_quant, prompt, plain_res, l1, p
     L = config.n_layers
     # a verify window runs the prefill chunk's layer: its K6 launches again
     per_trip = {"K7" if kv_quant else "K1": L, "K6": per_chunk["K6"], "K5": 1}
+    per_trip.update({k: L for k in ("K1-mma", "K1-fma") if k in per_chunk and not kv_quant})
 
     def spec_run(what):
         g.speculative = SPEC_D
@@ -2185,6 +2238,10 @@ def phase_serve(kv_quant: bool) -> dict:
     timed = served_run(eng, reqs)
     per_tick = SERVE_TICKS[("cuda", kv_quant)](L)
     n_ticks = assert_ticks(timed, per_tick, dn)
+    k1 = timed["launches"]
+    if k1["K1"] < L or k1["K1-mma"] != k1["K1"]:  # admission prefills over the bf16 staging plane
+        raise AssertionError(f"{dn}: K1 launched {k1['K1']} times, {k1['K1-mma']} of them "
+                             "through the tensor-core variant; want all, at least one chunk")
     hits = eng.metrics["prefix_hit_pages"]
     if hits < 1:
         raise AssertionError(f"{dn}: no prefix-cache hit")
@@ -2274,6 +2331,8 @@ def phase_serve_accurate(kv_quant: bool) -> dict:
     run = served_run(eng, reqs, log=True)
     per_tick = SERVE_TICKS[("cuda-accurate", kv_quant)](L)
     n_ticks = assert_ticks(run, per_tick, dn)
+    if run["launches"]["K1-fma"] != run["launches"]["K1"]:  # fp32: the FMA variant only
+        raise AssertionError(f"{dn}: fp32 K1 launched {run['launches']['K1-mma']} times as mma")
     say("serve", path=dn, decode_ticks=n_ticks, per_tick=",".join(f"{k}={v}" for k, v in per_tick.items()),
         served_tok_s=f"{sum(len(t) - len(p) for t, (p, _) in zip(run['tokens'], reqs)) / run['wall_s']:.2f}",
         **{f"{k}_launches": v for k, v in run["launches"].items() if v})
@@ -3239,6 +3298,113 @@ def phase_dense_timing(cycles_per_ms: float) -> None:
         torch.cuda.empty_cache()
 
 
+def phase_prefill_timing(cycles_per_ms: float) -> None:
+    """The prefill segment's kernels alone, for comparing two trees in one
+    call: ``python3 chip_smoke.py --prefill-timing`` runs it and nothing else.
+    K1 in bf16 and fp32 at the 7B head layout: T = 201 from pos 0 (the main
+    path's chunk), T = 128 at pos 256 (a served chunk after a prefix hit) and
+    T = 2048 from pos 0, call i on layer i % 32 of 32 layers' caches; K5/K6
+    fast (bf16 activations) and accurate (fp32) at M = 201 on every Q8_SHAPES
+    weight, call i on layer i % 32 of a 32-layer stack, and fast with the
+    rmsnorm prologue on wqkv and w13 (the main path's form). Each beside its
+    bound (phase 5's), its plain version and its library yardstick: SDPA
+    (lower-right causal past pos 0) and ``torch.matmul`` on the weight
+    dequantized ahead. It calls the wrappers by their public signatures
+    only, so this script also times an older checkout: copy it into one and
+    run it from that checkout's root."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+
+    from llama2_tpu_torch.io.convert import random_q8_params
+    from llama2_tpu_torch.ops.cuda.prefill_attention import (
+        flash_prefill_attention,
+        flash_prefill_attention_plain,
+    )
+    from llama2_tpu_torch.ops.cuda.quant_matmul import (
+        quant_matmul,
+        quant_matmul_plain,
+        quant_matmul_stacked,
+        quant_matmul_stacked_plain,
+    )
+    from llama2_tpu_torch.quant.q8 import dequantize
+
+    L, B, (H, KVH, hs) = 32, 1, LAYOUTS["7B"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = dtype_name(dtype)
+        esize = torch.tensor([], dtype=dtype).element_size()
+        kc = torch.randn((L, B, KVH, S, hs), generator=gen, device="cuda").to(dtype)
+        vc = torch.randn((L, B, KVH, S, hs), generator=gen, device="cuda").to(dtype)
+        for T, pos0 in ((PROMPT_TOKENS + 1, 0), (128, 256), (2048, 0)):
+            q = torch.randn((L, B, T, H, hs), generator=gen, device="cuda").to(dtype)
+            n = pos0 + T
+            mask = causal_lower_right(T, n)
+            err = compare(flash_prefill_attention(q[0], kc[0], vc[0], pos0),
+                          flash_prefill_attention_plain(q[0], kc[0], vc[0], pos0), dtype)
+            many = 8 if T > 256 else 64
+            ms, qk = time_ms(lambda i: flash_prefill_attention(q[i % L], kc[i % L], vc[i % L], pos0),
+                             many, cycles_per_ms)
+            plain_ms, qp = time_ms(
+                lambda i: flash_prefill_attention_plain(q[i % L], kc[i % L], vc[i % L], pos0),
+                4 if T > 256 else 16, cycles_per_ms, n_warm=1)
+            lib_ms, ql = time_ms(
+                lambda i: F.scaled_dot_product_attention(
+                    q[i % L].transpose(1, 2), kc[i % L][:, :, :n], vc[i % L][:, :, :n], attn_mask=mask
+                ), many, cycles_per_ms)
+            vis = B * H * sum(pos0 + t + 1 for t in range(T))  # (query, key) pairs seen
+            t_bytes = esize * (2 * B * T * H * hs + 2 * B * KVH * n * hs) / HBM_BYTES_PER_S * 1e3
+            t_ops = 4 * hs * vis / PEAK_FLOPS[dn] * 1e3
+            say("prefill-time", kernel=f"K1[{dn}]", T=T, pos0=pos0, ms=f"{ms:.4f}",
+                plain_ms=f"{plain_ms:.4f}", library_ms_sdpa=f"{lib_ms:.4f}",
+                bound_ms=f"{max(t_bytes, t_ops):.4f}",
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                TFLOP_per_s=f"{4 * hs * vis / ms / 1e9:.2f}", max_abs_err=f"{err:.3e}",
+                queued_kernel_plain_library=f"{qk},{qp},{ql}")
+            del q
+        del kc, vc
+        torch.cuda.empty_cache()
+
+    params = all_layouts(random_q8_params(config_7b(L), SEED + 16, "cuda", torch.bfloat16, group_size=GROUP))
+    M = PROMPT_TOKENS + 1
+    cases = [(mode, name, False) for mode in ("fast", "accurate") for name in Q8_SHAPES]
+    cases[6:6] = [("fast", "wqkv", True), ("fast", "w13", True)]
+    for mode, name, norm in cases:
+        dtype = torch.bfloat16 if mode == "fast" else torch.float32
+        dn = dtype_name(dtype)
+        esize = torch.tensor([], dtype=dtype).element_size()
+        K, N = Q8_SHAPES[name]
+        w = params[name]
+        stacked = w.q.ndim == 3
+        x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+        kw = {"rms_w": (1 + 0.1 * torch.randn(K, generator=gen, device="cuda")).to(dtype)} if norm else {}
+        # the yardstick's weights: 4 layers dequantized ahead (more than L2 holds)
+        wd = dequantize(w[:4], dtype) if stacked else dequantize(w, dtype)[None]
+        if stacked:
+            def kern(i): return quant_matmul_stacked(x, w, i % L, mode=mode, **kw)
+            def plain(i): return quant_matmul_stacked_plain(x, w, i % L, mode=mode, **kw)
+        else:
+            def kern(i): return quant_matmul(x, w, mode=mode)
+            def plain(i): return quant_matmul_plain(x, w, mode=mode)
+        def lib(i): return torch.matmul(x, wd[i % wd.shape[0]])
+        err = compare(kern(0), plain(0), dtype, q8_tolerance(dtype, mode, norm))
+        ms, qk = time_ms(kern, 16, cycles_per_ms)
+        plain_ms, qp = time_ms(plain, 4, cycles_per_ms, n_warm=1)
+        lib_ms, ql = time_ms(lib, 16, cycles_per_ms)
+        nbytes = K * N + 4 * (K // GROUP) * N + esize * (M * K + M * N)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * M * K * N / PEAK_FLOPS["bf16" if mode == "fast" else "f32"] * 1e3
+        say("prefill-time", kernel=f"{'K6' if stacked else 'K5'}[{dn},{mode}]", weight=name,
+            prologue=norm, M=M, K=K, N=N, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            library_ms_matmul_on_dequantized=f"{lib_ms:.4f}", bound_ms=f"{max(t_bytes, t_ops):.4f}",
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            TFLOP_per_s=f"{2 * M * K * N / ms / 1e9:.2f}", max_abs_err=f"{err:.3e}",
+            queued_kernel_plain_library=f"{qk},{qp},{ql}")
+        del wd
+    del params
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -3253,6 +3419,10 @@ def main() -> int:
     phase_build()
     if sys.argv[1:] == ["--dense-timing"]:
         phase_dense_timing(sleep_cycles_per_ms())
+        print(smi)
+        return 0
+    if sys.argv[1:] == ["--prefill-timing"]:
+        phase_prefill_timing(sleep_cycles_per_ms())
         print(smi)
         return 0
     phase_kernels()

@@ -4,30 +4,50 @@
 //
 // Computes, for a segment of T tokens starting at position pos0 whose K/V
 // rows are already in the cache:
-//   out[b, t, h] = softmax(q[b, t, h] * scale . K[0..pos0+t]) V[0..pos0+t]
-// for the K/V head kvh = h / (H / KVH) of (b, ...).
+//   out[b, t, h] = softmax(scale * q[b, t, h] . K[0..pos0+t]) V[0..pos0+t]
+// for the K/V head kvh = h / (H / KVH) of (b, ...). Rows are token-major with
+// the G = H / KVH heads of one K/V group adjacent (row r is token r / G, head
+// kvh * G + r % G: the JAX kernel's layout), so every row of a block shares
+// the same K/V rows. A block walks key tiles only up to its last query
+// position (keys past it are never read).
 //
-// Bound on this card: at prompt lengths the work is small either way. It
-// reads q, writes out, and reads K/V rows 0..pos0+T-1 of each (b, kv head)
-// once per query tile; it does 4 * hs FLOPs per (query, head, visible key)
-// pair. With float32 FMA (no tensor cores) it is bound by operations at long
-// segments and by bytes at short ones.
+// Two variants, picked by the wrapper from the dtype and head size before the
+// launch (ops/cuda/prefill_attention.py::plan), each counted apart:
 //
-// Design: grid (KVH, q tiles, B). A block holds up to 64 query rows in
-// shared memory, token-major with the G = H / KVH heads of one group
-// adjacent, so row r is token r / G of the tile (the JAX kernel's layout) and
-// every row of the block shares the same K/V rows. It walks 32-key tiles only
-// up to the tile's last query position (keys past it are never read), staging
-// each K/V tile in shared memory as float32 for all 8 warps. Each warp owns 8
-// rows: in the score phase lane j computes key j's scores against them; the
-// online softmax runs per row with warp reductions; in the value phase lane
-// j accumulates head elements j, j+32, ... . A ragged last q tile masks rows
-// past T rather than shrinking the tile. Arithmetic is float32 FMA for f32
-// and bf16 inputs (no TF32), q scaled in float32 before the dot, matching the
-// JAX kernel's Precision.HIGHEST dots.
+// mma (bf16, hs % 16 == 0), prefill_mma_kernel. At the main path's shape (T =
+// 201, H = KVH = 32, hs = 128) the segment is 0.33 GFLOP; the float32 FMA
+// version ran it at 2.2 TFLOP/s in 128 blocks, fewer than the 132 SMs. Here
+// a warp owns 16 query rows and a block 16, 32 or 64 (the most that still
+// launches 132 blocks: 32 rows, 224 blocks at the main path's shape). Q.K^T
+// and P.V run on the tensor cores (mma.sync m16n8k16, bf16 operands, float32
+// accumulators) from shared memory through ldmatrix (V through ldmatrix.trans);
+// K/V tiles of 64 keys (32 at hs > 128) are double-buffered by cp.async, so
+// the next tile's load overlaps this tile's products. The online softmax runs
+// on the score fragments in float32. Numerics: q.k is exact bf16 products
+// summed in float32, then times the float32 scale (q is not scaled, and so
+// not rounded, before the product). P enters the value product as a bf16 pair
+// hi + lo (hi = bf16(p), lo = bf16(p - hi)): one bf16 P is off by up to 2^-9
+// of p, which at a short segment (two keys of |v| ~ 3, an output near 0)
+// exceeds the card rule of 1e-3 + 2^-7 |x| against the float32 plain version;
+// the pair leaves 2^-17. The row sums l are of the float32 p. Keys past the
+// tile's last position are zero-filled, so a NaN or stale row there never
+// meets a zero weight; only a tile that reaches past the block's first
+// position is masked. Heavy (late) q tiles are launched first.
+//
+// fma (f32, or hs not a multiple of 16), prefill_kernel: the parity path,
+// float32 FMA throughout (no TF32), q scaled in float32 before the dot,
+// matching the JAX kernel's Precision.HIGHEST dots. A block holds up to 64
+// query rows in shared memory and stages each 32-key K/V tile as float32 for
+// all 8 warps. Each warp owns 8 rows: in the score phase lane j computes key
+// j's scores against them; the online softmax runs per row with warp
+// reductions; in the value phase lane j accumulates head elements j, j+32, ...
+// A ragged last q tile masks rows past T rather than shrinking the tile.
+// Bound on this card: float32 operations at long segments, bytes at short
+// ones.
 #include <math.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -175,6 +195,243 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
   }
 }
 
+// ---- the mma variant: bf16, hs % 16 == 0 ----
+
+using bf16 = __nv_bfloat16;
+using llama2::cp_async16;
+using llama2::cp_async_commit;
+using llama2::cp_async_wait;
+using llama2::ldmatrix_x4;
+using llama2::ldmatrix_x4_trans;
+using llama2::mma_m16n8k16_bf16;
+using llama2::pack_bf16;
+
+// keys a K/V tile, and the shared row of one q / K / V row in bf16 (16 bytes
+// of pad: 8 consecutive rows of an ldmatrix fall in distinct banks)
+template <int HS>
+struct MmaTile {
+  static constexpr int kKeys = HS <= 128 ? 64 : 32;
+  static constexpr int kLd = HS + 8;
+};
+
+template <int HS, int NW>
+constexpr size_t mma_smem_bytes() {
+  return sizeof(bf16) * (size_t)MmaTile<HS>::kLd * (NW * 16 + 4 * MmaTile<HS>::kKeys);
+}
+
+// p as a bf16 pair: hi = bf16(p), lo = bf16(p - hi), packed two columns a
+// register as the A fragment wants them
+__device__ __forceinline__ void split_pair(float p0, float p1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(p0 - __low2float(h), p1 - __high2float(h));
+}
+
+// HS: the head size rounded up to 64, 128 or 256 (columns past hs are zero);
+// NW warps of 16 query rows each.
+template <int HS, int NW>
+__global__ void __launch_bounds__(NW * 32)
+prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_cache,
+                   const bf16* __restrict__ v_cache, bf16* __restrict__ out, int T_, int H,
+                   int KVH, int S, int hs, int pos0, float scale) {
+  constexpr int BK = MmaTile<HS>::kKeys;
+  constexpr int LD = MmaTile<HS>::kLd;
+  constexpr int BQ = NW * 16;
+  constexpr int CH = HS / 8;  // 16-byte chunks a row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sq = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LD]
+  bf16* sk = sq + BQ * LD;                       // [2][BK][LD]
+  bf16* sv = sk + 2 * BK * LD;                   // [2][BK][LD]
+
+  const int kvh = blockIdx.x;
+  const int tile = gridDim.y - 1 - blockIdx.y;  // the longest tiles first
+  const int b = blockIdx.z;
+  const int G = H / KVH;
+  const int rows = T_ * G;  // query rows of this (b, kv head)
+  const int r0 = tile * BQ;
+  const int lo = pos0 + r0 / G;                          // the tile's first query position
+  const int hi = pos0 + (min(r0 + BQ, rows) - 1) / G;    // and its last
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int lr = lane & 7;   // ldmatrix: row lr of matrix lm
+  const int lm = lane >> 3;
+  const size_t plane = ((size_t)b * KVH + kvh) * (size_t)S;  // key 0's row
+
+  for (int i = threadIdx.x; i < BQ * CH; i += NW * 32) {
+    const int r = i / CH, c = i % CH;
+    const int row = r0 + r;
+    const bool ok = row < rows && c * 8 < hs;
+    const bf16* src =
+        ok ? q + (((size_t)b * T_ + row / G) * H + kvh * G + row % G) * hs + c * 8 : q;
+    cp_async16(sq + r * LD + c * 8, src, ok ? 16 : 0);
+  }
+  auto load_kv = [&](int t, int buf) {
+    for (int i = threadIdx.x; i < BK * CH; i += NW * 32) {
+      const int j = i / CH, c = i % CH;
+      const int key = t * BK + j;
+      const bool ok = key <= hi && c * 8 < hs;
+      const size_t off = ok ? (plane + key) * hs + c * 8 : 0;
+      cp_async16(sk + (buf * BK + j) * LD + c * 8, k_cache + off, ok ? 16 : 0);
+      cp_async16(sv + (buf * BK + j) * LD + c * 8, v_cache + off, ok ? 16 : 0);
+    }
+  };
+  load_kv(0, 0);
+  cp_async_commit();
+
+  // this lane's two rows: warp * 16 + lane / 4, and 8 below; a dead row (past
+  // T) attends keys 0..pos0: finite, never stored
+  int qpos[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + warp * 16 + (lane >> 2) + 8 * h;
+    qpos[h] = row < rows ? pos0 + row / G : pos0;
+  }
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[HS / 8][4];
+#pragma unroll
+  for (int j = 0; j < HS / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[j][i] = 0.f;
+
+  const bf16* qw = sq + (warp * 16 + (lm & 1) * 8 + lr) * LD + (lm >> 1) * 8;
+  const int n_tiles = hi / BK + 1;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < n_tiles) load_kv(t + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t (and q) landed
+    __syncthreads();
+
+    // scores of this warp's 16 rows against the tile's BK keys
+    float s[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+    const bf16* kt = sk + (buf * BK + (lm >> 1) * 8 + lr) * LD + (lm & 1) * 8;
+#pragma unroll
+    for (int kd = 0; kd < HS / 16; ++kd) {
+      uint32_t a[4];
+      ldmatrix_x4(a, qw + kd * 16);  // (rows, d), (rows + 8, d), (rows, d + 8), (rows + 8, d + 8)
+#pragma unroll
+      for (int nb = 0; nb < BK / 16; ++nb) {
+        uint32_t r[4];  // (keys, d), (keys, d + 8), (keys + 8, d), (keys + 8, d + 8)
+        ldmatrix_x4(r, kt + nb * 16 * LD + kd * 16);
+        const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+        mma_m16n8k16_bf16(s[2 * nb], a, b0);
+        mma_m16n8k16_bf16(s[2 * nb + 1], a, b1);
+      }
+    }
+
+    // online softmax in float32 on the score fragments: s[j][i] is row
+    // (i < 2 ? 0 : 1), key t * BK + 8j + 2 (lane % 4) + (i & 1)
+    const bool diag = t * BK + BK - 1 > lo;  // some key here is past some row's position
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = t * BK + 8 * j + 2 * (lane & 3) + (i & 1);
+        float v = s[j][i] * scale;
+        if (diag && key > qpos[i >> 1]) v = -INFINITY;
+        s[j][i] = v;
+        mx[i >> 1] = fmaxf(mx[i >> 1], v);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // the 4 lanes of a row; finite: tile 0 holds key 0, which every row sees
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      alpha[h] = expf(m[h] - mx[h]);
+      m[h] = mx[h];
+      l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[j][i] = expf(s[j][i] - m[i >> 1]);
+        l[i >> 1] += s[j][i];
+      }
+#pragma unroll
+    for (int j = 0; j < HS / 8; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+
+    // o += P V, P as the pair hi + lo; the score fragments of keys 16kk..+7
+    // and +8..+15 are the A fragment of one k16 step
+    const bf16* vt = sv + (buf * BK + (lm & 1) * 8 + lr) * LD + (lm >> 1) * 8;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+      split_pair(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+      split_pair(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+      split_pair(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+      split_pair(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int db = 0; db < HS / 16; ++db) {
+        uint32_t r[4];  // (keys, d), (keys + 8, d), (keys, d + 8), (keys + 8, d + 8), transposed
+        ldmatrix_x4_trans(r, vt + kk * 16 * LD + db * 16);
+        const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+        mma_m16n8k16_bf16(o[2 * db], ph, b0);
+        mma_m16n8k16_bf16(o[2 * db], pl, b0);
+        mma_m16n8k16_bf16(o[2 * db + 1], ph, b1);
+        mma_m16n8k16_bf16(o[2 * db + 1], pl, b1);
+      }
+    }
+    __syncthreads();  // every warp is done with `buf` before it is refilled
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int row = r0 + warp * 16 + (lane >> 2) + 8 * h;
+    if (row >= rows) continue;
+    bf16* orow = out + (((size_t)b * T_ + row / G) * H + kvh * G + row % G) * hs;
+#pragma unroll
+    for (int j = 0; j < HS / 8; ++j) {
+      const int d = 8 * j + 2 * (lane & 3);
+      if (d < hs)
+        *reinterpret_cast<__nv_bfloat162*>(orow + d) =
+            __floats2bfloat162_rn(o[j][2 * h] / l[h], o[j][2 * h + 1] / l[h]);
+    }
+  }
+}
+
+template <int HS, int NW>
+cudaError_t launch_mma(const void* q, const void* kc, const void* vc, void* out, int B, int T_,
+                       int H, int KVH, int S, int hs, int pos0, float scale, cudaStream_t st) {
+  constexpr size_t smem = mma_smem_bytes<HS, NW>();
+  cudaError_t err = cudaFuncSetAttribute(
+      prefill_mma_kernel<HS, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int rows = T_ * (H / KVH);
+  dim3 grid(KVH, (rows + NW * 16 - 1) / (NW * 16), B);
+  prefill_mma_kernel<HS, NW><<<grid, NW * 32, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(kc), static_cast<const bf16*>(vc),
+      static_cast<bf16*>(out), T_, H, KVH, S, hs, pos0, scale);
+  return cudaGetLastError();
+}
+
+template <int HS>
+cudaError_t dispatch_mma(int warps, const void* q, const void* kc, const void* vc, void* out,
+                         int B, int T_, int H, int KVH, int S, int hs, int pos0, float scale,
+                         cudaStream_t st) {
+  switch (warps) {
+    case 1: return launch_mma<HS, 1>(q, kc, vc, out, B, T_, H, KVH, S, hs, pos0, scale, st);
+    case 2: return launch_mma<HS, 2>(q, kc, vc, out, B, T_, H, KVH, S, hs, pos0, scale, st);
+    case 4: return launch_mma<HS, 4>(q, kc, vc, out, B, T_, H, KVH, S, hs, pos0, scale, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---- the fma variant ----
+
 template <typename T, int NPL>
 cudaError_t launch(const void* q, const void* kc, const void* vc, void* out,
                    int B, int T_, int H, int KVH, int S, int hs, int pos0,
@@ -209,16 +466,29 @@ cudaError_t dispatch(const void* q, const void* kc, const void* vc, void* out,
 
 // q (B, T, H, hs); caches (B, KVH, S, hs) holding the segment's own rows at
 // pos0..pos0+T-1; out (B, T, H, hs). All contiguous, one dtype; G = H / KVH
-// must be at most 64 and pos0 + T at most S. Returns the launch's cudaError_t.
+// must be at most 64 and pos0 + T at most S. warps: 0 launches the fma
+// variant (f32 or bf16, hs <= 256); 1, 2 or 4 the mma variant with that many
+// warps a block (bf16, hs % 16 == 0, 16-byte aligned rows). Returns the
+// launch's cudaError_t.
 extern "C" int flash_prefill_attention(const void* q, const void* k_cache,
                                        const void* v_cache, void* out,
                                        int dtype, int B, int T, int H, int KVH,
                                        int S, int hs, int pos0, float scale,
-                                       void* stream) {
+                                       int warps, void* stream) {
   if (B <= 0 || T <= 0 || KVH <= 0 || H % KVH != 0 || H / KVH > kRows ||
       pos0 < 0 || pos0 + T > S)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (warps != 0) {
+    if (dtype != llama2::kBF16 || hs <= 0 || hs % 16 != 0) return cudaErrorInvalidValue;
+    if (hs <= 64)
+      return dispatch_mma<64>(warps, q, k_cache, v_cache, out, B, T, H, KVH, S, hs, pos0, scale, st);
+    if (hs <= 128)
+      return dispatch_mma<128>(warps, q, k_cache, v_cache, out, B, T, H, KVH, S, hs, pos0, scale, st);
+    if (hs <= 256)
+      return dispatch_mma<256>(warps, q, k_cache, v_cache, out, B, T, H, KVH, S, hs, pos0, scale, st);
+    return cudaErrorInvalidValue;
+  }
   if (dtype == llama2::kF32)
     return dispatch<float>(q, k_cache, v_cache, out, B, T, H, KVH, S, hs, pos0, scale, st);
   if (dtype == llama2::kBF16)

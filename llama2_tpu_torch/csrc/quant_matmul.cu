@@ -34,19 +34,49 @@
 // strip finds the block that finishes last, and that block adds the partials
 // in split order. The result is the same from run to run.
 //
-// M > 8: 64 x 128 output tiles from shared-memory tiles of x (already normed)
-// and of the weights. Accurate mode, tiled_fma_kernel: the weights
-// dequantized to float32, 4 x 8 outputs a thread, float32 FMA. Fast mode,
-// tiled_mma_kernel: x and the weights as bf16, the products on the tensor
-// cores (mma.sync m16n8k16, float32 accumulators), which is exactly the
-// mode's arithmetic. wgmma and TMA-fed pipelines are later work.
+// M > 8, accurate mode, tiled_fma_kernel: 64 x 128 output tiles from
+// shared-memory tiles of x (already normed) and of the weights dequantized to
+// float32, 4 x 8 outputs a thread, float32 FMA (no TF32: the parity path).
+//
+// M > 8, fast mode, tiled_wgmma_kernel (a prefill chunk: M = 201 on the main
+// path). The mma.sync tile it replaces ran w13 (4096 x 22016) at M = 201 in
+// 0.69 ms, 5% of the bf16 peak: 64 x 128 tiles cut M = 201 into 4 row tiles
+// (every weight byte read and converted 4 times, the last tile 9/64 live), 4
+// ldmatrix for every 8 products, one register-staged prefetch. Bound at that
+// shape: bf16 operations, 36 GFLOP over 989 TFLOP/s = 0.037 ms, against 0.028
+// for the weight bytes. Design: a block computes a 128 x 128 output tile, so
+// M = 201 is 2 row tiles (side by side in the grid, sharing each weight tile
+// in L2). Its two multiplying warpgroups take 64 rows each with
+// wgmma.mma_async m64n128k16 (bf16 from shared memory, float32
+// accumulators); its two converting warpgroups turn each raw int8 weight
+// tile into bf16 once (a PRMT, two LOP3 and a bf16x2 subtraction for two
+// values, exact) in the 128-byte swizzled K-major layout wgmma reads. Tiles
+// of 64 K rows (x rows, raw weights, a group's scales) come by TMA into a
+// 5-stage ring passed on by mbarriers (loaded, then converted); the last
+// multiplying warp to finish a stage refills it, so loads run 4 tiles ahead
+// and nobody waits to issue them. Register counts are moved to the
+// multipliers (setmaxnreg). A quant group's products accumulate in `part`;
+// at the group's end the warpgroup waits for them and adds part * scale[g]
+// to `acc` in group order (a group that is no multiple of 16 rows is
+// zero-padded). N = 4096 gives 64 tiles at M = 201, so K is split over
+// blocks by whole groups until 132 blocks run; the splits' partials go to
+// scratch and the block that draws the last ticket adds them in split order
+// (no float atomics: equal bits on rerun). x rows are read as they are when
+// bf16 with no prologue; otherwise a first launch (prep_x_kernel) norms and
+// rounds them once into the workspace. What bounds it now (clock64 phase
+// profiles on the card, PERF.md): the data, 24.5 KB a tile and block from
+// L2 (x is read again for every column tile), then the conversion, not the
+// multiplies.
 //
 // The rmsnorm prologue: on the TPU one grid step norms the row for all the
-// steps that follow it; here every block recomputes its rows' mean square
-// (K floats from L2), eps after the mean, in float32, times rms_w, and only
-// then rounds to bf16 in fast mode.
+// steps that follow it; here every block of the decode-row and fma kernels
+// recomputes its rows' mean square (K floats from L2), and prep_x_kernel
+// computes it once a row with the same block reduction: eps after the mean,
+// in float32, times rms_w, and only then rounded to bf16 in fast mode.
+#include <cuda.h>
 #include <stdint.h>
 
+#include "mma.cuh"
 #include "q8_gemv.cuh"
 
 namespace {
@@ -61,7 +91,8 @@ struct Args {
   const void* res;     // (M, N) dtype, or null
   void* out;           // (M, N) dtype
   float* partial;      // (ksplit, M, N) scratch when ksplit > 1
-  int* tickets;        // one per column strip; zero on entry and on exit
+  int* tickets;        // one per column strip or output tile; zero on entry and on exit
+  __nv_bfloat16* xt;   // the wgmma tile's prologue output, or null (x read as it is)
   int M, K, N, G, dtype, ksplit, kc;
   float eps;
 };
@@ -261,191 +292,361 @@ __global__ void __launch_bounds__(kThreads) tiled_fma_kernel(const Args a) {
   }
 }
 
-// D (16 x 8, f32) += A (16 x 16, bf16, row-major) * B (16 x 8, bf16, "col").
-// With g = lane / 4 and t = lane % 4, a lane holds
-//   a[0] = A[g][2t, 2t+1], a[1] = A[g+8][2t, 2t+1], a[2] = A[g][2t+8, 2t+9],
-//   a[3] = A[g+8][2t+8, 2t+9]; b[0] = B[2t, 2t+1][g], b[1] = B[2t+8, 2t+9][g];
-//   d[0], d[1] = D[g][2t, 2t+1]; d[2], d[3] = D[g+8][2t, 2t+1]
-// (two bf16 a register, the lower index in the lower half).
-__device__ __forceinline__ void mma_m16n8k16_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                                  const uint32_t (&b)[2]) {
+// ---- fast mode for M > 8: the wgmma tile ----
+
+using bf16 = __nv_bfloat16;
+
+constexpr int WG_BM = 128;  // rows a block: two multiplying warpgroups of 64
+constexpr int WG_BN = 128;  // columns a block
+constexpr int WG_BK = 64;   // rows of K a tile: one 128-byte swizzle row of bf16
+constexpr int WG_STAGES = 5;
+constexpr int WG_WARPS = 16;  // 8 multiplying (two warpgroups), 8 converting
+constexpr int WG_THREADS = 32 * WG_WARPS;
+constexpr int A_BYTES = WG_BM * WG_BK * 2;  // x tile, bf16
+constexpr int B_BYTES = WG_BN * WG_BK * 2;  // weight tile, bf16
+constexpr int W_BYTES = WG_BK * WG_BN;      // weight tile, raw int8
+constexpr int WG_SMEM = WG_STAGES * (A_BYTES + B_BYTES + W_BYTES + WG_BN * 4 + 2 * 8 + 4) +
+                        1024;  // + alignment slack
+
+// A shared-memory matrix descriptor of wgmma for a K-major tile in the
+// 128-byte swizzle: rows of 64 bf16 (128 bytes), 8-row groups 1024 bytes
+// apart; the tile starts on a 1024-byte boundary, a k16 step 32 bytes in.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// byte offset of element (row, k) of a K-major 128-byte-swizzled tile whose
+// 16-byte chunk is k / 8: chunk c of row r sits at chunk c ^ (r % 8)
+__device__ __forceinline__ int sw128_off(int row, int chunk) {
+  return row * 128 + ((chunk ^ (row & 7)) << 4);
+}
+
+// d (64 x 128, f32; this thread's 64 values) (+)= A (64 x 16) B (16 x 128),
+// both bf16 in shared memory, K-major; scale_d 0 ignores d's old values.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// Four 8 x 8 b16 matrices from shared memory, one fragment register each:
-// lane l passes the address of row l % 8 of matrix l / 8 (16 bytes) and gets
-// elements [l / 4][2 (l % 4), +1] of every matrix; with `trans`, elements
-// [2 (l % 4), +1][l / 4], i.e. a pair down a column.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+// keeps the compiler from moving reads or writes of the accumulators across
+// the asynchronous products
+__device__ __forceinline__ void fence_operands(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-constexpr int MMA_KC = 64;         // rows of K per shared-memory tile
-constexpr int XB_LD = MMA_KC + 8;  // bf16 x tile row: 36 words, conflict-free ldmatrix
-constexpr int WB_LD = BN + 8;      // bf16 w tile row: 68 words, conflict-free ldmatrix
-
-// Fast mode for M > 8: bf16 tensor-core products (mma.sync), float32 sums.
-// x rounded to bf16 and the int8 weights converted to bf16 (exact) sit in
-// shared memory; the 8 warps are 2 x 4 over the 64 x 128 tile, 32 x 32 each
-// (2 x 4 mma tiles, fragments through ldmatrix). A group's products are summed
-// in `part` by the tensor cores; at the group's end `part` times the f32 scale
-// is added to `acc`. A group that is no multiple of 16 rows is padded with
-// zero rows. The next tile's global loads are issued into registers before
-// the current tile's products, so that memory latency and the tensor cores
-// overlap; a thread fetches 16 k of one x row and 32 columns of one w row.
-__global__ void __launch_bounds__(kThreads) tiled_mma_kernel(const Args a) {
-  __shared__ __align__(16) __nv_bfloat16 xs[BM][XB_LD];      // [m][k]
-  __shared__ __align__(16) __nv_bfloat16 ws[MMA_KC][WB_LD];  // [k][n]
-  __shared__ float rstd[BM];
+// The prologue: x rows normed (float32, eps after the mean, times rms_w) and
+// rounded to bf16, laid out by K tile: row m holds, for tile t = (group g,
+// chunk c), the group's rows 64c..64c+63 at columns 64t.., zero past the
+// group. One block a row. The rstd is the tiled kernels' (block_rstd).
+__global__ void __launch_bounds__(kThreads) prep_x_kernel(const Args a, bf16* xt, int tpg) {
   __shared__ float red[kWarps];
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int wm = (warp >> 2) * 32;  // the warp's rows in the tile
-  const int wn = (warp & 3) * 32;   // and columns
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int KG = a.K / a.G;
-  const int tiles_per_group = (a.G + MMA_KC - 1) / MMA_KC;
-  const int n_tiles = KG * tiles_per_group;
+  const int m = blockIdx.x;
   const bool norm = a.rms_w != nullptr;
-  if (norm) tile_rstd(a, m0, rstd, red);
+  const float rstd = norm ? row_rstd(a, m, red) : 0.f;
+  const int width = a.K / a.G * tpg * WG_BK;
+  for (int i = threadIdx.x; i < width; i += kThreads) {
+    const int t = i / WG_BK;
+    const int kk = WG_BK * (t % tpg) + i % WG_BK;  // row within the group
+    float v = 0.f;
+    if (kk < a.G) {
+      const int k = (t / tpg) * a.G + kk;
+      v = load_act(a.x, (size_t)m * a.K + k, a.dtype);
+      if (norm) v = v * rstd * load_act(a.rms_w, k, a.dtype);
+    }
+    xt[(size_t)m * width + i] = __float2bfloat16_rn(v);
+  }
+}
 
-  // this thread's share of a tile's loads
-  const int fr = threadIdx.x >> 2;         // x row, and w row (k)
-  const int xk = (threadIdx.x & 3) * 16;   // first k of its 16 x elements
-  const int wc = (threadIdx.x & 3) * 32;   // first column of its 32 weights
-  uint32_t xq[8], wq[8];                   // packed bf16 x, raw int8 w
+// Eight int8 rows of one weight column, byte c of words w[0..7], as 8 bf16
+// (the lower row in the lower half). For a byte b, with the bf16 bits
+// 0x4300 | (b & 0x7f) = 128 + (b & 127) and 0x4300 | (b & 0x80) = 128 or 256
+// (b >= 0 or < 0), the bf16 difference of the two is b, exactly: two rows
+// a PRMT, two LOP3 and one bf16x2 subtraction.
+__device__ __forceinline__ uint4 column_bf16(const uint32_t (&w)[8], int c) {
+  const uint32_t sel = 0x0400u + static_cast<uint32_t>(c) * 0x0101u;  // bytes c and 4 + c
+  uint32_t r[4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const uint32_t pair = __byte_perm(w[2 * p], w[2 * p + 1], sel);  // byte c of each in the low bytes
+    const uint32_t m = (pair & 0x007f007fu) | 0x43004300u;
+    const uint32_t sub = (pair & 0x00800080u) | 0x43004300u;
+    const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&m),
+                                     *reinterpret_cast<const __nv_bfloat162*>(&sub));
+    r[p] = *reinterpret_cast<const uint32_t*>(&d);
+  }
+  return make_uint4(r[0], r[1], r[2], r[3]);
+}
 
-  auto fetch = [&](int tile) {
-    const int g = tile / tiles_per_group;
-    const int c0 = (tile % tiles_per_group) * MMA_KC;
-    const int k0 = g * a.G + c0;
-    const int rows = min(MMA_KC, a.G - c0);
-    const bool row_ok = m0 + fr < a.M;
-    const size_t xbase = (size_t)(m0 + fr) * a.K + k0 + xk;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float v[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int kk = xk + 2 * j + h;
-        v[h] = 0.f;
-        if (row_ok && kk < rows) {
-          v[h] = load_act(a.x, xbase + 2 * j + h, a.dtype);
-          if (norm) v[h] = v[h] * rstd[fr] * load_act(a.rms_w, k0 + kk, a.dtype);
-        }
+// mbarrier helpers: arrivals, the asynchronous arrival of this thread's
+// cp.async copies, the transaction count of a TMA copy, and a wait on the
+// completion of the phase with parity `parity`
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// a 2-D box of a tensor map at (col, row) into shared memory by the tensor
+// memory accelerator, its bytes counted on `bar`; parts past the tensor arrive
+// as zeros
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, int col, int row,
+                                        uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The tensor maps of one launch: x's bf16 rows (128 x 64 boxes, 128-byte
+// swizzle), the int8 weights (64 x 128 boxes) and the scales (1 x 128);
+// the weights' map is unused (cp.async instead) where N % 16 != 0.
+struct Maps {
+  CUtensorMap x, q, scale;
+};
+
+// Fast mode for M > 8 (see the header): a block computes a 128 x 128 output
+// tile over the quant groups of its K split. Warpgroups 0 and 1 take 64 rows
+// each and multiply (wgmma) and promote; warpgroups 2 and 3 convert the raw
+// int8 weight tiles to bf16. Per stage an x tile, the raw weight tile and,
+// with a group's last tile, its scales come by TMA, issued by one lane (the
+// weights by cp.async from a warp where N % 16 != 0): for the first stages
+// by thread 0, then for tile i + WG_STAGES by the multiplying warp that is
+// the last to finish tile i (a counter a stage finds it), so no warp waits
+// to refill a stage. Stage s passes to the converters through `loaded[s]`
+// (the copies landed) and to the multipliers through `ready[s]`
+// (converted). tpg: tiles a group, cdiv(G, 64).
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    tiled_wgmma_kernel(const Args a, const __grid_constant__ Maps maps, int tpg) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* sA = base;                          // [stage] x tiles, swizzled
+  unsigned char* sB = sA + WG_STAGES * A_BYTES;      // [stage] weight tiles, bf16, swizzled
+  unsigned char* sW = sB + WG_STAGES * B_BYTES;      // [stage] weight tiles, raw int8
+  float* sS = reinterpret_cast<float*>(sW + WG_STAGES * W_BYTES);  // [stage][128] scales
+  uint64_t* loaded = reinterpret_cast<uint64_t*>(sS + WG_STAGES * WG_BN);
+  uint64_t* ready = loaded + WG_STAGES;
+  int* done = reinterpret_cast<int*>(ready + WG_STAGES);  // [stage] warps done with it
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wg = warp >> 2;
+  const int m0 = blockIdx.x * WG_BM;
+  const int n0 = blockIdx.y * WG_BN;
+  const int KG = a.K / a.G;
+  const int per = (KG + a.ksplit - 1) / a.ksplit;  // groups a split
+  const int g_begin = blockIdx.z * per;
+  const int t_begin = g_begin * tpg;
+  const int n_tiles = (min(KG, g_begin + per) - g_begin) * tpg;
+  const bool wide = a.N % 16 == 0;  // the weights by TMA
+
+  // tile i into stage i % WG_STAGES, by one warp: lane 0 issues the TMA
+  // copies; where N % 16 != 0 the warp copies the weights (4 bytes a lane)
+  auto issue = [&](int i) {
+    const int s = i % WG_STAGES, t = t_begin + i;
+    const int g = t / tpg, c = t % tpg;
+    if (lane == 0) {
+      const bool last = c == tpg - 1;  // with a group's last tile, its scales
+      mbar_arrive_tx(&loaded[s], A_BYTES + (wide ? W_BYTES : 0) + (last ? WG_BN * 4 : 0));
+      tma_box(sA + s * A_BYTES, &maps.x, t * WG_BK, m0, &loaded[s]);
+      if (wide) tma_box(sW + s * W_BYTES, &maps.q, n0, g * a.G + WG_BK * c, &loaded[s]);
+      if (last) tma_box(sS + s * WG_BN, &maps.scale, n0, g, &loaded[s]);
+    }
+    if (!wide) {  // columns past N arrive as zeros
+      const int rows = min(WG_BK, a.G - WG_BK * c);
+      const size_t k0 = (size_t)g * a.G + WG_BK * c;
+      unsigned char* dW = sW + s * W_BYTES;
+      for (int e = lane; e < rows * 32; e += 32) {
+        const int kk = e >> 5, n = n0 + (e & 31) * 4;
+        const bool ok = n < a.N;
+        cp_async4(dW + e * 4, ok ? a.q + (k0 + kk) * a.N + n : a.q, ok ? 4 : 0);
       }
-      xq[j] = pack_bf16(v[0], v[1]);
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + wc + 4 * j;
-      wq[j] = (fr < rows && n < a.N) ? load_word(a.q + (size_t)(k0 + fr) * a.N + n) : 0u;
-    }
-  };
-  auto stage = [&]() {
-    uint4* xd = reinterpret_cast<uint4*>(&xs[fr][xk]);
-    xd[0] = make_uint4(xq[0], xq[1], xq[2], xq[3]);
-    xd[1] = make_uint4(xq[4], xq[5], xq[6], xq[7]);
-    uint4* wd = reinterpret_cast<uint4*>(&ws[fr][wc]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint32_t w0 = wq[2 * j], w1 = wq[2 * j + 1];
-      wd[j] = make_uint4(pack_bf16(byte_f32(w0, 0), byte_f32(w0, 1)),
-                         pack_bf16(byte_f32(w0, 2), byte_f32(w0, 3)),
-                         pack_bf16(byte_f32(w1, 0), byte_f32(w1, 1)),
-                         pack_bf16(byte_f32(w1, 2), byte_f32(w1, 3)));
+      mbar_arrive_cp_async(&loaded[s]);
     }
   };
 
-  float acc[2][4][4], part[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mi][ni][i] = part[mi][ni][i] = 0.f;
-
-  fetch(0);
-  stage();
+  if (tid == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      // the issuing lane's arrival (with the bytes), and where N % 16 != 0
+      // the issuing warp's cp.async copies
+      mbar_init(&loaded[s], wide ? 1 : 1 + 32);
+      mbar_init(&ready[s], 256);  // the converting warps
+      done[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  // ldmatrix rows of this lane: matrix lane / 8, row lane % 8
-  const int lr = lane & 7;
-  const int lm = lane >> 3;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    if (tile + 1 < n_tiles) fetch(tile + 1);
-    const int g = tile / tiles_per_group;
-    const int c0 = (tile % tiles_per_group) * MMA_KC;
-    const int steps = (min(MMA_KC, a.G - c0) + 15) / 16;  // rows past the group are 0
-    for (int ks = 0; ks < steps; ++ks) {
-      uint32_t af[2][4], bf[4][2];
+  if (warp == 0)
+    for (int i = 0; i < min(n_tiles, WG_STAGES); ++i) issue(i);
+
+  if (wg >= 2) {  // ---- the converting warps
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    // warps 8..15: weight tile j to bf16, K-major; warp 8 + ko converts rows
+    // 8ko..8ko+7, lane l columns 4l..4l+3, one column (16 bytes) a store,
+    // taken in a rotated order so that the 8 lanes of a store phase hit 8
+    // distinct chunks. Rows past the group (another group's, or stale) are
+    // stored as zeros.
+    const int ko = warp - 8;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % WG_STAGES;
+      const int rows = min(WG_BK, a.G - WG_BK * ((t_begin + j) % tpg));
+      mbar_wait(&loaded[s], (j / WG_STAGES) & 1);
+      const unsigned char* src = sW + s * W_BYTES + ko * 8 * 128 + lane * 4;
+      uint32_t w[8];
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)  // matrices: (rows, k), (rows + 8, k), (rows, k + 8), (rows + 8, k + 8)
-        ldmatrix_x4(af[mi], &xs[wm + mi * 16 + (lm & 1) * 8 + lr][ks * 16 + (lm >> 1) * 8]);
+      for (int r = 0; r < 8; ++r)
+        w[r] = ko * 8 + r < rows ? *reinterpret_cast<const uint32_t*>(src + r * 128) : 0u;
 #pragma unroll
-      for (int np = 0; np < 2; ++np) {  // matrices: (k, n), (k + 8, n), (k, n + 8), (k + 8, n + 8)
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, &ws[ks * 16 + (lm & 1) * 8 + lr][wn + np * 16 + (lm >> 1) * 8]);
-        bf[2 * np][0] = r[0]; bf[2 * np][1] = r[1];
-        bf[2 * np + 1][0] = r[2]; bf[2 * np + 1][1] = r[3];
+      for (int q = 0; q < 4; ++q) {
+        const int cc = (q + (lane >> 1)) & 3;
+        const int n = 4 * lane + cc;
+        *reinterpret_cast<uint4*>(sB + s * B_BYTES + sw128_off(n, ko)) = column_bf16(w, cc);
       }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_m16n8k16_bf16(part[mi][ni], af[mi], bf[ni]);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(&ready[s]);
     }
-    if (tile % tiles_per_group == tiles_per_group - 1) {  // the group's last tile
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = n0 + wn + ni * 8 + 2 * (lane & 3);  // this lane's columns n, n + 1
-        float2 s2 = make_float2(0.f, 0.f);
-        if (n < a.N) s2 = __ldg(reinterpret_cast<const float2*>(a.scale + (size_t)g * a.N + n));
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          acc[mi][ni][0] = fmaf(part[mi][ni][0], s2.x, acc[mi][ni][0]);
-          acc[mi][ni][1] = fmaf(part[mi][ni][1], s2.y, acc[mi][ni][1]);
-          acc[mi][ni][2] = fmaf(part[mi][ni][2], s2.x, acc[mi][ni][2]);
-          acc[mi][ni][3] = fmaf(part[mi][ni][3], s2.y, acc[mi][ni][3]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) part[mi][ni][i] = 0.f;
-        }
-      }
-    }
-    __syncthreads();  // every warp is done with this tile
-    if (tile + 1 < n_tiles) stage();
-    __syncthreads();
+    return;
   }
 
+  // ---- the multipliers: warpgroup wg, rows m0 + 64 wg ..
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 200;\n");
+  float acc[64], part[64];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % WG_STAGES;
+    const int c = (t_begin + i) % tpg;
+    mbar_wait(&ready[s], (i / WG_STAGES) & 1);
+    // every warpgroup issues all 4 k16 steps with no branch around them
+    // (ptxas serializes wgmma in a divergent path); rows past M or past
+    // the group are zeros
+    const uint32_t da = smem_u32(sA + s * A_BYTES + wg * (A_BYTES / 2));
+    const uint32_t db = smem_u32(sB + s * B_BYTES);
+    fence_operands(part);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+    for (int ks = 0; ks < WG_BK / 16; ++ks)
+      wgmma_m64n128k16(part, sw128_desc(da + 32 * ks), sw128_desc(db + 32 * ks),
+                       (ks > 0 || c > 0) ? 1 : 0);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    const bool last = c == tpg - 1;
+    float2 s2[16];  // at the group's end its scales, read while the products run
+    if (last) {
+      const float* sc = sS + s * WG_BN + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) s2[j] = *reinterpret_cast<const float2*>(sc + 8 * j);
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_operands(part);
+    if (last) {  // the group's end: acc += part * scale, in group order
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        acc[4 * j] = fmaf(part[4 * j], s2[j].x, acc[4 * j]);
+        acc[4 * j + 1] = fmaf(part[4 * j + 1], s2[j].y, acc[4 * j + 1]);
+        acc[4 * j + 2] = fmaf(part[4 * j + 2], s2[j].x, acc[4 * j + 2]);
+        acc[4 * j + 3] = fmaf(part[4 * j + 3], s2[j].y, acc[4 * j + 3]);
+      }
+    }
+    // the last of the 8 multiplying warps to finish tile i refills its stage
+    __syncwarp();
+    int before = 0;
+    if (lane == 0) {
+      __threadfence_block();
+      before = atomicAdd(&done[s], 1);
+    }
+    if (__shfl_sync(0xffffffffu, before, 0) == 7) {
+      __threadfence_block();
+      if (lane == 0) done[s] = 0;
+      if (i + WG_STAGES < n_tiles) issue(i + WG_STAGES);
+    }
+  }
+
+  // acc[4j + i] is row 16 (warp % 4) + lane / 4 + 8 (i / 2) of the
+  // warpgroup's 64, column 8j + 2 (lane % 4) + i % 2
+  const bool live = m0 + 64 * wg < a.M;  // this warpgroup has rows to store
+  const int mr = m0 + 64 * wg + 16 * (warp & 3) + (lane >> 2);
+  const int nc = n0 + 2 * (lane & 3);
+  if (a.ksplit == 1) {
+    if (!live) return;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int m = m0 + wm + mi * 16 + (lane >> 2) + 8 * (i >> 1);
-        const int n = n0 + wn + ni * 8 + 2 * (lane & 3) + (i & 1);
-        if (m < a.M && n < a.N) finish(a, m, n, acc[mi][ni][i]);
+        const int m = mr + 8 * (i >> 1), n = nc + 8 * j + (i & 1);
+        if (m < a.M && n < a.N) finish(a, m, n, acc[4 * j + i]);
       }
+    return;
+  }
+  // split K: the partial sums to scratch; the block that draws the last
+  // ticket of its output tile adds the splits in split order (the two
+  // multiplying warpgroups meet at named barrier 1)
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; i += 2) {
+        const int m = mr + 8 * (i >> 1), n = nc + 8 * j;
+        if (m < a.M && n < a.N)
+          *reinterpret_cast<float2*>(&a.partial[((size_t)blockIdx.z * a.M + m) * a.N + n]) =
+              make_float2(acc[4 * j + i], acc[4 * j + i + 1]);
+      }
+  }
+  __shared__ int last;
+  const int ticket = blockIdx.y * gridDim.x + blockIdx.x;
+  __threadfence();
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  if (tid == 0) last = atomicAdd(&a.tickets[ticket], 1) == a.ksplit - 1;
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  if (!last) return;
+  __threadfence();
+  for (int e = tid; e < WG_BM * WG_BN; e += 256) {
+    const int m = m0 + e / WG_BN, n = n0 + e % WG_BN;
+    if (m >= a.M || n >= a.N) continue;
+    float t = 0.f;
+    for (int sidx = 0; sidx < a.ksplit; ++sidx)
+      t += __ldcg(&a.partial[((size_t)sidx * a.M + m) * a.N + n]);
+    finish(a, m, n, t);
+  }
+  if (tid == 0) a.tickets[ticket] = 0;
 }
 
 template <int MT, int U>
@@ -458,6 +659,70 @@ cudaError_t launch_gemv(const Args& a, bool fast, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+cudaError_t launch_wgmma(const Args& a, cudaStream_t st) {
+  const int KG = a.K / a.G;
+  const int tpg = (a.G + WG_BK - 1) / WG_BK;
+  const int per = a.ksplit >= 1 ? (KG + a.ksplit - 1) / a.ksplit : 0;
+  if (a.ksplit < 1 || (a.ksplit - 1) * per >= KG) return cudaErrorInvalidValue;
+  if (a.ksplit > 1 && (a.partial == nullptr || a.tickets == nullptr)) return cudaErrorInvalidValue;
+  const bf16* xa = a.xt;
+  int xa_ld = KG * tpg * WG_BK;
+  if (a.xt != nullptr) {
+    prep_x_kernel<<<a.M, kThreads, 0, st>>>(a, a.xt, tpg);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  } else {  // bf16 rows read as they are: tile t is columns 64t..64t+63
+    if (a.dtype != kBF16 || a.rms_w != nullptr || a.G % WG_BK != 0) return cudaErrorInvalidValue;
+    xa = static_cast<const bf16*>(a.x);
+    xa_ld = a.K;
+  }
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  Maps maps;
+  const auto map2d = [&](CUtensorMap* m, CUtensorMapDataType type, const void* p, int esize,
+                         int cols, int rows, int box_cols, int box_rows, CUtensorMapSwizzle sw) {
+    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)cols * esize};
+    const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+    const cuuint32_t unit[2] = {1, 1};
+    return encode(m, type, 2, const_cast<void*>(p), dims, strides, box, unit,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  };
+  if (!map2d(&maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, xa, 2, xa_ld, a.M, WG_BK, WG_BM,
+             CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !map2d(&maps.scale, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a.scale, 4, a.N, KG, WG_BN, 1,
+             CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      (a.N % 16 == 0 && !map2d(&maps.q, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.q, 1, a.N, a.K, WG_BN,
+                               WG_BK, CU_TENSOR_MAP_SWIZZLE_NONE)))
+    return cudaErrorInvalidValue;
+  const cudaError_t err =
+      cudaFuncSetAttribute(tiled_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.M + WG_BM - 1) / WG_BM, (a.N + WG_BN - 1) / WG_BN, a.ksplit);
+  tiled_wgmma_kernel<<<grid, WG_THREADS, WG_SMEM, st>>>(a, maps, tpg);
+  return cudaGetLastError();
+}
+
 cudaError_t run(Args a, int mode, int mt, cudaStream_t st) {
   if (a.M <= 0 || a.K <= 0 || a.N <= 0 || a.G <= 0 || a.K % a.G != 0 || a.N % 4 != 0)
     return cudaErrorInvalidValue;
@@ -465,13 +730,10 @@ cudaError_t run(Args a, int mode, int mt, cudaStream_t st) {
     return cudaErrorInvalidValue;
   const bool fast = mode == 1;
   if (mt == 0) {  // tiled
+    if (fast) return launch_wgmma(a, st);
+    if (a.kc <= 0 || a.kc > kMaxKC || a.G % a.kc != 0) return cudaErrorInvalidValue;
     const dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM);
-    if (fast) {
-      tiled_mma_kernel<<<grid, kThreads, 0, st>>>(a);
-    } else {
-      if (a.kc <= 0 || a.kc > kMaxKC || a.G % a.kc != 0) return cudaErrorInvalidValue;
-      tiled_fma_kernel<<<grid, kThreads, 0, st>>>(a);
-    }
+    tiled_fma_kernel<<<grid, kThreads, 0, st>>>(a);
     return cudaGetLastError();
   }
   if (a.M > mt || a.G > kMaxG || a.ksplit < 1 || a.ksplit > a.K / a.G)
@@ -493,24 +755,28 @@ cudaError_t run(Args a, int mode, int mt, cudaStream_t st) {
 // res (M, N) and out share `dtype`; rms_w and res may be null. mode: 0
 // accurate, 1 fast. mt in {1, 2, 4, 8} picks the decode-row kernel (mt >= M
 // rows a thread, ksplit blocks over K, with `partial` (ksplit, M, N) f32 and
-// zeroed `tickets`, one per 128 columns); mt = 0 picks the tiled kernels (kc
-// rows of K a tile in accurate mode). N % 4 == 0. All contiguous. Returns
-// the launch's cudaError_t.
+// zeroed `tickets`, one per 128 columns); mt = 0 picks the tiled kernels: in
+// accurate mode kc rows of K a tile; in fast mode the wgmma tile, ksplit
+// blocks over K (with `partial` and zeroed `tickets`, one per 128 x 128
+// output tile), its prologue writing the bf16 rows to `xt` (M, K/G *
+// cdiv(G, 64) * 64) when xt is not null, and x read as it is otherwise (bf16,
+// no rms_w, G % 64 == 0, 16-byte aligned). N % 4 == 0. All contiguous.
+// Returns the launch's cudaError_t.
 extern "C" int quant_matmul(const void* x, const void* q, const void* scale,
                             const void* rms_w, const void* res, void* out,
-                            void* partial, void* tickets, int dtype, int mode,
+                            void* partial, void* tickets, void* xt, int dtype, int mode,
                             int M, int K, int N, int G, int mt, int ksplit,
                             int kc, float eps, void* stream) {
   Args a{x, static_cast<const int8_t*>(q), static_cast<const float*>(scale),
          rms_w, res, out, static_cast<float*>(partial), static_cast<int*>(tickets),
-         M, K, N, G, dtype, ksplit, kc, eps};
+         static_cast<__nv_bfloat16*>(xt), M, K, N, G, dtype, ksplit, kc, eps};
   return run(a, mode, mt, static_cast<cudaStream_t>(stream));
 }
 
 // The same on layer `layer` of q (L, K, N) and scale (L, K/G, N).
 extern "C" int quant_matmul_stacked(const void* x, const void* q, const void* scale,
                                     const void* rms_w, const void* res, void* out,
-                                    void* partial, void* tickets, int dtype,
+                                    void* partial, void* tickets, void* xt, int dtype,
                                     int mode, int layer, int L, int M, int K, int N,
                                     int G, int mt, int ksplit, int kc, float eps,
                                     void* stream) {
@@ -521,6 +787,6 @@ extern "C" int quant_matmul_stacked(const void* x, const void* q, const void* sc
          static_cast<const int8_t*>(q) + l * (size_t)K * (size_t)N,
          static_cast<const float*>(scale) + l * (size_t)(K / G) * (size_t)N,
          rms_w, res, out, static_cast<float*>(partial), static_cast<int*>(tickets),
-         M, K, N, G, dtype, ksplit, kc, eps};
+         static_cast<__nv_bfloat16*>(xt), M, K, N, G, dtype, ksplit, kc, eps};
   return run(a, mode, mt, static_cast<cudaStream_t>(stream));
 }

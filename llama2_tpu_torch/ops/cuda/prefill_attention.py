@@ -3,7 +3,12 @@
 ``flash_prefill_attention`` launches the hand-written CUDA kernel
 ``csrc/prefill_attention.cu``, which replaces
 ``llama2_tpu/ops/pallas/prefill_attention.py::flash_prefill_attention``; the
-kernel source's header says what bounds it and how it is laid out.
+kernel source's header says what bounds it and how it is laid out. It has two
+variants, chosen by :func:`plan` from the dtype and head size before the
+launch: ``mma`` (bf16 with ``hs % 16 == 0``: tensor-core products) and
+``fma`` (float32, the parity path, or any other head size: float32 FMA). The
+wrapper counts every launch in ``flash_prefill_attention.launches`` and each
+variant's in ``launches_mma`` / ``launches_fma``.
 ``flash_prefill_attention_plain`` is the same function in plain PyTorch: the
 wrapper takes it for CPU tensors, and ``backend="torch"`` runs it on the card
 for comparison.
@@ -20,6 +25,8 @@ from llama2_tpu_torch.ops import ref
 from llama2_tpu_torch.ops.cuda import build
 
 _LIB = "prefill_attention"
+_SMS = 132  # the H100's SMs: the mma variant's row tile is sized to fill them
+_ROWS = 64  # query rows a block of the fma variant
 
 
 def flash_prefill_attention_plain(
@@ -54,6 +61,34 @@ def _check(q, k_cache, v_cache, pos):
         raise ValueError(f"segment {pos}..{pos + T - 1} outside the cache (S={S})")
 
 
+def plan(B: int, T: int, H: int, KVH: int, hs: int, dtype: torch.dtype) -> dict:
+    """How a (B, T, H, hs) segment is launched: the variant, the warps of a
+    block of the mma variant (16 query rows each; 0 for fma), the grid
+    (KVH, row tiles, B) and the dynamic shared memory in bytes.
+
+    bf16 with ``hs % 16 == 0`` takes the mma variant with the largest row
+    tile of 64, 32 or 16 rows that still launches ``_SMS`` blocks (16 if none
+    does); anything else the fma variant's 64-row tiles of whole tokens.
+    """
+    G = H // KVH
+    if dtype == torch.bfloat16 and hs % 16 == 0:
+        hs_pad = 64 if hs <= 64 else 128 if hs <= 128 else 256
+        keys = 64 if hs_pad <= 128 else 32
+        warps = 4
+        while warps > 1 and B * KVH * _cdiv(T * G, 16 * warps) < _SMS:
+            warps //= 2
+        smem = 2 * (hs_pad + 8) * (16 * warps + 4 * keys)
+        grid = (KVH, _cdiv(T * G, 16 * warps), B)
+        return {"variant": "mma", "warps": warps, "grid": grid, "smem": smem}
+    block_q = _ROWS // G
+    smem = 4 * (_ROWS * hs + 32 * (hs + 1) + 32 * hs + _ROWS * 32)
+    return {"variant": "fma", "warps": 0, "grid": (KVH, _cdiv(T, block_q), B), "smem": smem}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
 def flash_prefill_attention(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -65,7 +100,8 @@ def flash_prefill_attention(
     the segment's own K/V rows. Returns (B, T, H, hs) in q's dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    count the launch in ``flash_prefill_attention.launches``) or raise.
+    count the launch in ``flash_prefill_attention.launches`` and in its
+    variant's ``launches_mma`` or ``launches_fma``) or raise.
     """
     pos = int(pos)
     _check(q, k_cache, v_cache, pos)
@@ -83,25 +119,34 @@ def flash_prefill_attention(
         raise ValueError("q and caches must be contiguous")
     if hs > 256 or H // KVH > 64:
         raise ValueError(f"kernel takes hs <= 256 and H/KVH <= 64 (got {hs}, {H // KVH})")
+    p = plan(B, T, H, KVH, hs, q.dtype)
+    if p["variant"] == "mma" and any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
+        raise ValueError("the mma variant reads 16-byte aligned q and caches")
     out = torch.empty_like(q)
     fn = _entry()
     err = fn(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        build.DTYPE_CODES[q.dtype], B, T, H, KVH, S, hs, pos, 1.0 / (hs**0.5),
+        build.DTYPE_CODES[q.dtype], B, T, H, KVH, S, hs, pos, 1.0 / (hs**0.5), p["warps"],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, "flash_prefill_attention")
     flash_prefill_attention.launches += 1
+    if p["variant"] == "mma":
+        flash_prefill_attention.launches_mma += 1
+    else:
+        flash_prefill_attention.launches_fma += 1
     return out
 
 
 flash_prefill_attention.launches = 0
+flash_prefill_attention.launches_mma = 0
+flash_prefill_attention.launches_fma = 0
 
 
 @functools.cache
 def _entry():
     fn = build.load_library(_LIB).flash_prefill_attention
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, p]
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
     fn.restype = i
     return fn

@@ -34,7 +34,13 @@ _LIB = "quant_matmul"
 MODES = ("accurate", "fast")
 _MAX_GROUP_GEMV = 128  # kMaxG of the decode-row kernel
 _STRIP = 128  # columns a block of the decode-row kernel covers (TILE_N)
-_BLOCKS = 3 * 132  # blocks the decode-row kernel wants in flight: three an SM
+_SMS = 132  # the H100's SMs
+_BLOCKS = 3 * _SMS  # blocks the decode-row kernel wants in flight: three an SM
+# the fast M > 8 tile (tiled_wgmma_kernel): rows and columns a block, K rows a
+# tile, and its dynamic shared memory (WG_SMEM: 5 stages of an x tile, a bf16
+# and a raw int8 weight tile, scales, 2 barriers and a counter; 1 KB of slack)
+_WG_BM, _WG_BN, _WG_BK = 128, 128, 64
+_WG_SMEM = 5 * (_WG_BM * _WG_BK * 2 + _WG_BN * _WG_BK * 2 + _WG_BK * _WG_BN + _WG_BN * 4 + 2 * 8 + 4) + 1024
 
 
 def norm_rows(x2: torch.Tensor, rms_w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -144,21 +150,34 @@ def _check_layer(layer, L: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def plan(M: int, K: int, N: int, G: int) -> dict:
+def plan(M: int, K: int, N: int, G: int, mode: str = "fast") -> dict:
     """How the kernels cut an (M, K) x (K, N) product with group size ``G``.
 
     ``M <= 8`` takes the decode-row kernel: ``mt`` rows a thread, ``strips``
     blocks of 128 columns, and the contraction split over ``ksplit`` blocks of
     whole groups (8 warps a block, one group a warp at a time) so that about
-    three blocks an SM are in flight. Larger ``M`` takes the tiled kernel with
-    ``kc`` rows of K a shared-memory tile (the largest divisor of G up to 32).
+    three blocks an SM are in flight. Larger ``M`` takes a tiled kernel
+    (``mt`` 0), whose ``tiles`` are (row tiles, column tiles): in accurate mode
+    64 x 128 tiles with ``kc`` rows of K a shared-memory tile (the largest
+    divisor of G up to 32); in fast mode the wgmma tile's 128 x 128, with K
+    split by whole groups over ``ksplit`` blocks until 132 blocks run, and
+    ``smem`` bytes of shared memory a block.
     """
     if N % 4 != 0:
         raise ValueError(f"the kernels take out-features divisible by 4 (got {N})")
     KG = K // G
     if M > 8:
-        kc = max(d for d in range(1, min(G, 32) + 1) if G % d == 0)
-        return {"mt": 0, "ksplit": 1, "kc": kc, "strips": 0}
+        if mode == "accurate":
+            kc = max(d for d in range(1, min(G, 32) + 1) if G % d == 0)
+            return {"mt": 0, "ksplit": 1, "kc": kc, "strips": 0, "tiles": (_cdiv(M, 64), _cdiv(N, 128))}
+        tiles = (_cdiv(M, _WG_BM), _cdiv(N, _WG_BN))
+        ksplit = 1
+        if tiles[0] * tiles[1] < _SMS:
+            per = _cdiv(KG, min(KG, _cdiv(_SMS, tiles[0] * tiles[1])))
+            ksplit = _cdiv(KG, per)  # no split left empty
+        if ksplit > 1 and tiles[0] * tiles[1] > build.MAX_TICKETS:
+            raise ValueError(f"{tiles} output tiles: more than {build.MAX_TICKETS}")
+        return {"mt": 0, "ksplit": ksplit, "kc": 0, "strips": 0, "tiles": tiles, "smem": _WG_SMEM}
     if G > _MAX_GROUP_GEMV:
         raise ValueError(f"the decode-row kernel takes group sizes up to {_MAX_GROUP_GEMV} (got {G})")
     mt = 1 if M == 1 else 2 if M == 2 else 4 if M <= 4 else 8
@@ -168,6 +187,13 @@ def plan(M: int, K: int, N: int, G: int) -> dict:
     want = _cdiv(_BLOCKS, strips)
     per = max(8, _cdiv(_cdiv(KG, want), 8) * 8)  # groups a block: whole rounds of 8 warps
     return {"mt": mt, "ksplit": max(1, _cdiv(KG, per)), "kc": 0, "strips": strips}
+
+
+def needs_prologue(x2: torch.Tensor, G: int, rms_w) -> bool:
+    """Whether the fast M > 8 tile first writes x's bf16 rows to the
+    workspace (normed with ``rms_w``, rounded from float32, or laid out by
+    K tile where ``G % 64 != 0``) rather than reading x as it is."""
+    return rms_w is not None or x2.dtype != torch.bfloat16 or G % _WG_BK != 0 or x2.data_ptr() % 16 != 0
 
 
 def _launch(which, x2, q, scale, group_size, mode, layer, rms_w, eps, res2):
@@ -194,14 +220,22 @@ def _launch(which, x2, q, scale, group_size, mode, layer, rms_w, eps, res2):
         raise ValueError("q and scale must be 16-byte aligned")
     if M == 0:
         return torch.empty((0, N), dtype=x2.dtype, device=x2.device)
-    p = plan(M, K, N, group_size)
+    p = plan(M, K, N, group_size, mode)
     out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
-    partial = tickets = None
-    if p["ksplit"] > 1:
-        partial, tickets = build.workspace(x2.device, p["ksplit"] * M * N)
+    partial = tickets = xt = None
+    n_part = p["ksplit"] * M * N if p["ksplit"] > 1 else 0
+    n_xt = 0  # the bf16 rows of the fast tile's prologue, after the partials
+    if p["mt"] == 0 and mode == "fast" and needs_prologue(x2, group_size, rms_w):
+        n_part = _cdiv(n_part, 4) * 4  # 16-byte aligned rows
+        n_xt = _cdiv(M * (K // group_size) * _cdiv(group_size, _WG_BK) * _WG_BK, 2)
+    if n_part + n_xt:
+        ws, tickets = build.workspace(x2.device, n_part + n_xt)
+        partial = ws if p["ksplit"] > 1 else None
+        if n_xt:
+            xt = ws[n_part:n_part + n_xt]
     head = (
         x2.data_ptr(), q.data_ptr(), scale.data_ptr(), _ptr(rms_w), _ptr(res2),
-        out.data_ptr(), _ptr(partial), _ptr(tickets),
+        out.data_ptr(), _ptr(partial), _ptr(tickets), _ptr(xt),
         build.DTYPE_CODES[x2.dtype], MODES.index(mode),
     )
     tail = (
@@ -287,7 +321,7 @@ quant_matmul_stacked.launches = 0
 def _entries():
     lib = build.load_library(_LIB)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    head = [p] * 8 + [i, i]
+    head = [p] * 9 + [i, i]
     tail = [i] * 7 + [f, p]
     lib.quant_matmul.argtypes = head + tail
     lib.quant_matmul.restype = i

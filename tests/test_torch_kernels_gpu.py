@@ -912,3 +912,79 @@ def test_rmsnorm_and_swiglu_kernels_match_plain_on_card(cuda_device, dtype):
         swiglu(randn(4), randn(4, dt=torch.float64 if f32 else torch.float32))
     with pytest.raises(ValueError):
         rmsnorm(randn(2, 8).t(), randn(2))  # not contiguous
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", [(32, 32, 128), (32, 4, 64), (6, 6, 48)], ids=["7B", "GQA", "stories15M"])
+def test_prefill_tensor_core_kernel_matches_plain_on_card(cuda_device, layout):
+    """K1's bf16 tensor-core variant against the plain version (float32
+    throughout) at the 7B, GQA and stories15M head layouts, T = 1, 16, 201
+    and 300 from pos 0, 13 and 1000, and one B = 2 case: one last-bit flip,
+    1e-3 + 2^-7 |x|; equal bits on rerun; counted as mma, and fp32 as fma."""
+    H, KVH, hs = layout
+    g = torch.Generator(device=cuda_device).manual_seed(15)
+    tol = dict(rtol=2**-7, atol=1e-3)
+
+    def randn(*shape, dt=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dt)
+
+    k, v = randn(2, KVH, 1536, hs), randn(2, KVH, 1536, hs)
+    for T in (1, 16, 201, 300):
+        q = randn(1, T, H, hs)
+        for pos0 in (0, 13, 1000):
+            n0, n_mma = flash_prefill_attention.launches, flash_prefill_attention.launches_mma
+            got = flash_prefill_attention(q, k[:1], v[:1], pos0)
+            assert flash_prefill_attention.launches == n0 + 1
+            assert flash_prefill_attention.launches_mma == n_mma + 1
+            want = flash_prefill_attention_plain(q, k[:1], v[:1], pos0)
+            torch.cuda.synchronize()
+            _assert_close(got, want, tol, f"K1 mma {layout} T={T} pos0={pos0}")
+            assert torch.equal(got, flash_prefill_attention(q, k[:1], v[:1], pos0))
+    q = randn(2, 77, H, hs)
+    _assert_close(flash_prefill_attention(q, k, v, 500), flash_prefill_attention_plain(q, k, v, 500),
+                  tol, f"K1 mma {layout} B=2")
+    n_fma = flash_prefill_attention.launches_fma
+    qf, kf, vf = q.float(), k.float(), v.float()
+    _assert_close(flash_prefill_attention(qf, kf, vf, 500), flash_prefill_attention_plain(qf, kf, vf, 500),
+                  dict(rtol=2e-5, atol=2e-5), f"K1 fma {layout} B=2")
+    assert flash_prefill_attention.launches_fma == n_fma + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [8, 64])
+def test_quant_matmul_wgmma_tile_matches_plain_on_card(cuda_device, G):
+    """The fast M > 8 tile of K5/K6 against the plain version at M = 9, 64,
+    201 and 300 on a ragged N (N % 16 != 0 takes 4-byte weight loads, and
+    the last column tile is partly past N) and on a 7B-wide one (K split
+    over blocks), with and without the rmsnorm prologue and the residual,
+    bf16 and fp32 activations, at the fast-mode tolerances of
+    ``test_quant_matmul_kernels_match_plain_on_card``; equal bits on rerun."""
+    g = torch.Generator(device=cuda_device).manual_seed(16)
+
+    def randn(*shape, dt):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dt)
+
+    def tol(dtype, norm):
+        if dtype == torch.bfloat16:
+            return dict(rtol=2**-7, atol=2e-3 if norm else 1e-3)
+        return dict(rtol=1e-3, atol=1e-3) if norm else dict(rtol=4e-5, atol=4e-5)
+
+    for K, N in ((512, 1380), (4096, 4096)):
+        q = torch.randint(-127, 128, (2, K, N), generator=g, device=cuda_device, dtype=torch.int8)
+        scale = 2.7e-4 * (0.7 + 0.6 * torch.rand((2, K // G, N), generator=g, device=cuda_device))
+        w = QuantTensor(q, scale, G)
+        for M in (9, 64, 201, 300):
+            for dtype in (torch.bfloat16, torch.float32):
+                x, rms_w, res = randn(M, K, dt=dtype), 1 + 0.1 * randn(K, dt=dtype), randn(M, N, dt=dtype)
+                for norm, resid in ((False, False), (True, False), (False, True), (True, True)):
+                    kw = dict(mode="fast", rms_w=rms_w if norm else None, residual=res if resid else None)
+                    n0 = quant_matmul_stacked.launches
+                    got = quant_matmul_stacked(x, w, 1, **kw)
+                    assert quant_matmul_stacked.launches == n0 + 1
+                    want = quant_matmul_stacked_plain(x, w, 1, **kw)
+                    torch.cuda.synchronize()
+                    _assert_close(got, want, tol(dtype, norm), f"K6 tile {K}x{N} G={G} M={M} {dtype} {norm=} {resid=}")
+                    assert torch.equal(got, quant_matmul_stacked(x, w, 1, **kw))
+        x = randn(2, 201, K, dt=torch.bfloat16)[1:]  # a lead dim and a storage offset
+        _assert_close(quant_matmul(x, w[0]), quant_matmul_plain(x, w[0]), tol(torch.bfloat16, False),
+                      f"K5 tile {K}x{N} G={G}")
