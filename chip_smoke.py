@@ -12,7 +12,11 @@ non-zero:
    ptxas registers / shared memory / spills);
 2. each kernel against its plain PyTorch version on the card, fp32 and bf16:
    the attention kernels at the Llama-2-7B, a GQA and the stories15M head
-   layouts, the INT8 dequant-matmul kernels at the Llama-2-7B projection
+   layouts (K2 and K4's split form, also at head size 46 and with operands
+   off 16-byte alignment, both its one-element-a-lane loop, at positions 0,
+   1, the batch-1 plan's split count less one, 255, 256, 1000 and 4095 and
+   per-row at 3 and 8 rows, each with the appends bit-equal, a rerun
+   bit-equal and every ticket zero after), the INT8 dequant-matmul kernels at the Llama-2-7B projection
    shapes in both modes, the FFN megakernels at the 7B widths and two ragged
    shapes for 1 to 12 rows; the int8-cache attention kernels (K7 windows of
    1, 4 and 16 rows, K8, K9) at the 7B and a GQA layout, and the whole-layer
@@ -67,7 +71,9 @@ non-zero:
    INT8 file with ``--kv-cache int8`` with and without ``--spec 4``, each
    against ``Generator.generate`` in this process; and the HTTP server
    (``python -m llama2_tpu_torch.runtime.server ... --quant int8 --paged``)
-   as a subprocess, its greedy answers against ``Generator.generate``;
+   as a subprocess, its greedy answers equal to an in-process paged engine's
+   with its settings and held to ``Generator.generate`` by the margin rule
+   (``hold_server_streams``);
 5. kernel timing at the main paths' shapes with CUDA events, the calls
    queued behind a device sleep so that the host's launch rate does not set
    the time, beside the bound, the plain version and a library yardstick
@@ -77,7 +83,8 @@ non-zero:
    computes an FFN megakernel, an int8-cache attention, the whole layer or
    a paged attention: their lines give the route each replaces (the
    composed route; SDPA on a bf16 cache of the same length; K9 + K12; the
-   dense twin kernel and SDPA on the same rows gathered) instead. K3, K14,
+   dense twin kernel and SDPA on the same rows gathered) instead. K2 and K4
+   stand in the kernels line at pos 256 and at pos 4095. K3, K14,
    K19 and K20 at the kernel benchmarks' shapes, on its inputs (rotated
    through 512 MB), beside SDPA, SDPA on the gathered rows, ``F.rms_norm``
    and ``F.silu(h1) * h3``;
@@ -89,9 +96,11 @@ non-zero:
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py --dense-timing``
 builds the kernels and times only the dense decode attention kernels,
-``--prefill-timing`` only the prefill segment's K1, K5 and K6 (to compare two
-checkouts in one call, see ``phase_dense_timing`` and
-``phase_prefill_timing``). Without a CUDA device, or outside a checkout
+``--prefill-timing`` only the prefill segment's K1, K5 and K6, and
+``--decode-timing`` only single-stream decode on the two-launch route at
+positions 201-264, with K4's host time a call (to compare two checkouts in
+one call, see ``phase_dense_timing``, ``phase_prefill_timing`` and
+``phase_decode_timing``). Without a CUDA device, or outside a checkout
 of the repository, it fails before printing any result.
 """
 
@@ -237,6 +246,70 @@ def phase_build() -> None:
 # ---------------------------------------------------------------- phase 2
 
 
+# K2 and K4's split form at the head layouts, at a head size that no 16-byte
+# vector divides, and with every operand one element past a 16-byte boundary:
+# the last two take its one-element-a-lane loop. name: (H, KVH, hs, offset)
+SPLIT_CASES = {
+    **{name: (*layout, False) for name, layout in LAYOUTS.items()},
+    "hs46": (8, 2, 46, False),
+    "7B-offset": (32, 32, 128, True),
+}
+
+
+def offset_view(t):
+    """``t``'s values in a contiguous tensor whose data starts one element
+    past its allocation's (16-byte aligned) start."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
+def split_vec(case: str, B: int, dtype, rows) -> int:
+    """The elements a load in the plan the wrappers take for ``rows`` (the
+    cache and new-row operands) at SPLIT_CASES[case]: 16 bytes' worth, or 1
+    where the case says the vectors do not fit."""
+    import torch
+
+    from llama2_tpu_torch.ops.cuda.attention import plan
+
+    H, KVH, hs, offset = SPLIT_CASES[case]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    vec = plan(B, H, KVH, S, hs, dtype, sms, all(t.data_ptr() % 16 == 0 for t in rows))["vec"]
+    v = 16 // dtype.itemsize
+    if vec != (1 if offset or hs % v else v):
+        raise AssertionError(f"{case}: the plan loads {vec} elements a lane")
+    return vec
+
+
+def split_positions(H: int, KVH: int, hs: int, dtype) -> list[list[int]]:
+    """The positions K2 and K4's split form is checked at: 0, 1, the last
+    that the batch-1 plan's split count exceeds, either side of 256, 1000,
+    the cache's last row, and per-row at 3 and 8 rows."""
+    import torch
+
+    from llama2_tpu_torch.ops.cuda.attention import plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = plan(1, H, KVH, S, hs, dtype, sms)["splits"]
+    return [[0], [1], [splits - 1], [255], [256], [1000], [S - 1], [0, 5, S - 1], BATCH8_POS]
+
+
+def split_rerun_checks(tag: str, got, again, pos_list) -> None:
+    """A rerun of the split form on the same inputs gives the same bits, and
+    every ticket of the workspace is zero after the launches."""
+    import torch
+
+    from llama2_tpu_torch.ops.cuda import build
+
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{tag} gave different bits on the same inputs at pos={pos_list}")
+    tickets = build.workspace(torch.device("cuda"), 0)[1]
+    if int(tickets.count_nonzero()) != 0:
+        raise AssertionError(f"{tag} left a ticket nonzero at pos={pos_list}")
+
+
 def phase_kernels() -> None:
     import torch
 
@@ -277,18 +350,22 @@ def phase_kernels() -> None:
                     say("K1", dtype=dtype_name(dtype), layout=lname, T=T, pos0=pos0,
                         variant=variant[9:], max_abs_err=f"{err:.3e}", rtol=rtol, atol=atol)
             del k, v
+        for case, (H, KVH, hs, offset) in SPLIT_CASES.items():
+            at = offset_view if offset else (lambda t: t)
             L = 2
-            for pos_list in ([0], [1], [1000], [S - 1], [7, 1000, S - 1]):
+            for pos_list in split_positions(H, KVH, hs, dtype):
                 B = len(pos_list)
-                kc = randn(L, B, KVH, S, hs, dtype=dtype)
-                vc = randn(L, B, KVH, S, hs, dtype=dtype)
+                kc = at(randn(L, B, KVH, S, hs, dtype=dtype))
+                vc = at(randn(L, B, KVH, S, hs, dtype=dtype))
                 q = randn(B, 1, H, hs, dtype=dtype)
-                k_new = randn(B, KVH, 1, hs, dtype=dtype)
-                v_new = randn(B, KVH, 1, hs, dtype=dtype)
+                k_new = at(randn(B, KVH, 1, hs, dtype=dtype))
+                v_new = at(randn(B, KVH, 1, hs, dtype=dtype))
+                vec = split_vec(case, B, dtype, (kc, vc, k_new, v_new))
                 pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
                 layer = 1
                 k_want, v_want = kc.clone(), vc.clone()
                 k_plain, v_plain = kc.clone(), vc.clone()
+                k_again, v_again = at(kc.clone()), at(vc.clone())
                 got = flash_decode_attention_stacked(q, kc, vc, k_new, v_new, layer, pos)
                 want = flash_decode_attention_stacked_plain(
                     q, k_plain, v_plain, k_new, v_new, layer, pos
@@ -300,11 +377,13 @@ def phase_kernels() -> None:
                     v_want[layer, b, :, p] = v_new[b, :, 0]
                 # only the rows [layer, b, :, pos_b] changed, to the new rows
                 if not (torch.equal(kc, k_want) and torch.equal(vc, v_want)):
-                    raise AssertionError(f"K2 cache append wrong at pos={pos_list}")
-                say("K2", dtype=dtype_name(dtype), layout=lname, B=B,
-                    pos=",".join(map(str, pos_list)), max_abs_err=f"{err:.3e}",
-                    rtol=rtol, atol=atol, append="exact")
-                del kc, vc, k_want, v_want, k_plain, v_plain
+                    raise AssertionError(f"K2 cache append wrong at {case} pos={pos_list}")
+                again = flash_decode_attention_stacked(q, k_again, v_again, k_new, v_new, layer, pos)
+                split_rerun_checks(f"K2 {case}", got, again, pos_list)
+                say("K2", dtype=dtype_name(dtype), layout=case, B=B,
+                    pos=",".join(map(str, pos_list)), vec=vec, max_abs_err=f"{err:.3e}",
+                    rtol=rtol, atol=atol, append="exact", rerun="equal_bits", tickets="zero")
+                del kc, vc, k_want, v_want, k_plain, v_plain, k_again, v_again
 
 
 def all_layouts(params: dict) -> dict:
@@ -315,7 +394,7 @@ def all_layouts(params: dict) -> dict:
 
 
 def phase_kernels_q8() -> None:
-    """K4 against its plain version at the three head layouts; K5/K6 against
+    """K4 against its plain version at SPLIT_CASES; K5/K6 against
     theirs at the five 7B shapes, M = 1, 8 and 201, both modes, fp32 and bf16
     activations, with and without prologue and epilogue, on layers 0 and 31
     of 32-layer stacks."""
@@ -340,14 +419,17 @@ def phase_kernels_q8() -> None:
 
     for dtype in (torch.float32, torch.bfloat16):
         rtol, atol = tolerance(dtype)
-        for lname, (H, KVH, hs) in LAYOUTS.items():
+        for case, (H, KVH, hs, offset) in SPLIT_CASES.items():
+            at = offset_view if offset else (lambda t: t)
             L, layer = 2, 1
-            for pos_list in ([0], [1000], [S - 1], [7, 1000, S - 1]):
+            for pos_list in split_positions(H, KVH, hs, dtype):
                 B = len(pos_list)
-                kc = randn(L, B, KVH, S, hs, dtype=dtype)
-                vc = randn(L, B, KVH, S, hs, dtype=dtype)
+                kc = at(randn(L, B, KVH, S, hs, dtype=dtype))
+                vc = at(randn(L, B, KVH, S, hs, dtype=dtype))
                 k_plain, v_plain = kc.clone(), vc.clone()
-                qkv = randn(B, H + 2 * KVH, hs, dtype=dtype)
+                k_again, v_again = at(kc.clone()), at(vc.clone())
+                qkv = at(randn(B, H + 2 * KVH, hs, dtype=dtype))
+                vec = split_vec(case, B, dtype, (kc, vc, qkv))
                 pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
                 cos_il, sin_il = rope_tables(pos, hs)
                 got = flash_decode_attention_fused(qkv, kc, vc, cos_il, sin_il, layer, pos, n_heads=H)
@@ -358,11 +440,15 @@ def phase_kernels_q8() -> None:
                 err = compare(got, want, dtype)
                 # the rotated K rows and raw V rows, bit for bit, and nothing else
                 if not (torch.equal(kc, k_plain) and torch.equal(vc, v_plain)):
-                    raise AssertionError(f"K4 cache append wrong at pos={pos_list}")
-                say("K4", dtype=dtype_name(dtype), layout=lname, B=B,
-                    pos=",".join(map(str, pos_list)), max_abs_err=f"{err:.3e}",
-                    rtol=rtol, atol=atol, append="exact")
-                del kc, vc, k_plain, v_plain
+                    raise AssertionError(f"K4 cache append wrong at {case} pos={pos_list}")
+                again = flash_decode_attention_fused(
+                    qkv, k_again, v_again, cos_il, sin_il, layer, pos, n_heads=H
+                )
+                split_rerun_checks(f"K4 {case}", got, again, pos_list)
+                say("K4", dtype=dtype_name(dtype), layout=case, B=B,
+                    pos=",".join(map(str, pos_list)), vec=vec, max_abs_err=f"{err:.3e}",
+                    rtol=rtol, atol=atol, append="exact", rerun="equal_bits", tickets="zero")
+                del kc, vc, k_plain, v_plain, k_again, v_again
 
     params = all_layouts(random_q8_params(config_7b(), SEED + 4, "cuda", group_size=GROUP))
     combos = ((0, False, False), (31, True, False), (31, False, True), (0, True, True))
@@ -1365,12 +1451,13 @@ def decode_profile(g, dn: str) -> None:
     profile_steps(dn, "pos_0_to_16", run)
 
 
-def long_context_profile(g, config, dn: str, steps: int = 16) -> None:
-    """``profile_steps`` of the last ``steps`` decode steps of the context
-    (positions seq_len - steps .. seq_len - 1), each a forward, the logits and
-    the argmax's host sync, as the Generator's loop runs them, over a cache
-    whose earlier rows are filled with random values (int8 rows under scales
-    of a N(0, 1) row's size, or N(0, 1) rows)."""
+def long_context_profile(g, config, dn: str, steps: int = 16, pos0: int | None = None) -> None:
+    """``profile_steps`` of ``steps`` decode steps from ``pos0`` (default the
+    last ``steps`` of the context, positions seq_len - steps .. seq_len - 1),
+    each a forward, the logits and the argmax's host sync, as the
+    Generator's loop runs them, over a cache whose earlier rows are filled
+    with random values (int8 rows under scales of a N(0, 1) row's size, or
+    N(0, 1) rows)."""
     import torch
 
     from llama2_tpu_torch.models.llama import forward, init_cache, logits_from_hidden
@@ -1386,7 +1473,8 @@ def long_context_profile(g, config, dn: str, steps: int = 16) -> None:
             t.copy_(0.02 + 0.01 * torch.rand(t.shape, generator=gen, device=dev))
         else:
             t.copy_(torch.randn(t.shape, generator=gen, device=dev))
-    pos0 = config.seq_len - steps
+    if pos0 is None:
+        pos0 = config.seq_len - steps
 
     def run(n=steps):
         tok = 1
@@ -1400,7 +1488,7 @@ def long_context_profile(g, config, dn: str, steps: int = 16) -> None:
         return n, time.perf_counter() - t0
 
     run(2)  # warm-up at these positions
-    profile_steps(dn, f"pos_{pos0}_to_{config.seq_len - 1}", run)
+    profile_steps(dn, f"pos_{pos0}_to_{pos0 + steps - 1}", run)
     del cache
     torch.cuda.empty_cache()
 
@@ -2060,21 +2148,19 @@ def assert_ticks(run: dict, per_tick: dict, dn: str) -> int:
     return len(run["ticks"])
 
 
-def plain_replay(config, params, reqs, run: dict, kv_quant: bool, dtype) -> list:
-    """The served streams of ``run``, teacher-forced through the plain path:
-    the same paged engine (8 slots, 256-row pages, the prefix cache, so the
-    same admissions, prefix hits and fp-prefill-then-quantize rows) on
-    ``backend="torch"``, whose samplers return each request's served tokens
-    instead of sampling. Returns each request's logits rows, as a logged run
-    keeps them."""
+def forced_replay(config, params, reqs, streams: list, backend: str, **engine) -> list:
+    """``streams`` (each request's served tokens) teacher-forced through a
+    paged engine on ``backend`` with the settings ``engine``, whose samplers
+    return each request's served tokens instead of sampling. Returns each
+    request's logits rows, as a logged run keeps them. Requests are told
+    apart by their prompts."""
     import torch
 
     from llama2_tpu_torch.runtime.generator import BOS
     from llama2_tpu_torch.runtime.paged_engine import PagedBatchEngine
 
-    eng = PagedBatchEngine(config, params, batch_size=SERVE_SLOTS, page_size=SERVE_PAGE, prefix_cache=True,
-                           dtype=dtype, backend="torch", device="cuda", kv_quant=kv_quant, pipeline_depth=1)
-    served = {tuple(p): toks for (p, _), toks in zip(reqs, run["tokens"])}
+    eng = PagedBatchEngine(config, params, backend=backend, device="cuda", pipeline_depth=1, **engine)
+    served = {tuple(p): toks for (p, _), toks in zip(reqs, streams)}
     rows: dict = {}
 
     def forced(req, n):
@@ -2097,14 +2183,16 @@ def plain_replay(config, params, reqs, run: dict, kv_quant: bool, dtype) -> list
     queues = [eng.submit(p, g) for p, g in reqs]
     submitted = list(eng.waiting.queue)
     eng.run_until_idle()
-    if [q.get(timeout=600).tokens for q in queues] != run["tokens"]:
+    if [q.get(timeout=600).tokens for q in queues] != list(streams):
         raise AssertionError("the forced replay did not follow the served streams")
     return [torch.stack(rows[id(r)]) for r in submitted]
 
 
 def check_served_tokens(params, config, reqs, run: dict, kv_quant: bool, dtype, dn: str, rule: str) -> None:
     """Each greedy stream of a logged run against its teacher-forced replay
-    through the plain path (``plain_replay``). The distance is the largest
+    through the plain path: the same paged engine (8 slots, 256-row pages,
+    the prefix cache, so the same admissions, prefix hits and
+    fp-prefill-then-quantize rows) on ``backend="torch"``. The distance is the largest
     |engine logits - plain logits| over every greedy stream (PERF.md section
     2): ``rule="margin"``: each token equals the plain argmax wherever the
     plain top-2 margin exceeds twice it; ``"fp32-int8"``: that, and the
@@ -2113,7 +2201,8 @@ def check_served_tokens(params, config, reqs, run: dict, kv_quant: bool, dtype, 
     F32_LOGIT_ATOL."""
     import torch
 
-    plain = plain_replay(config, params, reqs, run, kv_quant, dtype)
+    plain = forced_replay(config, params, reqs, run["tokens"], "torch", batch_size=SERVE_SLOTS,
+                          page_size=SERVE_PAGE, prefix_cache=True, dtype=dtype, kv_quant=kv_quant)
     dist, absmax, pairs = 0.0, 0.0, []
     for (prompt, gen), toks, lk, lp in zip(reqs, run["tokens"], run["logits"], plain):
         if gen.temperature != 0.0:
@@ -2406,24 +2495,91 @@ def generate_bytes(path: str, spec: int) -> bytes:
 SERVER_PROMPTS = ("Once upon a time", "The little dog ran", "She opened the door")
 
 
-def phase_server(path: str) -> None:
-    """The HTTP server on the 2-layer checkpoint at ``path``, as a user
-    starts it: ``python -m llama2_tpu_torch.runtime.server <path> --quant int8
-    --paged --kernels cuda --dtype f32 --port 0``. Three concurrent greedy
-    requests must return ``Generator.generate``'s tokens and text for the
-    same prompts (fp32 activations, 2 layers), one sampled request its
-    budget; /health and /metrics answer; SIGINT stops it with exit 0."""
-    import signal
-    import threading
-    import urllib.request
-
+def hold_server_streams(path: str, results: dict) -> dict:
+    """The server's greedy answers (``results[i]`` for ``SERVER_PROMPTS[i]``)
+    on the checkpoint at ``path``. Each answer's tokens start with its prompt
+    and its text decodes them. Exact: the tokens equal, token for token,
+    those of an in-process paged engine with the server's settings (8 slots,
+    256-row pages, no prefix cache, fp32 activations, fast mode: K17 a decode
+    layer, K4 for one-token admission chunks, K12 at up to 8 rows) run free
+    on the same prompts. Across routes: ``Generator.generate``'s dense single
+    stream (K4's split form at one row) sums attention in another order than
+    K17, and fast mode rounds every matmul operand to bf16, so a greedy
+    near-tie may flip. Each served stream is teacher-forced through both
+    routes; wherever the Generator route's top-2 margin exceeds twice the
+    routes' largest logit distance, the served token is its argmax, and the
+    distance stays within phase 3's fast-mode bar. Returns what to report."""
     import torch
 
     from llama2_tpu_torch.config import GenerationConfig
     from llama2_tpu_torch.io import load_any
     from llama2_tpu_torch.quant.q8 import quantize_params
-    from llama2_tpu_torch.runtime.generator import Generator
+    from llama2_tpu_torch.runtime.generator import BOS, Generator
+    from llama2_tpu_torch.runtime.paged_engine import PagedBatchEngine
     from llama2_tpu_torch.tokenizer.tokenizer import Tokenizer
+
+    config, params, _ = load_any(path)
+    params = quantize_params(params)
+    tok = Tokenizer.from_file(TOKENIZER_BIN, config.vocab_size)
+    greedy = GenerationConfig(temperature=0.0, steps=48)
+    reqs = [(tok.encode(prompt), greedy) for prompt in SERVER_PROMPTS]
+    served = [results[i]["tokens"] for i in range(len(SERVER_PROMPTS))]
+    for i, ((prompt, _), toks) in enumerate(zip(reqs, served)):
+        if toks[: len(prompt)] != prompt or results[i]["text"] != tok.decode(toks).decode("utf-8", "replace"):
+            raise AssertionError(f"served answer for {SERVER_PROMPTS[i]!r} malformed: {results[i]}")
+    # the server's engine settings (runtime/server.py with --quant int8 --paged --kernels cuda --dtype f32)
+    settings = dict(batch_size=8, page_size=256, n_pages=None, prefix_cache=False, dtype=torch.float32,
+                    kv_quant=False)
+    eng = PagedBatchEngine(config, params, backend="cuda", device="cuda", ticks_per_sync=1, pipeline_depth=2,
+                           **settings)
+    queues = [eng.submit(prompt, gen) for prompt, gen in reqs]
+    eng.run_until_idle()
+    in_process = [q.get(timeout=600).tokens for q in queues]
+    del eng
+    for prompt, toks, want in zip(SERVER_PROMPTS, served, in_process):
+        if toks != want:
+            raise AssertionError(f"served tokens for {prompt!r} differ from the in-process paged engine's")
+    g = Generator(config, params, dtype=torch.float32, backend="cuda", device="cuda")
+    wants = [g.generate(prompt, greedy).tokens for prompt, _ in reqs]
+    engine_logits = forced_replay(config, params, reqs, served, "cuda", **settings)
+    dist, absmax, pairs = 0.0, 0.0, []
+    for (prompt, _), toks, le in zip(reqs, served, engine_logits):
+        generated = toks[len(prompt):]
+        n = len(generated)
+        lg = teacher_forced_logits(g.params, config, [BOS] + toks, len(prompt), "cuda")[:n]
+        dist = max(dist, float((le[:n] - lg).abs().max()))
+        absmax = max(absmax, float(lg.abs().max()))
+        pairs.append((generated, lg))
+    checked = 0
+    for generated, lg in pairs:
+        top2 = lg.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * dist
+        checked += int(clear.sum())
+        if not bool((lg.argmax(-1) == torch.tensor(generated))[clear].all()):
+            raise AssertionError("a served token differs from the Generator route's at a clear margin")
+    if dist > F32_FAST_LOGIT_RTOL * absmax:
+        raise AssertionError(f"the server's route is {dist} from the Generator's "
+                             f"(bound {F32_FAST_LOGIT_RTOL * absmax})")
+    equal = sum(a == b for s, w in zip(served, wants) for a, b in zip(s, w))
+    return {"tokens_equal_to_in_process_engine": "all",
+            "logit_max_abs_diff_vs_generator_route": f"{dist:.3e}", "logit_absmax": f"{absmax:.3f}",
+            "tokens_checked": f"{checked}/{sum(len(t) for t, _ in pairs)}",
+            "tokens_equal_to_generator": f"{equal}/{sum(len(w) for w in wants)}"}
+
+
+def phase_server(path: str) -> None:
+    """The HTTP server on the 2-layer checkpoint at ``path``, as a user
+    starts it: ``python -m llama2_tpu_torch.runtime.server <path> --quant int8
+    --paged --kernels cuda --dtype f32 --port 0``. Three concurrent greedy
+    requests must return the tokens of an in-process paged engine with the
+    server's settings, and are held to ``Generator.generate`` on the same
+    prompts by the margin rule (fp32 activations, 2 layers;
+    ``hold_server_streams``), one sampled request
+    returns its budget; /health and /metrics answer; SIGINT stops it with
+    exit 0."""
+    import signal
+    import threading
+    import urllib.request
 
     cmd = [sys.executable, "-m", "llama2_tpu_torch.runtime.server", path, "-z", TOKENIZER_BIN,
            "--quant", "int8", "--paged", "--kernels", "cuda", "--dtype", "f32", "--port", "0"]
@@ -2474,18 +2630,12 @@ def phase_server(path: str) -> None:
             proc.stderr.close()
     if rc != 0:
         raise AssertionError(f"the server exited {rc} on SIGINT")
-    config, params, _ = load_any(path)
-    tok = Tokenizer.from_file(TOKENIZER_BIN, config.vocab_size)
-    g = Generator(config, quantize_params(params), dtype=torch.float32, backend="cuda", device="cuda")
-    for i, prompt in enumerate(SERVER_PROMPTS):
-        want = g.generate(tok.encode(prompt), GenerationConfig(temperature=0.0, steps=48)).tokens
-        if results[i]["tokens"] != want or results[i]["text"] != tok.decode(want).decode("utf-8", "replace"):
-            raise AssertionError(f"served tokens for {prompt!r} differ from Generator.generate's")
+    held = hold_server_streams(path, results)
     sampled = results[len(SERVER_PROMPTS)]["tokens"]
     if not 1 <= len(sampled) <= 48 or health.get("status") != "ok" or metrics.get("requests", 0) < len(bodies):
         raise AssertionError(f"server answers malformed: {sampled}, {health}, {metrics}")
     say("server", args="--quant_int8_--paged_--kernels_cuda_--dtype_f32", up_s=f"{up_s:.1f}",
-        greedy_requests=len(SERVER_PROMPTS), tokens_equal_to_generator="all", sampled_tokens=len(sampled),
+        greedy_requests=len(SERVER_PROMPTS), **held, sampled_tokens=len(sampled),
         health=health["status"], metrics_requests=metrics["requests"],
         ttft_p50_ms=f"{metrics['ttft_p50_ms']:.2f}", sigint_exit=rc)
 
@@ -2569,11 +2719,11 @@ def phase_timing(dtype, launches: dict, cycles_per_ms: float) -> list[dict]:
     vc = torch.randn((L, B, KVH, S, hs), generator=gen, device="cuda").to(dtype)
     rows = []
 
-    def row(name, src, replaces, n_launch, err, ms, plain_ms, lib_ms, nbytes, flops):
+    def row(name, src, replaces, n_launch, err, ms, plain_ms, lib_ms, nbytes, flops, shape=""):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS[dn] * 1e3
         r = {
-            "name": f"{name}[{dn}]", "route": "cuda", "source": src,
+            "name": f"{name}[{dn}{shape}]", "route": "cuda", "source": src,
             "replaces": replaces, "launches": n_launch, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -2632,16 +2782,12 @@ def phase_timing(dtype, launches: dict, cycles_per_ms: float) -> list[dict]:
             ), 256, cycles_per_ms,
         )
         nbytes = esize * (2 * B * H * hs + 2 * B * KVH * (p + 1) * hs + 2 * B * KVH * hs)
-        name = "flash_decode_attention_stacked"
-        if p == 256:
-            r = row(name, "llama2_tpu_torch/csrc/decode_attention.cu",
-                    "llama2_tpu/ops/pallas/attention.py:338", launches["K2"], err,
-                    ms, plain_ms, lib_ms, nbytes, 4 * hs * B * H * (p + 1))
-            bound, by = r["bound_ms"], r["bound_by"]
-        else:  # full context: printed and recorded in PERF.md, not in the line
-            bound, by = nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
-        say("time", kernel=f"{name}[{dn}]", pos=p, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-            library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=by,
+        # the main path's position, and full context as a second shape
+        r = row("flash_decode_attention_stacked", "llama2_tpu_torch/csrc/decode_attention.cu",
+                "llama2_tpu/ops/pallas/attention.py:338", launches["K2"], err,
+                ms, plain_ms, lib_ms, nbytes, 4 * hs * B * H * (p + 1), "" if p == 256 else f",pos={p}")
+        say("time", kernel=r["name"], pos=p, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            library_ms=f"{lib_ms:.4f}", bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"],
             max_abs_err=f"{err:.3e}", queued_kernel_plain_library=f"{qk},{qp},{ql}")
     del kc, vc
     torch.cuda.empty_cache()
@@ -2839,15 +2985,15 @@ def phase_timing_q8(launches: dict, cycles_per_ms: float) -> list[dict]:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = 4 * hs * B * H * (p + 1) / PEAK_FLOPS[dn] * 1e3
         bound, by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-        name = f"flash_decode_attention_fused[{dn}]"
-        if p == 256:
-            rows.append({
-                "name": name, "route": "cuda",
-                "source": "llama2_tpu_torch/csrc/decode_attention.cu",
-                "replaces": "llama2_tpu/ops/pallas/attention.py:515",
-                "launches": launches["fast"]["K4"], "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
-            })
+        name = f"flash_decode_attention_fused[{dn}{'' if p == 256 else f',pos={p}'}]"
+        # the main path's position, and full context as a second shape
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "llama2_tpu_torch/csrc/decode_attention.cu",
+            "replaces": "llama2_tpu/ops/pallas/attention.py:515",
+            "launches": launches["fast"]["K4"], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+        })
         say("time", kernel=name, pos=p, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
             library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=by,
             max_abs_err=f"{err:.3e}", queued_kernel_plain_library=f"{qk},{qp},{ql}")
@@ -3258,7 +3404,8 @@ def phase_bench(smi: str) -> dict:
 def phase_dense_timing(cycles_per_ms: float) -> None:
     """The dense decode attention kernels alone (K2, K4, K8, K9; bf16, the 7B
     head layout, 1 and 8 rows, every row at pos 256 and at 4095, call i on
-    layer i % 4 of a 4-layer cache), for comparing two trees in one call:
+    layer i % 4 of a 4-layer cache), then K2 and K4 at other split counts
+    (``split_sweep``, ``dense-split`` lines), for comparing two trees in one call:
     ``python3 chip_smoke.py --dense-timing`` runs it and nothing else. Every
     tree since slice 5 has it: run each checkout's own script from its
     root."""
@@ -3269,6 +3416,7 @@ def phase_dense_timing(cycles_per_ms: float) -> None:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
     L, (H, KVH, hs) = 4, LAYOUTS["7B"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for B in (1, 8):
         def randn(*shape):
             return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
@@ -3294,8 +3442,93 @@ def phase_dense_timing(cycles_per_ms: float) -> None:
             ):
                 ms, queued = time_ms(fn, 256 if p == 256 else 64, cycles_per_ms)
                 say("dense-time", kernel=tag, dtype="bf16", B=B, pos=p, ms=f"{ms:.4f}", queued=queued)
+            split_sweep(fa.plan(B, H, KVH, S, hs, torch.bfloat16, sms)["splits"], B, p, {
+                "K2": lambda i, n: fa.launch_stacked(q, kc, vc, kn, vn, i % L, pos, n),
+                "K4": lambda i, n: fa.launch_fused(qkv, kc, vc, cos_il, sin_il, i % L, pos, H, n),
+            }, cycles_per_ms)
         del kc, vc, k8, v8
         torch.cuda.empty_cache()
+
+
+def split_sweep(own: int, B: int, p: int, calls: dict, cycles_per_ms: float) -> None:
+    """K2 and K4 (``calls[tag](i, splits)``: call i at that split count, on
+    bf16 caches of B rows, every row at ``p``) at other split counts than
+    their plan's (``own``), the plan's own among them: the readings
+    ``attention.BLOCKS_PER_SM`` rests on."""
+    for n in ((1, 4, 6, 8, 9, 12, 16) if B == 1 else (1, 2, 4)):
+        for tag, fn in calls.items():
+            ms, queued = time_ms(lambda i: fn(i, n), 256 if p == 256 else 64, cycles_per_ms)
+            say("dense-split", kernel=tag, dtype="bf16", B=B, pos=p, splits=n, planned=own,
+                ms=f"{ms:.4f}", queued=queued)
+
+
+def host_us_per_call(fn, n_iter: int, cycles_per_ms: float, rounds: int = 7) -> float:
+    """The host's microseconds a call of ``fn(i)``: the least over ``rounds``
+    rounds of ``n_iter`` calls, each round issued while a device sleep holds
+    the stream (so no call waits on the device), after three warm-up calls.
+    The least round is the one the host's other work disturbed least."""
+    import torch
+
+    for i in range(3):
+        fn(i)
+    best = float("inf")
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(50 * cycles_per_ms))  # 50 ms: longer than the calls take to issue
+        t0 = time.perf_counter()
+        for i in range(n_iter):
+            fn(i)
+        best = min(best, (time.perf_counter() - t0) * 1e6 / n_iter)
+    torch.cuda.synchronize()
+    return best
+
+
+def phase_decode_timing(cycles_per_ms: float) -> None:
+    """Single-stream decode on slice 3's main path (Q8 weights, bf16
+    activations, the two-launch layer over the fp cache, 7B width, 32 layers:
+    ``q8/bf16/cuda/two-launch/32L``) at positions 201-264, for comparing two
+    trees in one call: ``python3 chip_smoke.py --decode-timing`` runs it and
+    nothing else; to run it on another tree, copy this script into that
+    tree's root. ``decode-time`` lines: K4 alone at batch 1 and pos 256 (its
+    device ms a call, and the host's microseconds a call of its wrapper);
+    the decode tok/s of five greedy generations of the 200-token prompt
+    plus 64 tokens; then the profile of the decode steps at positions
+    201-264 (wall, device and host ms a step)."""
+    import torch
+
+    from llama2_tpu_torch.config import GenerationConfig
+    from llama2_tpu_torch.io.convert import random_q8_params
+    from llama2_tpu_torch.ops.cuda import attention as fa
+    from llama2_tpu_torch.runtime.generator import Generator
+
+    L, (H, KVH, hs) = 32, LAYOUTS["7B"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    kc, vc = (torch.randn((L, 1, KVH, S, hs), generator=gen, device="cuda").to(torch.bfloat16) for _ in "kv")
+    qkv = torch.randn((1, H + 2 * KVH, hs), generator=gen, device="cuda").to(torch.bfloat16)
+    pos = torch.tensor([256], dtype=torch.int32, device="cuda")
+    cos_il, sin_il = rope_tables(pos, hs)
+
+    def k4(i):
+        return fa.flash_decode_attention_fused(qkv, kc, vc, cos_il, sin_il, i % L, pos, n_heads=H)
+
+    ms, queued = time_ms(k4, 256, cycles_per_ms)
+    say("decode-time", kernel="K4", dtype="bf16", B=1, pos=256, ms=f"{ms:.4f}", queued=queued,
+        host_us_per_call=f"{host_us_per_call(k4, 256, cycles_per_ms):.2f}")
+    del kc, vc
+    torch.cuda.empty_cache()
+
+    config = config_7b(32)
+    dn = "q8/bf16/cuda/two-launch/32L"
+    g = Generator(config, random_q8_params(config, SEED, "cuda", torch.bfloat16, group_size=GROUP),
+                  dtype=torch.bfloat16, backend="cuda", device="cuda")
+    prompt = prompt_tokens()
+    g.generate(prompt[:20], GenerationConfig(temperature=0.0, steps=22))  # warm-up
+    for rep in range(5):
+        res = g.generate(prompt, GenerationConfig(temperature=0.0, steps=len(prompt) + GEN_TOKENS))
+        n_gen = len(res.tokens) - len(prompt)
+        say("decode-time", path=dn, rep=rep, prompt_tokens=len(prompt), generated=n_gen,
+            ttft_ms=f"{res.ttft_s * 1e3:.2f}", decode_tok_s=f"{n_gen / (res.total_s - res.ttft_s):.2f}")
+    long_context_profile(g, config, dn, steps=GEN_TOKENS, pos0=len(prompt) + 1)
 
 
 def phase_prefill_timing(cycles_per_ms: float) -> None:
@@ -3419,6 +3652,10 @@ def main() -> int:
     phase_build()
     if sys.argv[1:] == ["--dense-timing"]:
         phase_dense_timing(sleep_cycles_per_ms())
+        print(smi)
+        return 0
+    if sys.argv[1:] == ["--decode-timing"]:
+        phase_decode_timing(sleep_cycles_per_ms())
         print(smi)
         return 0
     if sys.argv[1:] == ["--prefill-timing"]:

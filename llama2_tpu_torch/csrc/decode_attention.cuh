@@ -15,11 +15,17 @@
 // cache, so no block depends on another block's write; the caller names the
 // one block of each (b, kv head) that writes the row back.
 //
-// Bound on this card: bytes (see decode_attention.cu). One block per (b,
-// query head) streams keys 0..pos: 8 warps interleave chunks of KC keys, each
-// warp issues a whole chunk's K and V loads before it reduces, keeps its own
-// online-softmax state, and the warps merge through shared memory at the
-// end. Arithmetic is float32 FMA (no TF32), as the JAX kernels' HIGHEST dots.
+// Bound on this card: bytes (see decode_attention.cu). Two forms of the read:
+//   attend (K3, K14, K15, K17): one block per (b, query head) streams keys
+//     0..pos: 8 warps interleave chunks of KC keys, each lane loads single
+//     elements of a whole chunk's K and V before it reduces, keeps its own
+//     online-softmax state, and the warps merge through shared memory;
+//   attend_split (K2, K4): the key range is cut into splits, one block per
+//     (b, query head, split); lanes load 16-byte vectors (LPR lanes a row,
+//     32 / LPR rows a warp load), and the blocks of one (b, query head) merge
+//     their float32 states in split order through a workspace, the last to
+//     finish found by an integer ticket.
+// Arithmetic is float32 FMA (no TF32), as the JAX kernels' HIGHEST dots.
 #pragma once
 
 #include <math.h>
@@ -174,14 +180,18 @@ __device__ __forceinline__ void attend(const float (&qr)[NPL], C* k_cache, C* v_
   }
 }
 
-// one interleaved-pair rotation: the pair's other element is one lane away
-// (the lane's element index has the lane's parity); products are rounded
-// separately so no FMA contraction changes the bits
-__device__ __forceinline__ float rope_interleaved(float x, float c, float s, int lane) {
-  const float other = __shfl_xor_sync(0xffffffffu, x, 1);
+// one interleaved-pair rotation of element x with its partner `other`;
+// products are rounded separately so no FMA contraction changes the bits
+__device__ __forceinline__ float rope_pair(float x, float other, float c, float s, bool odd) {
   const float xc = __fmul_rn(x, c);
   const float os = __fmul_rn(other, s);
-  return (lane & 1) ? __fadd_rn(os, xc) : __fsub_rn(xc, os);
+  return odd ? __fadd_rn(os, xc) : __fsub_rn(xc, os);
+}
+
+// the same, the pair's other element one lane away (the lane's element
+// index has the lane's parity)
+__device__ __forceinline__ float rope_interleaved(float x, float c, float s, int lane) {
+  return rope_pair(x, __shfl_xor_sync(0xffffffffu, x, 1), c, s, lane & 1);
 }
 
 // The glue-fused prologue of one (b, query head): rotate the query row (kept
@@ -208,6 +218,279 @@ __device__ __forceinline__ void rope_prologue(const T* qkv, const float* cos_il,
     qr[i] = rope_interleaved(xq, c, s, lane) * scale;
     const float kr = rope_interleaved(xk, c, s, lane);
     if (warp == 0 && ok) k_roped[d] = from_f32<T>(kr);
+  }
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------- split form
+
+constexpr int kMaxSplit = 32;  // splits of the key range
+constexpr int kMaxHs = 256;
+
+// The keys of one split: a row with n_keys keys fills ns <= nsplit splits of
+// `per` keys each, per a multiple of `chunk` (the keys one pass of a block
+// covers), the last split cut at n_keys. Every split s < ns holds at least
+// one key, and the ns splits cover 0..n_keys-1 once
+// (tests/test_torch_decode_split.py mirrors it).
+struct SplitRange {
+  int ns, per;
+};
+
+__device__ __forceinline__ SplitRange split_range(int n_keys, int nsplit, int chunk) {
+  const int ns0 = max(1, min(nsplit, (n_keys + chunk - 1) / chunk));
+  const int per = ((n_keys + ns0 - 1) / ns0 + chunk - 1) / chunk * chunk;
+  return {(n_keys + per - 1) / per, per};
+}
+
+// VE elements of T loaded as one vector of VE * sizeof(T) bytes (16 at most;
+// the address aligned to it) and read back as float32
+template <typename T, int VE>
+struct RowVec {
+  static constexpr int kBytes = VE * (int)sizeof(T);
+  static constexpr int kWords = kBytes >= 4 ? kBytes / 4 : 1;
+  unsigned w[kWords];
+
+  __device__ __forceinline__ void load(const T* p) {
+    if constexpr (kBytes == 16) {
+      const uint4 r = *reinterpret_cast<const uint4*>(p);
+      w[0] = r.x;
+      w[1] = r.y;
+      w[2] = r.z;
+      w[3] = r.w;
+    } else if constexpr (kBytes == 8) {
+      const uint2 r = *reinterpret_cast<const uint2*>(p);
+      w[0] = r.x;
+      w[1] = r.y;
+    } else if constexpr (kBytes == 4) {
+      w[0] = *reinterpret_cast<const unsigned*>(p);
+    } else {
+      w[0] = *reinterpret_cast<const unsigned short*>(p);
+    }
+  }
+  // element i (bf16: two a word, element 2j in the low half)
+  __device__ __forceinline__ float at(int i) const {
+    if constexpr (sizeof(T) == 4)
+      return __uint_as_float(w[i]);
+    else if constexpr (kBytes == 2)
+      return __uint_as_float(w[0] << 16);
+    else
+      return __uint_as_float((i & 1) ? (w[i >> 1] & 0xffff0000u) : (w[i >> 1] << 16));
+  }
+};
+
+// The lane layout of attend_split: VE elements a vector, LPR lanes a row
+// (a power of two, 4..32), NV vectors a lane a row, U warp loads a chunk.
+template <int VE, int LPR, int NV, int U>
+struct SplitShape {
+  static constexpr int kRowsPerWarp = 32 / LPR;
+  static constexpr int kWarpKeys = U * kRowsPerWarp;  // keys of one warp pass
+  static constexpr int kChunk = kWarps * kWarpKeys;   // keys of one block pass
+};
+
+// What one block of attend_split works on: keys t_begin..t_end-1 of split
+// `split` of ns; `ws` the (b, query head)'s nsplit states of hs + 2 floats
+// (m, l, acc), `ticket` its counter (zero on entry and on exit).
+struct SplitWork {
+  int t_begin, t_end, split, ns, hs;
+  float* ws;
+  int* ticket;
+};
+
+// The split form of the read over keys t_begin..t_end-1, then the merge.
+// Lane = (row slot r, vector slot j): in each warp load, row slot r takes key
+// base + u * (32 / LPR) + r and lane j its vectors nv * LPR + j, so a load
+// instruction reads 32 / LPR whole neighbouring rows. Every load of a chunk
+// is issued before any is used. A score is summed over the LPR lanes of its
+// row; the warp shares one running max, so its row slots' l and acc add up at
+// the end. The warps merge through shared memory into the block's state; a
+// row that fills one split writes out at once, else the block publishes its
+// state to ws and the last of the ns blocks (the ticket) merges the states in
+// split order (weight 0 for a state that saw no key), writes out and zeroes
+// the ticket. qv: this lane's query elements, scaled (0 past hs); kn/vn this
+// step's new rows, read in place of the cache row rows.is_new names (16-byte
+// aligned where VE * sizeof(T) is 16).
+template <typename T, int VE, int LPR, int NV, int U, typename Rows, typename C>
+__device__ __forceinline__ void attend_split(const float (&qv)[NV][VE], C* k_cache, C* v_cache,
+                                             const T* kn, const T* vn, T* oh, const Rows& rows,
+                                             const SplitWork& sw) {
+  using Shape = SplitShape<VE, LPR, NV, U>;
+  constexpr int RPW = Shape::kRowsPerWarp;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int r = lane / LPR, j = lane % LPR;
+  const int hs = sw.hs;
+  // a lane past hs re-reads the last vector (its q is 0)
+  int e[NV];
+#pragma unroll
+  for (int nv = 0; nv < NV; ++nv) e[nv] = min((nv * LPR + j) * VE, hs - VE);
+
+  float m = -INFINITY, l = 0.f;
+  float acc[NV][VE];
+#pragma unroll
+  for (int nv = 0; nv < NV; ++nv)
+#pragma unroll
+    for (int i = 0; i < VE; ++i) acc[nv][i] = 0.f;
+
+  for (int base = sw.t_begin + warp * Shape::kWarpKeys; base < sw.t_end;
+       base += kWarps * Shape::kWarpKeys) {
+    // a key past t_end re-reads key t_end - 1 (its score is masked)
+    RowVec<T, VE> kr[U][NV], vr[U][NV];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int t = min(base + u * RPW + r, sw.t_end - 1);
+      const size_t off = rows.row(t);
+      const bool fresh = rows.is_new(t, off);
+      const T* kp = fresh ? kn : k_cache + off;
+      const T* vp = fresh ? vn : v_cache + off;
+#pragma unroll
+      for (int nv = 0; nv < NV; ++nv) {
+        kr[u][nv].load(kp + e[nv]);
+        vr[u][nv].load(vp + e[nv]);
+      }
+    }
+    float s[U];
+    float smax = -INFINITY;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float part = 0.f;
+#pragma unroll
+      for (int nv = 0; nv < NV; ++nv)
+#pragma unroll
+        for (int i = 0; i < VE; ++i) part = fmaf(qv[nv][i], kr[u][nv].at(i), part);
+#pragma unroll
+      for (int o = LPR / 2; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+      s[u] = base + u * RPW + r < sw.t_end ? part : -INFINITY;
+      smax = fmaxf(smax, s[u]);
+    }
+#pragma unroll
+    for (int o = LPR; o < 32; o <<= 1) smax = fmaxf(smax, __shfl_xor_sync(0xffffffffu, smax, o));
+    // finite: key `base` < t_end is always in the chunk
+    const float m_new = fmaxf(m, smax);
+    const float alpha = expf(m - m_new);
+    l *= alpha;
+#pragma unroll
+    for (int nv = 0; nv < NV; ++nv)
+#pragma unroll
+      for (int i = 0; i < VE; ++i) acc[nv][i] *= alpha;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float p = expf(s[u] - m_new);
+      l += p;
+#pragma unroll
+      for (int nv = 0; nv < NV; ++nv)
+#pragma unroll
+        for (int i = 0; i < VE; ++i) acc[nv][i] = fmaf(p, vr[u][nv].at(i), acc[nv][i]);
+    }
+    m = m_new;
+  }
+  // the warp's row slots share m: add their l and acc
+#pragma unroll
+  for (int o = LPR; o < 32; o <<= 1) {
+    l += __shfl_xor_sync(0xffffffffu, l, o);
+#pragma unroll
+    for (int nv = 0; nv < NV; ++nv)
+#pragma unroll
+      for (int i = 0; i < VE; ++i) acc[nv][i] += __shfl_xor_sync(0xffffffffu, acc[nv][i], o);
+  }
+
+  // merge the warps' states into the block's
+  __shared__ float sm_m[kWarps], sm_l[kWarps];
+  __shared__ float sm_acc[kWarps][kMaxHs];
+  if (lane == 0) {
+    sm_m[warp] = m;
+    sm_l[warp] = l;
+  }
+  if (r == 0) {
+#pragma unroll
+    for (int nv = 0; nv < NV; ++nv) {
+      const int d0 = (nv * LPR + j) * VE;
+      if (d0 < hs) {
+#pragma unroll
+        for (int i = 0; i < VE; ++i) sm_acc[warp][d0 + i] = acc[nv][i];
+      }
+    }
+  }
+  __syncthreads();
+  float M = -INFINITY;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sm_m[w]);
+  float L = 0.f;
+  float wscale[kWarps];  // a warp that saw no key has m = -inf: weight 0
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    wscale[w] = sm_m[w] == -INFINITY ? 0.f : expf(sm_m[w] - M);
+    L = fmaf(sm_l[w], wscale[w], L);
+  }
+  if (sw.ns == 1) {
+    for (int d = threadIdx.x; d < hs; d += blockDim.x) {
+      float o = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) o = fmaf(sm_acc[w][d], wscale[w], o);
+      oh[d] = from_f32<T>(o / L);
+    }
+    return;
+  }
+
+  // publish this split's state: m, l, then acc
+  const int stride = hs + 2;
+  float* mine = sw.ws + (size_t)sw.split * stride;
+  for (int d = threadIdx.x; d < hs; d += blockDim.x) {
+    float o = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) o = fmaf(sm_acc[w][d], wscale[w], o);
+    mine[2 + d] = o;
+  }
+  if (threadIdx.x == 0) {
+    mine[0] = M;
+    mine[1] = L;
+  }
+  __threadfence();
+  __syncthreads();
+  __shared__ int last;
+  if (threadIdx.x == 0) last = atomicAdd(sw.ticket, 1) == sw.ns - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+
+  // the last split merges the ns states in split order
+  __shared__ float sm_w[kMaxSplit], sm_sl[kMaxSplit];
+  if (threadIdx.x < sw.ns) {
+    sm_w[threadIdx.x] = __ldcg(sw.ws + (size_t)threadIdx.x * stride);
+    sm_sl[threadIdx.x] = __ldcg(sw.ws + (size_t)threadIdx.x * stride + 1);
+  }
+  __syncthreads();
+  float MS = -INFINITY;
+  for (int sp = 0; sp < sw.ns; ++sp) MS = fmaxf(MS, sm_w[sp]);
+  float LS = 0.f;
+  for (int sp = 0; sp < sw.ns; ++sp)
+    LS = fmaf(sm_sl[sp], sm_w[sp] == -INFINITY ? 0.f : expf(sm_w[sp] - MS), LS);
+  for (int d = threadIdx.x; d < hs; d += blockDim.x) {
+    float o = 0.f;
+    for (int sp = 0; sp < sw.ns; ++sp) {
+      const float wt = sm_w[sp] == -INFINITY ? 0.f : expf(sm_w[sp] - MS);
+      o = fmaf(__ldcg(sw.ws + (size_t)sp * stride + 2 + d), wt, o);
+    }
+    oh[d] = from_f32<T>(o / LS);
+  }
+  if (threadIdx.x == 0) *sw.ticket = 0;
+}
+
+// The glue-fused prologue of the split form, one element a thread: the
+// rotated query row (float32, scaled) into q_s and the group's rotated key
+// row, rounded to the cache dtype, into k_roped; the same arithmetic as
+// rope_prologue.
+template <typename T>
+__device__ __forceinline__ void rope_rows(const T* qkv, const float* cos_il, const float* sin_il,
+                                          int b, int h, int kvh, int H, int KVH, int hs,
+                                          float scale, float* q_s, T* k_roped) {
+  const size_t row0 = (size_t)b * (H + 2 * KVH);
+  const T* q_raw = qkv + (row0 + h) * hs;
+  const T* k_raw = qkv + (row0 + H + kvh) * hs;
+  for (int d = threadIdx.x; d < hs; d += blockDim.x) {
+    const float c = cos_il[(size_t)b * hs + d];
+    const float s = sin_il[(size_t)b * hs + d];
+    q_s[d] = rope_pair(to_f32(q_raw[d]), to_f32(q_raw[d ^ 1]), c, s, d & 1) * scale;
+    k_roped[d] = from_f32<T>(rope_pair(to_f32(k_raw[d]), to_f32(k_raw[d ^ 1]), c, s, d & 1));
   }
   __syncthreads();
 }

@@ -5,7 +5,9 @@
 ``llama2_tpu/ops/pallas/attention.py::flash_decode_attention_stacked``: it
 appends this step's K/V rows at ``[layer, b, :, pos_b]`` in place and runs
 single-query attention over keys ``0..pos_b``; the kernel source's header
-says what bounds it and how it is laid out.
+says what bounds it and how it is laid out. K2 and K4 cut the key range into
+splits merged in one launch through ``build.workspace``; :func:`plan` picks
+the split count and the lane layout from the shapes alone.
 ``flash_decode_attention_stacked_plain`` is the same function in plain
 PyTorch: the wrapper takes it for CPU tensors, and ``backend="torch"`` runs it
 on the card for comparison.
@@ -20,10 +22,11 @@ K row and the raw V row, and runs the same read.
 ``flash_decode_attention`` (K3) replaces
 ``llama2_tpu/ops/pallas/attention.py::flash_decode_attention``: single-query
 attention over one layer's read-only ``(B, KVH, S, hs)`` cache, each row at
-its own position, no append; the same device loop as K2 with a read-only row
-policy. ``flash_decode_attention_plain`` is its plain version. No model path
-calls it (the JAX model sends every T = 1 step to the stacked kernel); the
-kernel benchmarks (``llama2_tpu_torch/benchmarks/kernels.py``) do.
+its own position, no append; the single-block loop of the paged kernels
+(``attend``) with a read-only row policy, not K2's split form.
+``flash_decode_attention_plain`` is its plain version. No model path calls it
+(the JAX model sends every T = 1 step to the stacked kernel); the kernel
+benchmarks (``llama2_tpu_torch/benchmarks/kernels.py``) do.
 """
 
 from __future__ import annotations
@@ -35,8 +38,73 @@ import torch
 
 from llama2_tpu_torch.ops import ref
 from llama2_tpu_torch.ops.cuda import build
+from llama2_tpu_torch.ops.cuda.attention_q8 import _sms
 
 _LIB = "decode_attention"
+
+WARPS = 8  # warps a block (csrc/decode_attention.cuh: kWarps)
+MAX_SPLITS = 32  # kMaxSplit
+# the blocks a split launch aims at, per SM: on the H100, 8 splits at batch 1
+# (256 blocks) read faster than 6, 9, 12 or 16, and one split at 8 rows
+# faster than two (`chip_smoke.py --dense-timing`, its dense-split lines)
+BLOCKS_PER_SM = 2
+
+
+@functools.lru_cache(maxsize=None)
+def plan(B: int, H: int, KVH: int, S: int, hs: int, dtype, sms: int, aligned: bool = True,
+         splits: int | None = None) -> dict:
+    """The launch of K2/K4's split form, from the shapes alone (never from
+    ``pos``, which lives on the device): the lane layout and the split count.
+    Cached by its arguments: the decode step asks for the same plan 32 times.
+
+    ``vec`` elements a vector load: a 16-byte vector where hs is a multiple
+    of it and the cache and new-row operands are 16-byte aligned
+    (``aligned``), else 1. ``lanes`` a row (a power of two, 4..32; with one
+    element a vector always 32), ``nv`` vectors a lane a row, ``unroll``
+    warp loads a chunk. ``chunk`` is the keys one pass of a block covers,
+    ``splits`` the split count: as many as keep the grid within
+    ``BLOCKS_PER_SM`` blocks a SM (so 1 where the B * H blocks of (b, query
+    head) fill the SMs already), each split at least 4 chunks at full
+    context, at most ``MAX_SPLITS``. ``ws_floats`` and ``tickets`` are what
+    the launch takes of ``build.workspace``. The device cuts row b's keys
+    ``0..pos[b]`` into at most ``splits`` runs of whole chunks
+    (``split_range`` in ``csrc/decode_attention.cuh``). ``splits`` given
+    (1..``MAX_SPLITS``) replaces the chosen count: ``chip_smoke.py
+    --dense-timing`` times the kernels at other counts with it.
+    """
+    v = 16 // dtype.itemsize
+    if aligned and hs % v == 0:
+        vec, n = v, hs // v
+        lanes = min(32, max(4, 1 << (n - 1).bit_length()))
+        nv = -(-n // lanes)
+        unroll = 4 // nv
+    else:
+        vec, lanes = 1, 32
+        nv = 1 << (-(-hs // 32) - 1).bit_length()
+        unroll = 8 // nv
+    chunk = WARPS * unroll * (32 // lanes)
+    if splits is None:
+        splits = max(1, min(MAX_SPLITS, -(-S // (4 * chunk)), BLOCKS_PER_SM * sms // (B * H)))
+    elif not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"splits {splits} outside 1..{MAX_SPLITS}")
+    return {
+        "vec": vec, "lanes": lanes, "nv": nv, "unroll": unroll, "chunk": chunk,
+        "splits": splits, "grid": (splits, H, B),
+        "ws_floats": B * H * splits * (hs + 2), "tickets": B * H,
+    }
+
+
+def _launch_plan(device, B, H, KVH, S, hs, dtype, rows: tuple[int, ...], splits) -> tuple[dict, tuple]:
+    """The plan of a CUDA launch on ``device`` whose cache and new-row
+    operands start at the addresses ``rows``, and its workspace as the entry
+    takes it: (ws, tickets, ws floats, ticket count)."""
+    if B * H > build.MAX_TICKETS:
+        raise ValueError(f"{B * H} (b, query head) pairs: more than {build.MAX_TICKETS}")
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    aligned = all(r % 16 == 0 for r in rows)
+    p = plan(B, H, KVH, S, hs, dtype, _sms(index), aligned, splits)
+    ws, tickets = build.workspace(device, p["ws_floats"])
+    return p, (ws.data_ptr(), tickets.data_ptr(), ws.numel(), tickets.numel())
 
 
 def flash_decode_attention_stacked_plain(
@@ -123,20 +191,27 @@ def flash_decode_attention_stacked(
         raise ValueError("all operands must be on one device")
     if not all(t.is_contiguous() for t in (*tensors, pos)):
         raise ValueError("operands must be contiguous")
+    if q3.shape[2] > 256:
+        raise ValueError(f"kernel takes hs <= 256 (got {q3.shape[2]})")
+    return launch_stacked(q3, k_cache, v_cache, k_new, v_new, layer, pos).view(q.shape)
+
+
+def launch_stacked(q3, k_cache, v_cache, k_new, v_new, layer: int, pos, splits: int | None = None):
+    """K2's launch on operands the wrapper has checked, q3 (B, H, hs): the
+    split count of :func:`plan`, or ``splits``. Counts the launch."""
     B, H, hs = q3.shape
     KVH, S = k_cache.shape[2], k_cache.shape[3]
-    if hs > 256:
-        raise ValueError(f"kernel takes hs <= 256 (got {hs})")
+    rows = (k_cache.data_ptr(), v_cache.data_ptr(), k_new.data_ptr(), v_new.data_ptr())
+    p, work = _launch_plan(q3.device, B, H, KVH, S, hs, q3.dtype, rows, splits)
     out = torch.empty_like(q3)
     err = _entry()(
-        q3.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        k_new.data_ptr(), v_new.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        build.DTYPE_CODES[q.dtype], layer, B, H, KVH, S, hs, 1.0 / (hs**0.5),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        q3.data_ptr(), *rows, pos.data_ptr(), out.data_ptr(), *work,
+        build.DTYPE_CODES[q3.dtype], layer, B, H, KVH, S, hs, p["splits"], p["vec"], p["chunk"],
+        1.0 / (hs**0.5), torch.cuda.current_stream(q3.device).cuda_stream,
     )
     build.check(err, "flash_decode_attention_stacked")
     flash_decode_attention_stacked.launches += 1
-    return out.view(q.shape)
+    return out
 
 
 flash_decode_attention_stacked.launches = 0
@@ -245,12 +320,21 @@ def flash_decode_attention_fused(
         raise ValueError("operands must be contiguous")
     if hs > 256:
         raise ValueError(f"kernel takes hs <= 256 (got {hs})")
+    return launch_fused(qkv, k_cache, v_cache, cos_il, sin_il, layer, pos, H)
+
+
+def launch_fused(qkv, k_cache, v_cache, cos_il, sin_il, layer: int, pos, H: int, splits: int | None = None):
+    """K4's launch on operands the wrapper has checked: the split count of
+    :func:`plan`, or ``splits``. Counts the launch."""
+    B, _, hs = qkv.shape
+    KVH, S = k_cache.shape[2], k_cache.shape[3]
+    x, k, v = qkv.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr()
+    p, work = _launch_plan(qkv.device, B, H, KVH, S, hs, qkv.dtype, (k, v, x), splits)
     out = torch.empty((B, H, hs), dtype=qkv.dtype, device=qkv.device)
     err = _entry_fused()(
-        qkv.data_ptr(), cos_il.data_ptr(), sin_il.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        build.DTYPE_CODES[qkv.dtype], layer, B, H, KVH, S, hs, 1.0 / (hs**0.5),
-        torch.cuda.current_stream(qkv.device).cuda_stream,
+        x, cos_il.data_ptr(), sin_il.data_ptr(), k, v, pos.data_ptr(), out.data_ptr(), *work,
+        build.DTYPE_CODES[qkv.dtype], layer, B, H, KVH, S, hs, p["splits"], p["vec"], p["chunk"],
+        1.0 / (hs**0.5), torch.cuda.current_stream(qkv.device).cuda_stream,
     )
     build.check(err, "flash_decode_attention_fused")
     flash_decode_attention_fused.launches += 1
@@ -353,19 +437,23 @@ def _entry_read():
     return fn
 
 
+# both split-form entries: 9 pointers, the workspace's size, 11 ints, the scale, the stream
+_SPLIT_ARGS = (
+    [ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p]
+)
+
+
 @functools.cache
 def _entry_fused():
     fn = build.load_library(_LIB).flash_decode_attention_fused
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p]
-    fn.restype = i
+    fn.argtypes = _SPLIT_ARGS
+    fn.restype = ctypes.c_int
     return fn
 
 
 @functools.cache
 def _entry():
     fn = build.load_library(_LIB).flash_decode_attention_stacked
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p]
-    fn.restype = i
+    fn.argtypes = _SPLIT_ARGS
+    fn.restype = ctypes.c_int
     return fn

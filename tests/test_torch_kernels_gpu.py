@@ -988,3 +988,73 @@ def test_quant_matmul_wgmma_tile_matches_plain_on_card(cuda_device, G):
         x = randn(2, 201, K, dt=torch.bfloat16)[1:]  # a lead dim and a storage offset
         _assert_close(quant_matmul(x, w[0]), quant_matmul_plain(x, w[0]), tol(torch.bfloat16, False),
                       f"K5 tile {K}x{N} G={G}")
+
+
+def _offset(t):
+    """t's values in a contiguous tensor one element past an aligned start."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "layout,offset",
+    [((32, 32, 128), False), ((32, 4, 64), False), ((6, 6, 48), False), ((8, 2, 46), False),
+     ((32, 32, 128), True)],
+    ids=["7B", "GQA", "stories15M", "hs46", "7B-offset"],
+)
+def test_split_decode_kernels_match_plain_on_card(cuda_device, dtype, layout, offset):
+    """K2 and K4's split form against their plain versions at positions 0, 1,
+    splits - 1, 255, 256 and 4095, and per-row at 3 and 8 rows: one launch a
+    call, the appends bit-equal, a rerun bit-equal, every ticket zero after.
+    Head size 46 (no 16-byte vector divides it) and operands one element off
+    16-byte alignment take the one-element-a-lane loop."""
+    from llama2_tpu_torch.benchmarks.kernels import rope_tables
+    from llama2_tpu_torch.ops.cuda import attention as fa
+    from llama2_tpu_torch.ops.cuda import build
+
+    H, KVH, hs = layout
+    S, L, layer = 4096, 2, 1
+    tol = dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32 else dict(rtol=2**-7, atol=1e-3)
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    at = _offset if offset else (lambda t: t)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+
+    splits = fa.plan(1, H, KVH, S, hs, dtype, sms)["splits"]
+    tickets = build.workspace(cuda_device, 0)[1]
+    rows8 = [0, 255, 256, 1000, S - 1, 77, 3000, 2047]
+    for pos_list in ([0], [1], [splits - 1], [255], [256], [S - 1], [0, 5, S - 1], rows8):
+        B = len(pos_list)
+        kc, vc = at(randn(L, B, KVH, S, hs)), at(randn(L, B, KVH, S, hs))
+        q, kn, vn, qkv = randn(B, 1, H, hs), at(randn(B, KVH, 1, hs)), at(randn(B, KVH, 1, hs)), at(
+            randn(B, H + 2 * KVH, hs))
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=cuda_device)
+        cos_il, sin_il = rope_tables(pos, hs)
+        scalar = offset or hs % (16 // dtype.itemsize) != 0
+        calls = (
+            (fa.flash_decode_attention_stacked, (kc, vc, kn, vn),
+             lambda k, v: fa.flash_decode_attention_stacked(q, k, v, kn, vn, layer, pos),
+             lambda k, v: fa.flash_decode_attention_stacked_plain(q, k, v, kn, vn, layer, pos)),
+            (fa.flash_decode_attention_fused, (kc, vc, qkv),
+             lambda k, v: fa.flash_decode_attention_fused(qkv, k, v, cos_il, sin_il, layer, pos, n_heads=H),
+             lambda k, v: fa.flash_decode_attention_fused_plain(qkv, k, v, cos_il, sin_il, layer, pos, H)),
+        )
+        for wrapper, rows, kernel, plain in calls:
+            aligned = all(t.data_ptr() % 16 == 0 for t in rows)
+            assert (fa.plan(B, H, KVH, S, hs, dtype, sms, aligned)["vec"] == 1) == scalar
+            k1, v1, k2, v2 = (at(t.clone()) for t in (kc, vc, kc, vc))
+            kp, vp = kc.clone(), vc.clone()
+            n0 = wrapper.launches
+            got, again = kernel(k1, v1), kernel(k2, v2)
+            assert wrapper.launches == n0 + 2
+            want = plain(kp, vp)
+            torch.cuda.synchronize()
+            what = f"{wrapper.__name__} {layout} offset={offset} {dtype} pos={pos_list}"
+            _assert_close(got, want, tol, what)
+            assert torch.equal(got, again), what
+            assert torch.equal(k1, kp) and torch.equal(v1, vp), what
+            assert int(tickets.count_nonzero()) == 0, what
