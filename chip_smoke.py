@@ -12,12 +12,14 @@ non-zero:
    ptxas registers / shared memory / spills);
 2. each kernel against its plain PyTorch version on the card, fp32 and bf16:
    the attention kernels at the Llama-2-7B, a GQA and the stories15M head
-   layouts (K2 and K4's split form, also at head size 46 and with operands
+   layouts (K1 also at head size 44, which only its FMA variant takes, and
+   in fp32 at a 5-token verify window ending at the cache's last row; K2 and K4's split form, also at head size 46 and with operands
    off 16-byte alignment, both its one-element-a-lane loop, at positions 0,
    1, the batch-1 plan's split count less one, 255, 256, 1000 and 4095 and
    per-row at 3 and 8 rows, each with the appends bit-equal, a rerun
    bit-equal and every ticket zero after), the INT8 dequant-matmul kernels at the Llama-2-7B projection
-   shapes in both modes, the FFN megakernels at the 7B widths and two ragged
+   shapes in both modes at M = 1, 8, 9 and 201 (the M > 8 tile counted by
+   mode), the FFN megakernels at the 7B widths and two ragged
    shapes for 1 to 12 rows; the int8-cache attention kernels (K7 windows of
    1, 4 and 16 rows, K8, K9) at the 7B and a GQA layout, and the whole-layer
    kernel (K13) at the 7B widths, against K9 + K12 too, with the cache
@@ -36,8 +38,8 @@ non-zero:
    ``backend="cuda"``, 8 slots, 256-row pages, the prefix cache, serving 16
    requests over a bf16 and over an int8 page pool, with the launches of
    every decode tick asserted (K6 1, K17 or K18 32, K12 31, K11 1, K5 1)
-   and every admission prefill's K1 through its tensor-core variant (fp32's
-   through the FMA one), reruns and pipeline depth 1 against 2 bit-equal,
+   and every admission prefill's K1 through its tensor-core variant (bf16's
+   and, on ``cuda-accurate``, fp32's), reruns and pipeline depth 1 against 2 bit-equal,
    the greedy streams held to their plain replays, ticks profiled at short
    and long positions, and
    the dense ``BatchEngine`` on the same requests for its memory;
@@ -58,7 +60,8 @@ non-zero:
    is left in bf16, which takes the FFN-only megakernel. bf16 and fp32
    weights: ``backend="cuda"``, 8 layers. Each with launch counts per
    prefill chunk and decode step (per verify trip for speculative decoding;
-   K1's by variant: bf16 on the tensor cores, fp32 on FMA),
+   K1's by variant: bf16 and fp32 each on its tensor-core variant; the
+   accurate routes' prefill-chunk K6 on the accurate M > 8 tile),
    a teacher-forced replay of the same token stream through
    ``backend="torch"`` (the plain versions) over the same kind of cache,
    compared logit by logit, decode tok/s, TTFT and peak memory; each
@@ -127,9 +130,21 @@ LAYOUTS = {  # name: (H, KVH, hs)
     "stories15M": (6, 6, 48),
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-# float32 FMA outside the tensor cores for f32 work (TF32 is off: parity
-# mode); the bf16 tensor-core rate for bf16 work
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+# dense peaks of an H100 SXM: float32 FMA outside the tensor cores, and the
+# tensor cores' TF32 and bf16 rates
+PEAK_FLOPS = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12}
+# Float32-accurate work needs at least three passes of the tensor cores: two
+# float32 operands as TF32 hi + lo pairs (hi hi + hi lo + lo hi), or an int8
+# weight (exact in bf16) against x in three bf16 planes. Its least time is
+# that of three passes at the narrower type's peak: K1 in fp32 on "tf32",
+# the accurate dequant-matmul on "bf16".
+ACCURATE_PASSES = 3
+
+
+def accurate_ops_ms(flops: float, pass_type: str) -> float:
+    """The least ms of ``flops`` float32-accurate operations on the tensor
+    cores: ACCURATE_PASSES passes at PEAK_FLOPS[pass_type]."""
+    return ACCURATE_PASSES * flops / PEAK_FLOPS[pass_type] * 1e3
 GROUP = 64  # INT8 quant group size (llama2.c runq default)
 # the dequant-matmul shapes of a Llama-2-7B layer and classifier: (K, N)
 Q8_SHAPES = {
@@ -310,6 +325,20 @@ def split_rerun_checks(tag: str, got, again, pos_list) -> None:
         raise AssertionError(f"{tag} left a ticket nonzero at pos={pos_list}")
 
 
+# K1's checks: LAYOUTS and a head size (44) no tensor-core variant takes
+K1_LAYOUTS = {**LAYOUTS, "hs44": (8, 4, 44)}
+
+
+def k1_variant(dtype, hs: int) -> str:
+    """The K1 variant a head size takes: bf16 with hs % 16 == 0 the bf16
+    tensor-core one, fp32 with hs % 8 == 0 the TF32 one, else FMA."""
+    import torch
+
+    if dtype == torch.bfloat16:
+        return "mma" if hs % 16 == 0 else "fma"
+    return "tf32" if hs % 8 == 0 else "fma"
+
+
 def phase_kernels() -> None:
     import torch
 
@@ -320,6 +349,7 @@ def phase_kernels() -> None:
     from llama2_tpu_torch.ops.cuda.prefill_attention import (
         flash_prefill_attention,
         flash_prefill_attention_plain,
+        plan,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -329,26 +359,32 @@ def phase_kernels() -> None:
 
     for dtype in (torch.float32, torch.bfloat16):
         rtol, atol = tolerance(dtype)
-        for lname, (H, KVH, hs) in LAYOUTS.items():
+        for lname, (H, KVH, hs) in K1_LAYOUTS.items():
             k = randn(1, KVH, S, hs, dtype=dtype)
             v = randn(1, KVH, S, hs, dtype=dtype)
-            # bf16 takes the tensor-core variant at every head size here (hs
-            # % 16 == 0), fp32 the float32 FMA one: counted apart
-            variant = "launches_mma" if dtype == torch.bfloat16 else "launches_fma"
-            for T in (2, 7, 128, 300):
+            # the tensor-core variants take every head size of LAYOUTS (bf16:
+            # mma, fp32: tf32); head size 44 is left to the FMA one. Counted apart
+            variant = "launches_" + k1_variant(dtype, hs)
+            segments = [(T, pos0) for T in (2, 7, 128, 300) for pos0 in (0, 13, 1000)]
+            if dtype == torch.float32:  # a verify window at the end of the cache
+                segments.append((5, S - 5))
+            for T, pos0 in segments:
                 q = randn(1, T, H, hs, dtype=dtype)
-                for pos0 in (0, 13, 1000):
-                    n_var = getattr(flash_prefill_attention, variant)
-                    got = flash_prefill_attention(q, k, v, pos0)
-                    if getattr(flash_prefill_attention, variant) != n_var + 1:
-                        raise AssertionError(f"K1 {dtype_name(dtype)} did not launch its {variant[9:]} variant")
-                    want = flash_prefill_attention_plain(q, k, v, pos0)
-                    torch.cuda.synchronize()
-                    err = compare(got, want, dtype)
-                    if not torch.equal(got, flash_prefill_attention(q, k, v, pos0)):
-                        raise AssertionError("K1 gave different bits on the same inputs")
-                    say("K1", dtype=dtype_name(dtype), layout=lname, T=T, pos0=pos0,
-                        variant=variant[9:], max_abs_err=f"{err:.3e}", rtol=rtol, atol=atol)
+                n_var = getattr(flash_prefill_attention, variant)
+                got = flash_prefill_attention(q, k, v, pos0)
+                if getattr(flash_prefill_attention, variant) != n_var + 1:
+                    raise AssertionError(f"K1 {dtype_name(dtype)} hs {hs} did not launch its {variant[9:]} variant")
+                want = flash_prefill_attention_plain(q, k, v, pos0)
+                torch.cuda.synchronize()
+                err = compare(got, want, dtype)
+                again = flash_prefill_attention(q, k, v, pos0)
+                # tf32 segments of few rows cut their keys over blocks: equal
+                # bits on rerun, every ticket zero after
+                split_rerun_checks(f"K1 {dtype_name(dtype)} {lname} T={T}", got, again, [pos0])
+                say("K1", dtype=dtype_name(dtype), layout=lname, T=T, pos0=pos0,
+                    variant=variant[9:], splits=plan(1, T, H, KVH, hs, dtype)["splits"],
+                    max_abs_err=f"{err:.3e}", rtol=rtol, atol=atol, rerun="equal_bits",
+                    tickets="zero")
             del k, v
         for case, (H, KVH, hs, offset) in SPLIT_CASES.items():
             at = offset_view if offset else (lambda t: t)
@@ -452,43 +488,48 @@ def phase_kernels_q8() -> None:
 
     params = all_layouts(random_q8_params(config_7b(), SEED + 4, "cuda", group_size=GROUP))
     combos = ((0, False, False), (31, True, False), (31, False, True), (0, True, True))
+    m_rows = (1, 8, 9, 201)  # decode rows, and the M > 8 tile just past them and at the chunk
     for dtype in (torch.float32, torch.bfloat16):
         for mode in ("accurate", "fast"):
             for name, (K, N) in Q8_SHAPES.items():
                 worst = {}
-                for M in (1, 8, 201):
+                fn = quant_matmul if name == "wcls" else quant_matmul_stacked
+                for M in m_rows:
                     x = randn(M, K, dtype=dtype)
-                    if name == "wcls":
-                        got = quant_matmul(x, params[name], mode=mode)
-                        want = quant_matmul_plain(x, params[name], mode=mode)
-                        torch.cuda.synchronize()
-                        worst[M] = compare(got, want, dtype, q8_tolerance(dtype, mode, False))
-                        continue
                     rms_w = 1 + 0.1 * randn(K, dtype=dtype)
                     res = randn(M, N, dtype=dtype)
-                    for layer, norm, resid in combos:
+                    for layer, norm, resid in combos[:1] if name == "wcls" else combos:
                         kw = dict(mode=mode, rms_w=rms_w if norm else None,
                                   residual=res if resid else None)
-                        got = quant_matmul_stacked(x, params[name], layer, **kw)
-                        want = quant_matmul_stacked_plain(x, params[name], layer, **kw)
+                        tiles = getattr(fn, f"launches_tile_{mode}")
+                        if name == "wcls":
+                            got = quant_matmul(x, params[name], mode=mode)
+                            want = quant_matmul_plain(x, params[name], mode=mode)
+                        else:
+                            got = quant_matmul_stacked(x, params[name], layer, **kw)
+                            want = quant_matmul_stacked_plain(x, params[name], layer, **kw)
+                        if getattr(fn, f"launches_tile_{mode}") != tiles + (M > 8):
+                            raise AssertionError(f"{name} {mode} M={M}: the M > 8 tile count moved wrongly")
                         torch.cuda.synchronize()
                         err = compare(got, want, dtype, q8_tolerance(dtype, mode, norm))
                         worst[M] = max(worst.get(M, 0.0), err)
                 say("K5" if name == "wcls" else "K6", dtype=dtype_name(dtype), mode=mode,
                     weight=name, K=K, N=N,
-                    max_abs_err_M1_M8_M201=",".join(f"{worst[M]:.3e}" for M in (1, 8, 201)),
+                    max_abs_err_M1_M8_M9_M201=",".join(f"{worst[M]:.3e}" for M in m_rows),
                     tol_plain_and_fast_prologue=f"{q8_tolerance(dtype, mode, False)},"
                     f"{q8_tolerance(dtype, mode, True)}".replace(" ", ""))
     # no float atomics: the same launch gives the same bits, at a decode row
-    # and at the prefill chunk (the wgmma tile splits K over blocks at N = 4096)
+    # and at the prefill chunk (the wgmma tile splits K over blocks at N =
+    # 4096), in both modes, from bf16 and fp32 rows (three planes)
     for M in (1, PROMPT_TOKENS + 1):
-        x = randn(M, 4096, dtype=torch.bfloat16)
-        rms_w = 1 + 0.1 * randn(4096, dtype=torch.bfloat16)
-        for w, kw in ((params["wo"], {}), (params["wqkv"], {"rms_w": rms_w})):
-            a = quant_matmul_stacked(x, w, 5, **kw)
-            for _ in range(3):
-                if not torch.equal(a, quant_matmul_stacked(x, w, 5, **kw)):
-                    raise AssertionError(f"K6 gave different bits on the same inputs (M={M})")
+        for mode, dtype in (("fast", torch.bfloat16), ("accurate", torch.bfloat16), ("accurate", torch.float32)):
+            x = randn(M, 4096, dtype=dtype)
+            rms_w = 1 + 0.1 * randn(4096, dtype=dtype)
+            for w, kw in ((params["wo"], {}), (params["wqkv"], {"rms_w": rms_w})):
+                a = quant_matmul_stacked(x, w, 5, mode=mode, **kw)
+                for _ in range(3):
+                    if not torch.equal(a, quant_matmul_stacked(x, w, 5, mode=mode, **kw)):
+                        raise AssertionError(f"K6 {mode} gave different bits on the same inputs (M={M})")
     del params
     torch.cuda.empty_cache()
 
@@ -1514,14 +1555,14 @@ def phase_generate(dtype, n_layers: int = 32) -> dict:
     g.generate(prompt[:8], GenerationConfig(temperature=0.0, steps=10))
 
     torch.cuda.reset_peak_memory_stats()
-    k1.launches = k1.launches_mma = k1.launches_fma = 0
+    k1.launches = k1.launches_mma = k1.launches_tf32 = k1.launches_fma = 0
     k2.launches = 0
     res = g.generate(
         prompt, GenerationConfig(temperature=0.0, steps=len(prompt) + GEN_TOKENS)
     )
     launches = {"K1": k1.launches, "K2": k2.launches}
-    # the 7B head (hs 128): bf16 through the tensor-core variant, fp32 through FMA
-    variant = k1.launches_mma if dtype == torch.bfloat16 else k1.launches_fma
+    # the 7B head (hs 128): bf16 and fp32 each through its tensor-core variant
+    variant = k1.launches_mma if dtype == torch.bfloat16 else k1.launches_tf32
     if variant != launches["K1"]:
         raise AssertionError(f"{dtype_name(dtype)}: {variant} of {launches['K1']} K1 launches "
                              "took the variant of its dtype")
@@ -1613,12 +1654,10 @@ class VariantCount:
 
 def k1_variants(counts: dict, dtype) -> dict:
     """``counts`` with K1's launches also under the variant a 7B head (hs 128)
-    takes in ``dtype``: "K1-mma" for bf16, "K1-fma" for fp32."""
-    import torch
-
+    takes in ``dtype``: "K1-mma" for bf16, "K1-tf32" for fp32 (none on FMA)."""
     if "K1" not in counts:
         return counts
-    return {**counts, ("K1-mma" if dtype == torch.bfloat16 else "K1-fma"): counts["K1"]}
+    return {**counts, f"K1-{k1_variant(dtype, 128)}": counts["K1"]}
 
 
 def count_launches() -> dict:
@@ -1649,9 +1688,13 @@ def count_launches() -> dict:
     return {
         "K1": flash_prefill_attention,
         "K1-mma": VariantCount(flash_prefill_attention, "launches_mma"),
+        "K1-tf32": VariantCount(flash_prefill_attention, "launches_tf32"),
         "K1-fma": VariantCount(flash_prefill_attention, "launches_fma"),
         "K2": flash_decode_attention_stacked,
         "K4": flash_decode_attention_fused, "K5": quant_matmul, "K6": quant_matmul_stacked,
+        # accurate mode's M > 8 tile (the prefill chunk's projections; its
+        # classifier runs on the last position only, M = 1), counted apart
+        "K6-tile-acc": VariantCount(quant_matmul_stacked, "launches_tile_accurate"),
         "K7": flash_decode_attention_q8, "K8": flash_decode_attention_q8_stacked,
         "K9": flash_decode_attention_q8_fused, "K10": mlp_block_stacked,
         "K11": attn_mlp_block_stacked, "K12": layer_tail_qkv_stacked, "K13": layer_block_stacked,
@@ -1671,7 +1714,7 @@ Q8_ROUTES = {
     # the whole-layer kernel switched off: int8 glue-fused attention + K12/K11
     "int8kv-two-launch": (lambda L: {"K6": 5 * L, "K5": 1},
                           lambda L: {"K6": 1, "K9": L, "K12": L - 1, "K11": 1, "K5": 1}),
-    "int8kv-accurate": (lambda L: {"K6": 4 * L, "K5": 1},
+    "int8kv-accurate": (lambda L: {"K6": 4 * L, "K5": 1, "K6-tile-acc": 4 * L},
                         lambda L: {"K6": 4 * L, "K8": L, "K5": 1}),
     # bf16 weights (cuBLAS projections): the int8 stacked attention only
     "int8kv-fp": (lambda L: {}, lambda L: {"K8": L}),
@@ -1685,7 +1728,8 @@ Q8_ROUTES = {
     # wo in bf16: wqkv, w1, w3, w2 in prefill; wqkv + the FFN-only megakernel in decode
     "ffn-only": (lambda L: {"K6": 4 * L, "K1": L, "K5": 1},
                  lambda L: {"K6": L, "K4": L, "K10": L, "K5": 1}),
-    "accurate": (lambda L: {"K6": 4 * L, "K1": L, "K5": 1},
+    # the prefill chunk's K6 all through the accurate M > 8 tile
+    "accurate": (lambda L: {"K6": 4 * L, "K1": L, "K5": 1, "K6-tile-acc": 4 * L},
                  lambda L: {"K6": 4 * L, "K2": L, "K5": 1}),
 }
 # fast mode rounds every matmul operand to bf16; with fp32 activations that is
@@ -1960,7 +2004,7 @@ def speculative_check(g, config, backend, dn, kv_quant, prompt, plain_res, l1, p
     L = config.n_layers
     # a verify window runs the prefill chunk's layer: its K6 launches again
     per_trip = {"K7" if kv_quant else "K1": L, "K6": per_chunk["K6"], "K5": 1}
-    per_trip.update({k: L for k in ("K1-mma", "K1-fma") if k in per_chunk and not kv_quant})
+    per_trip.update({k: L for k in ("K1-mma", "K1-tf32") if k in per_chunk and not kv_quant})
 
     def spec_run(what):
         g.speculative = SPEC_D
@@ -2420,8 +2464,11 @@ def phase_serve_accurate(kv_quant: bool) -> dict:
     run = served_run(eng, reqs, log=True)
     per_tick = SERVE_TICKS[("cuda-accurate", kv_quant)](L)
     n_ticks = assert_ticks(run, per_tick, dn)
-    if run["launches"]["K1-fma"] != run["launches"]["K1"]:  # fp32: the FMA variant only
-        raise AssertionError(f"{dn}: fp32 K1 launched {run['launches']['K1-mma']} times as mma")
+    if run["launches"]["K1-tf32"] != run["launches"]["K1"]:  # fp32: the TF32 variant only
+        raise AssertionError(f"{dn}: fp32 K1 launched {run['launches']['K1']} times, "
+                             f"{run['launches']['K1-tf32']} of them as tf32")
+    if run["launches"]["K6-tile-acc"] == 0:  # admission chunks past 8 tokens
+        raise AssertionError(f"{dn}: no admission prefill took the accurate M > 8 tile")
     say("serve", path=dn, decode_ticks=n_ticks, per_tick=",".join(f"{k}={v}" for k, v in per_tick.items()),
         served_tok_s=f"{sum(len(t) - len(p) for t, (p, _) in zip(run['tokens'], reqs)) / run['wall_s']:.2f}",
         **{f"{k}_launches": v for k, v in run["launches"].items() if v})
@@ -2719,9 +2766,10 @@ def phase_timing(dtype, launches: dict, cycles_per_ms: float) -> list[dict]:
     vc = torch.randn((L, B, KVH, S, hs), generator=gen, device="cuda").to(dtype)
     rows = []
 
-    def row(name, src, replaces, n_launch, err, ms, plain_ms, lib_ms, nbytes, flops, shape=""):
+    def row(name, src, replaces, n_launch, err, ms, plain_ms, lib_ms, nbytes, flops, shape="",
+            t_ops=None):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[dn] * 1e3
+        t_ops = flops / PEAK_FLOPS[dn] * 1e3 if t_ops is None else t_ops
         r = {
             "name": f"{name}[{dn}{shape}]", "route": "cuda", "source": src,
             "replaces": replaces, "launches": n_launch, "max_abs_err": err,
@@ -2750,12 +2798,18 @@ def phase_timing(dtype, launches: dict, cycles_per_ms: float) -> list[dict]:
         ), 64, cycles_per_ms,
     )
     vis = B * H * sum(pos0 + t + 1 for t in range(T))  # (query, key) pairs seen
+    flops = 4 * hs * vis
+    # fp32: float32-accurate on the tensor cores (three TF32 passes), the
+    # float32 SIMT bound beside it
+    simt = flops / PEAK_FLOPS["f32"] * 1e3
     r = row("flash_prefill_attention", "llama2_tpu_torch/csrc/prefill_attention.cu",
             "llama2_tpu/ops/pallas/prefill_attention.py:157", launches["K1"], err,
             ms, plain_ms, lib_ms,
-            esize * (2 * B * T * H * hs + 2 * B * KVH * n * hs), 4 * hs * vis)
+            esize * (2 * B * T * H * hs + 2 * B * KVH * n * hs), flops,
+            t_ops=accurate_ops_ms(flops, "tf32") if dtype == torch.float32 else None)
     say("time", kernel=r["name"], T=T, pos0=pos0, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
         library_ms=f"{lib_ms:.4f}", bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"],
+        **({"bound_ms_f32_simt": f"{max(simt, r['bound_ms']):.4f}"} if dtype == torch.float32 else {}),
         queued_kernel_plain_library=f"{qk},{qp},{ql}")
     del q
 
@@ -2794,6 +2848,17 @@ def phase_timing(dtype, launches: dict, cycles_per_ms: float) -> list[dict]:
     return rows
 
 
+def q8_bounds_ms(M: int, K: int, N: int, mode: str, nbytes: int) -> tuple:
+    """A dequant-matmul's least ms by bytes and by operations (fast: one bf16
+    pass; accurate: three, ``accurate_ops_ms``), and accurate mode's old
+    float32 SIMT bound by operations (None in fast mode)."""
+    flops = 2 * M * K * N
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if mode == "fast":
+        return t_bytes, flops / PEAK_FLOPS["bf16"] * 1e3, None
+    return t_bytes, accurate_ops_ms(flops, "bf16"), flops / PEAK_FLOPS["f32"] * 1e3
+
+
 def phase_timing_q8(launches: dict, cycles_per_ms: float) -> list[dict]:
     """K5/K6 at the 7B shapes, M = 1 (a decode step) and M = 201 (the
     prefill chunk), fast mode on bf16 activations and accurate mode on fp32;
@@ -2802,15 +2867,17 @@ def phase_timing_q8(launches: dict, cycles_per_ms: float) -> list[dict]:
     weights come from device memory.
 
     Bound: each weight byte, scale and activation once (K*N + 4*(K/G)*N +
-    activations) over the memory rate, or 2*M*K*N operations over the peak
-    of the mode's product type. The library yardstick is ``torch.matmul`` on
+    activations) over the memory rate, or 2*M*K*N operations over the bf16
+    peak, three times over in accurate mode (``accurate_ops_ms``; the float32
+    SIMT bound is printed beside it). The library yardstick is ``torch.matmul`` on
     the weight dequantized ahead of time, in the activation dtype: it reads
     2x (bf16) or 4x (fp32) the kernel's weight bytes and does no dequantizing.
     No one PyTorch call computes an FFN megakernel, so its ``library_ms`` is
     null; its line gives the composed route it replaces (the dequant-matmul
     launches and the plain rmsnorm, swiglu and add between them, as the
     ``w13`` layout runs them) and the sum of the matmul yardsticks instead.
-    ``launches``: the Q8 routes' counts, by the names ``main`` gives them.
+    ``launches``: the Q8 routes' counts, by the names ``main`` gives them
+    (the M = 201 rows: the accurate route's prefill-chunk tile launches).
     """
     import torch
     import torch.nn.functional as F
@@ -2858,24 +2925,27 @@ def phase_timing_q8(launches: dict, cycles_per_ms: float) -> list[dict]:
                 plain_ms, qp = time_ms(plain, 8, cycles_per_ms, n_warm=1)
                 lib_ms, ql = time_ms(lib, 128 if M == 1 else 16, cycles_per_ms)
                 nbytes = K * N + 4 * (K // GROUP) * N + esize * (M * K + M * N)
-                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-                t_ops = 2 * M * K * N / PEAK_FLOPS["bf16" if mode == "fast" else "f32"] * 1e3
+                t_bytes, t_ops, simt = q8_bounds_ms(M, K, N, mode, nbytes)
                 bound, by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
                 kname = "quant_matmul_stacked" if stacked else "quant_matmul"
                 say("time", kernel=f"{kname}[{dn},{mode}]", weight=name, M=M, K=K, N=N,
                     ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
                     library_ms_matmul_on_dequantized=f"{lib_ms:.4f}", bound_ms=f"{bound:.4f}",
-                    bound_by=by, GB_per_s=f"{nbytes / ms / 1e6:.0f}",
+                    bound_by=by, **({"bound_ms_f32_simt": f"{max(t_bytes, simt):.4f}"} if simt else {}),
+                    GB_per_s=f"{nbytes / ms / 1e6:.0f}",
                     TFLOP_per_s=f"{2 * M * K * N / ms / 1e9:.2f}", max_abs_err=f"{err:.3e}",
                     queued_kernel_plain_library=f"{qk},{qp},{ql}")
                 if M == 1 and mode == "fast":
                     matmul_ms[name] = lib_ms
-                if M == 1 and name in ("wqkv", "wcls"):  # the kernel line's rows: the main path's
+                # the kernel line's rows: the main path's decode rows, and the
+                # accurate route's prefill chunk (K6 on the accurate M > 8 tile)
+                if name in (("wqkv", "wcls") if M == 1 else ("w13",) if mode == "accurate" else ()):
+                    key = ("K6" if stacked else "K5") + ("-tile-acc" if M > 8 else "")
                     rows.append({
-                        "name": f"{kname}[{dn},{mode},{name},M=1]", "route": "cuda", "source": src,
+                        "name": f"{kname}[{dn},{mode},{name},M={M}]", "route": "cuda", "source": src,
                         "replaces": "llama2_tpu/ops/pallas/quant_matmul.py:"
                         + ("340" if stacked else "476"),
-                        "launches": launches[mode]["K6" if stacked else "K5"],
+                        "launches": launches[mode][key],
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                         "bound_by": by, "library_ms": lib_ms,
                     })
@@ -3536,11 +3606,14 @@ def phase_prefill_timing(cycles_per_ms: float) -> None:
     call: ``python3 chip_smoke.py --prefill-timing`` runs it and nothing else.
     K1 in bf16 and fp32 at the 7B head layout: T = 201 from pos 0 (the main
     path's chunk), T = 128 at pos 256 (a served chunk after a prefix hit) and
-    T = 2048 from pos 0, call i on layer i % 32 of 32 layers' caches; K5/K6
+    T = 2048 from pos 0 (fp32 also T = 5 ending at the cache's last row, a
+    verify window), call i on layer i % 32 of 32 layers' caches; K5/K6
     fast (bf16 activations) and accurate (fp32) at M = 201 on every Q8_SHAPES
     weight, call i on layer i % 32 of a 32-layer stack, and fast with the
     rmsnorm prologue on wqkv and w13 (the main path's form). Each beside its
-    bound (phase 5's), its plain version and its library yardstick: SDPA
+    bound (phase 5's; fp32 K1 and accurate mode's float32-accurate bound on
+    the tensor cores, ``accurate_ops_ms``, with the float32 SIMT bound
+    beside it), its plain version and its library yardstick: SDPA
     (lower-right causal past pos 0) and ``torch.matmul`` on the weight
     dequantized ahead. It calls the wrappers by their public signatures
     only, so this script also times an older checkout: copy it into one and
@@ -3569,7 +3642,10 @@ def phase_prefill_timing(cycles_per_ms: float) -> None:
         esize = torch.tensor([], dtype=dtype).element_size()
         kc = torch.randn((L, B, KVH, S, hs), generator=gen, device="cuda").to(dtype)
         vc = torch.randn((L, B, KVH, S, hs), generator=gen, device="cuda").to(dtype)
-        for T, pos0 in ((PROMPT_TOKENS + 1, 0), (128, 256), (2048, 0)):
+        segments = [(PROMPT_TOKENS + 1, 0), (128, 256), (2048, 0)]
+        if dtype == torch.float32:  # a verify window at the end of the cache
+            segments.append((5, S - 5))
+        for T, pos0 in segments:
             q = torch.randn((L, B, T, H, hs), generator=gen, device="cuda").to(dtype)
             n = pos0 + T
             mask = causal_lower_right(T, n)
@@ -3587,11 +3663,13 @@ def phase_prefill_timing(cycles_per_ms: float) -> None:
                 ), many, cycles_per_ms)
             vis = B * H * sum(pos0 + t + 1 for t in range(T))  # (query, key) pairs seen
             t_bytes = esize * (2 * B * T * H * hs + 2 * B * KVH * n * hs) / HBM_BYTES_PER_S * 1e3
-            t_ops = 4 * hs * vis / PEAK_FLOPS[dn] * 1e3
+            f32 = dtype == torch.float32
+            t_ops = accurate_ops_ms(4 * hs * vis, "tf32") if f32 else 4 * hs * vis / PEAK_FLOPS[dn] * 1e3
+            simt = {"bound_ms_f32_simt": f"{max(t_bytes, 4 * hs * vis / PEAK_FLOPS['f32'] * 1e3):.4f}"}
             say("prefill-time", kernel=f"K1[{dn}]", T=T, pos0=pos0, ms=f"{ms:.4f}",
                 plain_ms=f"{plain_ms:.4f}", library_ms_sdpa=f"{lib_ms:.4f}",
                 bound_ms=f"{max(t_bytes, t_ops):.4f}",
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_by="bytes" if t_bytes >= t_ops else "operations", **(simt if f32 else {}),
                 TFLOP_per_s=f"{4 * hs * vis / ms / 1e9:.2f}", max_abs_err=f"{err:.3e}",
                 queued_kernel_plain_library=f"{qk},{qp},{ql}")
             del q
@@ -3625,12 +3703,12 @@ def phase_prefill_timing(cycles_per_ms: float) -> None:
         plain_ms, qp = time_ms(plain, 4, cycles_per_ms, n_warm=1)
         lib_ms, ql = time_ms(lib, 16, cycles_per_ms)
         nbytes = K * N + 4 * (K // GROUP) * N + esize * (M * K + M * N)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = 2 * M * K * N / PEAK_FLOPS["bf16" if mode == "fast" else "f32"] * 1e3
+        t_bytes, t_ops, simt = q8_bounds_ms(M, K, N, mode, nbytes)
         say("prefill-time", kernel=f"{'K6' if stacked else 'K5'}[{dn},{mode}]", weight=name,
             prologue=norm, M=M, K=K, N=N, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
             library_ms_matmul_on_dequantized=f"{lib_ms:.4f}", bound_ms=f"{max(t_bytes, t_ops):.4f}",
             bound_by="bytes" if t_bytes >= t_ops else "operations",
+            **({"bound_ms_f32_simt": f"{max(t_bytes, simt):.4f}"} if simt else {}),
             TFLOP_per_s=f"{2 * M * K * N / ms / 1e9:.2f}", max_abs_err=f"{err:.3e}",
             queued_kernel_plain_library=f"{qk},{qp},{ql}")
         del wd

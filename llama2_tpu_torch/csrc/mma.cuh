@@ -1,7 +1,7 @@
 // Tensor-core and asynchronous-copy helpers shared by the prefill kernels:
-// the bf16 mma.sync product and its ldmatrix operand loads (K1's
-// prefill_attention.cu), cp.async into shared memory (K1, and the M > 8
-// tile of quant_matmul.cu).
+// the bf16 mma.sync product and its ldmatrix operand loads, the TF32 product
+// and the hi + lo split of a float32 operand (K1's prefill_attention.cu),
+// cp.async into shared memory (K1, and the M > 8 tile of quant_matmul.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -26,6 +26,35 @@ __device__ __forceinline__ void mma_m16n8k16_bf16(float (&d)[4], const uint32_t 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// D (16 x 8, f32) += A (16 x 8, tf32, row-major) * B (8 x 8, tf32, "col").
+// With g = lane / 4 and t = lane % 4, a lane holds
+//   a[0] = A[g][t], a[1] = A[g+8][t], a[2] = A[g][t+4], a[3] = A[g+8][t+4];
+//   b[0] = B[t][g], b[1] = B[t+4][g]; d as for m16n8k16.
+__device__ __forceinline__ void mma_m16n8k8_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                                 const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// tf32(x): x rounded to 10 explicit mantissa bits, to nearest with ties away
+// from zero, as cvt.rna.tf32.f32 rounds a finite x: half a unit added to the
+// magnitude's bits (a carry moves to the next binade), the low 13 bits
+// cleared. Two integer operations, on the full-rate pipe.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x as a TF32 pair: hi = tf32(x), lo = tf32(x - hi). x - hi is exact in
+// float32, so hi + lo is x to 2^-22 |x|, and hi_a hi_b + hi_a lo_b + lo_a
+// hi_b is a b to about 2^-21 |a b|.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
 }
 
 // Four 8 x 8 b16 matrices from shared memory, one fragment register each:

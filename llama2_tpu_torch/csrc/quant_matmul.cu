@@ -7,7 +7,10 @@
 // 64-bit offset of layer * K * N into the weight stack).
 //
 // Two arithmetic modes, as the Pallas kernel has them:
-//   accurate: w = float(q) * scale[g], float32 FMA, float32 accumulation;
+//   accurate: y = x @ (float(q) * scale[g]) to float32 accuracy. The decode
+//             rows take float32 FMA with float32 accumulation; the M > 8
+//             tile sums each quant group's products as fast mode does, with
+//             x cut into three bf16 planes whose sum is x (below);
 //   fast:     x rounded to bf16; the products x * float(q) of one quant group
 //             are summed in float32 (a bf16 x times an int8 w is exact in
 //             float32, so this is the tensor-core sum up to its order), the
@@ -34,11 +37,7 @@
 // strip finds the block that finishes last, and that block adds the partials
 // in split order. The result is the same from run to run.
 //
-// M > 8, accurate mode, tiled_fma_kernel: 64 x 128 output tiles from
-// shared-memory tiles of x (already normed) and of the weights dequantized to
-// float32, 4 x 8 outputs a thread, float32 FMA (no TF32: the parity path).
-//
-// M > 8, fast mode, tiled_wgmma_kernel (a prefill chunk: M = 201 on the main
+// M > 8, both modes, tiled_wgmma_kernel (a prefill chunk: M = 201 on the main
 // path). The mma.sync tile it replaces ran w13 (4096 x 22016) at M = 201 in
 // 0.69 ms, 5% of the bf16 peak: 64 x 128 tiles cut M = 201 into 4 row tiles
 // (every weight byte read and converted 4 times, the last tile 9/64 live), 4
@@ -68,11 +67,24 @@
 // L2 (x is read again for every column tile), then the conversion, not the
 // multiplies.
 //
+// Accurate mode on the same tile (PLANES = 3). An int8 weight is exact in
+// bf16, so y = sum_g scale[g] sum_{k in g} x_k q_k needs only x at float32
+// accuracy: prep_x_kernel cuts each float32 x into three bf16 planes, hi =
+// bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid) (each difference is
+// exact in float32; hi + mid + lo = x but for values near the float32
+// underflow), and the multipliers run their wgmma over all three against the
+// same converted weight tile into one `part`, promoted per group as in fast
+// mode. Three x tiles a stage leave room for a 3-stage ring (5 stages with
+// one plane). The float32 FMA tile this replaces ran w13 at M = 201 in 2.39
+// ms, 15 TFLOP/s. A bf16 x with no prologue is one exact plane: accurate mode
+// then runs the fast tile's arithmetic, which is the same function.
+//
 // The rmsnorm prologue: on the TPU one grid step norms the row for all the
-// steps that follow it; here every block of the decode-row and fma kernels
+// steps that follow it; here every block of the decode-row kernel
 // recomputes its rows' mean square (K floats from L2), and prep_x_kernel
 // computes it once a row with the same block reduction: eps after the mean,
-// in float32, times rms_w, and only then rounded to bf16 in fast mode.
+// in float32, times rms_w, and only then rounded to bf16 (fast mode) or cut
+// into planes (accurate).
 #include <cuda.h>
 #include <stdint.h>
 
@@ -93,7 +105,7 @@ struct Args {
   float* partial;      // (ksplit, M, N) scratch when ksplit > 1
   int* tickets;        // one per column strip or output tile; zero on entry and on exit
   __nv_bfloat16* xt;   // the wgmma tile's prologue output, or null (x read as it is)
-  int M, K, N, G, dtype, ksplit, kc;
+  int M, K, N, G, dtype, ksplit, planes;  // planes: the wgmma tile's bf16 planes of x
   float eps;
 };
 
@@ -190,123 +202,28 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(const Args a) {
   if (threadIdx.x == 0) a.tickets[blockIdx.x] = 0;
 }
 
-constexpr int BM = 64;
-constexpr int BN = 128;
-constexpr int kMaxKC = 32;   // rows of K per shared-memory tile
-constexpr int XS_LD = BM + 4;  // keeps float4 reads aligned
-
-// The rows' 1 / rms of a 64-row tile, for the rmsnorm prologue.
-__device__ void tile_rstd(const Args& a, int m0, float* rstd, float* red) {
-  for (int mm = 0; mm < BM; ++mm) {
-    const float r = m0 + mm < a.M ? row_rstd(a, m0 + mm, red) : 0.f;
-    if (threadIdx.x == 0) rstd[mm] = r;
-  }
-  __syncthreads();
-}
-
-// Accurate mode for M > 8: float32 FMA. N % 4 == 0; kc divides G, kc <= kMaxKC.
-__global__ void __launch_bounds__(kThreads) tiled_fma_kernel(const Args a) {
-  __shared__ __align__(16) float xs[kMaxKC][XS_LD];  // [k][m]
-  __shared__ __align__(16) float ws[kMaxKC][BN];     // [k][n]
-  __shared__ float rstd[BM];
-  __shared__ float red[kWarps];
-
-  const int tx = threadIdx.x & 15;   // columns tx*4..+3 and 64+tx*4..+3
-  const int ty = threadIdx.x >> 4;   // rows ty*4..+3
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int KG = a.K / a.G;
-  const bool norm = a.rms_w != nullptr;
-  if (norm) tile_rstd(a, m0, rstd, red);
-
-  float acc[4][8], part[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = part[i][c] = 0.f;
-
-  for (int g = 0; g < KG; ++g) {
-    for (int c0 = 0; c0 < a.G; c0 += a.kc) {
-      const int k0 = g * a.G + c0;
-      __syncthreads();
-      // x tile: consecutive threads along k
-      for (int e = threadIdx.x; e < BM * a.kc; e += kThreads) {
-        const int kk = e % a.kc;
-        const int mm = e / a.kc;
-        float v = 0.f;
-        if (m0 + mm < a.M) {
-          v = load_act(a.x, (size_t)(m0 + mm) * a.K + k0 + kk, a.dtype);
-          if (norm) v = v * rstd[mm] * load_act(a.rms_w, k0 + kk, a.dtype);
-        }
-        xs[kk][mm] = v;
-      }
-      // weight tile, dequantized: 4 int8 a thread, 32 threads a row
-      for (int e = threadIdx.x; e < a.kc * (BN / 4); e += kThreads) {
-        const int kk = e / (BN / 4);
-        const int cw = e % (BN / 4);
-        const int n = n0 + cw * 4;
-        float4 w4 = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (n < a.N) {
-          const uint32_t word = load_word(a.q + (size_t)(k0 + kk) * a.N + n);
-          const float4 s4 =
-              __ldg(reinterpret_cast<const float4*>(a.scale + (size_t)g * a.N + n));
-          w4 = make_float4(byte_f32(word, 0) * s4.x, byte_f32(word, 1) * s4.y,
-                           byte_f32(word, 2) * s4.z, byte_f32(word, 3) * s4.w);
-        }
-        *reinterpret_cast<float4*>(&ws[kk][cw * 4]) = w4;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < a.kc; ++kk) {
-        const float4 av = *reinterpret_cast<const float4*>(&xs[kk][ty * 4]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&ws[kk][tx * 4]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&ws[kk][64 + tx * 4]);
-        const float ar[4] = {av.x, av.y, av.z, av.w};
-        const float br[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) part[i][c] = fmaf(ar[i], br[c], part[i][c]);
-      }
-    }
-    // a group is summed apart and then added to the accumulator: this keeps
-    // the float32 rounding of a long K from walking as one sequential sum does
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        acc[i][c] += part[i][c];
-        part[i][c] = 0.f;
-      }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= a.M) continue;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int n = n0 + 64 * (c >> 2) + tx * 4 + (c & 3);
-      if (n < a.N) finish(a, m, n, acc[i][c]);
-    }
-  }
-}
-
-// ---- fast mode for M > 8: the wgmma tile ----
+// ---- M > 8: the wgmma tile ----
 
 using bf16 = __nv_bfloat16;
 
 constexpr int WG_BM = 128;  // rows a block: two multiplying warpgroups of 64
 constexpr int WG_BN = 128;  // columns a block
 constexpr int WG_BK = 64;   // rows of K a tile: one 128-byte swizzle row of bf16
-constexpr int WG_STAGES = 5;
 constexpr int WG_WARPS = 16;  // 8 multiplying (two warpgroups), 8 converting
 constexpr int WG_THREADS = 32 * WG_WARPS;
-constexpr int A_BYTES = WG_BM * WG_BK * 2;  // x tile, bf16
+constexpr int A_BYTES = WG_BM * WG_BK * 2;  // x tile (one plane), bf16
 constexpr int B_BYTES = WG_BN * WG_BK * 2;  // weight tile, bf16
 constexpr int W_BYTES = WG_BK * WG_BN;      // weight tile, raw int8
-constexpr int WG_SMEM = WG_STAGES * (A_BYTES + B_BYTES + W_BYTES + WG_BN * 4 + 2 * 8 + 4) +
-                        1024;  // + alignment slack
+
+// The ring of a tile with PLANES x planes: its stages, and its dynamic
+// shared memory (a stage's x tiles, bf16 and raw weight tiles, scales, two
+// mbarriers and a counter; 1 KB of alignment slack)
+template <int PLANES>
+struct Ring {
+  static constexpr int kStages = PLANES == 1 ? 5 : 3;
+  static constexpr int kSmem =
+      kStages * (PLANES * A_BYTES + B_BYTES + W_BYTES + WG_BN * 4 + 2 * 8 + 4) + 1024;
+};
 
 // A shared-memory matrix descriptor of wgmma for a K-major tile in the
 // 128-byte swizzle: rows of 64 bf16 (128 bytes), 8-row groups 1024 bytes
@@ -355,16 +272,19 @@ __device__ __forceinline__ void fence_operands(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// The prologue: x rows normed (float32, eps after the mean, times rms_w) and
-// rounded to bf16, laid out by K tile: row m holds, for tile t = (group g,
-// chunk c), the group's rows 64c..64c+63 at columns 64t.., zero past the
-// group. One block a row. The rstd is the tiled kernels' (block_rstd).
+// The prologue: x rows normed (float32, eps after the mean, times rms_w),
+// cut into `planes` bf16 planes (one: bf16(x); three: hi, mid, lo, see the
+// header), laid out by K tile: row m of plane p is row p * M + m, holding, for
+// tile t = (group g, chunk c), the group's rows 64c..64c+63 at columns
+// 64t.., zero past the group. One block a row. The rstd is the decode-row
+// kernel's (block_rstd).
 __global__ void __launch_bounds__(kThreads) prep_x_kernel(const Args a, bf16* xt, int tpg) {
   __shared__ float red[kWarps];
   const int m = blockIdx.x;
   const bool norm = a.rms_w != nullptr;
   const float rstd = norm ? row_rstd(a, m, red) : 0.f;
   const int width = a.K / a.G * tpg * WG_BK;
+  const size_t plane = (size_t)a.M * width;
   for (int i = threadIdx.x; i < width; i += kThreads) {
     const int t = i / WG_BK;
     const int kk = WG_BK * (t % tpg) + i % WG_BK;  // row within the group
@@ -374,7 +294,15 @@ __global__ void __launch_bounds__(kThreads) prep_x_kernel(const Args a, bf16* xt
       v = load_act(a.x, (size_t)m * a.K + k, a.dtype);
       if (norm) v = v * rstd * load_act(a.rms_w, k, a.dtype);
     }
-    xt[(size_t)m * width + i] = __float2bfloat16_rn(v);
+    bf16* dst = xt + (size_t)m * width + i;
+    const bf16 hi = __float2bfloat16_rn(v);
+    dst[0] = hi;
+    if (a.planes == 3) {
+      const float r = v - __bfloat162float(hi);
+      const bf16 mid = __float2bfloat16_rn(r);
+      dst[plane] = mid;
+      dst[2 * plane] = __float2bfloat16_rn(r - __bfloat162float(mid));
+    }
   }
 }
 
@@ -435,17 +363,18 @@ __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, int c
       : "memory");
 }
 
-// The tensor maps of one launch: x's bf16 rows (128 x 64 boxes, 128-byte
-// swizzle), the int8 weights (64 x 128 boxes) and the scales (1 x 128);
+// The tensor maps of one launch: x's bf16 rows, its planes one above the
+// other (128 x 64 boxes, 128-byte swizzle), the int8 weights (64 x 128 boxes) and the scales (1 x 128);
 // the weights' map is unused (cp.async instead) where N % 16 != 0.
 struct Maps {
   CUtensorMap x, q, scale;
 };
 
-// Fast mode for M > 8 (see the header): a block computes a 128 x 128 output
-// tile over the quant groups of its K split. Warpgroups 0 and 1 take 64 rows
-// each and multiply (wgmma) and promote; warpgroups 2 and 3 convert the raw
-// int8 weight tiles to bf16. Per stage an x tile, the raw weight tile and,
+// M > 8 (see the header): a block computes a 128 x 128 output tile over the
+// quant groups of its K split. Warpgroups 0 and 1 take 64 rows each and
+// multiply (wgmma, every x plane against the same weight tile) and promote;
+// warpgroups 2 and 3 convert the raw int8 weight tiles to bf16. Per stage
+// PLANES x tiles, the raw weight tile and,
 // with a group's last tile, its scales come by TMA, issued by one lane (the
 // weights by cp.async from a warp where N % 16 != 0): for the first stages
 // by thread 0, then for tile i + WG_STAGES by the multiplying warp that is
@@ -453,13 +382,16 @@ struct Maps {
 // to refill a stage. Stage s passes to the converters through `loaded[s]`
 // (the copies landed) and to the multipliers through `ready[s]`
 // (converted). tpg: tiles a group, cdiv(G, 64).
+template <int PLANES>
 __global__ void __launch_bounds__(WG_THREADS, 1)
     tiled_wgmma_kernel(const Args a, const __grid_constant__ Maps maps, int tpg) {
+  constexpr int WG_STAGES = Ring<PLANES>::kStages;
+  constexpr int X_BYTES = PLANES * A_BYTES;  // a stage's x tiles
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  unsigned char* sA = base;                          // [stage] x tiles, swizzled
-  unsigned char* sB = sA + WG_STAGES * A_BYTES;      // [stage] weight tiles, bf16, swizzled
+  unsigned char* sA = base;                          // [stage][plane] x tiles, swizzled
+  unsigned char* sB = sA + WG_STAGES * X_BYTES;      // [stage] weight tiles, bf16, swizzled
   unsigned char* sW = sB + WG_STAGES * B_BYTES;      // [stage] weight tiles, raw int8
   float* sS = reinterpret_cast<float*>(sW + WG_STAGES * W_BYTES);  // [stage][128] scales
   uint64_t* loaded = reinterpret_cast<uint64_t*>(sS + WG_STAGES * WG_BN);
@@ -486,8 +418,11 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     const int g = t / tpg, c = t % tpg;
     if (lane == 0) {
       const bool last = c == tpg - 1;  // with a group's last tile, its scales
-      mbar_arrive_tx(&loaded[s], A_BYTES + (wide ? W_BYTES : 0) + (last ? WG_BN * 4 : 0));
-      tma_box(sA + s * A_BYTES, &maps.x, t * WG_BK, m0, &loaded[s]);
+      mbar_arrive_tx(&loaded[s], X_BYTES + (wide ? W_BYTES : 0) + (last ? WG_BN * 4 : 0));
+      // plane p's rows start at p * M: a tile's rows past M are the next
+      // plane's (or zeros past the last) and reach only rows never stored
+      for (int p = 0; p < PLANES; ++p)
+        tma_box(sA + s * X_BYTES + p * A_BYTES, &maps.x, t * WG_BK, p * a.M + m0, &loaded[s]);
       if (wide) tma_box(sW + s * W_BYTES, &maps.q, n0, g * a.G + WG_BK * c, &loaded[s]);
       if (last) tma_box(sS + s * WG_BN, &maps.scale, n0, g, &loaded[s]);
     }
@@ -556,17 +491,20 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     const int s = i % WG_STAGES;
     const int c = (t_begin + i) % tpg;
     mbar_wait(&ready[s], (i / WG_STAGES) & 1);
-    // every warpgroup issues all 4 k16 steps with no branch around them
-    // (ptxas serializes wgmma in a divergent path); rows past M or past
+    // every warpgroup issues all 4 k16 steps of every plane with no branch
+    // around them (ptxas serializes wgmma in a divergent path); rows past
     // the group are zeros
-    const uint32_t da = smem_u32(sA + s * A_BYTES + wg * (A_BYTES / 2));
     const uint32_t db = smem_u32(sB + s * B_BYTES);
     fence_operands(part);
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-    for (int ks = 0; ks < WG_BK / 16; ++ks)
-      wgmma_m64n128k16(part, sw128_desc(da + 32 * ks), sw128_desc(db + 32 * ks),
-                       (ks > 0 || c > 0) ? 1 : 0);
+    for (int p = 0; p < PLANES; ++p) {
+      const uint32_t da = smem_u32(sA + s * X_BYTES + p * A_BYTES + wg * (A_BYTES / 2));
+#pragma unroll
+      for (int ks = 0; ks < WG_BK / 16; ++ks)
+        wgmma_m64n128k16(part, sw128_desc(da + 32 * ks), sw128_desc(db + 32 * ks),
+                         (p > 0 || ks > 0 || c > 0) ? 1 : 0);
+    }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     const bool last = c == tpg - 1;
     float2 s2[16];  // at the group's end its scales, read while the products run
@@ -678,6 +616,7 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
+template <int PLANES>
 cudaError_t launch_wgmma(const Args& a, cudaStream_t st) {
   const int KG = a.K / a.G;
   const int tpg = (a.G + WG_BK - 1) / WG_BK;
@@ -691,7 +630,8 @@ cudaError_t launch_wgmma(const Args& a, cudaStream_t st) {
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   } else {  // bf16 rows read as they are: tile t is columns 64t..64t+63
-    if (a.dtype != kBF16 || a.rms_w != nullptr || a.G % WG_BK != 0) return cudaErrorInvalidValue;
+    if (PLANES != 1 || a.dtype != kBF16 || a.rms_w != nullptr || a.G % WG_BK != 0)
+      return cudaErrorInvalidValue;
     xa = static_cast<const bf16*>(a.x);
     xa_ld = a.K;
   }
@@ -708,18 +648,19 @@ cudaError_t launch_wgmma(const Args& a, cudaStream_t st) {
                   CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
   };
-  if (!map2d(&maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, xa, 2, xa_ld, a.M, WG_BK, WG_BM,
+  if (!map2d(&maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, xa, 2, xa_ld, PLANES * a.M, WG_BK, WG_BM,
              CU_TENSOR_MAP_SWIZZLE_128B) ||
       !map2d(&maps.scale, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a.scale, 4, a.N, KG, WG_BN, 1,
              CU_TENSOR_MAP_SWIZZLE_NONE) ||
       (a.N % 16 == 0 && !map2d(&maps.q, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.q, 1, a.N, a.K, WG_BN,
                                WG_BK, CU_TENSOR_MAP_SWIZZLE_NONE)))
     return cudaErrorInvalidValue;
-  const cudaError_t err =
-      cudaFuncSetAttribute(tiled_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+  constexpr int smem = Ring<PLANES>::kSmem;
+  const cudaError_t err = cudaFuncSetAttribute(tiled_wgmma_kernel<PLANES>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.M + WG_BM - 1) / WG_BM, (a.N + WG_BN - 1) / WG_BN, a.ksplit);
-  tiled_wgmma_kernel<<<grid, WG_THREADS, WG_SMEM, st>>>(a, maps, tpg);
+  tiled_wgmma_kernel<PLANES><<<grid, WG_THREADS, smem, st>>>(a, maps, tpg);
   return cudaGetLastError();
 }
 
@@ -729,12 +670,12 @@ cudaError_t run(Args a, int mode, int mt, cudaStream_t st) {
   if ((a.dtype != kF32 && a.dtype != kBF16) || (mode != 0 && mode != 1))
     return cudaErrorInvalidValue;
   const bool fast = mode == 1;
-  if (mt == 0) {  // tiled
-    if (fast) return launch_wgmma(a, st);
-    if (a.kc <= 0 || a.kc > kMaxKC || a.G % a.kc != 0) return cudaErrorInvalidValue;
-    const dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM);
-    tiled_fma_kernel<<<grid, kThreads, 0, st>>>(a);
-    return cudaGetLastError();
+  if (mt == 0) {  // the wgmma tile: one plane in fast mode and for an exact
+                  // bf16 x (no prologue), three in accurate mode otherwise
+    const bool exact = a.dtype == kBF16 && a.rms_w == nullptr;
+    if (a.planes == 1 && (fast || exact)) return launch_wgmma<1>(a, st);
+    if (a.planes == 3 && !fast) return launch_wgmma<3>(a, st);
+    return cudaErrorInvalidValue;
   }
   if (a.M > mt || a.G > kMaxG || a.ksplit < 1 || a.ksplit > a.K / a.G)
     return cudaErrorInvalidValue;
@@ -755,21 +696,22 @@ cudaError_t run(Args a, int mode, int mt, cudaStream_t st) {
 // res (M, N) and out share `dtype`; rms_w and res may be null. mode: 0
 // accurate, 1 fast. mt in {1, 2, 4, 8} picks the decode-row kernel (mt >= M
 // rows a thread, ksplit blocks over K, with `partial` (ksplit, M, N) f32 and
-// zeroed `tickets`, one per 128 columns); mt = 0 picks the tiled kernels: in
-// accurate mode kc rows of K a tile; in fast mode the wgmma tile, ksplit
-// blocks over K (with `partial` and zeroed `tickets`, one per 128 x 128
-// output tile), its prologue writing the bf16 rows to `xt` (M, K/G *
-// cdiv(G, 64) * 64) when xt is not null, and x read as it is otherwise (bf16,
-// no rms_w, G % 64 == 0, 16-byte aligned). N % 4 == 0. All contiguous.
-// Returns the launch's cudaError_t.
+// zeroed `tickets`, one per 128 columns); mt = 0 picks the wgmma tile:
+// ksplit blocks over K (with `partial` and zeroed `tickets`, one per 128 x
+// 128 output tile), x cut into `planes` bf16 planes (3 in accurate mode; 1
+// in fast mode, or in accurate mode for bf16 x with no rms_w), its prologue
+// writing them to `xt` (planes * M, K/G * cdiv(G, 64) * 64) when xt is not
+// null, and x read as it is otherwise (one plane, bf16, no rms_w, G % 64 ==
+// 0, 16-byte aligned). N % 4 == 0. All contiguous. Returns the launch's
+// cudaError_t.
 extern "C" int quant_matmul(const void* x, const void* q, const void* scale,
                             const void* rms_w, const void* res, void* out,
                             void* partial, void* tickets, void* xt, int dtype, int mode,
                             int M, int K, int N, int G, int mt, int ksplit,
-                            int kc, float eps, void* stream) {
+                            int planes, float eps, void* stream) {
   Args a{x, static_cast<const int8_t*>(q), static_cast<const float*>(scale),
          rms_w, res, out, static_cast<float*>(partial), static_cast<int*>(tickets),
-         static_cast<__nv_bfloat16*>(xt), M, K, N, G, dtype, ksplit, kc, eps};
+         static_cast<__nv_bfloat16*>(xt), M, K, N, G, dtype, ksplit, planes, eps};
   return run(a, mode, mt, static_cast<cudaStream_t>(stream));
 }
 
@@ -778,7 +720,7 @@ extern "C" int quant_matmul_stacked(const void* x, const void* q, const void* sc
                                     const void* rms_w, const void* res, void* out,
                                     void* partial, void* tickets, void* xt, int dtype,
                                     int mode, int layer, int L, int M, int K, int N,
-                                    int G, int mt, int ksplit, int kc, float eps,
+                                    int G, int mt, int ksplit, int planes, float eps,
                                     void* stream) {
   if (layer < 0 || layer >= L || K <= 0 || N <= 0 || G <= 0 || K % G != 0)
     return cudaErrorInvalidValue;
@@ -787,6 +729,6 @@ extern "C" int quant_matmul_stacked(const void* x, const void* q, const void* sc
          static_cast<const int8_t*>(q) + l * (size_t)K * (size_t)N,
          static_cast<const float*>(scale) + l * (size_t)(K / G) * (size_t)N,
          rms_w, res, out, static_cast<float*>(partial), static_cast<int*>(tickets),
-         static_cast<__nv_bfloat16*>(xt), M, K, N, G, dtype, ksplit, kc, eps};
+         static_cast<__nv_bfloat16*>(xt), M, K, N, G, dtype, ksplit, planes, eps};
   return run(a, mode, mt, static_cast<cudaStream_t>(stream));
 }

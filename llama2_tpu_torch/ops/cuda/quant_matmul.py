@@ -9,7 +9,8 @@ kernels of ``csrc/quant_matmul.cu``, which replace
 (L, K, N) weights in place and can fuse an rmsnorm prologue (``rms_w``) and a
 residual epilogue (``residual``). Two modes, as the Pallas kernel has them:
 
-* ``accurate``: ``w = float(q) * scale``, float32 products and sums;
+* ``accurate``: ``w = float(q) * scale``, float32 products and sums (the
+  M > 8 tile reaches it with x cut into three bf16 planes, ``x_planes``);
 * ``fast``: x rounded to bf16; products summed in float32 within a quant
   group, the group's partial times its f32 scale added to a float32
   accumulator.
@@ -36,11 +37,16 @@ _MAX_GROUP_GEMV = 128  # kMaxG of the decode-row kernel
 _STRIP = 128  # columns a block of the decode-row kernel covers (TILE_N)
 _SMS = 132  # the H100's SMs
 _BLOCKS = 3 * _SMS  # blocks the decode-row kernel wants in flight: three an SM
-# the fast M > 8 tile (tiled_wgmma_kernel): rows and columns a block, K rows a
-# tile, and its dynamic shared memory (WG_SMEM: 5 stages of an x tile, a bf16
-# and a raw int8 weight tile, scales, 2 barriers and a counter; 1 KB of slack)
+# the M > 8 tile (tiled_wgmma_kernel): rows and columns a block, K rows a tile
 _WG_BM, _WG_BN, _WG_BK = 128, 128, 64
-_WG_SMEM = 5 * (_WG_BM * _WG_BK * 2 + _WG_BN * _WG_BK * 2 + _WG_BK * _WG_BN + _WG_BN * 4 + 2 * 8 + 4) + 1024
+
+
+def _wg_smem(planes: int) -> int:
+    """The tile's dynamic shared memory with ``planes`` x planes (Ring::kSmem:
+    5 stages of one plane, 3 of three; a stage holds the x tiles, a bf16 and
+    a raw int8 weight tile, scales, 2 barriers and a counter; 1 KB of slack)."""
+    stages = 5 if planes == 1 else 3
+    return stages * (planes * _WG_BM * _WG_BK * 2 + _WG_BN * _WG_BK * 2 + _WG_BK * _WG_BN + _WG_BN * 4 + 2 * 8 + 4) + 1024
 
 
 def norm_rows(x2: torch.Tensor, rms_w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -61,6 +67,16 @@ def fast_accum(xf: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, group_siz
     xg = xb.reshape(-1, K // group_size, group_size).transpose(0, 1)  # (KG, M, G)
     part = torch.bmm(xg, q.float().reshape(K // group_size, group_size, N))
     return (part * scale[:, None, :]).sum(0)
+
+
+def x_planes(mode: str, dtype: torch.dtype, rms_w) -> int:
+    """The bf16 planes the M > 8 tile cuts x into: one in fast mode (x
+    rounded to bf16); in accurate mode three (hi, mid, lo: together the 24
+    bits of a float32), or one for bf16 rows with no rmsnorm prologue, which
+    are exact in bf16 already."""
+    if mode == "fast" or (dtype == torch.bfloat16 and rms_w is None):
+        return 1
+    return 3
 
 
 def _matmul_plain(x2, q, scale, group_size: int, mode: str, rms_w, eps, res2):
@@ -150,26 +166,24 @@ def _check_layer(layer, L: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def plan(M: int, K: int, N: int, G: int, mode: str = "fast") -> dict:
+def plan(M: int, K: int, N: int, G: int, mode: str = "fast", planes: int | None = None) -> dict:
     """How the kernels cut an (M, K) x (K, N) product with group size ``G``.
 
     ``M <= 8`` takes the decode-row kernel: ``mt`` rows a thread, ``strips``
     blocks of 128 columns, and the contraction split over ``ksplit`` blocks of
     whole groups (8 warps a block, one group a warp at a time) so that about
-    three blocks an SM are in flight. Larger ``M`` takes a tiled kernel
-    (``mt`` 0), whose ``tiles`` are (row tiles, column tiles): in accurate mode
-    64 x 128 tiles with ``kc`` rows of K a shared-memory tile (the largest
-    divisor of G up to 32); in fast mode the wgmma tile's 128 x 128, with K
-    split by whole groups over ``ksplit`` blocks until 132 blocks run, and
-    ``smem`` bytes of shared memory a block.
+    three blocks an SM are in flight. Larger ``M`` takes the wgmma tile
+    (``mt`` 0) in both modes: ``tiles`` of 128 x 128 (row tiles, column
+    tiles), K split by whole groups over ``ksplit`` blocks until 132 blocks
+    run, x cut into ``planes`` bf16 planes (``x_planes``; by default 3 in
+    accurate mode, as for float32 rows, 1 in fast mode) and ``smem`` bytes of
+    shared memory a block.
     """
     if N % 4 != 0:
         raise ValueError(f"the kernels take out-features divisible by 4 (got {N})")
     KG = K // G
     if M > 8:
-        if mode == "accurate":
-            kc = max(d for d in range(1, min(G, 32) + 1) if G % d == 0)
-            return {"mt": 0, "ksplit": 1, "kc": kc, "strips": 0, "tiles": (_cdiv(M, 64), _cdiv(N, 128))}
+        planes = planes or (3 if mode == "accurate" else 1)
         tiles = (_cdiv(M, _WG_BM), _cdiv(N, _WG_BN))
         ksplit = 1
         if tiles[0] * tiles[1] < _SMS:
@@ -177,7 +191,8 @@ def plan(M: int, K: int, N: int, G: int, mode: str = "fast") -> dict:
             ksplit = _cdiv(KG, per)  # no split left empty
         if ksplit > 1 and tiles[0] * tiles[1] > build.MAX_TICKETS:
             raise ValueError(f"{tiles} output tiles: more than {build.MAX_TICKETS}")
-        return {"mt": 0, "ksplit": ksplit, "kc": 0, "strips": 0, "tiles": tiles, "smem": _WG_SMEM}
+        return {"mt": 0, "ksplit": ksplit, "strips": 0, "tiles": tiles, "planes": planes,
+                "smem": _wg_smem(planes)}
     if G > _MAX_GROUP_GEMV:
         raise ValueError(f"the decode-row kernel takes group sizes up to {_MAX_GROUP_GEMV} (got {G})")
     mt = 1 if M == 1 else 2 if M == 2 else 4 if M <= 4 else 8
@@ -186,13 +201,14 @@ def plan(M: int, K: int, N: int, G: int, mode: str = "fast") -> dict:
         raise ValueError(f"out-features {N}: more than {build.MAX_TICKETS} column strips")
     want = _cdiv(_BLOCKS, strips)
     per = max(8, _cdiv(_cdiv(KG, want), 8) * 8)  # groups a block: whole rounds of 8 warps
-    return {"mt": mt, "ksplit": max(1, _cdiv(KG, per)), "kc": 0, "strips": strips}
+    return {"mt": mt, "ksplit": max(1, _cdiv(KG, per)), "strips": strips}
 
 
 def needs_prologue(x2: torch.Tensor, G: int, rms_w) -> bool:
-    """Whether the fast M > 8 tile first writes x's bf16 rows to the
-    workspace (normed with ``rms_w``, rounded from float32, or laid out by
-    K tile where ``G % 64 != 0``) rather than reading x as it is."""
+    """Whether the M > 8 tile, in either mode, first writes x's bf16 planes
+    to the workspace (normed with ``rms_w``, rounded or cut from float32, or
+    laid out by K tile where ``G % 64 != 0``) rather than reading x as it is
+    (which only bf16 rows with no prologue allow: one exact plane)."""
     return rms_w is not None or x2.dtype != torch.bfloat16 or G % _WG_BK != 0 or x2.data_ptr() % 16 != 0
 
 
@@ -220,14 +236,15 @@ def _launch(which, x2, q, scale, group_size, mode, layer, rms_w, eps, res2):
         raise ValueError("q and scale must be 16-byte aligned")
     if M == 0:
         return torch.empty((0, N), dtype=x2.dtype, device=x2.device)
-    p = plan(M, K, N, group_size, mode)
+    planes = x_planes(mode, x2.dtype, rms_w)
+    p = plan(M, K, N, group_size, mode, planes)
     out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
     partial = tickets = xt = None
     n_part = p["ksplit"] * M * N if p["ksplit"] > 1 else 0
-    n_xt = 0  # the bf16 rows of the fast tile's prologue, after the partials
-    if p["mt"] == 0 and mode == "fast" and needs_prologue(x2, group_size, rms_w):
+    n_xt = 0  # the bf16 planes of the tile's prologue, after the partials
+    if p["mt"] == 0 and needs_prologue(x2, group_size, rms_w):
         n_part = _cdiv(n_part, 4) * 4  # 16-byte aligned rows
-        n_xt = _cdiv(M * (K // group_size) * _cdiv(group_size, _WG_BK) * _WG_BK, 2)
+        n_xt = _cdiv(planes * M * (K // group_size) * _cdiv(group_size, _WG_BK) * _WG_BK, 2)
     if n_part + n_xt:
         ws, tickets = build.workspace(x2.device, n_part + n_xt)
         partial = ws if p["ksplit"] > 1 else None
@@ -239,7 +256,7 @@ def _launch(which, x2, q, scale, group_size, mode, layer, rms_w, eps, res2):
         build.DTYPE_CODES[x2.dtype], MODES.index(mode),
     )
     tail = (
-        M, K, N, group_size, p["mt"], p["ksplit"], p["kc"], float(eps),
+        M, K, N, group_size, p["mt"], p["ksplit"], planes, float(eps),
         torch.cuda.current_stream(x2.device).cuda_stream,
     )
     entry2d, entry3d = _entries()
@@ -249,6 +266,11 @@ def _launch(which, x2, q, scale, group_size, mode, layer, rms_w, eps, res2):
         err = entry3d(*head, layer, L, *tail)
     build.check(err, which.__name__)
     which.launches += 1
+    if p["mt"] == 0:
+        if mode == "fast":
+            which.launches_tile_fast += 1
+        else:
+            which.launches_tile_accurate += 1
     return out
 
 
@@ -257,7 +279,8 @@ def quant_matmul(x: torch.Tensor, w: QuantTensor, *, mode: str = "fast") -> torc
     Returns (..., N) in x's dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    count the launch in ``quant_matmul.launches``) or raise.
+    count the launch in ``quant_matmul.launches``, an M > 8 tile's also in
+    ``launches_tile_fast`` or ``launches_tile_accurate`` by mode) or raise.
     """
     _check_mode(mode)
     if w.q.ndim != 2:
@@ -273,6 +296,8 @@ def quant_matmul(x: torch.Tensor, w: QuantTensor, *, mode: str = "fast") -> torc
 
 
 quant_matmul.launches = 0
+quant_matmul.launches_tile_fast = 0
+quant_matmul.launches_tile_accurate = 0
 
 
 def quant_matmul_stacked(
@@ -293,7 +318,8 @@ def quant_matmul_stacked(
     Both in x's dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    count the launch in ``quant_matmul_stacked.launches``) or raise.
+    count the launch in ``quant_matmul_stacked.launches``, an M > 8 tile's
+    also in ``launches_tile_fast`` or ``launches_tile_accurate``) or raise.
     """
     _check_mode(mode)
     if w.q.ndim != 3:
@@ -315,6 +341,8 @@ def quant_matmul_stacked(
 
 
 quant_matmul_stacked.launches = 0
+quant_matmul_stacked.launches_tile_fast = 0
+quant_matmul_stacked.launches_tile_accurate = 0
 
 
 @functools.cache

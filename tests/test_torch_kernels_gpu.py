@@ -46,7 +46,8 @@ def cuda_device():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_match_plain_on_card(cuda_device, dtype):
     """Both CUDA kernels against their plain versions on the card, at the
-    Llama-2-7B head layout; fp32 to 2e-5, bf16 to one last-bit flip."""
+    Llama-2-7B head layout; fp32 to 2e-5, bf16 to one last-bit flip. K1 runs
+    its tensor-core variant of the dtype: mma for bf16, tf32 for fp32."""
     tol = dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32 else dict(rtol=2**-7, atol=1e-3)
     g = torch.Generator(device=cuda_device).manual_seed(0)
     H, hs, S = 32, 128, 1024
@@ -55,9 +56,11 @@ def test_kernels_match_plain_on_card(cuda_device, dtype):
         return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
 
     k, v, q = randn(1, H, S, hs), randn(1, H, S, hs), randn(1, 77, H, hs)
-    n1 = flash_prefill_attention.launches
+    variant = "launches_tf32" if dtype == torch.float32 else "launches_mma"
+    n1, n_var = flash_prefill_attention.launches, getattr(flash_prefill_attention, variant)
     got = flash_prefill_attention(q, k, v, 100)
     assert flash_prefill_attention.launches == n1 + 1
+    assert getattr(flash_prefill_attention, variant) == n_var + 1
     torch.testing.assert_close(got, flash_prefill_attention_plain(q, k, v, 100), **tol)
 
     kc, vc = randn(2, 1, H, S, hs), randn(2, 1, H, S, hs)
@@ -105,7 +108,8 @@ def test_quant_matmul_kernels_match_plain_on_card(cuda_device, dtype, mode):
     """K5 and K6 against their plain versions at the Llama-2-7B projection
     shapes: decode rows (M = 1, 3, 8), a prefill chunk (M = 201), layers 0 and
     1 of a stack, with and without the rmsnorm prologue and the residual
-    epilogue. fp32 outputs: 4e-5 (the float32 rounding of sums over K = 4096
+    epilogue; M = 201 counted on the M > 8 tile of its mode (accurate: x in
+    three bf16 planes, or one for bf16 rows with no prologue). fp32 outputs: 4e-5 (the float32 rounding of sums over K = 4096
     and 11008 taken in another order; 2.2e-5 seen), 1e-3 in fast mode with the
     prologue
     (a last-bit difference of the normed x can flip its bf16 rounding, which
@@ -136,8 +140,10 @@ def test_quant_matmul_kernels_match_plain_on_card(cuda_device, dtype, mode):
             for layer, norm, resid in ((0, False, False), (1, True, False), (1, False, True), (0, True, True)):
                 kw = dict(mode=mode, rms_w=rms_w if norm else None, residual=res if resid else None)
                 n0 = quant_matmul_stacked.launches
+                n_tile = getattr(quant_matmul_stacked, f"launches_tile_{mode}")
                 got = quant_matmul_stacked(x, w, layer, **kw)
                 assert quant_matmul_stacked.launches == n0 + 1
+                assert getattr(quant_matmul_stacked, f"launches_tile_{mode}") == n_tile + (M > 8)
                 want = quant_matmul_stacked_plain(x, w, layer, **kw)
                 torch.cuda.synchronize()
                 assert got.dtype == dtype and got.shape == (M, N)
@@ -920,7 +926,7 @@ def test_prefill_tensor_core_kernel_matches_plain_on_card(cuda_device, layout):
     """K1's bf16 tensor-core variant against the plain version (float32
     throughout) at the 7B, GQA and stories15M head layouts, T = 1, 16, 201
     and 300 from pos 0, 13 and 1000, and one B = 2 case: one last-bit flip,
-    1e-3 + 2^-7 |x|; equal bits on rerun; counted as mma, and fp32 as fma."""
+    1e-3 + 2^-7 |x|; equal bits on rerun; counted as mma, and fp32 as tf32."""
     H, KVH, hs = layout
     g = torch.Generator(device=cuda_device).manual_seed(15)
     tol = dict(rtol=2**-7, atol=1e-3)
@@ -943,32 +949,76 @@ def test_prefill_tensor_core_kernel_matches_plain_on_card(cuda_device, layout):
     q = randn(2, 77, H, hs)
     _assert_close(flash_prefill_attention(q, k, v, 500), flash_prefill_attention_plain(q, k, v, 500),
                   tol, f"K1 mma {layout} B=2")
-    n_fma = flash_prefill_attention.launches_fma
+    n_tf32 = flash_prefill_attention.launches_tf32
     qf, kf, vf = q.float(), k.float(), v.float()
     _assert_close(flash_prefill_attention(qf, kf, vf, 500), flash_prefill_attention_plain(qf, kf, vf, 500),
-                  dict(rtol=2e-5, atol=2e-5), f"K1 fma {layout} B=2")
-    assert flash_prefill_attention.launches_fma == n_fma + 1
+                  dict(rtol=2e-5, atol=2e-5), f"K1 tf32 {layout} B=2")
+    assert flash_prefill_attention.launches_tf32 == n_tf32 + 1
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("layout", [(32, 32, 128), (32, 4, 64), (6, 6, 48), (8, 4, 256), (8, 4, 44)],
+                         ids=["7B", "GQA", "stories15M", "hs256", "hs44"])
+def test_prefill_tf32_kernel_matches_plain_on_card(cuda_device, layout):
+    """K1 in fp32 against the plain version at 2e-5: the TF32 tensor-core
+    variant (three passes a product) at every head size that is a multiple
+    of 8, the FMA one at head size 44; T = 1, 5, 16, 201 and 300 from pos 0,
+    13 and 1000, a 5-token verify window ending at the cache's last row, and
+    one B = 2 case; equal bits on rerun; counted by variant; the tickets of
+    the key splits zero after."""
+    from llama2_tpu_torch.ops.cuda import build
+
+    H, KVH, hs = layout
+    S = 1536
+    variant = "launches_tf32" if hs % 8 == 0 else "launches_fma"
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    tol = dict(rtol=2e-5, atol=2e-5)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device)
+
+    k, v = randn(2, KVH, S, hs), randn(2, KVH, S, hs)
+    cases = [(T, pos0) for T in (1, 5, 16, 201, 300) for pos0 in (0, 13, 1000)] + [(5, S - 5)]
+    for T, pos0 in cases:
+        q = randn(1, T, H, hs)
+        n_var = getattr(flash_prefill_attention, variant)
+        got = flash_prefill_attention(q, k[:1], v[:1], pos0)
+        assert getattr(flash_prefill_attention, variant) == n_var + 1
+        want = flash_prefill_attention_plain(q, k[:1], v[:1], pos0)
+        torch.cuda.synchronize()
+        _assert_close(got, want, tol, f"K1 f32 {layout} T={T} pos0={pos0}")
+        assert torch.equal(got, flash_prefill_attention(q, k[:1], v[:1], pos0))
+    q = randn(2, 77, H, hs)
+    _assert_close(flash_prefill_attention(q, k, v, 500), flash_prefill_attention_plain(q, k, v, 500),
+                  tol, f"K1 f32 {layout} B=2")
+    # short segments cut their keys over blocks: every ticket is zero after
+    assert int(build.workspace(cuda_device, 0)[1].count_nonzero()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["fast", "accurate"])
 @pytest.mark.parametrize("G", [8, 64])
-def test_quant_matmul_wgmma_tile_matches_plain_on_card(cuda_device, G):
-    """The fast M > 8 tile of K5/K6 against the plain version at M = 9, 64,
-    201 and 300 on a ragged N (N % 16 != 0 takes 4-byte weight loads, and
-    the last column tile is partly past N) and on a 7B-wide one (K split
-    over blocks), with and without the rmsnorm prologue and the residual,
-    bf16 and fp32 activations, at the fast-mode tolerances of
-    ``test_quant_matmul_kernels_match_plain_on_card``; equal bits on rerun."""
+def test_quant_matmul_wgmma_tile_matches_plain_on_card(cuda_device, G, mode):
+    """The M > 8 tile of K5/K6 against the plain version at M = 9, 64, 201
+    and 300 on a ragged N (N % 16 != 0 takes 4-byte weight loads, and the
+    last column tile is partly past N) and on a 7B-wide one (K split over
+    blocks), with and without the rmsnorm prologue and the residual, bf16
+    and fp32 activations, in both modes (accurate: x in three bf16 planes,
+    or one for bf16 rows with no prologue) at the tolerances of
+    ``test_quant_matmul_kernels_match_plain_on_card``; counted on the tile
+    of its mode; equal bits on rerun."""
     g = torch.Generator(device=cuda_device).manual_seed(16)
 
     def randn(*shape, dt):
         return torch.randn(shape, generator=g, device=cuda_device).to(dt)
 
     def tol(dtype, norm):
+        fast_norm = norm and mode == "fast"
         if dtype == torch.bfloat16:
-            return dict(rtol=2**-7, atol=2e-3 if norm else 1e-3)
-        return dict(rtol=1e-3, atol=1e-3) if norm else dict(rtol=4e-5, atol=4e-5)
+            return dict(rtol=2**-7, atol=2e-3 if fast_norm else 1e-3)
+        return dict(rtol=1e-3, atol=1e-3) if fast_norm else dict(rtol=4e-5, atol=4e-5)
 
+    tiles = f"launches_tile_{mode}"
     for K, N in ((512, 1380), (4096, 4096)):
         q = torch.randint(-127, 128, (2, K, N), generator=g, device=cuda_device, dtype=torch.int8)
         scale = 2.7e-4 * (0.7 + 0.6 * torch.rand((2, K // G, N), generator=g, device=cuda_device))
@@ -977,17 +1027,22 @@ def test_quant_matmul_wgmma_tile_matches_plain_on_card(cuda_device, G):
             for dtype in (torch.bfloat16, torch.float32):
                 x, rms_w, res = randn(M, K, dt=dtype), 1 + 0.1 * randn(K, dt=dtype), randn(M, N, dt=dtype)
                 for norm, resid in ((False, False), (True, False), (False, True), (True, True)):
-                    kw = dict(mode="fast", rms_w=rms_w if norm else None, residual=res if resid else None)
-                    n0 = quant_matmul_stacked.launches
+                    kw = dict(mode=mode, rms_w=rms_w if norm else None, residual=res if resid else None)
+                    n0, n_tile = quant_matmul_stacked.launches, getattr(quant_matmul_stacked, tiles)
                     got = quant_matmul_stacked(x, w, 1, **kw)
                     assert quant_matmul_stacked.launches == n0 + 1
+                    assert getattr(quant_matmul_stacked, tiles) == n_tile + 1
                     want = quant_matmul_stacked_plain(x, w, 1, **kw)
                     torch.cuda.synchronize()
-                    _assert_close(got, want, tol(dtype, norm), f"K6 tile {K}x{N} G={G} M={M} {dtype} {norm=} {resid=}")
+                    _assert_close(got, want, tol(dtype, norm),
+                                  f"K6 {mode} tile {K}x{N} G={G} M={M} {dtype} {norm=} {resid=}")
                     assert torch.equal(got, quant_matmul_stacked(x, w, 1, **kw))
-        x = randn(2, 201, K, dt=torch.bfloat16)[1:]  # a lead dim and a storage offset
-        _assert_close(quant_matmul(x, w[0]), quant_matmul_plain(x, w[0]), tol(torch.bfloat16, False),
-                      f"K5 tile {K}x{N} G={G}")
+        for dtype in (torch.bfloat16, torch.float32):
+            x = randn(2, 201, K, dt=dtype)[1:]  # a lead dim and a storage offset
+            n_tile = getattr(quant_matmul, tiles)
+            _assert_close(quant_matmul(x, w[0], mode=mode), quant_matmul_plain(x, w[0], mode=mode),
+                          tol(dtype, False), f"K5 {mode} tile {K}x{N} G={G} {dtype}")
+            assert getattr(quant_matmul, tiles) == n_tile + 1
 
 
 def _offset(t):

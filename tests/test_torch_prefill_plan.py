@@ -1,7 +1,7 @@
 """The Python side of the prefill segment's kernels, on the CPU: which variant
 of K1 (``ops/cuda/prefill_attention.py::plan``) and which tile plan of the
-fast M > 8 dequant-matmul (``ops/cuda/quant_matmul.py::plan``) a launch
-takes, at the Llama-2-7B shapes and at small ones, decided before any launch;
+M > 8 dequant-matmul in either mode (``ops/cuda/quant_matmul.py::plan``) a
+launch takes, at the Llama-2-7B shapes and at small ones, decided before any launch;
 and the wrappers' plain versions at the shapes the new tiles cover, against
 the JAX kernels (in interpret mode, as the JAX package's tests run them)."""
 
@@ -27,15 +27,19 @@ Q8_7B = {"wqkv": (4096, 12288), "wo": (4096, 4096), "w13": (4096, 22016),
 
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))
 def test_k1_variant_by_dtype_and_head_size(layout):
-    """bf16 with hs % 16 == 0 takes the tensor-core variant, fp32 the FMA one
-    (the parity path); a bf16 head size that is no multiple of 16 takes FMA."""
+    """bf16 with hs % 16 == 0 takes the bf16 tensor-core variant, fp32 with
+    hs % 8 == 0 the TF32 one (three passes a product); a head size either
+    cannot take stays on FMA."""
     H, KVH, hs = LAYOUTS[layout]
     p = pa.plan(1, 201, H, KVH, hs, torch.bfloat16)
     assert p["variant"] == "mma" and p["warps"] in (1, 2, 4)
-    assert pa.plan(1, 201, H, KVH, hs, torch.float32) == {**pa.plan(1, 201, H, KVH, hs, torch.float32),
-                                                         "variant": "fma", "warps": 0}
+    p = pa.plan(1, 201, H, KVH, hs, torch.float32)
+    assert p["variant"] == "tf32" and p["warps"] in (1, 2, 4)
     assert pa.plan(1, 201, 8, 8, 40, torch.bfloat16)["variant"] == "fma"
     assert pa.plan(1, 201, 8, 8, 8, torch.bfloat16)["variant"] == "fma"
+    assert pa.plan(1, 201, 8, 8, 44, torch.float32) == {**pa.plan(1, 201, 8, 8, 44, torch.float32),
+                                                       "variant": "fma", "warps": 0}
+    assert pa.plan(1, 201, 8, 8, 40, torch.float32)["variant"] == "tf32"
 
 
 @pytest.mark.parametrize("T,pos_rows", [(201, 224), (128, 256), (2048, 1024), (1, 32), (16, 32)])
@@ -53,11 +57,49 @@ def test_k1_grid_fills_the_card_at_the_7b_layout(T, pos_rows):
         assert KV * tiles * B >= SMS
 
 
-@pytest.mark.parametrize("hs", [16, 48, 64, 96, 128, 176, 256])
+@pytest.mark.parametrize("T,tiles,splits", [(201, 7, 1), (128, 8, 1), (2048, 32, 1), (5, 1, 9), (1, 1, 9)])
+def test_k1_tf32_grid_fills_the_card_at_the_7b_layout(T, tiles, splits):
+    """The fp32 variant's grid at the 7B layout: as the bf16 one, 32-row tiles
+    and 224 blocks at the main path's chunk, 64-row tiles at long segments.
+    A verify window (T = 5) is one 16-row tile a head, 32 tiles in all, so
+    each tile's keys are cut over 9 blocks: at least 132 blocks in every
+    case. A block has 4 warps, its row groups' keys cut into slices to make
+    up the rest."""
+    H, KVH, hs = LAYOUTS["7B"]
+    p = pa.plan(1, T, H, KVH, hs, torch.float32)
+    assert p["variant"] == "tf32" and p["grid"] == (KVH * splits, tiles, 1) and p["splits"] == splits
+    assert tiles * 16 * p["warps"] >= T
+    assert KVH * splits * tiles >= SMS
+    assert p["warps"] * p["slices"] == 4
+    assert 2 * p["smem"] <= SMEM_MAX  # two blocks fit an SM's shared memory
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_k1_key_splits_only_where_the_row_tiles_cannot_fill_the_card(layout):
+    """Only the tf32 variant cuts keys over blocks, only where its row tiles
+    launch fewer than 132 blocks, at most 16 ways, to about two blocks an
+    SM."""
+    H, KVH, hs = LAYOUTS[layout]
+    for T in (1, 2, 5, 7, 16, 128, 201, 300, 2048):
+        for B in (1, 2):
+            p = pa.plan(B, T, H, KVH, hs, torch.float32)
+            blocks = B * KVH * p["grid"][1]
+            if blocks >= SMS:
+                assert p["splits"] == 1
+            else:
+                assert p["splits"] == min(16, -(-2 * SMS // blocks))
+            # the runs' workspace: (B, KVH, row tiles, splits, rows, hs_pad + 2) floats
+            hs_pad = 64 if hs <= 64 else 128
+            assert p["ws"] == (0 if p["splits"] == 1 else blocks * p["splits"] * 16 * p["warps"] * (hs_pad + 2))
+            assert pa.plan(B, T, H, KVH, hs, torch.bfloat16)["splits"] == 1
+    assert pa.plan(1, 5, 8, 8, 44, torch.float32)["splits"] == 1  # fma
+
+
+@pytest.mark.parametrize("hs", [16, 44, 48, 64, 96, 128, 176, 256])
 @pytest.mark.parametrize("T", [1, 201, 4096])
 def test_k1_shared_memory_fits(hs, T):
     """Every head size the wrapper takes fits a block's shared memory, in
-    both variants."""
+    every variant."""
     for dtype in (torch.bfloat16, torch.float32):
         p = pa.plan(2, T, 32, 8, hs, dtype)
         assert 0 < p["smem"] <= SMEM_MAX
@@ -67,12 +109,13 @@ def test_k1_cpu_tensors_take_the_plain_version_and_count_nothing():
     g = np.random.default_rng(0)
     q = torch.from_numpy(g.standard_normal((1, 5, 4, 32), np.float32)).to(torch.bfloat16)
     k = torch.from_numpy(g.standard_normal((1, 2, 16, 32), np.float32)).to(torch.bfloat16)
-    before = (pa.flash_prefill_attention.launches, pa.flash_prefill_attention.launches_mma,
-              pa.flash_prefill_attention.launches_fma)
+    counters = ("launches", "launches_mma", "launches_tf32", "launches_fma")
+    before = [getattr(pa.flash_prefill_attention, c) for c in counters]
     got = pa.flash_prefill_attention(q, k, k, 3)
     assert torch.equal(got, pa.flash_prefill_attention_plain(q, k, k, 3))
-    assert before == (pa.flash_prefill_attention.launches, pa.flash_prefill_attention.launches_mma,
-                      pa.flash_prefill_attention.launches_fma)
+    assert torch.equal(pa.flash_prefill_attention(q.float(), k.float(), k.float(), 3),
+                       pa.flash_prefill_attention_plain(q.float(), k.float(), k.float(), 3))
+    assert before == [getattr(pa.flash_prefill_attention, c) for c in counters]
 
 
 @pytest.mark.parametrize("M", [9, 64, 128, 129, 201, 256, 300])
@@ -95,16 +138,33 @@ def test_wgmma_tile_plan_at_the_7b_shapes(M):
         assert p["smem"] <= SMEM_MAX
 
 
+@pytest.mark.parametrize("M", [9, 201, 300])
+def test_accurate_tile_plan_at_the_7b_shapes(M):
+    """Accurate mode takes the same tile and grid as fast mode, with x in
+    three bf16 planes and a 3-stage ring that fits a block's shared memory;
+    bf16 rows with no prologue are one exact plane (the fast tile's ring)."""
+    for K, N in Q8_7B.values():
+        fast, acc = qm.plan(M, K, N, 64, "fast"), qm.plan(M, K, N, 64, "accurate")
+        assert {**acc, "planes": 1, "smem": fast["smem"]} == fast
+        assert acc["planes"] == 3 and fast["smem"] < acc["smem"] <= SMEM_MAX
+        assert qm.plan(M, K, N, 64, "accurate", 1) == fast
+    assert qm.x_planes("accurate", torch.float32, None) == 3
+    assert qm.x_planes("accurate", torch.bfloat16, torch.ones(4)) == 3
+    assert qm.x_planes("accurate", torch.bfloat16, None) == 1
+    assert qm.x_planes("fast", torch.float32, torch.ones(4)) == 1
+
+
 @pytest.mark.parametrize("K,N,G", [(172, 72, 4), (256, 1376, 8), (512, 100, 32), (384, 260, 128)])
 def test_wgmma_tile_plan_at_small_shapes(K, N, G):
-    """Odd groups and ragged N still take the tile, split only as far as
-    whole groups allow."""
+    """Odd groups and ragged N still take the tile, in both modes, split only
+    as far as whole groups allow."""
     for M in (9, 40, 201):
         p = qm.plan(M, K, N, G, "fast")
         KG = K // G
         assert 1 <= p["ksplit"] <= KG and p["tiles"] == (-(-M // 128), -(-N // 128))
         assert (p["ksplit"] - 1) * -(-KG // p["ksplit"]) < KG
-    assert qm.plan(201, K, N, G, "accurate")["ksplit"] == 1  # the float32 tile never splits
+    # accurate mode splits K as fast mode does: the same tile
+    assert qm.plan(201, K, N, G, "accurate")["ksplit"] == qm.plan(201, K, N, G, "fast")["ksplit"]
 
 
 def test_wgmma_prologue_is_decided_before_the_launch():

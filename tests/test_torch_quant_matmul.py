@@ -198,11 +198,12 @@ def test_kernel_plan_covers_the_7b_shapes():
         p = qm.plan(1, K, N, 64)
         assert p["mt"] == 1 and p["strips"] == -(-N // 128)
         assert 250 <= p["strips"] * p["ksplit"] <= 4 * 132 and p["ksplit"] <= K // 64 // 8
-        assert qm.plan(201, K, N, 64, "accurate") == {"mt": 0, "ksplit": 1, "kc": 32, "strips": 0,
-                                                     "tiles": (4, -(-N // 128))}
+        assert qm.plan(201, K, N, 64, "accurate") == {**qm.plan(201, K, N, 64, "fast"), "planes": 3,
+                                                     "smem": qm.plan(201, K, N, 64, "accurate")["smem"]}
+        assert qm.plan(201, K, N, 64, "accurate")["tiles"] == (2, -(-N // 128))
         assert qm.plan(8, K, N, 64)["mt"] == 8 and qm.plan(3, K, N, 64)["mt"] == 4
     assert qm.plan(1, 64, 64, 16)["ksplit"] == 1  # a tiny model: no split
-    assert qm.plan(40, 172, 64, 4, "accurate")["kc"] == 4 and qm.plan(40, 96, 64, 48, "accurate")["kc"] == 24
+    assert qm.plan(40, 172, 64, 4, "accurate")["mt"] == 0 and qm.plan(40, 96, 64, 48, "accurate")["planes"] == 3
     with pytest.raises(ValueError):
         qm.plan(1, 64, 30, 16)
     with pytest.raises(ValueError):
