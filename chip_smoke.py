@@ -19,8 +19,10 @@ non-zero:
    per-row at 3 and 8 rows, each with the appends bit-equal, a rerun
    bit-equal and every ticket zero after), the INT8 dequant-matmul kernels at the Llama-2-7B projection
    shapes in both modes at M = 1, 8, 9 and 201 (the M > 8 tile counted by
-   mode), the FFN megakernels at the 7B widths and two ragged
-   shapes for 1 to 12 rows; the int8-cache attention kernels (K7 windows of
+   mode), the FFN megakernels at the 7B widths and three ragged
+   shapes for 1 to 12 rows, each launch in the form its plan names (the
+   tensor-core form from 3 rows at groups of 32 and 64); the int8-cache
+   attention kernels (K7 windows of
    1, 4 and 16 rows, K8, K9) at the 7B and a GQA layout, and the whole-layer
    kernel (K13) at the 7B widths, against K9 + K12 too, with the cache
    appends bit-equal, and its attention phase alone; the int8-cache
@@ -39,7 +41,9 @@ non-zero:
    requests over a bf16 and over an int8 page pool, with the launches of
    every decode tick asserted (K6 1, K17 or K18 32, K12 31, K11 1, K5 1)
    and every admission prefill's K1 through its tensor-core variant (bf16's
-   and, on ``cuda-accurate``, fp32's), reruns and pipeline depth 1 against 2 bit-equal,
+   and, on ``cuda-accurate``, fp32's), every K12 and K11 of a tick (and K13
+   of the dense engine's) on the megakernels' tensor-core form, reruns and
+   pipeline depth 1 against 2 bit-equal,
    the greedy streams held to their plain replays, ticks profiled at short
    and long positions, and
    the dense ``BatchEngine`` on the same requests for its memory;
@@ -87,7 +91,8 @@ non-zero:
    a paged attention: their lines give the route each replaces (the
    composed route; SDPA on a bf16 cache of the same length; K9 + K12; the
    dense twin kernel and SDPA on the same rows gathered) instead. K2 and K4
-   stand in the kernels line at pos 256 and at pos 4095. K3, K14,
+   stand in the kernels line at pos 256 and at pos 4095; K12 and K11 at 1
+   and at the served tick's 8 rows, K13 at 1 and 8 rows. K3, K14,
    K19 and K20 at the kernel benchmarks' shapes, on its inputs (rotated
    through 512 MB), beside SDPA, SDPA on the gathered rows, ``F.rms_norm``
    and ``F.silu(h1) * h3``;
@@ -99,11 +104,13 @@ non-zero:
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py --dense-timing``
 builds the kernels and times only the dense decode attention kernels,
-``--prefill-timing`` only the prefill segment's K1, K5 and K6, and
+``--prefill-timing`` only the prefill segment's K1, K5 and K6,
 ``--decode-timing`` only single-stream decode on the two-launch route at
-positions 201-264, with K4's host time a call (to compare two checkouts in
-one call, see ``phase_dense_timing``, ``phase_prefill_timing`` and
-``phase_decode_timing``). Without a CUDA device, or outside a checkout
+positions 201-264, with K4's host time a call, and ``--tick-timing`` only
+the served decode tick's kernels (K10-K13 at 8 rows, K16, K18) (to
+compare two checkouts in one call, see ``phase_dense_timing``,
+``phase_prefill_timing``, ``phase_decode_timing`` and
+``phase_tick_timing``). Without a CUDA device, or outside a checkout
 of the repository, it fails before printing any result.
 """
 
@@ -152,8 +159,10 @@ Q8_SHAPES = {
     "w2": (11008, 4096), "wcls": (4096, 32000), "w1": (4096, 11008),
 }
 # the FFN megakernels' ragged check shapes: (D, HD, Dq, G, scale factor). HD =
-# 1376 = 172 * 8 and D = 2176 = 17 * 128 divide over no power-of-two tile.
-MLP_RAGGED = ((256, 1376, 384, 8, 2.0), (2176, 256, 2304, 64, 2.0))
+# 1376 = 172 * 8 and D = 2176 = 17 * 128 divide over no power-of-two tile; the
+# group of 8 keeps the FMA form at every row count, the group of 32 takes the
+# tensor-core form over a last column strip of 96.
+MLP_RAGGED = ((256, 1376, 384, 8, 2.0), (2176, 256, 2304, 64, 2.0), (256, 1376, 384, 32, 2.0))
 PROMPT_TOKENS = 200
 GEN_TOKENS = 64
 
@@ -536,10 +545,13 @@ def phase_kernels_q8() -> None:
 
 def phase_kernels_mlp() -> None:
     """K10, K11, K12 against their plain versions: the 7B widths and the two
-    ragged shapes; 1, 4, 8 and 12 rows; fp32 and bf16 activations; layers 0,
-    L-2 and L-1 of a stack (K12 reads the next layer's norm and QKV weights,
-    clamped at the last); K10 with and without the residual. Every call is one
-    launch, and a second run of each gives the same bits."""
+    ragged shapes; 1, 2, 3, 4, 5, 8 and 12 rows; fp32 and bf16 activations;
+    layers 0, L-2 and L-1 of a stack (K12 reads the next layer's norm and QKV
+    weights, clamped at the last); K10 with and without the residual. Every
+    call is one launch in the form ``mlp_block.variant`` names (the
+    tensor-core form for 3 or more rows at group 64; 12 rows a pass of 8,
+    then 4; the first ragged shape's group of 8 keeps the FMA form), and a
+    second run of each gives the same bits."""
     import torch
 
     from llama2_tpu_torch.ops.cuda import mlp_block as mb
@@ -555,12 +567,15 @@ def phase_kernels_mlp() -> None:
         jitter = torch.rand((L, K // G, N), generator=gen, device="cuda")
         return QuantTensor(q, factor * 2.7e-4 * (0.7 + 0.6 * jitter), G)
 
+    form = ["fma"]  # the form this shape and row count take
+
     def once(wrapper, *args, **kw):
-        """Two runs of one call: one launch each, equal bits."""
-        n0 = wrapper.launches
+        """Two runs of one call: one launch each, in the expected form, equal bits."""
+        n0, f0 = wrapper.launches, getattr(wrapper, f"launches_{form[0]}")
         a, b = wrapper(*args, **kw), wrapper(*args, **kw)
-        if wrapper.launches != n0 + 2:
-            raise AssertionError(f"{wrapper.__name__}: {wrapper.launches - n0} launches for 2 calls")
+        if wrapper.launches != n0 + 2 or getattr(wrapper, f"launches_{form[0]}") != f0 + 2:
+            raise AssertionError(f"{wrapper.__name__}: {wrapper.launches - n0} launches for 2 calls, "
+                                 f"want 2 in the {form[0]} form")
         for u, v in zip(*((a, b) if isinstance(a, tuple) else ((a,), (b,)))):
             if not torch.equal(u, v):
                 raise AssertionError(f"{wrapper.__name__} gave different bits on the same inputs")
@@ -582,7 +597,10 @@ def phase_kernels_mlp() -> None:
                 rel = err / float(want.float().abs().max())
                 worst[name] = max(worst.get(name, (0.0, 0.0)), (err, rel))
 
-            for M in (1, 4, 8, 12):
+            forms = set()
+            for M in (1, 2, 3, 4, 5, 8, 12):
+                form[0] = mb.variant(M, D, HD, Dq, (G, G, G, G))
+                forms.add(f"M{M}:{form[0]}")
                 x, att = randn(M, D, dtype=dtype), randn(M, D, dtype=dtype)
                 for layer in (0, L - 2, L - 1):
                     for residual in (True, False):
@@ -597,7 +615,7 @@ def phase_kernels_mlp() -> None:
                     want = mb.layer_tail_qkv_plain(att, x, wo, rms_ffn, w1, w3, w2, rms_att, wqkv, layer)
                     hold("K12", out, want[0])
                     hold("K12qkv", qkv, want[1])
-            say("K10-K12", dtype=dtype_name(dtype), D=D, HD=HD, Dq=Dq, G=G, M="1,4,8,12",
+            say("K10-K12", dtype=dtype_name(dtype), D=D, HD=HD, Dq=Dq, G=G, forms=",".join(sorted(forms)),
                 layers=f"0,{L - 2},{L - 1}", bits="equal_on_rerun",
                 tol="rtol=%g,atol=2e-3*max|want|" % mlp_tolerance(dtype, x)[0],
                 **{f"{k}_max_abs_err": f"{e:.3e}" for k, (e, _) in worst.items()},
@@ -605,6 +623,8 @@ def phase_kernels_mlp() -> None:
         del wo, w1, w3, w2, wqkv
     for mt in (1, 2, 4, 8):
         say("K10-K12", rows_a_thread=mt, cooperative_grid_blocks=mb._grid(mt, torch.cuda.current_device()))
+    say("K10-K12", form="mma", cooperative_grid_blocks=mb._grid(8, torch.cuda.current_device(), False, True),
+        with_attention_phase=mb._grid(8, torch.cuda.current_device(), True, True))
     # a CUDA tensor launches or raises: no plain version behind the wrapper
     w1, w3, w2 = qt(2, 256, 384, 64, 1.0), qt(2, 256, 384, 64, 1.0), qt(2, 384, 256, 64, 1.0)
     x = randn(1, 256, dtype=torch.float32)
@@ -1698,6 +1718,10 @@ def count_launches() -> dict:
         "K7": flash_decode_attention_q8, "K8": flash_decode_attention_q8_stacked,
         "K9": flash_decode_attention_q8_fused, "K10": mlp_block_stacked,
         "K11": attn_mlp_block_stacked, "K12": layer_tail_qkv_stacked, "K13": layer_block_stacked,
+        # the megakernels' tensor-core form (3 or more rows), counted apart
+        "K11-mma": VariantCount(attn_mlp_block_stacked, "launches_mma"),
+        "K12-mma": VariantCount(layer_tail_qkv_stacked, "launches_mma"),
+        "K13-mma": VariantCount(layer_block_stacked, "launches_mma"),
         "K15": paged_decode_attention_stacked, "K16": paged_decode_attention_q8_stacked,
         "K17": paged_decode_attention_fused, "K18": paged_decode_attention_q8_fused,
     }
@@ -2107,14 +2131,18 @@ def serve_workload() -> list:
 # named launches 0 times): on `cuda` the two-launch paged layer (glue-fused
 # paged attention + the wo/FFN/next-QKV megakernel); on `cuda-accurate` the
 # composed layer; the dense engine at 8 rows: the whole-layer kernel over
-# the int8 cache, the two-launch layer over the fp cache
+# the int8 cache, the two-launch layer over the fp cache. A tick runs all 8
+# slots, so every megakernel launch of a tick takes the tensor-core form.
 SERVE_TICKS = {
-    ("cuda", False): lambda L: {"K6": 1, "K17": L, "K12": L - 1, "K11": 1, "K5": 1},
-    ("cuda", True): lambda L: {"K6": 1, "K18": L, "K12": L - 1, "K11": 1, "K5": 1},
+    ("cuda", False): lambda L: {"K6": 1, "K17": L, "K12": L - 1, "K11": 1, "K5": 1,
+                                "K12-mma": L - 1, "K11-mma": 1},
+    ("cuda", True): lambda L: {"K6": 1, "K18": L, "K12": L - 1, "K11": 1, "K5": 1,
+                               "K12-mma": L - 1, "K11-mma": 1},
     ("cuda-accurate", False): lambda L: {"K6": 4 * L, "K15": L, "K5": 1},
     ("cuda-accurate", True): lambda L: {"K6": 4 * L, "K16": L, "K5": 1},
-    ("dense", False): lambda L: {"K6": 1, "K4": L, "K12": L - 1, "K11": 1, "K5": 1},
-    ("dense", True): lambda L: {"K6": 1, "K13": L, "K5": 1},
+    ("dense", False): lambda L: {"K6": 1, "K4": L, "K12": L - 1, "K11": 1, "K5": 1,
+                                 "K12-mma": L - 1, "K11-mma": 1},
+    ("dense", True): lambda L: {"K6": 1, "K13": L, "K5": 1, "K13-mma": L},
 }
 
 
@@ -2337,7 +2365,7 @@ def phase_serve(kv_quant: bool) -> dict:
     p50/p95 with queue wait and prefill apart, device and host ms a tick at
     positions 17-32 and 4080-4095 (profiled), and peak memory against the
     dense ``BatchEngine`` on the same requests. Returns the timed run's
-    launches."""
+    launches, and the dense engine's under "dense-" names."""
     import torch
 
     from llama2_tpu_torch.config import GenerationConfig
@@ -2437,7 +2465,7 @@ def phase_serve(kv_quant: bool) -> dict:
     dense = None
     params = None
     torch.cuda.empty_cache()
-    return timed["launches"]
+    return {**timed["launches"], **{f"dense-{k}": v for k, v in run["launches"].items()}}
 
 
 def phase_serve_accurate(kv_quant: bool) -> dict:
@@ -2859,12 +2887,108 @@ def q8_bounds_ms(M: int, K: int, N: int, mode: str, nbytes: int) -> tuple:
     return t_bytes, accurate_ops_ms(flops, "bf16"), flops / PEAK_FLOPS["f32"] * 1e3
 
 
+MLP_LINES = {"K12": ("layer_tail_qkv_stacked", 792), "K11": ("attn_mlp_block_stacked", 463),
+             "K10": ("mlp_block_stacked", 850)}
+
+
+def mlp_timing(params, mats: dict, M: int, tags, cycles_per_ms: float, gen) -> dict:
+    """The FFN megakernels ``tags`` (K12 with its qkv phase, K11, K10) at M
+    rows of bf16 activations on the 32-layer 7B stack ``params`` (call i on
+    layer i % 32, so weights come from device memory), against their plain
+    versions at ``mlp_tolerance``. Beside each: its bound (each weight byte,
+    scale and activation once over the memory rate, or 2 * M operations a
+    weight over the bf16 peak), the composed route it replaces (the
+    dequant-matmul launches and the plain rmsnorm, swiglu and add between
+    them, as the ``w13`` layout runs them) and the sum of ``torch.matmul``
+    on the weights dequantized ahead (``mats``: 4 layers each of wo, w13, w2
+    and wqkv) at M rows. No one PyTorch call computes a megakernel, so
+    ``library_ms`` is null. Each line says which form the calls took (where
+    the wrapper counts forms). Returns the kernel line's rows by tag, without
+    ``launches``."""
+    import torch
+
+    from llama2_tpu_torch.ops import ref
+    from llama2_tpu_torch.ops.cuda import mlp_block as mb
+    from llama2_tpu_torch.ops.cuda.quant_matmul import quant_matmul_stacked
+
+    L, dtype, dn, esize, eps = 32, torch.bfloat16, "bf16", 2, 1e-5
+    D, HD = Q8_SHAPES["w1"]
+    Dq = Q8_SHAPES["wqkv"][1]
+    wo, w1, w3, w2, w13, wqkv = (params[k] for k in ("wo", "w1", "w3", "w2", "w13", "wqkv"))
+    rms_ffn, rms_att = params["rms_ffn"], params["rms_att"]
+    x = torch.randn((M, D), generator=gen, device="cuda").to(dtype)
+    att = torch.randn((M, D), generator=gen, device="cuda").to(dtype)
+    xs = {"wo": att, "w13": x, "w2": torch.randn((M, HD), generator=gen, device="cuda").to(dtype),
+          "wqkv": x}
+    matmul_ms = {k: time_ms(lambda i, k=k: torch.matmul(xs[k], mats[k][i % 4]), 128, cycles_per_ms)[0]
+                 for k in mats}
+
+    def composed(i, with_wo, with_qkv):
+        """The route of the w13 layout, as models/llama.py runs it."""
+        l, nxt = i % L, min(i % L + 1, L - 1)
+        r = quant_matmul_stacked(att, wo, l, residual=x) if with_wo else x
+        h13 = quant_matmul_stacked(ref.rmsnorm(r, rms_ffn[l], eps), w13, l)
+        out = r + quant_matmul_stacked(ref.swiglu(h13[..., :HD], h13[..., HD:]), w2, l)
+        if with_qkv:
+            return out, quant_matmul_stacked(out, wqkv, nxt, rms_w=rms_att[nxt], eps=eps)
+        return out
+
+    weights = D * D + 3 * D * HD + D * Dq  # int8 bytes of K12; K11 and K10 read fewer
+    cases = {
+        "K12": (weights, esize * M * (5 * D + Dq), ("wo", "w13", "w2", "wqkv"),
+                lambda i: mb.layer_tail_qkv_stacked(att, x, wo, rms_ffn, w1, w3, w2, rms_att, wqkv, i % L, eps),
+                lambda i: mb.layer_tail_qkv_plain(att, x, wo, rms_ffn, w1, w3, w2, rms_att, wqkv, i % L, eps),
+                lambda i: composed(i, True, True)),
+        "K11": (weights - D * Dq, esize * M * 4 * D, ("wo", "w13", "w2"),
+                lambda i: mb.attn_mlp_block_stacked(att, x, wo, rms_ffn[i % L], w1, w3, w2, i % L, eps),
+                lambda i: mb.attn_mlp_block_plain(att, x, wo, rms_ffn[i % L], w1, w3, w2, i % L, eps),
+                lambda i: composed(i, True, False)),
+        "K10": (3 * D * HD, esize * M * 3 * D, ("w13", "w2"),
+                lambda i: mb.mlp_block_stacked(x, rms_ffn[i % L], w1, w3, w2, i % L, eps),
+                lambda i: mb.mlp_block_plain(x, rms_ffn[i % L], w1, w3, w2, i % L, eps),
+                lambda i: composed(i, False, False)),
+    }
+    rows = {}
+    for tag in tags:
+        wbytes, abytes, used, kern, plain, comp = cases[tag]
+        kname, line = MLP_LINES[tag]
+        wrapper = getattr(mb, kname)
+        forms = {f: getattr(wrapper, f"launches_{f}", None) for f in ("mma", "fma")}
+        got, want = kern(3), plain(3)
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        err = max(compare(g_, w_, dtype, mlp_tolerance(dtype, w_)) for g_, w_ in zip(got, want))
+        form = ",".join(f for f, n in forms.items() if n is not None and getattr(wrapper, f"launches_{f}") > n)
+        ms, qk = time_ms(kern, 128, cycles_per_ms)
+        plain_ms, qp = time_ms(plain, 8, cycles_per_ms, n_warm=1)
+        # many small ops a call: few enough calls that the launch queue holds them all
+        comp_ms, qc = time_ms(comp, 32, cycles_per_ms, slack=3.0)
+        nbytes = wbytes + 4 * wbytes // GROUP + abytes  # one f32 scale per 64 values
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * M * wbytes / PEAK_FLOPS["bf16"] * 1e3
+        bound, by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+        name = f"{kname}[{dn},M={M}]"
+        say("time", kernel=name, tag=tag, M=M, form=form or "not_counted", ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", composed_route_ms=f"{comp_ms:.4f}",
+            library_ms="none_(no_single_call)",
+            matmul_on_dequantized_sum_ms=f"{sum(matmul_ms[m] for m in used):.4f}",
+            bound_ms=f"{bound:.4f}", bound_by=by, share_of_bound=f"{bound / ms:.3f}",
+            MB=f"{nbytes / 1e6:.1f}", GB_per_s=f"{nbytes / ms / 1e6:.0f}", max_abs_err=f"{err:.3e}",
+            queued_kernel_plain_composed=f"{qk},{qp},{qc}")
+        rows[tag] = {
+            "name": name, "route": "cuda", "source": "llama2_tpu_torch/csrc/mlp_block.cu",
+            "replaces": f"llama2_tpu/ops/pallas/mlp_block.py:{line}", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": None,
+        }
+    return rows
+
+
 def phase_timing_q8(launches: dict, cycles_per_ms: float) -> list[dict]:
     """K5/K6 at the 7B shapes, M = 1 (a decode step) and M = 201 (the
     prefill chunk), fast mode on bf16 activations and accurate mode on fp32;
-    K10-K12 at M = 1 on bf16 activations; and K4 at pos 256 and 4095. Call i
-    reads layer i % 32 of a 32-layer stack, as the decode step does, so
-    weights come from device memory.
+    K10-K12 at M = 1 and K12, K11 at the served tick's M = 8 on bf16
+    activations (``mlp_timing``), K13 at 8 rows (``k13_batch_timing``); and K4
+    at pos 256 and 4095. Call i reads layer i % 32 of a 32-layer stack, as
+    the decode step does, so weights come from device memory.
 
     Bound: each weight byte, scale and activation once (K*N + 4*(K/G)*N +
     activations) over the memory rate, or 2*M*K*N operations over the bf16
@@ -2877,7 +3001,8 @@ def phase_timing_q8(launches: dict, cycles_per_ms: float) -> list[dict]:
     launches and the plain rmsnorm, swiglu and add between them, as the
     ``w13`` layout runs them) and the sum of the matmul yardsticks instead.
     ``launches``: the Q8 routes' counts, by the names ``main`` gives them
-    (the M = 201 rows: the accurate route's prefill-chunk tile launches).
+    (the M = 201 rows: the accurate route's prefill-chunk tile launches; the
+    8-row rows: the served runs', "served").
     """
     import torch
     import torch.nn.functional as F
@@ -2901,7 +3026,6 @@ def phase_timing_q8(launches: dict, cycles_per_ms: float) -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     params = all_layouts(random_q8_params(config_7b(L), SEED + 5, "cuda", torch.bfloat16, group_size=GROUP))
     rows = []
-    matmul_ms = {}  # the bf16 matmul yardstick at M = 1, by weight
     src = "llama2_tpu_torch/csrc/quant_matmul.cu"
     for mode, dtype in (("fast", torch.bfloat16), ("accurate", torch.float32)):
         dn = dtype_name(dtype)
@@ -2935,8 +3059,6 @@ def phase_timing_q8(launches: dict, cycles_per_ms: float) -> list[dict]:
                     GB_per_s=f"{nbytes / ms / 1e6:.0f}",
                     TFLOP_per_s=f"{2 * M * K * N / ms / 1e9:.2f}", max_abs_err=f"{err:.3e}",
                     queued_kernel_plain_library=f"{qk},{qp},{ql}")
-                if M == 1 and mode == "fast":
-                    matmul_ms[name] = lib_ms
                 # the kernel line's rows: the main path's decode rows, and the
                 # accurate route's prefill chunk (K6 on the accurate M > 8 tile)
                 if name in (("wqkv", "wcls") if M == 1 else ("w13",) if mode == "accurate" else ()):
@@ -2951,73 +3073,20 @@ def phase_timing_q8(launches: dict, cycles_per_ms: float) -> list[dict]:
                     })
             del wd
 
-    # K10-K12: one decode row of bf16 activations
-    dtype, dn, esize = torch.bfloat16, "bf16", 2
-    D, HD = Q8_SHAPES["w1"]
-    Dq = Q8_SHAPES["wqkv"][1]
-    eps = 1e-5
-    wo, w1, w3, w2, w13, wqkv = (params[k] for k in ("wo", "w1", "w3", "w2", "w13", "wqkv"))
-    rms_ffn, rms_att = params["rms_ffn"], params["rms_att"]
-    x = torch.randn((1, D), generator=gen, device="cuda").to(dtype)
-    att = torch.randn((1, D), generator=gen, device="cuda").to(dtype)
-
-    def composed(i, with_wo, with_qkv):
-        """The route of the w13 layout, as models/llama.py runs it."""
-        l, nxt = i % L, min(i % L + 1, L - 1)
-        r = quant_matmul_stacked(att, wo, l, residual=x) if with_wo else x
-        h13 = quant_matmul_stacked(ref.rmsnorm(r, rms_ffn[l], eps), w13, l)
-        out = r + quant_matmul_stacked(ref.swiglu(h13[..., :HD], h13[..., HD:]), w2, l)
-        if with_qkv:
-            return out, quant_matmul_stacked(out, wqkv, nxt, rms_w=rms_att[nxt], eps=eps)
-        return out
-
-    weights = D * D + 3 * D * HD + D * Dq  # int8 bytes of K12; K11 and K10 read fewer
-    cases = (
-        ("K12", "layer_tail_qkv_stacked", 792, launches["fast"]["K12"], weights,
-         esize * (5 * D + Dq), ("wo", "w13", "w2", "wqkv"),
-         lambda i: mb.layer_tail_qkv_stacked(att, x, wo, rms_ffn, w1, w3, w2, rms_att, wqkv, i % L, eps),
-         lambda i: mb.layer_tail_qkv_plain(att, x, wo, rms_ffn, w1, w3, w2, rms_att, wqkv, i % L, eps),
-         lambda i: composed(i, True, True)),
-        ("K11", "attn_mlp_block_stacked", 463, launches["fast"]["K11"], weights - D * Dq,
-         esize * 4 * D, ("wo", "w13", "w2"),
-         lambda i: mb.attn_mlp_block_stacked(att, x, wo, rms_ffn[i % L], w1, w3, w2, i % L, eps),
-         lambda i: mb.attn_mlp_block_plain(att, x, wo, rms_ffn[i % L], w1, w3, w2, i % L, eps),
-         lambda i: composed(i, True, False)),
-        ("K10", "mlp_block_stacked", 850, launches["ffn-only"]["K10"], 3 * D * HD,
-         esize * 3 * D, ("w13", "w2"),
-         lambda i: mb.mlp_block_stacked(x, rms_ffn[i % L], w1, w3, w2, i % L, eps),
-         lambda i: mb.mlp_block_plain(x, rms_ffn[i % L], w1, w3, w2, i % L, eps),
-         lambda i: composed(i, False, False)),
-    )
-    for tag, kname, line, n_launch, wbytes, abytes, mats, kern, plain, comp in cases:
-        got, want = kern(3), plain(3)
-        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
-        err = max(compare(g_, w_, dtype, mlp_tolerance(dtype, w_)) for g_, w_ in zip(got, want))
-        ms, qk = time_ms(kern, 128, cycles_per_ms)
-        plain_ms, qp = time_ms(plain, 8, cycles_per_ms, n_warm=1)
-        # many small ops a call: few enough calls that the launch queue holds them all
-        comp_ms, qc = time_ms(comp, 32, cycles_per_ms, slack=3.0)
-        nbytes = wbytes + 4 * wbytes // GROUP + abytes  # one f32 scale per 64 values
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = 2 * wbytes / PEAK_FLOPS["bf16"] * 1e3  # M = 1: two operations a weight
-        bound, by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-        say("time", kernel=f"{kname}[{dn},M=1]", tag=tag, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-            composed_route_ms=f"{comp_ms:.4f}", library_ms="none_(no_single_call)",
-            matmul_on_dequantized_sum_ms=f"{sum(matmul_ms[m] for m in mats):.4f}",
-            bound_ms=f"{bound:.4f}", bound_by=by, MB=f"{nbytes / 1e6:.1f}",
-            GB_per_s=f"{nbytes / ms / 1e6:.0f}", max_abs_err=f"{err:.3e}",
-            queued_kernel_plain_composed=f"{qk},{qp},{qc}")
-        rows.append({
-            "name": f"{kname}[{dn},M=1]", "route": "cuda",
-            "source": "llama2_tpu_torch/csrc/mlp_block.cu",
-            "replaces": f"llama2_tpu/ops/pallas/mlp_block.py:{line}", "launches": n_launch,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by, "library_ms": None,
-        })
+    # K10-K12: one decode row of bf16 activations; K12 and K11 at the served
+    # tick's 8 rows (the tensor-core form)
+    mats = {k: dequantize(params[k][:4], torch.bfloat16) for k in ("wo", "w13", "w2", "wqkv")}
+    for M, tags in ((1, ("K12", "K11", "K10")), (8, ("K12", "K11"))):
+        for tag, r in mlp_timing(params, mats, M, tags, cycles_per_ms, gen).items():
+            n_launch = (launches["fast"][tag] if tag != "K10" else launches["ffn-only"]["K10"]) if M == 1 \
+                else launches["served"][tag]
+            rows.append({**r, "launches": n_launch})
+    del mats
+    rows.append({**k13_batch_timing(params, cycles_per_ms), "launches": launches["served"]["K13"]})
     kv_launches = {"K7": launches["int8kv"]["spec"]["K7"], "K8": launches["int8kv-accurate"]["K8"],
                    "K9": launches["int8kv-two-launch"]["K9"], "K13": launches["int8kv"]["K13"]}
     rows += phase_timing_q8kv(params, kv_launches, cycles_per_ms)
-    del params, wo, w1, w3, w2, w13, wqkv, cases
+    del params
     torch.cuda.empty_cache()
 
     # K4 on the fast path's bf16 cache
@@ -3070,6 +3139,115 @@ def phase_timing_q8(launches: dict, cycles_per_ms: float) -> list[dict]:
     del kc, vc
     torch.cuda.empty_cache()
     return rows
+
+
+def k13_batch_timing(params, cycles_per_ms: float) -> dict:
+    """K13 at the dense engine's 8 rows over a 32-layer int8 cache at the 7B
+    widths, every row at pos 256 and at 4095 (call i on layer i % 32),
+    against its plain version (K13_PLAIN_TOL), beside its bound (K12's
+    weights, scales and activations and the K/V rows of keys 0..pos of the
+    8 rows once, or two operations a weight a row and 4 * hs a (query head,
+    key) pair, over the bf16 peak) and the K9 + K12 pair it replaces, queued
+    back to back. Returns the kernel line's row at pos 256, without
+    ``launches``."""
+    import torch
+
+    from llama2_tpu_torch.ops.cuda import attention_q8 as aq
+    from llama2_tpu_torch.ops.cuda import layer_block as lb
+    from llama2_tpu_torch.ops.cuda import mlp_block as mb
+
+    dtype, dn, esize = torch.bfloat16, "bf16", 2
+    L, B, (H, KVH, hs) = 32, SERVE_SLOTS, LAYOUTS["7B"]
+    D = H * hs
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    shape = (L, B, KVH, S, hs)
+    k8 = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+    v8 = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+    ks = 0.02 + 0.01 * torch.rand(shape[:-1], generator=gen, device="cuda")
+    vs = 0.02 + 0.01 * torch.rand(shape[:-1], generator=gen, device="cuda")
+    qkv = randn(B, H + 2 * KVH, hs).to(dtype)
+    x = randn(B, D).to(dtype)
+    weights = [params[k] for k in ("wo", "rms_ffn", "w1", "w3", "w2", "rms_att", "wqkv")]
+    wbytes = sum(params[k].q[0].numel() for k in ("wo", "w1", "w3", "w2", "wqkv"))
+    row = None
+    for p in (256, S - 1):
+        pos = torch.full((B,), p, dtype=torch.int32, device="cuda")
+        cos_il, sin_il = rope_tables(pos, hs)
+
+        def kern(i):
+            return lb.layer_block_stacked(qkv, x, k8, ks, v8, vs, cos_il, sin_il, *weights, i % L, pos,
+                                          n_heads=H)
+
+        def plain(i):
+            return lb.layer_block_stacked_plain(qkv, x, k8, ks, v8, vs, cos_il, sin_il, *weights, i % L, pos,
+                                                n_heads=H)
+
+        def pair(i):
+            att = aq.flash_decode_attention_q8_fused(qkv, k8, ks, v8, vs, cos_il, sin_il, i % L, pos, n_heads=H)
+            return mb.layer_tail_qkv_stacked(att.reshape(B, D), x, *weights[:6], weights[6], i % L)
+
+        n0 = getattr(lb.layer_block_stacked, "launches_mma", None)
+        got, want = kern(0), plain(0)
+        torch.cuda.synchronize()
+        form = "not_counted" if n0 is None else "mma" if lb.layer_block_stacked.launches_mma > n0 else "fma"
+        err = max(compare(g_, w_, dtype, (2**-7, K13_PLAIN_TOL * float(w_.float().abs().max())))
+                  for g_, w_ in zip(got, want))
+        ms, qk = time_ms(kern, 64, cycles_per_ms)
+        plain_ms, qp = time_ms(plain, 4, cycles_per_ms, n_warm=1)
+        pair_ms, qy = time_ms(pair, 64, cycles_per_ms)
+        nbytes = (wbytes + 4 * wbytes // GROUP + esize * B * (4 * D + 2 * (H + 2 * KVH) * hs)
+                  + B * KVH * (p + 1) * (2 * hs + 8) + 8 * B * hs)
+        flops = 2 * B * wbytes + 4 * hs * B * H * (p + 1)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS["bf16"] * 1e3
+        bound, by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+        name = f"layer_block_stacked[{dn},M={B}]"
+        say("time", kernel=name, pos=p, form=form, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            yardstick_K9_K12_pair_ms=f"{pair_ms:.4f}", library_ms="none_(no_single_call)",
+            bound_ms=f"{bound:.4f}", bound_by=by, share_of_bound=f"{bound / ms:.3f}",
+            MB=f"{nbytes / 1e6:.1f}", GB_per_s=f"{nbytes / ms / 1e6:.0f}", max_abs_err=f"{err:.3e}",
+            queued_kernel_plain_yardstick=f"{qk},{qp},{qy}")
+        if p == 256:
+            row = {"name": name, "route": "cuda", "source": "llama2_tpu_torch/csrc/mlp_block.cu",
+                   "replaces": "llama2_tpu/ops/pallas/layer_block.py:749", "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": None}
+    del k8, v8, ks, vs
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_tick_timing(cycles_per_ms: float) -> None:
+    """The served decode tick's kernels alone, for comparing two trees in one
+    call: ``python3 chip_smoke.py --tick-timing`` runs it and nothing else.
+    At the 7B widths, bf16 activations: K12 (with its qkv phase), K11 and K10
+    at M = 1, 2, 4 and 8 (``mlp_timing``: beside the composed route and the
+    summed bf16 matmuls on the dequantized weights at the same M); K13 at 8
+    rows at pos 256 and 4095 (``k13_batch_timing``: beside the K9 + K12 pair);
+    K16 and K18 at 8 slots on 256-row pages at pos 256 and 4095
+    (``phase_timing_paged``: beside the dense twin K8 / K9 and SDPA on the
+    gathered rows), and K18 at pos 4095 at other split counts where the tree
+    has ``q8_plan``. Each with its bound and its plain version. It calls the
+    wrappers by their public signatures only, so this script also times an
+    older checkout: copy it into one and run it from that checkout's root."""
+    import torch
+
+    from llama2_tpu_torch.io.convert import random_q8_params
+    from llama2_tpu_torch.quant.q8 import dequantize
+
+    params = all_layouts(random_q8_params(config_7b(32), SEED + 5, "cuda", torch.bfloat16, group_size=GROUP))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    mats = {k: dequantize(params[k][:4], torch.bfloat16) for k in ("wo", "w13", "w2", "wqkv")}
+    for M in (1, 2, 4, 8):
+        mlp_timing(params, mats, M, ("K12", "K11", "K10"), cycles_per_ms, gen)
+    del mats
+    k13_batch_timing(params, cycles_per_ms)
+    del params
+    torch.cuda.empty_cache()
+    phase_timing_paged({"K16": 0, "K18": 0}, cycles_per_ms, tags=("K16", "K18"), sweep=True)
 
 
 def phase_timing_q8kv(params, launches: dict, cycles_per_ms: float) -> list[dict]:
@@ -3199,7 +3377,8 @@ def phase_timing_q8kv(params, launches: dict, cycles_per_ms: float) -> list[dict
 PAGED_LINES = {"K15": 364, "K16": 629, "K17": 824, "K18": 1015}
 
 
-def phase_timing_paged(launches: dict, cycles_per_ms: float) -> list[dict]:
+def phase_timing_paged(launches: dict, cycles_per_ms: float, tags=("K15", "K16", "K17", "K18"),
+                       sweep: bool = False) -> list[dict]:
     """K15-K18 at the served path's shapes: 8 slots at the 7B head layout,
     256-row pages handed out shuffled, every slot at pos 256 and at 4095,
     bf16 activations over a bf16 pool (K15, K17) and an int8 pool (K16,
@@ -3210,7 +3389,9 @@ def phase_timing_paged(launches: dict, cycles_per_ms: float) -> list[dict]:
     key) pair over the bf16 peak. No PyTorch call computes paged attention,
     so ``library_ms`` is null; printed beside it are SDPA on a dense bf16
     cache of the same lengths and the dense twin kernel (K2, K8, K4, K9) on
-    the same rows gathered into a dense cache."""
+    the same rows gathered into a dense cache. ``tags``: the kernels timed;
+    ``sweep``: K18 at pos 4095 also at other split counts (``q8_plan``'s
+    ``splits``), where the tree has that plan."""
     import torch
     import torch.nn.functional as F
 
@@ -3291,6 +3472,8 @@ def phase_timing_paged(launches: dict, cycles_per_ms: float) -> list[dict]:
              kv_q8 + esize * B * (H + 2 * KVH + H) * hs + 8 * B * hs),
         )
         for tag, name, kern, plain, twin, twin_tag, nbytes in cases:
+            if tag not in tags:
+                continue
             got, want = kern(0)[0], plain(0)[0]
             torch.cuda.synchronize()
             if tag in ("K16", "K18"):
@@ -3311,8 +3494,18 @@ def phase_timing_paged(launches: dict, cycles_per_ms: float) -> list[dict]:
             say("time", kernel=f"{name}[{dn},B={B}]", pos=p, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
                 **{f"dense_twin_{twin_tag}_ms": f"{twin_ms:.4f}"}, yardstick_SDPA_bf16_cache_ms=f"{sdpa_ms:.4f}",
                 library_ms="none_(no_single_call)", bound_ms=f"{bound:.4f}", bound_by=by,
+                share_of_bound=f"{bound / ms:.3f}",
                 MB=f"{nbytes / 1e6:.2f}", GB_per_s=f"{nbytes / ms / 1e6:.0f}", max_abs_err=f"{err:.3e}",
                 queued_kernel_plain_twin_sdpa=f"{qk},{qp},{qt_},{qs}")
+            if sweep and tag == "K18" and p == S - 1 and hasattr(tpa, "q8_plan"):
+                own = tpa.q8_plan(B, H, KVH, S, hs, aq._sms(torch.cuda.current_device()))["splits"]
+                times = {}
+                for sp in sorted({1, 2, 3, 4, 6, 8, own}):
+                    times[sp] = time_ms(lambda i, sp=sp: tpa._q8_launch(
+                        tpa.paged_decode_attention_q8_fused, "fused", qkv, q8, table, wpage, wrow, i % L, pos, H,
+                        qkv=qkv, rope=(cos_il, sin_il), splits=sp), n_iter, cycles_per_ms)[0]
+                say("tick-split", kernel=f"{name}[{dn},B={B}]", pos=p, plan_splits=own,
+                    **{f"ms_at_{sp}": f"{t:.4f}" for sp, t in times.items()})
             if p == 256:  # the kernel line's rows; full context is printed and kept in PERF.md
                 rows.append({
                     "name": f"{name}[{dn},B={B}]", "route": "cuda", "source": src,
@@ -3740,6 +3933,10 @@ def main() -> int:
         phase_prefill_timing(sleep_cycles_per_ms())
         print(smi)
         return 0
+    if sys.argv[1:] == ["--tick-timing"]:
+        phase_tick_timing(sleep_cycles_per_ms())
+        print(smi)
+        return 0
     phase_kernels()
     phase_kernels_q8()
     phase_kernels_mlp()
@@ -3767,6 +3964,10 @@ def main() -> int:
         "composed": phase_generate_q8("composed", "cuda", torch.bfloat16, 8),
         "ffn-only": phase_generate_q8("ffn-only", "cuda", torch.bfloat16, 2),
         "accurate": phase_generate_q8("accurate", "cuda-accurate", torch.float32, speculative=True),
+        # the 8-row megakernels: the served runs over both pools (K11, K12),
+        # the dense engine over the int8 cache (K13)
+        "served": {"K12": served[False]["K12"] + served[True]["K12"],
+                   "K11": served[False]["K11"] + served[True]["K11"], "K13": served[True]["dense-K13"]},
     }
     launches = {}
     for dtype in (torch.bfloat16, torch.float32):

@@ -1,8 +1,9 @@
 // Attention over the int8 KV cache: the device code shared by the kernels of
-// attention_q8.cu (K7 window, K8 stacked append, K9 glue-fused), by the
-// attention phase of the whole-layer kernel in mlp_block.cu (K13) and, over
-// page pools read through a page table (att_item<true>), by the paged kernels
-// of paged_attention.cu (K16 append, K18 glue-fused).
+// attention_q8.cu (K7 window, K8 stacked append, K9 glue-fused) and the
+// attention phase of the whole-layer kernel in mlp_block.cu (K13), all on
+// att_item; and, over page pools read through a page table, the split decode
+// loop att_split of the paged kernels of paged_attention.cu (K16 append, K18
+// glue-fused; see its own note below).
 //
 // Cache: int8 K/V rows (L, B, KVH, S, hs) with one float32 scale per row,
 // (L, B, KVH, S). Arithmetic, as the Pallas kernels of
@@ -86,7 +87,7 @@ struct Params {
   int* tickets;         // B * KVH * n_rg; zero on entry and on exit
   int mode, dtype, layer, L, B, T, H, KVH, S, hs, nsplit, n_rg;
   float scale;
-  // paged pools (att_item<true>): k8/v8 (L, P, KVH, page, hs) and ks/vs
+  // paged pools (att_split): k8/v8 (L, P, KVH, page, hs) and ks/vs
   // (L, P, KVH, page); row t of slot b in page table[b, t / page] at row
   // t % page; this step's row written at (wpage[b], wrow[b])
   const int* table;  // (B, max_pages)
@@ -172,12 +173,8 @@ __device__ __forceinline__ void stage_rows(const int8_t* src, int8_t* dst, int n
 }
 
 // One work item: (b, kv head, row group, split). Called by all threads of a
-// block of kThreads; `sm` is the block's shared memory. kPaged: the caches
-// are page pools read through the table (K16, K18), else dense planes. Key
-// rows are staged a chunk at a time, a chunk one contiguous run of rows: of
-// the plane, or of one page (a chunk ends at a page boundary; with
-// page % 32 == 0 every chunk is a whole kCK rows of one page).
-template <bool kPaged = false>
+// block of kThreads; `sm` is the block's shared memory. Key rows are staged
+// a chunk at a time, a chunk one contiguous run of rows of the plane.
 __device__ void att_item(const Params& a, int item, Smem& sm) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int hs = a.hs, H = a.H, KVH = a.KVH, G = H / KVH;
@@ -197,20 +194,11 @@ __device__ void att_item(const Params& a, int item, Smem& sm) {
   const int rsb = round4(hs) + 4;  // staged row stride, bytes (4-byte words, no bank conflicts at 128)
   const bool fused = a.mode == kFused || a.mode == kLayer;
   const bool has_new = a.mode != kWindow;
-  // the row index (of the scale arrays; times hs for the rows) of key t
+  // the row index (of the scale arrays; times hs for the rows) of key t is
+  // row0 + t; this step's row is written at new_row, and the key whose row
+  // this is takes the new row from shared memory and never reads it back
   const size_t row0 = (((size_t)a.layer * a.B + b) * KVH + kvh) * (size_t)a.S;  // dense plane's row 0
-  const int* table = kPaged ? a.table + (size_t)b * a.max_pages : nullptr;
-  auto row_at = [&](int pg, int r) -> size_t {
-    return (((size_t)a.layer * a.P + pg) * KVH + kvh) * (size_t)a.page + r;
-  };
-  auto key_row = [&](int t) -> size_t {
-    if constexpr (kPaged) return row_at(table[t / a.page], t % a.page);
-    return row0 + t;
-  };
-  // where this step's row is written; the key whose row this is takes the
-  // new row from shared memory and never reads it back
-  size_t new_row = row0 + pos;
-  if constexpr (kPaged) new_row = row_at(a.wpage[b], a.wrow[b]);
+  const size_t new_row = row0 + pos;
   const size_t qkv_row = (size_t)b * (H + 2 * KVH);
   // the splits this row's context fills, a chunk each at least (the launch
   // has nsplit for the whole cache): the others return at once, and the last
@@ -313,8 +301,7 @@ __device__ void att_item(const Params& a, int item, Smem& sm) {
   int nvalid = 0;
   for (int c0 = t_begin; c0 < t_end; c0 += nvalid) {
     nvalid = min(kCK, t_end - c0);
-    if constexpr (kPaged) nvalid = min(nvalid, a.page - c0 % a.page);
-    const size_t rc = key_row(c0);  // the chunk's rows are rc .. rc + nvalid - 1
+    const size_t rc = row0 + c0;  // the chunk's rows are rc .. rc + nvalid - 1
     __syncthreads();  // the previous chunk's rows and products are read
     stage_rows(a.k8 + rc * hs, sm.k, nvalid * hs, hs, rsb, vec16);
     stage_rows(a.v8 + rc * hs, sm.v, nvalid * hs, hs, rsb, vec16);
@@ -468,6 +455,400 @@ __device__ void att_item(const Params& a, int item, Smem& sm) {
       a.out32[((size_t)b * H + h) * hs + d] = o;
     else
       store_act(a.out, (((size_t)b * T + t) * H + h) * hs + d, a.dtype, o);
+  }
+  if (tid == 0) a.tickets[group] = 0;
+}
+
+// ---------------------------------------------------------------------------
+// att_split: the T = 1 loop over paged int8 pools (K16 append, K18 fused).
+//
+// att_item was cut for windows of up to kRB query rows: at T = 1 with one
+// query row a kv head (Llama-2-7B), a whole block stages 32 keys at a time in
+// shared memory with four block barriers a chunk, and reads at a fifth of the
+// memory rate. Here a block takes one (b, kv head, group of up to NQ query
+// rows, split of the key range), and each warp walks its own runs of keys
+// with no block barrier in the loop: lane (r, j) takes key base + u * RPW + r
+// (RPW = 32 / LPR rows a warp load, U loads a pass, all issued before any is
+// used) and bytes (nv * LPR + j) * VB .. + VB of its K and V rows, with the
+// rows' scales; a 7B row (128 bytes) is 8 lanes of 16-byte loads, 4 rows a
+// warp load. Every query row of the group shares each K/V row the block
+// reads (one at 7B, up to eight under GQA). A score is summed over the LPR
+// lanes of its row; the warp keeps one running max a query row, so the row
+// slots' l and acc add up at the end. The key addresses come from the table:
+// one division a pass finds the page of the pass's first key, and a key past
+// the page's end moves to the next table entry.
+//
+// Arithmetic as att_item's: q rounded to bf16; score = (q . k8) in float32
+// times (k_scale * scale); online softmax in float32 against the warp's
+// running max; bf16(p * v_scale) times the int8 value, summed in float32;
+// out = acc / l (IEEE division). The warps' states (m, l, acc) merge in warp
+// order in shared memory (weight exp(m_w - M), 0 for a warp that saw no
+// key); the splits of a (b, kv head, group) merge in split order through the
+// workspace, the last to draw the ticket merging, writing out and zeroing the
+// ticket (a row whose keys fill one split writes out at once). No float
+// atomics: the same inputs give the same bits.
+//
+// The split count comes from the host's plan (ops/cuda/paged_attention.py::
+// q8_plan: the shapes, the table's reach and the SM count, never pos); row
+// b's keys 0..pos[b] are cut into at most nsplit runs of whole passes of the
+// block (split_keys), so a short context takes only the splits it fills.
+// This step's row is the last key, pos[b]: the block of the last split
+// (kFused: RoPE and quantization, as att_item; kAppend: the given row) holds
+// it in shared memory, reads it from there, and (its first row group) writes
+// it to (wpage[b], wrow[b]); no block reads it back from the pool.
+template <int VB>
+struct I8Vec {  // VB int8 values loaded as one vector (the address aligned to it)
+  static constexpr int kWords = VB >= 4 ? VB / 4 : 1;
+  uint32_t w[kWords];
+  __device__ __forceinline__ void load(const int8_t* p) {
+    if constexpr (VB == 16) {
+      const uint4 v = *reinterpret_cast<const uint4*>(p);
+      w[0] = v.x;
+      w[1] = v.y;
+      w[2] = v.z;
+      w[3] = v.w;
+    } else if constexpr (VB == 4) {
+      w[0] = *reinterpret_cast<const uint32_t*>(p);
+    } else {
+      static_assert(VB == 2, "16-, 4- or 2-byte vectors");
+      w[0] = *reinterpret_cast<const unsigned short*>(p);
+    }
+  }
+  __device__ __forceinline__ float at(int i) const {
+    return static_cast<float>(static_cast<int8_t>(w[i >> 2] >> (8 * (i & 3))));
+  }
+};
+
+// The lane layout: VB bytes a vector, LPR lanes a row (a power of two), NV
+// vectors a lane a row, NQ query rows a block; U warp loads a pass.
+template <int VB, int LPR, int NV, int NQ>
+struct SplitShape {
+  static constexpr int kU = NQ == 1 ? 4 : 2;
+  static constexpr int kRowsPerWarp = 32 / LPR;
+  static constexpr int kWarpKeys = kU * kRowsPerWarp;  // keys of one warp pass
+  static constexpr int kChunk = kWarps * kWarpKeys;    // keys of one block pass
+  static constexpr int kElems = NV * VB;               // elements a lane holds of a row
+};
+
+// (ns, per): row b's n_keys keys in ns runs of per keys (whole chunks; the
+// last cut at n_keys), ns <= nsplit
+struct KeySplit {
+  int ns, per;
+};
+__host__ __device__ inline KeySplit split_keys(int n_keys, int nsplit, int chunk) {
+  const int chunks = (n_keys + chunk - 1) / chunk;
+  const int ns0 = nsplit < chunks ? nsplit : chunks > 0 ? chunks : 1;
+  const int per = ((n_keys + ns0 - 1) / ns0 + chunk - 1) / chunk * chunk;
+  return {(n_keys + per - 1) / per, per};
+}
+
+constexpr int kMaxNQ = 8;
+
+struct SplitSmem {
+  float wm[kWarps * kMaxNQ], wl[kWarps * kMaxNQ];  // the warps' (m, l) a query row
+  float w[kMaxSplit * kMaxNQ];                      // the merge: each state's weight
+  float M[kMaxNQ], L[kMaxNQ];
+  float kf[kMaxHs], vf[kMaxHs];  // kFused: the new rows in float32
+  alignas(16) int8_t kn[kMaxHs];  // this step's quantized K and V rows (vector loads)
+  alignas(16) int8_t vn[kMaxHs];
+  float kn_s, vn_s;
+  float red[kWarps];
+  int last;
+};
+
+// floats of the dynamic shared memory att_split takes: the warps' acc
+__host__ __device__ constexpr int split_acc_floats(int nq, int hs) { return kWarps * nq * hs; }
+
+template <int VB, int LPR, int NV, int NQ>
+__device__ void att_split(const Params& a, SplitSmem& sm, float* wacc) {
+  using Shape = SplitShape<VB, LPR, NV, NQ>;
+  constexpr int U = Shape::kU, RPW = Shape::kRowsPerWarp, E = Shape::kElems;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r = lane / LPR, j = lane % LPR;
+  const int hs = a.hs, H = a.H, KVH = a.KVH, G = H / KVH;
+  const int item = blockIdx.x;
+  const int split = item % a.nsplit;
+  const int group = item / a.nsplit;  // (b, kv head, row group): its ticket
+  const int rg = group % a.n_rg;
+  const int kvh = (group / a.n_rg) % KVH;
+  const int b = group / a.n_rg / KVH;
+  const int q0 = rg * NQ;  // the group's first query row of the kv head
+  const int nq = min(NQ, G - q0);
+  const int pos = a.pos[b];
+  const int n_keys = pos + 1;
+  const KeySplit ks = split_keys(n_keys, a.nsplit, Shape::kChunk);
+  if (split >= ks.ns) return;
+  const int t_begin = split * ks.per;
+  const int t_end = min(n_keys, t_begin + ks.per);
+  const bool holds_new = t_end == n_keys;  // the last split: key pos is this step's row
+  const bool fused = a.mode == kFused;
+  const size_t qkv_row = (size_t)b * (H + 2 * KVH);
+
+  // this lane's elements of a row: e[nv] .. e[nv] + VB - 1 (a lane past hs
+  // re-reads the last vector; its q is 0)
+  int e[NV];
+#pragma unroll
+  for (int nv = 0; nv < NV; ++nv) e[nv] = min((nv * LPR + j) * VB, hs - VB);
+  float qv[NQ][E];
+#pragma unroll
+  for (int qq = 0; qq < NQ; ++qq)
+#pragma unroll
+    for (int nv = 0; nv < NV; ++nv)
+#pragma unroll
+      for (int i = 0; i < VB; ++i) {
+        const int d = (nv * LPR + j) * VB + i;
+        float val = 0.f;
+        if (qq < nq && d < hs) {
+          const int h = kvh * G + q0 + qq;
+          if (fused) {
+            const size_t base = (qkv_row + h) * hs;
+            val = rope_elem(load_act(a.qkv, base + d, a.dtype), load_act(a.qkv, base + (d ^ 1), a.dtype),
+                            a.cos_il[(size_t)b * hs + d], a.sin_il[(size_t)b * hs + d], d & 1);
+          } else {
+            val = load_act(a.q, ((size_t)b * H + h) * hs + d, a.dtype);
+          }
+          val = round_bf16(val);
+        }
+        qv[qq][nv * VB + i] = val;
+      }
+
+  // this step's K and V rows: rotated and quantized here, or given
+  const size_t new_row = (((size_t)a.layer * a.P + a.wpage[b]) * KVH + kvh) * (size_t)a.page + a.wrow[b];
+  if (holds_new) {
+    if (fused) {
+      const size_t kb = (qkv_row + H + kvh) * hs, vb = (qkv_row + H + KVH + kvh) * hs;
+      float kmax = 0.f, vmax = 0.f;
+      for (int d = tid; d < hs; d += kThreads) {
+        const float kr = rope_elem(load_act(a.qkv, kb + d, a.dtype), load_act(a.qkv, kb + (d ^ 1), a.dtype),
+                                   a.cos_il[(size_t)b * hs + d], a.sin_il[(size_t)b * hs + d], d & 1);
+        const float vr = load_act(a.qkv, vb + d, a.dtype);
+        sm.kf[d] = kr;
+        sm.vf[d] = vr;
+        kmax = fmaxf(kmax, fabsf(kr));
+        vmax = fmaxf(vmax, fabsf(vr));
+      }
+      kmax = block_max(kmax, sm.red);
+      vmax = block_max(vmax, sm.red);
+      const float ksc = __fdiv_rn(kmax, 127.f), vsc = __fdiv_rn(vmax, 127.f);
+      const float ksafe = fmaxf(ksc, 1e-20f), vsafe = fmaxf(vsc, 1e-20f);
+      for (int d = tid; d < hs; d += kThreads) {
+        sm.kn[d] = quant_elem(sm.kf[d], ksafe);
+        sm.vn[d] = quant_elem(sm.vf[d], vsafe);
+      }
+      if (tid == 0) {
+        sm.kn_s = ksc;
+        sm.vn_s = vsc;
+      }
+    } else {
+      const size_t nb = (size_t)b * KVH + kvh;
+      for (int d = tid; d < hs; d += kThreads) {
+        sm.kn[d] = a.k_new[nb * hs + d];
+        sm.vn[d] = a.v_new[nb * hs + d];
+      }
+      if (tid == 0) {
+        sm.kn_s = a.ks_new[nb];
+        sm.vn_s = a.vs_new[nb];
+      }
+    }
+    __syncthreads();
+    if (rg == 0) {  // the append, once a (b, kv head)
+      for (int d = tid; d < hs; d += kThreads) {
+        a.k8[new_row * hs + d] = sm.kn[d];
+        a.v8[new_row * hs + d] = sm.vn[d];
+      }
+      if (tid == 0) {
+        a.ks[new_row] = sm.kn_s;
+        a.vs[new_row] = sm.vn_s;
+      }
+    }
+  }
+
+  float m[NQ], l[NQ], acc[NQ][E];
+#pragma unroll
+  for (int qq = 0; qq < NQ; ++qq) {
+    m[qq] = -INFINITY;
+    l[qq] = 0.f;
+#pragma unroll
+    for (int i = 0; i < E; ++i) acc[qq][i] = 0.f;
+  }
+  const int* table = a.table + (size_t)b * a.max_pages;
+  const size_t layer_pages = (size_t)a.layer * a.P;
+  for (int base = t_begin + warp * Shape::kWarpKeys; base < t_end; base += kWarps * Shape::kWarpKeys) {
+    const int pb = base / a.page, rb = base - pb * a.page;  // the pass's first key: page, row
+    I8Vec<VB> kr[U][NV], vr[U][NV];
+    float ksc[U], vsc[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      // a key past t_end re-reads key t_end - 1 (its score is masked)
+      const int t = min(base + u * RPW + r, t_end - 1);
+      if (holds_new && t == pos) {
+#pragma unroll
+        for (int nv = 0; nv < NV; ++nv) {
+          kr[u][nv].load(sm.kn + e[nv]);
+          vr[u][nv].load(sm.vn + e[nv]);
+        }
+        ksc[u] = sm.kn_s;
+        vsc[u] = sm.vn_s;
+      } else {
+        int pi = pb, rr = rb + (t - base);
+        while (rr >= a.page) {
+          rr -= a.page;
+          ++pi;
+        }
+        const size_t row = ((layer_pages + table[pi]) * KVH + kvh) * (size_t)a.page + rr;
+#pragma unroll
+        for (int nv = 0; nv < NV; ++nv) {
+          kr[u][nv].load(a.k8 + row * hs + e[nv]);
+          vr[u][nv].load(a.v8 + row * hs + e[nv]);
+        }
+        ksc[u] = a.ks[row];
+        vsc[u] = a.vs[row];
+      }
+    }
+    float s[U][NQ];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const bool live = base + u * RPW + r < t_end;
+      const float kscale = ksc[u] * a.scale;
+#pragma unroll
+      for (int qq = 0; qq < NQ; ++qq) {
+        float part = 0.f;
+#pragma unroll
+        for (int nv = 0; nv < NV; ++nv)
+#pragma unroll
+          for (int i = 0; i < VB; ++i) part = fmaf(qv[qq][nv * VB + i], kr[u][nv].at(i), part);
+#pragma unroll
+        for (int o = LPR / 2; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+        s[u][qq] = live ? part * kscale : -INFINITY;
+      }
+    }
+#pragma unroll
+    for (int qq = 0; qq < NQ; ++qq) {
+      float smax = s[0][qq];
+#pragma unroll
+      for (int u = 1; u < U; ++u) smax = fmaxf(smax, s[u][qq]);
+#pragma unroll
+      for (int o = LPR; o < 32; o <<= 1) smax = fmaxf(smax, __shfl_xor_sync(0xffffffffu, smax, o));
+      // finite: key `base` < t_end is always in the pass
+      const float m_new = fmaxf(m[qq], smax);
+      const float alpha = expf(m[qq] - m_new);
+      l[qq] *= alpha;
+#pragma unroll
+      for (int i = 0; i < E; ++i) acc[qq][i] *= alpha;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float p = expf(s[u][qq] - m_new);
+        l[qq] += p;
+        const float pv = round_bf16(p * vsc[u]);
+#pragma unroll
+        for (int nv = 0; nv < NV; ++nv)
+#pragma unroll
+          for (int i = 0; i < VB; ++i)
+            acc[qq][nv * VB + i] = fmaf(pv, vr[u][nv].at(i), acc[qq][nv * VB + i]);
+      }
+      m[qq] = m_new;
+    }
+  }
+  // the warp's row slots share m: add their l and acc
+#pragma unroll
+  for (int o = LPR; o < 32; o <<= 1)
+#pragma unroll
+    for (int qq = 0; qq < NQ; ++qq) {
+      l[qq] += __shfl_xor_sync(0xffffffffu, l[qq], o);
+#pragma unroll
+      for (int i = 0; i < E; ++i) acc[qq][i] += __shfl_xor_sync(0xffffffffu, acc[qq][i], o);
+    }
+
+  // the warps' states into shared memory, merged in warp order
+  if (lane == 0)
+#pragma unroll
+    for (int qq = 0; qq < NQ; ++qq) {
+      sm.wm[warp * NQ + qq] = m[qq];
+      sm.wl[warp * NQ + qq] = l[qq];
+    }
+  if (r == 0)
+#pragma unroll
+    for (int nv = 0; nv < NV; ++nv) {
+      const int d0 = (nv * LPR + j) * VB;
+      if (d0 < hs)
+#pragma unroll
+        for (int qq = 0; qq < NQ; ++qq)
+#pragma unroll
+          for (int i = 0; i < VB; ++i) wacc[(warp * NQ + qq) * hs + d0 + i] = acc[qq][nv * VB + i];
+    }
+  __syncthreads();
+  if (tid < nq) {
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sm.wm[w * NQ + tid]);
+    float L = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float wt = sm.wm[w * NQ + tid] == -INFINITY ? 0.f : expf(sm.wm[w * NQ + tid] - M);
+      sm.w[w * NQ + tid] = wt;
+      L = fmaf(sm.wl[w * NQ + tid], wt, L);
+    }
+    sm.M[tid] = M;
+    sm.L[tid] = L;
+  }
+  __syncthreads();
+  auto warp_merged = [&](int qq, int d) {
+    float o = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) o = fmaf(wacc[(w * NQ + qq) * hs + d], sm.w[w * NQ + qq], o);
+    return o;
+  };
+  auto store = [&](int qq, int d, float o) {
+    store_act(a.out, ((size_t)b * H + kvh * G + q0 + qq) * hs + d, a.dtype, o);
+  };
+  if (ks.ns == 1) {
+    for (int i = tid; i < nq * hs; i += kThreads) {
+      const int qq = i / hs, d = i % hs;
+      store(qq, d, __fdiv_rn(warp_merged(qq, d), sm.L[qq]));
+    }
+    return;
+  }
+
+  // publish this split's state: m, l, then acc, a query row
+  const int stride = hs + 2;
+  float* states = a.ws + (size_t)group * a.nsplit * NQ * stride;
+  float* mine = states + (size_t)split * NQ * stride;
+  for (int i = tid; i < nq * hs; i += kThreads) {
+    const int qq = i / hs, d = i % hs;
+    mine[qq * stride + 2 + d] = warp_merged(qq, d);
+  }
+  if (tid < nq) {
+    mine[tid * stride] = sm.M[tid];
+    mine[tid * stride + 1] = sm.L[tid];
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) sm.last = atomicAdd(&a.tickets[group], 1) == ks.ns - 1;
+  __syncthreads();
+  if (!sm.last) return;
+  __threadfence();
+
+  // the last split merges the ns states in split order
+  if (tid < nq) {
+    float M = -INFINITY;
+    for (int sp = 0; sp < ks.ns; ++sp) M = fmaxf(M, __ldcg(states + ((size_t)sp * NQ + tid) * stride));
+    float L = 0.f;
+    for (int sp = 0; sp < ks.ns; ++sp) {
+      const float* st = states + ((size_t)sp * NQ + tid) * stride;
+      const float ms = __ldcg(st);
+      const float wt = ms == -INFINITY ? 0.f : expf(ms - M);
+      sm.w[sp * NQ + tid] = wt;
+      L = fmaf(__ldcg(st + 1), wt, L);
+    }
+    sm.L[tid] = L;
+  }
+  __syncthreads();
+  for (int i = tid; i < nq * hs; i += kThreads) {
+    const int qq = i / hs, d = i % hs;
+    float o = 0.f;
+    for (int sp = 0; sp < ks.ns; ++sp)
+      o = fmaf(__ldcg(states + ((size_t)sp * NQ + qq) * stride + 2 + d), sm.w[sp * NQ + qq], o);
+    store(qq, d, __fdiv_rn(o, sm.L[qq]));
   }
   if (tid == 0) a.tickets[group] = 0;
 }

@@ -1,7 +1,9 @@
-// Tensor-core and asynchronous-copy helpers shared by the prefill kernels:
-// the bf16 mma.sync product and its ldmatrix operand loads, the TF32 product
-// and the hi + lo split of a float32 operand (K1's prefill_attention.cu),
-// cp.async into shared memory (K1, and the M > 8 tile of quant_matmul.cu).
+// Tensor-core and asynchronous-copy helpers shared by the prefill kernels
+// and the FFN megakernels: the bf16 mma.sync product and its ldmatrix operand
+// loads, the TF32 product and the hi + lo split of a float32 operand (K1's
+// prefill_attention.cu), cp.async into shared memory (K1, and the M > 8 tile
+// of quant_matmul.cu), and the exact int8 -> bf16 pair conversion (the M > 8
+// tile, and mlp_block.cu's tensor-core phases).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -78,11 +80,31 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Asynchronous copies of 16 or 4 bytes from global to shared memory. With
+// Byte `sel & 3` of lo and byte `sel & 3` of hi (sel = 0x0400 + c * 0x0101
+// for byte c), read as int8, as one bf16 pair (lo's in the lower half),
+// exactly: with the bf16 bits 0x4300 | (b & 0x7f) = 128 + (b & 127) and
+// 0x4300 | (b & 0x80) = 128 or 256 (b >= 0 or < 0), the bf16 difference of
+// the two is b. A PRMT, two LOP3 and one bf16x2 subtraction.
+__device__ __forceinline__ uint32_t int8_pair_bf16(uint32_t lo, uint32_t hi, uint32_t sel) {
+  const uint32_t pair = __byte_perm(lo, hi, sel);  // byte c of each in bytes 0 and 2
+  const uint32_t m = (pair & 0x007f007fu) | 0x43004300u;
+  const uint32_t sub = (pair & 0x00800080u) | 0x43004300u;
+  const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&m),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&sub));
+  return *reinterpret_cast<const uint32_t*>(&d);
+}
+
+// Asynchronous copies of 16, 8 or 4 bytes from global to shared memory. With
 // src_bytes 0 the destination is zero-filled and nothing is read (the source
 // must still be a valid address).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(src_bytes)
                : "memory");
 }

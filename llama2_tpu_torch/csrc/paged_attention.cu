@@ -24,15 +24,15 @@
 // [layer, write_page[b], kvh, write_row[b]], and attention runs over keys
 // 0..pos[b]; a key whose address is the write address takes the new row.
 //
-// The device code is the dense kernels' own, with a row-address policy that
-// reads through the table: decode_attention.cuh for the fp pools (one block
-// a (b, query head), 8 warps over the keys; the dense K2/K4) and
-// attention_q8.cuh for the int8 pools (work items of (b, kv head, split of
-// the keys) merged in split order by a ticketed last split, no float atomics,
-// the same bits on a rerun; the dense K8/K9). A chunk of the int8 kernels'
-// staged keys ends at a page boundary, so each is one contiguous run of rows.
-// Offsets are 64-bit: at Llama-2-7B widths a pool of 64 pages holds 2^31
-// elements over its 32 layers.
+// The fp pools take the dense kernels' device code, decode_attention.cuh's
+// single-block loop with a row-address policy that reads through the table
+// (one block a (b, query head), 8 warps over the keys). The int8 pools take
+// attention_q8.cuh's split decode loop (att_split): a block a (b, kv head,
+// group of query rows, split of the keys), each warp on its own runs of keys
+// with 16-byte loads, the splits merged in split order by a ticketed last
+// split; no float atomics, the same bits on a rerun. Its arithmetic is the
+// dense K8/K9's. Offsets are 64-bit: at Llama-2-7B widths a pool of 64 pages
+// holds 2^31 elements over its 32 layers.
 //
 // Bound on this card: bytes. A step reads the K/V rows of keys 0..pos[b] of
 // every (b, kv head) once (plus two float32 scales a row over an int8 pool):
@@ -209,9 +209,49 @@ cudaError_t dispatch_read(const void* q, const void* kp, const void* vp, void* o
   return cudaErrorInvalidValue;
 }
 
+template <int VB, int LPR, int NV, int NQ>
 __global__ void __launch_bounds__(llama2::q8a::kThreads) paged_attention_q8_kernel(const llama2::q8a::Params a) {
-  __shared__ llama2::q8a::Smem sm;
-  llama2::q8a::att_item<true>(a, blockIdx.x, sm);
+  __shared__ __align__(16) llama2::q8a::SplitSmem sm;
+  extern __shared__ float wacc[];  // the warps' acc: split_acc_floats(NQ, hs)
+  llama2::q8a::att_split<VB, LPR, NV, NQ>(a, sm, wacc);
+}
+
+// One launch of the instance (VB, LPR, NV, NQ), if `chunk` is its block pass
+template <int VB, int LPR, int NV, int NQ>
+cudaError_t launch_q8(const llama2::q8a::Params& a, int chunk, cudaStream_t st) {
+  using namespace llama2::q8a;
+  if (chunk != SplitShape<VB, LPR, NV, NQ>::kChunk) return cudaErrorInvalidValue;
+  const int smem = split_acc_floats(NQ, a.hs) * (int)sizeof(float);
+  auto kernel = paged_attention_q8_kernel<VB, LPR, NV, NQ>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<a.B * a.KVH * a.n_rg * a.nsplit, kThreads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+// The instance of the plan (ops/cuda/paged_attention.py::q8_plan): nq query
+// rows a block (1, or 8 where a kv head has more than one), vb bytes a
+// vector load (16 for one row, 4 for eight, else 2), the lanes a row and the
+// vectors a lane from hs
+cudaError_t dispatch_q8(const llama2::q8a::Params& a, int vb, int nq, int chunk, cudaStream_t st) {
+  const int hs = a.hs;
+  if (nq == 1 && vb == 16 && hs % 16 == 0) {
+    if (hs <= 64) return launch_q8<16, 4, 1, 1>(a, chunk, st);
+    if (hs <= 128) return launch_q8<16, 8, 1, 1>(a, chunk, st);
+    return launch_q8<16, 16, 1, 1>(a, chunk, st);
+  }
+  if (nq == 8 && vb == 4 && hs % 4 == 0) {
+    if (hs <= 64) return launch_q8<4, 16, 1, 8>(a, chunk, st);
+    if (hs <= 128) return launch_q8<4, 32, 1, 8>(a, chunk, st);
+    return launch_q8<4, 32, 2, 8>(a, chunk, st);
+  }
+  if (vb == 2) {
+    if (nq == 1) return hs <= 64 ? launch_q8<2, 32, 1, 1>(a, chunk, st) : launch_q8<2, 32, 4, 1>(a, chunk, st);
+    if (nq == 8) return hs <= 64 ? launch_q8<2, 32, 1, 8>(a, chunk, st) : launch_q8<2, 32, 4, 8>(a, chunk, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -264,20 +304,36 @@ extern "C" int paged_decode_attention_fused(
 // cos_il / sin_il (B, hs) float32). Pools: k8 / v8 (L, P, KVH, page, hs) int8
 // and ks / vs (L, P, KVH, page) float32, updated in place; table
 // (B, max_pages), write_page / write_row / pos (B,) int32; out (B, H, hs) in
-// the activation dtype. ws / tickets as attention_q8.cu's, for items =
-// B * KVH * n_rg * nsplit, n_rg = ceil((H / KVH) / 16). Returns the launch's
-// cudaError_t.
+// the activation dtype. The plan (ops/cuda/paged_attention.py::q8_plan):
+// nsplit splits of the key range, nq query rows a block, vb bytes a vector
+// load, chunk the keys of one block pass, which must be the instance's; ws
+// (ws_floats float32) holds B * KVH * n_rg * nsplit states of nq * (hs + 2)
+// floats, n_rg = ceil((H / KVH) / nq); tickets (n_tickets int32, at least
+// B * KVH * n_rg) are zero on entry and left zero. Rows of the vb-byte loads
+// are vb-aligned. Returns the launch's cudaError_t.
 extern "C" int paged_attention_q8(
     int mode, const void* q, const void* qkv, const void* cos_il, const void* sin_il, void* k8,
     void* ks, void* v8, void* vs, const void* k_new, const void* ks_new, const void* v_new,
     const void* vs_new, const void* table, const void* write_page, const void* write_row,
     const void* pos, void* out, void* ws, void* tickets, long long ws_floats, int n_tickets,
     int dtype, int layer, int L, int B, int H, int KVH, int P, int page, int max_pages, int hs,
-    int nsplit, float scale, void* stream) {
+    int nsplit, int nq, int vb, int chunk, float scale, void* stream) {
   using namespace llama2;
   if (mode != q8a::kAppend && mode != q8a::kFused) return cudaErrorInvalidValue;
   if (P <= 0 || page <= 0 || max_pages <= 0 || !table || !write_page || !write_row)
     return cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 || hs <= 0 || hs > q8a::kMaxHs || hs % 2 != 0)
+    return cudaErrorInvalidValue;
+  if (nsplit < 1 || nsplit > q8a::kMaxSplit || layer < 0 || layer >= L) return cudaErrorInvalidValue;
+  if (dtype != kF32 && dtype != kBF16) return cudaErrorInvalidValue;
+  if (nq != 1 && nq != 8) return cudaErrorInvalidValue;
+  const int G = H / KVH;
+  const int n_rg = (G + nq - 1) / nq;
+  if (ws == nullptr || tickets == nullptr || n_tickets < B * KVH * n_rg) return cudaErrorInvalidValue;
+  if (ws_floats < (long long)B * KVH * n_rg * nsplit * nq * (hs + 2)) return cudaErrorInvalidValue;
+  const bool need_q = mode == q8a::kFused ? (qkv && cos_il && sin_il) : q != nullptr;
+  const bool need_new = mode != q8a::kAppend || (k_new && ks_new && v_new && vs_new);
+  if (!need_q || !need_new || !k8 || !ks || !v8 || !vs || !pos || !out) return cudaErrorInvalidValue;
   q8a::Params a{};
   a.q = q;
   a.qkv = qkv;
@@ -303,9 +359,10 @@ extern "C" int paged_attention_q8(
   a.T = 1;
   a.H = H;
   a.KVH = KVH;
-  a.S = max_pages * page;  // the table's reach: what the key splits cover
+  a.S = max_pages * page;  // the table's reach
   a.hs = hs;
   a.nsplit = nsplit;
+  a.n_rg = n_rg;
   a.scale = scale;
   a.table = static_cast<const int*>(table);
   a.wpage = static_cast<const int*>(write_page);
@@ -313,12 +370,5 @@ extern "C" int paged_attention_q8(
   a.P = P;
   a.page = page;
   a.max_pages = max_pages;
-  if (H > 0 && KVH > 0) a.n_rg = (q8a::rows_per_head(mode, 1, H, KVH) + q8a::kRB - 1) / q8a::kRB;
-  const int err = q8a::check(a, ws_floats, n_tickets);
-  if (err != cudaSuccess) return err;
-  const bool need_q = mode == q8a::kFused ? (qkv && cos_il && sin_il) : q != nullptr;
-  const bool need_new = mode != q8a::kAppend || (k_new && ks_new && v_new && vs_new);
-  if (!need_q || !need_new || !k8 || !ks || !v8 || !vs || !pos || !out) return cudaErrorInvalidValue;
-  paged_attention_q8_kernel<<<q8a::items(a), q8a::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
+  return dispatch_q8(a, vb, nq, chunk, static_cast<cudaStream_t>(stream));
 }

@@ -307,22 +307,12 @@ __global__ void __launch_bounds__(kThreads) prep_x_kernel(const Args a, bf16* xt
 }
 
 // Eight int8 rows of one weight column, byte c of words w[0..7], as 8 bf16
-// (the lower row in the lower half). For a byte b, with the bf16 bits
-// 0x4300 | (b & 0x7f) = 128 + (b & 127) and 0x4300 | (b & 0x80) = 128 or 256
-// (b >= 0 or < 0), the bf16 difference of the two is b, exactly: two rows
-// a PRMT, two LOP3 and one bf16x2 subtraction.
+// (the lower row in the lower half), exactly (int8_pair_bf16).
 __device__ __forceinline__ uint4 column_bf16(const uint32_t (&w)[8], int c) {
   const uint32_t sel = 0x0400u + static_cast<uint32_t>(c) * 0x0101u;  // bytes c and 4 + c
   uint32_t r[4];
 #pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const uint32_t pair = __byte_perm(w[2 * p], w[2 * p + 1], sel);  // byte c of each in the low bytes
-    const uint32_t m = (pair & 0x007f007fu) | 0x43004300u;
-    const uint32_t sub = (pair & 0x00800080u) | 0x43004300u;
-    const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&m),
-                                     *reinterpret_cast<const __nv_bfloat162*>(&sub));
-    r[p] = *reinterpret_cast<const uint32_t*>(&d);
-  }
+  for (int p = 0; p < 4; ++p) r[p] = int8_pair_bf16(w[2 * p], w[2 * p + 1], sel);
   return make_uint4(r[0], r[1], r[2], r[3]);
 }
 

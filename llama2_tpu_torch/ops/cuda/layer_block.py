@@ -120,7 +120,8 @@ def layer_block_stacked(
     None)``; the last layer passes ``with_qkv=False``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    count the launch in ``layer_block_stacked.launches``) or raise.
+    count the launch in ``layer_block_stacked.launches``, and by form as
+    ``ops/cuda/mlp_block.py``'s wrappers do) or raise.
     """
     layer = int(layer)
     if qkv3.ndim != 3 or x.ndim != 2:
@@ -169,11 +170,9 @@ def layer_block_stacked(
     Dq = wqkv.q.shape[2] if with_qkv else 0
     groups = (wo.group_size, w1.group_size, w2.group_size, wqkv.group_size if with_qkv else 0)
     device = torch.device("cuda", x.device.index if x.device.index is not None else torch.cuda.current_device())
-    mt = mb.row_tile(B)
-    grid = mb._grid(mt, device.index, True)
-    p = mb.plan(B, D, HD, Dq, groups, grid)
+    p = mb.launch_plan(B, D, HD, Dq, groups, device.index, att=True)
     n_rg = n_row_groups(H // KVH)
-    nsplit = splits(B, KVH, n_rg, S, grid)
+    nsplit = splits(B, KVH, n_rg, S, p["grid"])
     ws_floats = p["ws_floats"] + B * D + B * KVH * n_rg * nsplit * ROWS_PER_ITEM * (hs + 2)
     if -(-max(D, HD, Dq) // 128) + B * KVH * n_rg > build.MAX_TICKETS:
         raise ValueError("more column strips and (b, kv head) pairs than the tickets cover")
@@ -189,12 +188,12 @@ def layer_block_stacked(
         rms_att.data_ptr(), wqkv.q.data_ptr(), wqkv.scale.data_ptr(), out.data_ptr(),
         None if qkv is None else qkv.data_ptr(), ws.data_ptr(), tickets.data_ptr(), ws.numel(),
         tickets.numel(), build.DTYPE_CODES[x.dtype], layer, L, B, D, HD, Dq, *groups, *p["ksplit"],
-        p["mt"], grid, float(eps), H, KVH, S, hs, nsplit, scale,
+        p["mt"], int(p["variant"] == "mma"), p["grid"], float(eps), H, KVH, S, hs, nsplit, scale,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(err, "layer_block_stacked")
-    layer_block_stacked.launches += 1
+    mb.count(layer_block_stacked, p["variant"])
     return out, qkv
 
 
-layer_block_stacked.launches = 0
+layer_block_stacked.launches = layer_block_stacked.launches_mma = layer_block_stacked.launches_fma = 0

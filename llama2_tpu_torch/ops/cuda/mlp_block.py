@@ -19,6 +19,13 @@ the phases everything stays float32; only the outputs are rounded to the
 activation dtype, so the second rmsnorm of ``layer_tail_qkv_stacked`` reads
 the float32 ``out``, not the value it returns. There is no accurate variant.
 
+Each launch takes one of two forms of the phases' products, chosen by
+:func:`plan` before the launch: ``mma`` (mma.sync on the tensor cores, 8 rows
+a pass) for 3 or more rows where every group size and width is a multiple of
+16, ``fma`` (the CUDA cores, ``row_tile(M)`` rows a thread) otherwise, and
+always for one and two rows. Each wrapper counts its launches in ``.launches`` and by
+form in ``.launches_mma`` / ``.launches_fma``.
+
 ``*_plain`` are the same functions in plain PyTorch: the wrappers take them
 for CPU tensors, and ``chip_smoke.py`` holds the kernel against them on the
 card. On a CUDA tensor a wrapper launches or raises; nothing falls back to
@@ -49,6 +56,12 @@ from llama2_tpu_torch.quant.q8 import QuantTensor
 
 _LIB = "mlp_block"
 _BLOCKS_PER_SM = 3  # the most blocks the persistent grid takes on an SM (kMinBlocks of the kernel)
+MMA_ROWS = 8  # rows a pass of the tensor-core form (kMmaRows of the kernel)
+MMA_STEP = 16  # what the tensor-core form needs of group sizes and widths
+# the fewest rows that take the tensor-core form: at the 7B widths on the
+# H100, K12 at 2 rows reads 0.130 ms on the FMA form and 0.164 on the
+# tensor-core form, at 4 rows 0.200 and 0.168 (PERF.md, PR 11)
+MMA_MIN_ROWS = 3
 
 
 def _stacked_quant(*ws) -> bool:
@@ -162,46 +175,90 @@ def layer_tail_qkv_plain(att, x, wo, rms_ffn, w1, w3, w2, rms_att, wqkv, layer, 
 
 
 def row_tile(M: int) -> int:
-    """Rows a thread of the kernel holds (its ``MT``); more rows take passes."""
+    """Rows a thread of the FMA form holds (its ``MT``); more rows take passes."""
     return 1 if M == 1 else 2 if M == 2 else 4 if M <= 4 else 8
 
 
+def variant(M: int, D: int, HD: int, Dq: int, groups: tuple) -> str:
+    """The form of a launch's products: ``"mma"`` for ``MMA_MIN_ROWS`` or
+    more rows when every matrix the launch reads (``groups`` as
+    :func:`plan` takes them) has a group size and a width (N) that are
+    multiples of 16, else ``"fma"``."""
+    G0, G1, G2, Gq = groups
+    used = [(G1, HD), (G2, D)] + ([(G0, D)] if G0 else []) + ([(Gq, Dq)] if Gq else [])
+    fits = all(G % MMA_STEP == 0 and N % MMA_STEP == 0 for G, N in used)
+    return "mma" if M >= MMA_MIN_ROWS and fits else "fma"
+
+
+@functools.lru_cache(maxsize=None)
 def plan(M: int, D: int, HD: int, Dq: int, groups: tuple, blocks: int) -> dict:
     """How one launch of ``blocks`` resident blocks cuts its four phases
     (wo, w1/w3, w2, wqkv; group sizes ``groups``; ``Dq`` 0 without the last,
-    ``groups[0]`` 0 without the first): ``mt`` rows a thread, and per phase the
-    number of splits of the contraction, whole rounds of a block's 8 warps
-    over whole quant groups, so that its items (matrices x 128-column strips
-    x splits) about fill the grid once. ``ws_floats`` is the workspace the
-    launch needs."""
-    mt = row_tile(M)
+    ``groups[0]`` 0 without the first): its ``variant`` (:func:`variant`),
+    ``mt`` rows a pass (8 for ``mma``, else ``row_tile(M)`` rows a thread),
+    and per phase the number of splits of the contraction over whole quant
+    groups. The FMA form takes whole rounds of a block's 8 warps, so that
+    its items (matrices x 128-column strips x splits) about fill the grid
+    once; the tensor-core form the count whose busiest block walks the
+    fewest groups a warp (rounds of items over the grid times rounds of an
+    item's groups over 8 warps), the smaller count on a tie. ``ws_floats``
+    is the workspace the launch needs (the tensor-core form's also holds
+    each phase's x rows staged in bf16). Cached by its arguments: a decode
+    tick asks for the same plan 32 times."""
+    form = variant(M, D, HD, Dq, groups)
+    mt = MMA_ROWS if form == "mma" else row_tile(M)
 
     def ksplit(K: int, N: int, G: int, nmat: int = 1) -> int:
         if not G or not N:
             return 0
         KG = K // G
-        want = max(1, blocks // (nmat * _cdiv(N, _STRIP)))
+        items = nmat * _cdiv(N, _STRIP)
+        if form == "mma":
+            return min(range(1, KG + 1),
+                       key=lambda ks: (_cdiv(items * ks, blocks) * _cdiv(_cdiv(KG, ks), 8), ks))
+        want = max(1, blocks // items)
         per = max(8, _cdiv(_cdiv(KG, want), 8) * 8)
         return max(1, _cdiv(KG, per))
 
     G0, G1, G2, Gq = groups
     ks = (ksplit(D, D, G0), ksplit(D, HD, G1, 2), ksplit(HD, D, G2), ksplit(D, Dq, Gq))
     partial = max(ks[0] * D, 2 * ks[1] * HD, ks[2] * D, ks[3] * Dq)
-    return {"mt": mt, "ksplit": ks, "ws_floats": mt * (3 * D + HD + partial)}
+    staged = MMA_ROWS * (D + HD) // 2 if form == "mma" else 0  # the bf16 x rows, two a float
+    return {"variant": form, "mt": mt, "ksplit": ks, "ws_floats": mt * (3 * D + HD + partial) + staged}
 
 
 @functools.lru_cache(maxsize=None)
-def _grid(mt: int, device_index: int, att: bool = False) -> int:
+def _grid(mt: int, device_index: int, att: bool = False, mma: bool = False) -> int:
     """Blocks of one launch on this device: three an SM, or fewer where fewer
     are resident together (a cooperative launch takes no more). ``att``: the
-    instance with the attention phase (``ops/cuda/layer_block.py``)."""
+    instance with the attention phase (``ops/cuda/layer_block.py``); ``mma``:
+    the tensor-core form."""
     per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        err = _entries()[1](mt, int(att), ctypes.byref(per_sm), ctypes.byref(sms))
+        err = _entries()[1](mt, int(att), int(mma), ctypes.byref(per_sm), ctypes.byref(sms))
         build.check(err, "mlp_block_occupancy")
     if per_sm.value < 1:
         raise RuntimeError(f"mlp_block: no block of the mt={mt} kernel fits an SM")
     return min(per_sm.value, _BLOCKS_PER_SM) * sms.value
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(M: int, D: int, HD: int, Dq: int, groups: tuple, device_index: int,
+                att: bool = False) -> dict:
+    """:func:`plan` for a launch on this device, with its ``grid``: the
+    blocks the chosen form's instance keeps resident (``att``: with the
+    attention phase)."""
+    form = variant(M, D, HD, Dq, groups)
+    mt = MMA_ROWS if form == "mma" else row_tile(M)
+    grid = _grid(mt, device_index, att, form == "mma")
+    return {**plan(M, D, HD, Dq, groups, grid), "grid": grid}
+
+
+def count(wrapper, form: str) -> None:
+    """One launch of ``wrapper`` in the form ``form``."""
+    wrapper.launches += 1
+    name = f"launches_{form}"
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def _launch(which, att, x, wo, rms_ffn, w1, w3, w2, rms_att, wqkv, layer, eps, residual, rms_stacked):
@@ -244,8 +301,7 @@ def _launch(which, att, x, wo, rms_ffn, w1, w3, w2, rms_att, wqkv, layer, eps, r
     )
     device = torch.device("cuda", x2.device.index if x2.device.index is not None
                           else torch.cuda.current_device())
-    grid = _grid(row_tile(M), device.index)
-    p = plan(M, D, HD, Dq, groups, grid)
+    p = launch_plan(M, D, HD, Dq, groups, device.index)
     ws, tickets = build.workspace(device, p["ws_floats"])
 
     def qs(w):
@@ -255,11 +311,11 @@ def _launch(which, att, x, wo, rms_ffn, w1, w3, w2, rms_att, wqkv, layer, eps, r
         _ptr(att2), x2.data_ptr(), *qs(wo), rms_ffn.data_ptr(), *qs(w1), *qs(w3), *qs(w2),
         _ptr(rms_att), *qs(wqkv), out.data_ptr(), _ptr(qkv), ws.data_ptr(), tickets.data_ptr(),
         ws.numel(), tickets.numel(), build.DTYPE_CODES[x2.dtype], layer, L, M, D, HD, Dq,
-        *groups, *p["ksplit"], p["mt"], grid, int(residual), int(rms_stacked), float(eps),
-        torch.cuda.current_stream(x2.device).cuda_stream,
+        *groups, *p["ksplit"], p["mt"], int(p["variant"] == "mma"), p["grid"], int(residual),
+        int(rms_stacked), float(eps), torch.cuda.current_stream(x2.device).cuda_stream,
     )
     build.check(err, which.__name__)
-    which.launches += 1
+    count(which, p["variant"])
     return out, qkv
 
 
@@ -270,7 +326,7 @@ def mlp_block_stacked(x, rms_w, w1, w3, w2, layer, eps: float = 1e-5, *, residua
     caller that reduces partial outputs before it adds the residual.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    count the launch in ``mlp_block_stacked.launches``) or raise.
+    count the launch in ``mlp_block_stacked.launches``, and by form) or raise.
     """
     if x.device.type == "cpu":
         return mlp_block_plain(x, rms_w, w1, w3, w2, layer, eps, residual=residual)
@@ -282,7 +338,7 @@ def mlp_block_stacked(x, rms_w, w1, w3, w2, layer, eps: float = 1e-5, *, residua
     return out.reshape(x.shape)
 
 
-mlp_block_stacked.launches = 0
+mlp_block_stacked.launches = mlp_block_stacked.launches_mma = mlp_block_stacked.launches_fma = 0
 
 
 def attn_mlp_block_stacked(att, x, wo, rms_w, w1, w3, w2, layer, eps: float = 1e-5):
@@ -291,7 +347,7 @@ def attn_mlp_block_stacked(att, x, wo, rms_w, w1, w3, w2, layer, eps: float = 1e
     layer in one launch. ``att``, ``x`` (..., D), ``rms_w (D,)``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    count the launch in ``attn_mlp_block_stacked.launches``) or raise.
+    count the launch in ``attn_mlp_block_stacked.launches``, and by form) or raise.
     """
     if x.device.type == "cpu":
         return attn_mlp_block_plain(att, x, wo, rms_w, w1, w3, w2, layer, eps)
@@ -303,7 +359,7 @@ def attn_mlp_block_stacked(att, x, wo, rms_w, w1, w3, w2, layer, eps: float = 1e
     return out.reshape(x.shape)
 
 
-attn_mlp_block_stacked.launches = 0
+attn_mlp_block_stacked.launches = attn_mlp_block_stacked.launches_mma = attn_mlp_block_stacked.launches_fma = 0
 
 
 def layer_tail_qkv_stacked(att, x, wo, rms_ffn, w1, w3, w2, rms_att, wqkv, layer, eps: float = 1e-5):
@@ -319,7 +375,7 @@ def layer_tail_qkv_stacked(att, x, wo, rms_ffn, w1, w3, w2, rms_att, wqkv, layer
     last layer's qkv' is its own layer's again and of no use.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    count the launch in ``layer_tail_qkv_stacked.launches``) or raise.
+    count the launch in ``layer_tail_qkv_stacked.launches``, and by form) or raise.
     """
     if x.device.type == "cpu":
         return layer_tail_qkv_plain(att, x, wo, rms_ffn, w1, w3, w2, rms_att, wqkv, layer, eps)
@@ -335,17 +391,17 @@ def layer_tail_qkv_stacked(att, x, wo, rms_ffn, w1, w3, w2, rms_att, wqkv, layer
     return out.reshape(x.shape), qkv.reshape(*x.shape[:-1], wqkv.q.shape[2])
 
 
-layer_tail_qkv_stacked.launches = 0
+layer_tail_qkv_stacked.launches = layer_tail_qkv_stacked.launches_mma = layer_tail_qkv_stacked.launches_fma = 0
 
 
 @functools.cache
 def _entries():
     lib = build.load_library(_LIB)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mlp_block.argtypes = [p] * 18 + [ctypes.c_longlong] + [i] * 20 + [f, p]
+    lib.mlp_block.argtypes = [p] * 18 + [ctypes.c_longlong] + [i] * 21 + [f, p]
     lib.mlp_block.restype = i
-    lib.mlp_block_occupancy.argtypes = [i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+    lib.mlp_block_occupancy.argtypes = [i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
     lib.mlp_block_occupancy.restype = i
-    lib.layer_block.argtypes = [p] * 25 + [ctypes.c_longlong] + [i] * 18 + [f] + [i] * 5 + [f, p]
+    lib.layer_block.argtypes = [p] * 25 + [ctypes.c_longlong] + [i] * 19 + [f] + [i] * 5 + [f, p]
     lib.layer_block.restype = i
     return lib.mlp_block, lib.mlp_block_occupancy, lib.layer_block

@@ -27,7 +27,9 @@ which replace, in ``llama2_tpu/ops/pallas/paged_attention.py``:
 
 The arithmetic is the dense kernels' (K2/K4 for fp pools, K8/K9 for int8
 pools; see ``attention.py`` and ``attention_q8.py``); only where a key row
-lives differs. Each returns ``(att, *pools)`` with the pools updated in place,
+lives differs. K16 and K18 run the int8 split decode loop (``att_split`` of
+``csrc/attention_q8.cuh``: a block per (b, kv head, group of query rows,
+split), each warp on its own keys), launched as :func:`q8_plan` says. Each returns ``(att, *pools)`` with the pools updated in place,
 the argument order of the JAX functions minus ``scale`` and ``interpret``.
 
 ``*_plain`` are the same functions in plain PyTorch: the wrappers take them
@@ -50,16 +52,60 @@ from llama2_tpu_torch.ops import ref
 from llama2_tpu_torch.ops.cuda import build
 from llama2_tpu_torch.ops.cuda.attention import pos_rows, rope_rows_plain
 from llama2_tpu_torch.ops.cuda.attention_q8 import (
-    ROWS_PER_ITEM,
+    MAX_SPLITS,
     _sms,
     dequantize_kv,
-    n_row_groups,
     rope_quantize_plain,
-    splits,
 )
 
 _LIB = "paged_attention"
 _MODES = {"append": 1, "fused": 2}
+Q8_WARPS = 8  # warps a block of the int8 kernels' split loop (csrc/attention_q8.cuh: kWarps)
+Q8_BLOCKS_PER_SM = 2  # blocks a SM the split count aims at
+
+
+@functools.lru_cache(maxsize=None)
+def q8_plan(B: int, H: int, KVH: int, reach: int, hs: int, sms: int, aligned: bool = True,
+            splits: int | None = None) -> dict:
+    """The launch of K16/K18's split loop (``att_split`` in
+    ``csrc/attention_q8.cuh``), from the shapes alone: never from ``pos``,
+    which lives on the device. ``reach`` is the keys the table can address
+    (max_pages * page).
+
+    ``nq`` query rows a block: 1 where a kv head has one (the 7B layout),
+    else 8, a kv head's rows in ``n_rg`` groups of 8. ``vb`` bytes a vector
+    load: 16 for one row (hs % 16 == 0 and the pools 16-byte aligned,
+    ``aligned``), 4 for eight (hs % 4 == 0), else 2; ``lanes`` a row (a
+    power of two), ``nv`` vectors a lane, ``unroll`` warp loads a pass;
+    ``chunk`` the keys one pass of a block covers. ``splits`` of the key
+    range: as many as keep the grid within ``Q8_BLOCKS_PER_SM`` blocks a SM
+    (1 where the (b, kv head, group) blocks fill the SMs already), each at
+    least 4 chunks at full reach, at most ``MAX_SPLITS``; given, it replaces
+    the chosen count (``chip_smoke.py --tick-timing`` times other counts).
+    ``ws_floats`` and ``tickets`` are what the launch takes of
+    ``build.workspace``. The device cuts row b's keys ``0..pos[b]`` into at
+    most ``splits`` runs of whole chunks (``split_keys``)."""
+    G = H // KVH
+    nq = 1 if G == 1 else 8
+    if nq == 1 and aligned and hs % 16 == 0:
+        vb, lanes, nv = 16, 4 if hs <= 64 else 8 if hs <= 128 else 16, 1
+    elif nq == 8 and aligned and hs % 4 == 0:
+        vb, lanes, nv = 4, 16 if hs <= 64 else 32, 1 if hs <= 128 else 2
+    else:
+        vb, lanes, nv = 2, 32, 1 if hs <= 64 else 4
+    unroll = 4 if nq == 1 else 2
+    chunk = Q8_WARPS * unroll * (32 // lanes)
+    n_rg = -(-G // nq)
+    groups = B * KVH * n_rg
+    if splits is None:
+        splits = max(1, min(MAX_SPLITS, -(-reach // (4 * chunk)), Q8_BLOCKS_PER_SM * sms // groups))
+    elif not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"splits {splits} outside 1..{MAX_SPLITS}")
+    return {
+        "nq": nq, "n_rg": n_rg, "vb": vb, "lanes": lanes, "nv": nv, "unroll": unroll,
+        "chunk": chunk, "splits": splits, "grid": groups * splits,
+        "ws_floats": groups * splits * nq * (hs + 2), "tickets": groups,
+    }
 
 
 def gather_pages(pool: torch.Tensor, table: torch.Tensor, n_pages: int) -> torch.Tensor:
@@ -411,23 +457,22 @@ paged_decode_attention_fused.launches = 0
 
 
 def _q8_launch(which, mode, act, pools, table, write_page, write_row, layer, pos, H: int,
-               q=None, qkv=None, news=None, rope=None):
-    """Launch K16 or K18 and count it."""
+               q=None, qkv=None, news=None, rope=None, splits: int | None = None):
+    """Launch K16 or K18 (``q8_plan``'s split loop) and count it."""
     k8, ks, v8, vs = pools
     _check_device(act, (act, *pools, table, write_page, write_row, pos, *(news or ()), *(rope or ())))
     L, P, KVH, page, hs = k8.shape
     B = act.shape[0]
-    align = 16 if hs % 16 == 0 else 2
-    if any(t.data_ptr() % align for t in (k8, v8, *(news[::2] if news else ()))):
-        raise ValueError(f"int8 rows must be {align}-byte aligned")
-    n_rg = n_row_groups(H // KVH)
-    if B * KVH * n_rg > build.MAX_TICKETS:
-        raise ValueError(f"{B * KVH * n_rg} (b, kv head, row group) triples: more than {build.MAX_TICKETS}")
+    if any(t.data_ptr() % 2 for t in (k8, v8)):
+        raise ValueError("int8 pools must be 2-byte aligned")
     device = act.device
     max_pages = table.shape[1]
     index = device.index if device.index is not None else torch.cuda.current_device()
-    nsplit = splits(B, KVH, n_rg, max_pages * page, 4 * _sms(index))
-    ws, tickets = build.workspace(device, B * KVH * n_rg * nsplit * ROWS_PER_ITEM * (hs + 2))
+    aligned = all(t.data_ptr() % 16 == 0 for t in (k8, v8))
+    p = q8_plan(B, H, KVH, max_pages * page, hs, _sms(index), aligned, splits)
+    if p["tickets"] > build.MAX_TICKETS:
+        raise ValueError(f"{p['tickets']} (b, kv head, row group) triples: more than {build.MAX_TICKETS}")
+    ws, tickets = build.workspace(device, p["ws_floats"])
     out = torch.empty((B, H, hs), dtype=act.dtype, device=device)
 
     def ptr(t):
@@ -440,8 +485,8 @@ def _q8_launch(which, mode, act, pools, table, write_page, write_row, layer, pos
         v8.data_ptr(), vs.data_ptr(), ptr(k_new), ptr(ks_new), ptr(v_new), ptr(vs_new),
         table.data_ptr(), write_page.data_ptr(), write_row.data_ptr(), pos.data_ptr(), out.data_ptr(),
         ws.data_ptr(), tickets.data_ptr(), ws.numel(), tickets.numel(), build.DTYPE_CODES[act.dtype],
-        layer, L, B, H, KVH, P, page, max_pages, hs, nsplit, 1.0 / hs**0.5,
-        torch.cuda.current_stream(device).cuda_stream,
+        layer, L, B, H, KVH, P, page, max_pages, hs, p["splits"], p["nq"], p["vb"], p["chunk"],
+        1.0 / hs**0.5, torch.cuda.current_stream(device).cuda_stream,
     )
     build.check(err, which.__name__)
     which.launches += 1
@@ -549,6 +594,6 @@ def _entry_read():
 def _entry_q8():
     fn = build.load_library(_LIB).paged_attention_q8
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i] + [p] * 19 + [ctypes.c_longlong] + [i] * 12 + [ctypes.c_float, p]
+    fn.argtypes = [i] + [p] * 19 + [ctypes.c_longlong] + [i] * 15 + [ctypes.c_float, p]
     fn.restype = i
     return fn

@@ -1113,3 +1113,191 @@ def test_split_decode_kernels_match_plain_on_card(cuda_device, dtype, layout, of
             assert torch.equal(got, again), what
             assert torch.equal(k1, kp) and torch.equal(v1, vp), what
             assert int(tickets.count_nonzero()) == 0, what
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlp_block_tensor_core_form_matches_plain_on_card(cuda_device, dtype):
+    """K10-K13 on the tensor-core form (``mlp_block.plan``'s "mma"): K10-K12
+    at the Llama-2-7B widths and a ragged shape whose last column strip is
+    96 wide (group 32), at 3, 4, 5, 8 and 12 rows (a pass of 8, then 4), and
+    K13 at 3 and 8 rows over the int8 cache, each against its plain version
+    at its unchanged tolerance (2e-3 of the largest |want| for K10-K12, 1e-2
+    for K13; bf16 one flip of the last bit more). Every launch counts in
+    ``launches_mma``, a rerun gives the same bits and the tickets are zero
+    after."""
+    from llama2_tpu_torch.ops import ref
+    from llama2_tpu_torch.ops.cuda import attention_q8 as aq
+    from llama2_tpu_torch.ops.cuda import build
+    from llama2_tpu_torch.ops.cuda import layer_block as lb
+
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    L = 4
+    rtol = 2e-5 if dtype == torch.float32 else 2**-7
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+
+    def twice(wrapper, *args, **kw):
+        n0, m0 = wrapper.launches, wrapper.launches_mma
+        a, b = wrapper(*args, **kw), wrapper(*args, **kw)
+        assert wrapper.launches == n0 + 2 and wrapper.launches_mma == m0 + 2, wrapper.__name__
+        for u, v in zip(*((a, b) if isinstance(a, tuple) else ((a,), (b,)))):
+            assert u is None or torch.equal(u, v), f"{wrapper.__name__}: bits differ on the same inputs"
+        return a
+
+    def hold(got, want, frac, what):
+        _assert_close(got, want, dict(rtol=rtol, atol=frac * float(want.float().abs().max())), what)
+
+    for D, HD, Dq, G in ((4096, 11008, 12288, 64), (256, 1376, 384, 32)):
+        wo, w1, w3 = (_q8_stack(g, cuda_device, L, D, n, G, 2.0) for n in (D, HD, HD))
+        w2, wqkv = _q8_stack(g, cuda_device, L, HD, D, G, 2.0), _q8_stack(g, cuda_device, L, D, Dq, G, 2.0)
+        rms_ffn, rms_att = 1 + 0.1 * randn(L, D), 1 + 0.1 * randn(L, D)
+        for M in (3, 4, 5, 8, 12):
+            assert mb.plan(M, D, HD, Dq, (G, G, G, G), 264)["variant"] == "mma"
+            x, att = randn(M, D), randn(M, D)
+            for layer in (0, L - 1):
+                what = f"{D=} {M=} {layer=}"
+                got = twice(mb.mlp_block_stacked, x, rms_ffn[layer], w1, w3, w2, layer)
+                hold(got, mb.mlp_block_plain(x, rms_ffn[layer], w1, w3, w2, layer), 2e-3, f"K10 {what}")
+                got = twice(mb.attn_mlp_block_stacked, att, x, wo, rms_ffn[layer], w1, w3, w2, layer)
+                hold(got, mb.attn_mlp_block_plain(att, x, wo, rms_ffn[layer], w1, w3, w2, layer), 2e-3,
+                     f"K11 {what}")
+                out, qkv = twice(mb.layer_tail_qkv_stacked, att, x, wo, rms_ffn, w1, w3, w2, rms_att, wqkv, layer)
+                want = mb.layer_tail_qkv_plain(att, x, wo, rms_ffn, w1, w3, w2, rms_att, wqkv, layer)
+                hold(out, want[0], 2e-3, f"K12 out {what}")
+                hold(qkv, want[1], 2e-3, f"K12 qkv {what}")
+        del wo, w1, w3, w2, wqkv
+
+    H, KVH, hs, S = 32, 32, 128, 1024
+    D, HD = H * hs, 11008
+    wo, w1, w3 = (_q8_stack(g, cuda_device, L, D, n, 64) for n in (D, HD, HD))
+    w2, wqkv = _q8_stack(g, cuda_device, L, HD, D, 64), _q8_stack(g, cuda_device, L, D, (H + 2 * KVH) * hs, 64)
+    rms_ffn, rms_att = 1 + 0.1 * randn(L, D), 1 + 0.1 * randn(L, D)
+    for pos_list in ([5, 700, 77], [0, 255, 256, 1000, 1023, 77, 600, 31]):
+        B = len(pos_list)
+        caches = _int8_cache(g, cuda_device, L, B, KVH, S, hs)
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=cuda_device)
+        cos, sin = ref.rope_angles(pos[:, None], hs)
+        cos_il = cos[:, 0].repeat_interleave(2, -1).contiguous()
+        sin_il = sin[:, 0].repeat_interleave(2, -1).contiguous()
+        qkv3, x = randn(B, H + 2 * KVH, hs), randn(B, D)
+        args = (cos_il, sin_il, wo, rms_ffn, w1, w3, w2, rms_att, wqkv, 1, pos)
+        runs = [[t.clone() for t in caches] for _ in range(3)]
+        n0, m0 = lb.layer_block_stacked.launches, lb.layer_block_stacked.launches_mma
+        got = [lb.layer_block_stacked(qkv3, x, *c, *args, n_heads=H) for c in runs[:2]]
+        assert lb.layer_block_stacked.launches == n0 + 2 and lb.layer_block_stacked.launches_mma == m0 + 2
+        want = lb.layer_block_stacked_plain(qkv3, x, *runs[2], *args, n_heads=H)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(*runs))
+        for i in range(2):
+            assert torch.equal(got[0][i], got[1][i])
+            hold(got[0][i], want[i], 1e-2, f"K13 B={B} {i=}")
+    _, tickets = build.workspace(cuda_device, 1)
+    assert int(tickets.abs().sum()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_int8_split_loop_matches_plain_on_card(cuda_device, dtype):
+    """K16 and K18 on the split loop at 8 slots whose positions straddle
+    pages (0, 255, 256, 1000, 4095 and three more), 256-row pages handed out
+    shuffled, the 7B layout (one query row a kv head) and GQA (eight), at the
+    plan's split count and at three: against the plain versions at the
+    int8-cache tolerance, the pools equal to the plain version's, the same
+    bits on a rerun and every ticket zero after; with one 256-key split
+    dropped or doubled at pos 4095 the plain output fails the tolerance."""
+    from llama2_tpu_torch.ops import ref
+    from llama2_tpu_torch.ops.cuda import attention_q8 as aq
+    from llama2_tpu_torch.ops.cuda import build
+    from llama2_tpu_torch.ops.cuda import paged_attention as tpa
+
+    g = torch.Generator(device=cuda_device).manual_seed(22)
+    cpu_g = torch.Generator().manual_seed(22)
+    S, L, page = 4096, 2, 256
+    pos_list = [0, 255, 256, 1000, S - 1, 511, 2 * page + 77, 9]
+
+    def randn(*shape, dt=dtype):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dt)
+
+    for H, KVH, hs in ((32, 32, 128), (32, 4, 64)):
+        table, wpage, wrow, pos, P = _paged_setup(cpu_g, cuda_device, pos_list, page, 0, S)
+        cos, sin = ref.rope_angles(pos[:, None], hs)
+        cos_il = cos[:, 0].repeat_interleave(2, -1).contiguous()
+        sin_il = sin[:, 0].repeat_interleave(2, -1).contiguous()
+        q, qkv = randn(8, H, hs), randn(8, H + 2 * KVH, hs)
+        q8 = _int8_cache(g, cuda_device, L, P, KVH, page, hs)
+        k8n, ksn = aq.quantize_kv_rows(randn(8, KVH, 1, hs, dt=torch.float32))
+        v8n, vsn = aq.quantize_kv_rows(randn(8, KVH, 1, hs, dt=torch.float32))
+        coords = (wpage, wrow, L - 1, pos)
+        for mode, wrapper, plain, act, post, kw, qt in (
+            ("append", tpa.paged_decode_attention_q8_stacked, tpa.paged_decode_attention_q8_stacked_plain, q,
+             (table, k8n, ksn, v8n, vsn, *coords), {}, q),
+            ("fused", tpa.paged_decode_attention_q8_fused, tpa.paged_decode_attention_q8_fused_plain, qkv,
+             (table, cos_il, sin_il, *coords), {"n_heads": H}, aq.rope_quantize_plain(qkv, cos_il, sin_il, H)[0]),
+        ):
+            want_pools = [t.clone() for t in q8]
+            want = plain(act, *want_pools, *post, **kw)[0]
+            dense = [tpa.gather_pages(t[L - 1], table, S // page) for t in want_pools]
+            terms = (qt[:, None], *dense, pos.long()[:, None])
+            tol = _q8kv_tol(dtype, *terms, lambda t: t[:, 0])
+            for splits in (None, 3):
+                runs = [[t.clone() for t in q8] for _ in range(2)]
+                news = dict(q=act) if mode == "append" else dict(qkv=act, rope=(cos_il, sin_il))
+                if mode == "append":
+                    news["news"] = tuple(t.reshape(8, KVH, -1).contiguous() for t in (k8n, ksn, v8n, vsn))
+                n0 = wrapper.launches
+                got = [tpa._q8_launch(wrapper, mode, act, c, table, wpage, wrow, L - 1, pos, H, splits=splits, **news)
+                       for c in runs]
+                assert wrapper.launches == n0 + 2
+                torch.cuda.synchronize()
+                assert torch.equal(got[0], got[1])
+                assert all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(*runs, want_pools))
+                _assert_close(got[0], want, tol, f"{mode} {H=} {KVH=} {splits=}")
+                _, tickets = build.workspace(cuda_device, 1)
+                assert int(tickets.abs().sum()) == 0
+            # a split of the key range dropped, or counted twice, at pos 4095 fails the bound
+            b4 = pos_list.index(S - 1)
+            for factor in (0.0, 2.0):
+                weight = torch.ones(S, device=cuda_device)
+                weight[1024:1280] = factor
+                bad = _q8kv_terms(*(t[b4:b4 + 1] for t in terms), weight)[0][:, 0].to(dtype)
+                with pytest.raises(AssertionError):
+                    _assert_close(bad, want[b4:b4 + 1], {k: (v[b4:b4 + 1] if isinstance(v, torch.Tensor) else v)
+                                                         for k, v in tol.items()}, "planted")
+
+
+@pytest.mark.gpu
+def test_tick_kernels_raise_on_card_and_do_not_fall_back(cuda_device):
+    """On a CUDA tensor the served tick's wrappers launch or raise: K12 with a
+    group of 256 (past the kernel's 128) and K18 with an odd head size or
+    a split count past the kernel's raise ValueError and count no launch."""
+    from llama2_tpu_torch.ops.cuda import paged_attention as tpa
+
+    g = torch.Generator(device=cuda_device).manual_seed(23)
+    L, D, HD, Dq = 2, 512, 768, 1024
+    wo, w1, w3 = (_q8_stack(g, cuda_device, L, D, n, 256) for n in (D, HD, HD))
+    w2, wqkv = _q8_stack(g, cuda_device, L, HD, D, 256), _q8_stack(g, cuda_device, L, D, Dq, 256)
+    rms = torch.ones((L, D), device=cuda_device)
+    x = torch.randn((8, D), generator=g, device=cuda_device)
+    n0, m0 = mb.layer_tail_qkv_stacked.launches, mb.layer_tail_qkv_stacked.launches_mma
+    with pytest.raises(ValueError):
+        mb.layer_tail_qkv_stacked(x, x, wo, rms, w1, w3, w2, rms, wqkv, 0)
+    assert (mb.layer_tail_qkv_stacked.launches, mb.layer_tail_qkv_stacked.launches_mma) == (n0, m0)
+
+    z = torch.zeros
+    B, H, KVH, page = 2, 4, 4, 16
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    table, ci = z((B, 2), **i32), z((B,), **i32)
+    n0 = tpa.paged_decode_attention_q8_fused.launches
+    for hs in (33, 32):
+        pools = [z((1, 3, KVH, page, hs), dtype=torch.int8, device=cuda_device), z((1, 3, KVH, page), device=cuda_device)] * 2
+        qkv = z((B, H + 2 * KVH, hs), device=cuda_device)
+        rope = (z((B, hs), device=cuda_device), z((B, hs), device=cuda_device))
+        with pytest.raises(ValueError):
+            if hs % 2:
+                tpa.paged_decode_attention_q8_fused(qkv, *pools, table, *rope, ci, ci, 0, ci, n_heads=H)
+            else:
+                tpa._q8_launch(tpa.paged_decode_attention_q8_fused, "fused", qkv, pools, table, ci, ci, 0, ci, H,
+                               qkv=qkv, rope=rope, splits=33)
+    assert tpa.paged_decode_attention_q8_fused.launches == n0
