@@ -106,11 +106,13 @@ Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
 builds the kernels and times only the dense decode attention kernels,
 ``--prefill-timing`` only the prefill segment's K1, K5 and K6,
 ``--decode-timing`` only single-stream decode on the two-launch route at
-positions 201-264, with K4's host time a call, and ``--tick-timing`` only
-the served decode tick's kernels (K10-K13 at 8 rows, K16, K18) (to
+positions 201-264, with K4's host time a call, ``--tick-timing`` only
+the served decode tick's kernels (K10-K13 at 8 rows, K16, K18), and
+``--q8kv-timing`` only the int8-cache decode step's kernels (K7-K9 and K13
+at 1 and 8 rows, beside the K9 + K12 pair, and a split-count sweep) (to
 compare two checkouts in one call, see ``phase_dense_timing``,
-``phase_prefill_timing``, ``phase_decode_timing`` and
-``phase_tick_timing``). Without a CUDA device, or outside a checkout
+``phase_prefill_timing``, ``phase_decode_timing``, ``phase_tick_timing``
+and ``phase_q8kv_timing``). Without a CUDA device, or outside a checkout
 of the repository, it fails before printing any result.
 """
 
@@ -165,6 +167,21 @@ Q8_SHAPES = {
 MLP_RAGGED = ((256, 1376, 384, 8, 2.0), (2176, 256, 2304, 64, 2.0), (256, 1376, 384, 32, 2.0))
 PROMPT_TOKENS = 200
 GEN_TOKENS = 64
+
+
+def warm_cycles_per_ms() -> float:
+    """``sleep_cycles_per_ms`` on a card brought to its working clock first
+    (half a second of device sleep), the largest of three readings: a
+    reading at an idle clock makes the sleeps that hold the timed calls
+    (``time_ms``) too short, and the calls then run as the host issues
+    them."""
+    import torch
+
+    torch.cuda._sleep(int(1e9))
+    torch.cuda.synchronize()
+    cycles = max(sleep_cycles_per_ms() for _ in range(3))
+    say("time", sleep_cycles_per_ms=f"{cycles:.0f}")
+    return cycles
 
 
 def say(phase: str, **fields) -> None:
@@ -623,8 +640,7 @@ def phase_kernels_mlp() -> None:
         del wo, w1, w3, w2, wqkv
     for mt in (1, 2, 4, 8):
         say("K10-K12", rows_a_thread=mt, cooperative_grid_blocks=mb._grid(mt, torch.cuda.current_device()))
-    say("K10-K12", form="mma", cooperative_grid_blocks=mb._grid(8, torch.cuda.current_device(), False, True),
-        with_attention_phase=mb._grid(8, torch.cuda.current_device(), True, True))
+    say("K10-K12", form="mma", cooperative_grid_blocks=mb._grid(8, torch.cuda.current_device(), False, True))
     # a CUDA tensor launches or raises: no plain version behind the wrapper
     w1, w3, w2 = qt(2, 256, 384, 64, 1.0), qt(2, 256, 384, 64, 1.0), qt(2, 384, 256, 64, 1.0)
     x = randn(1, 256, dtype=torch.float32)
@@ -727,6 +743,21 @@ def planted_faults_fail(want, dtype, tol, terms_args, shape_out, what: str) -> N
 # and against K9 + K12, as tests/test_layer_block.py holds the Pallas kernel
 K13_PLAIN_TOL = 1e-2
 K13_K9K12_TOL = 2e-2
+
+
+def k13_grids(D: int, HD: int) -> dict:
+    """K13's cooperative grid and its attention phase's items at 1 and 8
+    rows, at the 7B widths (``layer_block.launch_plans``)."""
+    import torch
+
+    from llama2_tpu_torch.ops.cuda import layer_block as lb
+
+    (H, KVH, hs), dev, out = LAYOUTS["7B"], torch.cuda.current_device(), {}
+    for M in (1, 8):
+        p, q = lb.launch_plans(M, D, HD, (H + 2 * KVH) * hs, (GROUP,) * 4, H, KVH, S, hs, dev)
+        out[f"M{M}_grid_blocks"] = p["grid"]
+        out[f"M{M}_attention"] = f"{q['grid']}_items,{q['splits']}_splits,unroll_{q['unroll']}"
+    return out
 
 
 def phase_kernels_q8kv() -> None:
@@ -929,7 +960,7 @@ def phase_kernels_q8kv() -> None:
         say("K13", dtype=dtype_name(dtype), D=D, HD=HD, pos=f"0,256,{S - 1}", with_qkv="true,false",
             tol=f"{K13_PLAIN_TOL}*max|want|(plain),{K13_K9K12_TOL}*max|want|(K9+K12),rtol_bf16=2^-7",
             append="equal_to_plain_and_K9", bits="equal_on_rerun",
-            cooperative_grid_blocks=mb._grid(mb.row_tile(1), torch.cuda.current_device(), True),
+            **k13_grids(D, HD),
             **{f"{k}_err_over_max_vs_plain": f"{a:.2e}" for k, (a, _) in worst.items()},
             **{f"{k}_err_over_max_vs_K9K12": f"{b:.2e}" for k, (_, b) in worst.items()})
         # the attention phase alone: wo the identity (64 * 2^-6 = 1), w2 zero
@@ -3250,6 +3281,144 @@ def phase_tick_timing(cycles_per_ms: float) -> None:
     phase_timing_paged({"K16": 0, "K18": 0}, cycles_per_ms, tags=("K16", "K18"), sweep=True)
 
 
+def q8kv_batch_timing(cycles_per_ms: float) -> None:
+    """K8 and K9 at the dense engine's 8 rows over an 8-layer int8 cache at
+    the 7B head layout, bf16 activations, every row at pos 256 and at 4095
+    (call i on layer i % 8: 2.2 GB of rows a round, past the L2), against
+    their plain versions (``q8kv_tolerance``), beside their bound (the K/V
+    rows of keys 0..pos of the 8 rows and the activations once, over the
+    memory rate) and SDPA on a bf16 cache of the same rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from llama2_tpu_torch.ops.cuda import attention_q8 as aq
+
+    dtype, dn, esize = torch.bfloat16, "bf16", 2
+    L, B, (H, KVH, hs) = 8, SERVE_SLOTS, LAYOUTS["7B"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    k8, ks = aq.quantize_kv_rows(randn(L, B, KVH, S, hs))
+    v8, vs = aq.quantize_kv_rows(randn(L, B, KVH, S, hs))
+    kb, vb = aq.dequantize_kv(k8, ks).to(dtype), aq.dequantize_kv(v8, vs).to(dtype)
+    q1, qkv = randn(B, H, hs).to(dtype), randn(B, H + 2 * KVH, hs).to(dtype)
+    kn, ksn = aq.quantize_kv_rows(randn(B, KVH, 1, hs))
+    vn, vsn = aq.quantize_kv_rows(randn(B, KVH, 1, hs))
+    for p in (256, S - 1):
+        pos = torch.full((B,), p, dtype=torch.int32, device="cuda")
+        cos_il, sin_il = rope_tables(pos, hs)
+        q_rot = aq.rope_quantize_plain(qkv, cos_il, sin_il, H)[0]
+        qt = q1[:, :, None]
+        cases = (
+            ("K8", f"flash_decode_attention_q8_stacked[{dn},M={B}]", q1,
+             lambda i: aq.flash_decode_attention_q8_stacked(q1, k8, ks, v8, vs, kn, ksn, vn, vsn, i % L, pos),
+             lambda i: aq.flash_decode_attention_q8_stacked_plain(q1, k8, ks, v8, vs, kn, ksn, vn, vsn, i % L, pos),
+             2 * esize * B * H * hs + B * KVH * (2 * hs + 8)),
+            ("K9", f"flash_decode_attention_q8_fused[{dn},M={B}]", q_rot,
+             lambda i: aq.flash_decode_attention_q8_fused(qkv, k8, ks, v8, vs, cos_il, sin_il, i % L, pos, n_heads=H),
+             lambda i: aq.flash_decode_attention_q8_fused_plain(qkv, k8, ks, v8, vs, cos_il, sin_il, i % L, pos, H),
+             esize * B * (2 * H + 2 * KVH) * hs + 8 * B * hs),
+        )
+        for tag, name, qq, kern, plain, extra in cases:
+            got, want = kern(0), plain(0)
+            torch.cuda.synchronize()
+            _, A, R = q8kv_terms(qq[:, None], k8[0], ks[0], v8[0], vs[0], pos.long()[:, None])
+            err = compare(got, want, dtype, q8kv_tolerance(dtype, A[:, 0], R[:, 0]))
+            ms, qk = time_ms(kern, 128, cycles_per_ms)
+            plain_ms, qp = time_ms(plain, 4, cycles_per_ms, n_warm=1)
+            sdpa_ms, qs = time_ms(lambda i: F.scaled_dot_product_attention(
+                qt, kb[i % L][:, :, : p + 1], vb[i % L][:, :, : p + 1]), 128, cycles_per_ms)
+            nbytes = B * KVH * (p + 1) * (2 * hs + 8) + extra
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = 4 * hs * B * H * (p + 1) / PEAK_FLOPS["bf16"] * 1e3
+            bound, by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+            say("time", kernel=name, pos=p, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+                yardstick_SDPA_bf16_cache_ms=f"{sdpa_ms:.4f}", library_ms="none_(no_single_call)",
+                bound_ms=f"{bound:.4f}", bound_by=by, share_of_bound=f"{bound / ms:.3f}",
+                MB=f"{nbytes / 1e6:.1f}", GB_per_s=f"{nbytes / ms / 1e6:.0f}", max_abs_err=f"{err:.3e}",
+                queued_kernel_plain_yardstick=f"{qk},{qp},{qs}")
+    del k8, v8, kb, vb
+    torch.cuda.empty_cache()
+
+
+def q8kv_split_sweep(cycles_per_ms: float) -> None:
+    """K9 and K7 (T = 4) at batch 1 and pos 4095 over a 32-layer int8 cache
+    at the 7B head layout at split counts other than their plan's, where the
+    tree launches them from ``attention_q8.q8_plan`` (its ``_launch`` takes
+    ``splits``)."""
+    import inspect
+
+    import torch
+
+    from llama2_tpu_torch.ops.cuda import attention_q8 as aq
+
+    if "splits" not in inspect.signature(aq._launch).parameters:
+        say("time", split_sweep="not_in_this_tree")
+        return
+    dtype, L, B, (H, KVH, hs), p = torch.bfloat16, 32, 1, LAYOUTS["7B"], S - 1
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    k8, ks = aq.quantize_kv_rows(torch.randn((L, B, KVH, S, hs), generator=gen, device="cuda"))
+    v8, vs = aq.quantize_kv_rows(torch.randn((L, B, KVH, S, hs), generator=gen, device="cuda"))
+    pos = torch.full((B,), p, dtype=torch.int32, device="cuda")
+    cos_il, sin_il = rope_tables(pos, hs)
+    qkv = torch.randn((B, H + 2 * KVH, hs), generator=gen, device="cuda").to(dtype)
+    q4 = torch.randn((B, 4, H, hs), generator=gen, device="cuda").to(dtype)
+    out1, out4 = torch.empty((B, H, hs), dtype=dtype, device="cuda"), torch.empty_like(q4)
+    sms = aq._sms(torch.cuda.current_device())
+    for tag, T in (("K9", 1), ("K7", 4)):
+        own = aq.q8_plan(B, H, KVH, S, hs, sms, T=T)["splits"]
+        times = {}
+        for n in sorted({1, 2, 4, 8, 12, 16, 24, 32, own}):
+            if tag == "K9":
+                def call(i, n=n):
+                    aq._launch(aq.flash_decode_attention_q8_fused, "fused", qkv=qkv, caches=(k8, ks, v8, vs),
+                               pos=pos, out=out1, L=L, layer=i % L, T=1, H=H, rope=(cos_il, sin_il), splits=n)
+            else:
+                def call(i, n=n):
+                    aq._launch(aq.flash_decode_attention_q8, "window", q=q4,
+                               caches=(k8[i % L], ks[i % L], v8[i % L], vs[i % L]), pos=pos, out=out4, L=1,
+                               layer=0, T=4, H=H, splits=n)
+            times[n] = time_ms(call, 256, cycles_per_ms)[0]
+        say("time", kernel=f"{tag}_split_sweep", pos=p, plan_splits=own,
+            **{f"splits_{n}_ms": f"{t:.4f}" for n, t in times.items()})
+    del k8, v8
+    torch.cuda.empty_cache()
+
+
+def phase_q8kv_timing(cycles_per_ms: float) -> None:
+    """The int8-cache decode step's kernels alone, for comparing two trees in
+    one call: ``python3 chip_smoke.py --q8kv-timing`` runs it and nothing
+    else. At the 7B widths, bf16 activations: K7 (T = 1 and 4), K8, K9 and
+    K13 at batch 1 (``phase_timing_q8kv``: K13 beside the K9 + K12 pair), K8
+    and K9 at 8 rows (``q8kv_batch_timing``), K13 at 8 rows
+    (``k13_batch_timing``), each at pos 256 and 4095 with its bound and its
+    plain version; K12 (the same megakernel without the attention phase) at
+    1 and 8 rows (``mlp_timing``); then the split-count sweep
+    (``q8kv_split_sweep``). It
+    calls the wrappers by their public signatures only (the sweep excepted,
+    which a tree without it skips), so this script also times an older
+    checkout: copy it into one and run it from that checkout's root."""
+    import torch
+
+    from llama2_tpu_torch.io.convert import random_q8_params
+    from llama2_tpu_torch.quant.q8 import dequantize
+
+    params = all_layouts(random_q8_params(config_7b(32), SEED + 5, "cuda", torch.bfloat16, group_size=GROUP))
+    phase_timing_q8kv(params, {tag: 0 for tag in ("K7", "K8", "K9", "K13")}, cycles_per_ms)
+    k13_batch_timing(params, cycles_per_ms)
+    # K12, the megakernel without the attention phase, at K13's row counts
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    mats = {k: dequantize(params[k][:4], torch.bfloat16) for k in ("wo", "w13", "w2", "wqkv")}
+    for M in (1, 8):
+        mlp_timing(params, mats, M, ("K12",), cycles_per_ms, gen)
+    del params, mats
+    torch.cuda.empty_cache()
+    q8kv_batch_timing(cycles_per_ms)
+    q8kv_split_sweep(cycles_per_ms)
+
+
 def phase_timing_q8kv(params, launches: dict, cycles_per_ms: float) -> list[dict]:
     """K7 (T = 1 and 4), K8, K9 and K13 at pos 256 and 4095 over a 32-layer
     int8 cache at the 7B head layout, bf16 activations (the main path's);
@@ -3922,19 +4091,23 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_build()
     if sys.argv[1:] == ["--dense-timing"]:
-        phase_dense_timing(sleep_cycles_per_ms())
+        phase_dense_timing(warm_cycles_per_ms())
         print(smi)
         return 0
     if sys.argv[1:] == ["--decode-timing"]:
-        phase_decode_timing(sleep_cycles_per_ms())
+        phase_decode_timing(warm_cycles_per_ms())
         print(smi)
         return 0
     if sys.argv[1:] == ["--prefill-timing"]:
-        phase_prefill_timing(sleep_cycles_per_ms())
+        phase_prefill_timing(warm_cycles_per_ms())
         print(smi)
         return 0
     if sys.argv[1:] == ["--tick-timing"]:
-        phase_tick_timing(sleep_cycles_per_ms())
+        phase_tick_timing(warm_cycles_per_ms())
+        print(smi)
+        return 0
+    if sys.argv[1:] == ["--q8kv-timing"]:
+        phase_q8kv_timing(warm_cycles_per_ms())
         print(smi)
         return 0
     phase_kernels()
@@ -3974,8 +4147,7 @@ def main() -> int:
         launches[dtype] = phase_generate(dtype, 8)
     phase_cli()
     kernels = []
-    cycles_per_ms = sleep_cycles_per_ms()
-    say("time", sleep_cycles_per_ms=f"{cycles_per_ms:.0f}")
+    cycles_per_ms = warm_cycles_per_ms()
     for dtype in (torch.bfloat16, torch.float32):
         kernels += phase_timing(dtype, launches[dtype], cycles_per_ms)
     kernels += phase_timing_q8(q8_launches, cycles_per_ms)

@@ -11,18 +11,38 @@
 // The Pallas kernels' aligned read-modify-write windows around the new row
 // have no counterpart: a block writes the new row's bytes and scale directly.
 //
-// The arithmetic, the bound and the layout are in attention_q8.cuh, shared
-// with the whole-layer kernel (K13) of mlp_block.cu. One launch: a block a
-// work item (b, kv head, group of query rows, split of the keys).
+// One kernel, three modes, on attention_q8.cuh's split decode loop over dense
+// planes (att_split with DenseRows; the arithmetic, the bound and the layout
+// are described there): a block a work item (b, kv head, group of up to 8
+// query rows, split of the keys). A window's T * G query rows of a kv head
+// come in groups of the plan's nq; each group reads the kv head's K/V rows.
+// The instance (vector width, lanes a row, query rows a block) is the plan's
+// (ops/cuda/attention_q8.py::q8_plan).
 #include "attention_q8.cuh"
 
 namespace {
 
 using namespace llama2;
 
-__global__ void __launch_bounds__(q8a::kThreads) attention_q8_kernel(const q8a::Params a) {
-  __shared__ q8a::Smem sm;
-  q8a::att_item(a, blockIdx.x, sm);
+// two blocks an SM where the registers allow (up to 4 query rows a block):
+// the plan's grid is two blocks an SM, one wave
+template <int VB, int LPR, int NV, int NQ>
+__global__ void __launch_bounds__(q8a::kThreads, NQ <= 4 ? 2 : 1) attention_q8_kernel(const q8a::Params a) {
+  __shared__ __align__(16) q8a::SplitSmem sm;
+  extern __shared__ float wacc[];  // the warps' acc: split_acc_floats(NQ, hs)
+  q8a::att_split<q8a::DenseRows, VB, LPR, NV, NQ, q8a::unroll(NQ, 4)>(a, blockIdx.x, sm, wacc);
+}
+
+template <int VB, int LPR, int NV, int NQ>
+cudaError_t launch(const q8a::Params& a, cudaStream_t st) {
+  const int smem = q8a::split_acc_floats(NQ, a.hs) * (int)sizeof(float);
+  auto kernel = attention_q8_kernel<VB, LPR, NV, NQ>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<a.B * a.KVH * a.n_rg * a.nsplit, q8a::kThreads, smem, st>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -34,20 +54,23 @@ __global__ void __launch_bounds__(q8a::kThreads) attention_q8_kernel(const q8a::
 //   pre-RoPE, cos_il / sin_il (B, hs) float32).
 // pos (B,) int32 on the device: the position of the LAST query row.
 // out: like q ((B, H, hs) for mode 2), in the activation dtype `dtype`.
-// ws: float32 workspace of ws_floats >= items * 16 * (hs + 2); tickets:
-//   n_tickets >= B * KVH * n_rg int32, zero on entry, left zero. items =
-//   B * KVH * n_rg * nsplit, n_rg = ceil(rows / 16), rows = T * H / KVH.
-// hs even and <= 256; int8 pointers 16-byte aligned where hs % 16 == 0. All
-// tensors contiguous. Returns the launch's cudaError_t.
+// The plan (ops/cuda/attention_q8.py::q8_plan): nsplit splits of the key
+// range, nq query rows a block, vb bytes a vector load, chunk the keys of one
+// block pass, which must be the instance's. ws: float32 workspace of
+// ws_floats >= B * KVH * n_rg * nsplit * nq * (hs + 2), n_rg = ceil(T * H /
+// KVH / nq); tickets: n_tickets >= B * KVH * n_rg int32, zero on entry, left
+// zero. hs even and <= 256; int8 pointers aligned to vb. All tensors
+// contiguous. Returns the launch's cudaError_t.
 extern "C" int attention_q8(int mode, const void* q, const void* qkv, const void* cos_il,
                             const void* sin_il, void* k8, void* ks, void* v8, void* vs,
                             const void* k_new, const void* ks_new, const void* v_new,
                             const void* vs_new, const void* pos, void* out, void* ws,
                             void* tickets, long long ws_floats, int n_tickets, int dtype,
                             int layer, int L, int B, int T, int H, int KVH, int S, int hs,
-                            int nsplit, float scale, void* stream) {
+                            int nsplit, int nq, int vb, int chunk, float scale, void* stream) {
   if (mode != q8a::kWindow && mode != q8a::kAppend && mode != q8a::kFused) return cudaErrorInvalidValue;
   if (mode != q8a::kWindow && T != 1) return cudaErrorInvalidValue;
+  if (H <= 0 || KVH <= 0 || nq <= 0) return cudaErrorInvalidValue;
   q8a::Params a{};
   a.q = q;
   a.qkv = qkv;
@@ -76,14 +99,20 @@ extern "C" int attention_q8(int mode, const void* q, const void* qkv, const void
   a.S = S;
   a.hs = hs;
   a.nsplit = nsplit;
+  a.nq = nq;
+  a.vb = vb;
+  a.n_rg = (T * (H / KVH) + nq - 1) / nq;
   a.scale = scale;
-  if (H > 0 && KVH > 0)
-    a.n_rg = (q8a::rows_per_head(mode, T, H, KVH) + q8a::kRB - 1) / q8a::kRB;
-  const int err = q8a::check(a, ws_floats, n_tickets);
+  const int err = q8a::check(a, ws_floats, n_tickets, chunk, 4);
   if (err != cudaSuccess) return err;
   const bool need_q = mode == q8a::kFused ? (qkv && cos_il && sin_il) : q != nullptr;
   const bool need_new = mode != q8a::kAppend || (k_new && ks_new && v_new && vs_new);
   if (!need_q || !need_new || !k8 || !ks || !v8 || !vs || !pos || !out) return cudaErrorInvalidValue;
-  attention_q8_kernel<<<q8a::items(a), q8a::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define LLAMA2_Q8A_LAUNCH(i, VB, LPR, NV, NQ) \
+  case i:                                     \
+    return launch<VB, LPR, NV, NQ>(a, st);
+  switch (q8a::instance(vb, nq, hs)) { LLAMA2_Q8A_INSTANCES(LLAMA2_Q8A_LAUNCH) }
+#undef LLAMA2_Q8A_LAUNCH
+  return cudaErrorInvalidValue;
 }

@@ -1,52 +1,70 @@
-// Attention over the int8 KV cache: the device code shared by the kernels of
-// attention_q8.cu (K7 window, K8 stacked append, K9 glue-fused) and the
-// attention phase of the whole-layer kernel in mlp_block.cu (K13), all on
-// att_item; and, over page pools read through a page table, the split decode
-// loop att_split of the paged kernels of paged_attention.cu (K16 append, K18
-// glue-fused; see its own note below).
+// Attention over the int8 KV cache: one split decode loop, att_split, shared
+// by every int8-cache attention kernel. Over dense planes (DenseRows): the
+// kernels of attention_q8.cu (K7 window, K8 stacked append, K9 glue-fused)
+// and the attention phase of the whole-layer kernel in mlp_block.cu (K13).
+// Over page pools read through a page table (PagedRows): the paged kernels of
+// paged_attention.cu (K16 append, K18 glue-fused).
 //
-// Cache: int8 K/V rows (L, B, KVH, S, hs) with one float32 scale per row,
-// (L, B, KVH, S). Arithmetic, as the Pallas kernels of
-// llama2_tpu/ops/pallas/attention_q8.py and layer_block.py have it:
+// Cache: int8 K/V rows with one float32 scale per row. Dense planes are
+// (L, B, KVH, S, hs) and (L, B, KVH, S): key t of (b, kv head) is row t of
+// its plane. Pools are (L, P, KVH, page, hs) and (L, P, KVH, page): key t of
+// slot b is row t % page of page table[b, t / page]. Arithmetic, as the
+// Pallas kernels of llama2_tpu/ops/pallas/attention_q8.py, layer_block.py and
+// paged_attention.py have it:
 //   - the query is rounded to bf16, whatever the activation dtype (int8 ->
 //     bf16 is exact, so the int8 route is a bf16-dot route);
 //   - score = (q . k8[t]) accumulated in float32, times (k_scale[t] * scale),
 //     the product of the two scalars taken first;
 //   - online softmax in float32; the value side rounds p * v_scale[t] to bf16
 //     and accumulates its product with the int8 row in float32;
-//   - out = acc / l.
-// Query row r of a T-row window (K7) sees keys t <= pos - (T - 1) + r / G.
-// K8 and K9 (T = 1) see keys t <= pos, the row at pos being this step's new
-// row, taken from the new-row operand and never read back from the cache.
-// K13 masks the cache with t < pos and adds this step's row as a "virtual
-// row": its score from the int8 row, its value the float32 dequantized row
-// (not rounded to bf16), joined by one more online-softmax update.
+//   - out = acc / l (IEEE division).
+// Query row r of a T-row window (K7, read only) sees keys
+// t <= pos - (T - 1) + r / G. K8, K9, K16 and K18 (T = 1) see keys t <= pos,
+// the row at pos being this step's new row, taken from shared memory and
+// never read back from the cache. K13 reads the cache with t < pos and adds
+// this step's row as a "virtual row": its score from the int8 row, its value
+// the float32 dequantized row (not rounded to bf16), joined by one more
+// online-softmax update.
 //
-// Quantization of a new row (K9, K13): RoPE in float32 on the raw QKV values,
-// then scale = amax / 127 (IEEE division), safe = max(scale, 1e-20),
+// Quantization of a new row (K9, K13, K18): RoPE in float32 on the raw QKV
+// values, then scale = amax / 127 (IEEE division), safe = max(scale, 1e-20),
 // q = clip(rint(x / safe), -127, 127), in float32, so the same rows give the
 // same bytes and scales as the plain version.
 //
-// Bound on this card: bytes. At batch 1 the work is the (pos + 1) K and V rows
-// (hs bytes each, plus two scales) of every (b, kv head): 34.6 MB at
-// Llama-2-7B widths and pos 4095, 0.010 ms at 3.35 TB/s. A work item is one
-// (b, kv head, group of up to kRB query rows, split of the key range): its
-// query rows share every K/V row it stages, so a K/V row is read once per
-// window (per group of kRB rows where a GQA window has more). The key range is
-// cut into `nsplit` (at most kMaxSplit) splits so that the blocks of a launch
-// about fill the card at batch 1 and full context (the whole-layer kernel:
-// its grid); a row with a shorter context takes only the splits it fills
-// with at least a chunk each, from its position on the device. A split
-// walks its keys kCK at a time: the whole block stages the chunk's int8 rows
-// and scales in shared memory (16-byte loads where hs % 16 == 0), computes
-// the scores (2 to 8 threads a (row, key) for up to 4 rows, one for more),
-// updates each row's softmax state (one warp a row, one lane a key), then the
-// value products (one thread a (row, element)). Each split writes its state
-// (m, l, acc) to a workspace; an integer ticket per (b, kv head, row group)
-// finds the split that finishes last, which merges the states in split order
-// (each split's (m, l) fetched at once into shared memory). No float atomics:
-// the same inputs give the same bits. One item of each (b, kv head) writes
-// the new row.
+// Bound on this card: bytes. A step reads the K/V rows of every visible key
+// of every (b, kv head) once (hs bytes each, plus two scales): 34.6 MB at
+// Llama-2-7B widths, batch 1 and pos 4095, 0.010 ms at 3.35 TB/s.
+//
+// The loop (att_split). A block takes one work item: (b, kv head, group of
+// up to NQ query rows, split of the key range). Each warp walks its own runs
+// of keys with no block barrier in the loop: lane (r, j) takes key
+// base + u * RPW + r (RPW = 32 / LPR rows a warp load, U loads a pass, all
+// issued before any is used) and bytes (nv * LPR + j) * VB .. + VB of its K
+// and V rows, with the rows' scales; a 7B row (128 bytes) is 8 lanes of
+// 16-byte loads, 4 rows a warp load. Every query row of the group shares each
+// K/V row the block reads (one at 7B, up to eight under GQA or in a window).
+// A score is summed over the LPR lanes of its row; the warp keeps one running
+// max a query row, so the row slots' l and acc add up at the end. The warps'
+// states (m, l, acc) merge in warp order in shared memory (weight
+// exp(m_w - M), 0 for a warp that saw no key); the splits of a (b, kv head,
+// group) merge in split order through the workspace, the last to draw the
+// ticket merging, writing out and zeroing the ticket (a row whose keys fill
+// one split writes out at once). No float atomics: the same inputs give the
+// same bits. Where the key lives is the row policy's (a template parameter,
+// no runtime flag): DenseRows adds t to the plane's first row; PagedRows
+// finds the page of a pass's first key with one division, and a key past the
+// page's end moves to the next table entry.
+//
+// The split count and the instance (VB, LPR, NV, NQ, U) come from the host's
+// plan (ops/cuda/attention_q8.py::q8_plan: the shapes, the keys the cache can
+// hold and the blocks of the launch, never pos); row b's keys are cut into at
+// most nsplit runs of whole block passes (split_keys), so a short context
+// takes only the splits it fills. This step's row, where there is one, is
+// made once, by the block of the last split (K9, K13, K18: RoPE and
+// quantization; K8, K16: the given row), which holds it in shared memory and
+// (its first row group) writes it to the cache. K8/K9/K16/K18 read it from
+// shared memory as key pos; K13's block folds it into its own state as the
+// virtual row before the states merge.
 #pragma once
 
 #include <math.h>
@@ -59,11 +77,9 @@ namespace q8a {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kCK = 32;       // keys a chunk: one a lane in the softmax update
-constexpr int kRB = 16;       // query rows a work item
 constexpr int kMaxHs = 256;
 constexpr int kMaxSplit = 32;  // splits of the key range
-constexpr int kNJ = kRB * kMaxHs / kThreads;  // (row, element) pairs a thread
+constexpr int kMaxNQ = 8;      // query rows a work item
 
 enum Mode { kWindow = 0, kAppend = 1, kFused = 2, kLayer = 3 };
 
@@ -72,8 +88,8 @@ struct Params {
   const void* qkv;      // kFused, kLayer: (B, H + 2 KVH, hs) raw pre-RoPE rows
   const float* cos_il;  // kFused, kLayer: (B, hs), each pair's value on both elements
   const float* sin_il;
-  int8_t* k8;           // (L, B, KVH, S, hs)
-  float* ks;            // (L, B, KVH, S)
+  int8_t* k8;           // dense (L, B, KVH, S, hs); paged (L, P, KVH, page, hs)
+  float* ks;            // dense (L, B, KVH, S); paged (L, P, KVH, page)
   int8_t* v8;
   float* vs;
   const int8_t* k_new;  // kAppend: (B, KVH, hs) quantized rows, (B, KVH) scales
@@ -81,45 +97,19 @@ struct Params {
   const int8_t* v_new;
   const float* vs_new;
   const int* pos;       // (B,): the last query row's position
-  void* out;            // kWindow (B, T, H, hs), kAppend / kFused (B, H, hs); activation dtype
+  void* out;            // kWindow (B, T, H, hs), else (B, H, hs); activation dtype
   float* out32;         // kLayer: (B, H * hs) float32
-  float* ws;            // items * kRB * (hs + 2) floats: the splits' states
+  float* ws;            // groups * nsplit * nq * (hs + 2) floats: the splits' states
   int* tickets;         // B * KVH * n_rg; zero on entry and on exit
   int mode, dtype, layer, L, B, T, H, KVH, S, hs, nsplit, n_rg;
+  int nq, vb;           // the plan's instance: query rows a block, bytes a vector load
   float scale;
-  // paged pools (att_split): k8/v8 (L, P, KVH, page, hs) and ks/vs
-  // (L, P, KVH, page); row t of slot b in page table[b, t / page] at row
-  // t % page; this step's row written at (wpage[b], wrow[b])
+  // paged pools: this step's row written at (wpage[b], wrow[b])
   const int* table;  // (B, max_pages)
   const int* wpage;  // (B,)
   const int* wrow;   // (B,)
   int P, page, max_pages;
 };
-
-struct Smem {
-  float q[kRB * kMaxHs];   // the item's query rows (bf16 values), row stride round4(hs)
-  float p[kRB * kCK];      // scores, then bf16(p * v_scale); first the new rows' float32 values
-  int8_t k[kCK * (kMaxHs + 4)];  // the chunk's rows, row stride round4(hs) + 4 bytes
-  int8_t v[kCK * (kMaxHs + 4)];
-  float ks[kCK], vs[kCK];
-  float m[kRB], l[kRB], alpha[kRB];
-  float ml[2 * kMaxSplit * kRB];  // the merge: each split's (m, then its weight; l) a row
-  int8_t kn[kMaxHs], vn[kMaxHs];  // this step's quantized K and V rows
-  float kn_s, vn_s;
-  float red[kWarps];
-  int last;
-};
-
-__host__ __device__ constexpr int round4(int x) { return (x + 3) & ~3; }
-
-// query rows per (b, kv head), and row groups of kRB
-__host__ __device__ inline int rows_per_head(int mode, int T, int H, int KVH) {
-  return (mode == kWindow ? T : 1) * (H / KVH);
-}
-
-__host__ __device__ inline int items(const Params& a) {
-  return a.B * a.KVH * a.n_rg * a.nsplit;
-}
 
 // one interleaved-pair rotation of element x with its partner `other`;
 // products rounded separately (no FMA contraction), as the plain rope
@@ -134,10 +124,6 @@ __device__ __forceinline__ int8_t quant_elem(float x, float safe) {
   return static_cast<int8_t>(fminf(fmaxf(r, -127.f), 127.f));
 }
 
-__device__ __forceinline__ float byte_at(int word, int i) {
-  return static_cast<float>(static_cast<int8_t>(word >> (8 * i)));
-}
-
 // max over the block of one value a thread; every thread gets the result
 __device__ __forceinline__ float block_max(float v, float* red) {
   v = warp_max(v);
@@ -150,352 +136,6 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   return t;
 }
 
-// nbytes contiguous bytes of int8 rows (hs a row) into shared rows of stride rsb
-__device__ __forceinline__ void stage_rows(const int8_t* src, int8_t* dst, int nbytes, int hs,
-                                           int rsb, bool vec16) {
-  if (vec16) {
-    for (int u = threadIdx.x; u < nbytes / 16; u += kThreads) {
-      const int e = u * 16;
-      const int4 w = *reinterpret_cast<const int4*>(src + e);
-      int* o = reinterpret_cast<int*>(dst + (e / hs) * rsb + e % hs);
-      o[0] = w.x;
-      o[1] = w.y;
-      o[2] = w.z;
-      o[3] = w.w;
-    }
-  } else {  // hs even: 2-byte units never cross a row
-    for (int u = threadIdx.x; u < nbytes / 2; u += kThreads) {
-      const int e = u * 2;
-      *reinterpret_cast<short*>(dst + (e / hs) * rsb + e % hs) =
-          *reinterpret_cast<const short*>(src + e);
-    }
-  }
-}
-
-// One work item: (b, kv head, row group, split). Called by all threads of a
-// block of kThreads; `sm` is the block's shared memory. Key rows are staged
-// a chunk at a time, a chunk one contiguous run of rows of the plane.
-__device__ void att_item(const Params& a, int item, Smem& sm) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int hs = a.hs, H = a.H, KVH = a.KVH, G = H / KVH;
-  const int T = a.mode == kWindow ? a.T : 1;
-  const int R = T * G;
-  const int split = item % a.nsplit;
-  int rest = item / a.nsplit;
-  const int group = rest;  // (b, kv head, row group): its ticket
-  const int rg = rest % a.n_rg;
-  rest /= a.n_rg;
-  const int kvh = rest % KVH;
-  const int b = rest / KVH;
-  const int r0 = rg * kRB;
-  const int nr = min(kRB, R - r0);
-  const int pos = a.pos[b];
-  const int qs = round4(hs);      // query row stride, floats
-  const int rsb = round4(hs) + 4;  // staged row stride, bytes (4-byte words, no bank conflicts at 128)
-  const bool fused = a.mode == kFused || a.mode == kLayer;
-  const bool has_new = a.mode != kWindow;
-  // the row index (of the scale arrays; times hs for the rows) of key t is
-  // row0 + t; this step's row is written at new_row, and the key whose row
-  // this is takes the new row from shared memory and never reads it back
-  const size_t row0 = (((size_t)a.layer * a.B + b) * KVH + kvh) * (size_t)a.S;  // dense plane's row 0
-  const size_t new_row = row0 + pos;
-  const size_t qkv_row = (size_t)b * (H + 2 * KVH);
-  // the splits this row's context fills, a chunk each at least (the launch
-  // has nsplit for the whole cache): the others return at once, and the last
-  // of these merges only their states
-  const int n_keys = a.mode == kLayer ? pos : pos + 1;
-  const int ns = max(1, min(a.nsplit, (n_keys + kCK - 1) / kCK));
-  if (split >= ns) return;
-
-  __syncthreads();  // the block's previous item is done with sm
-
-  // the item's query rows, rounded to bf16; zero past hs and past nr
-  for (int e = tid; e < kRB * qs; e += kThreads) {
-    const int r = e / qs, d = e % qs;
-    float val = 0.f;
-    if (r < nr && d < hs) {
-      const int rr = r0 + r, t = rr / G, h = kvh * G + rr % G;
-      if (fused) {
-        const size_t base = (qkv_row + h) * hs;
-        val = rope_elem(load_act(a.qkv, base + d, a.dtype), load_act(a.qkv, base + (d ^ 1), a.dtype),
-                        a.cos_il[(size_t)b * hs + d], a.sin_il[(size_t)b * hs + d], d & 1);
-      } else {
-        val = load_act(a.q, (((size_t)b * T + t) * H + h) * hs + d, a.dtype);
-      }
-      val = round_bf16(val);
-    }
-    sm.q[e] = val;
-  }
-
-  // this step's K and V rows: rotated and quantized here, or given
-  if (fused) {
-    float* kf = sm.p;
-    float* vf = sm.p + kMaxHs;
-    const size_t kb = (qkv_row + H + kvh) * hs, vb = (qkv_row + H + KVH + kvh) * hs;
-    float kmax = 0.f, vmax = 0.f;
-    for (int d = tid; d < hs; d += kThreads) {
-      const float kr = rope_elem(load_act(a.qkv, kb + d, a.dtype), load_act(a.qkv, kb + (d ^ 1), a.dtype),
-                                 a.cos_il[(size_t)b * hs + d], a.sin_il[(size_t)b * hs + d], d & 1);
-      const float vr = load_act(a.qkv, vb + d, a.dtype);
-      kf[d] = kr;
-      vf[d] = vr;
-      kmax = fmaxf(kmax, fabsf(kr));
-      vmax = fmaxf(vmax, fabsf(vr));
-    }
-    kmax = block_max(kmax, sm.red);
-    vmax = block_max(vmax, sm.red);
-    const float ksc = __fdiv_rn(kmax, 127.f), vsc = __fdiv_rn(vmax, 127.f);
-    const float ksafe = fmaxf(ksc, 1e-20f), vsafe = fmaxf(vsc, 1e-20f);
-    for (int d = tid; d < hs; d += kThreads) {
-      sm.kn[d] = quant_elem(kf[d], ksafe);
-      sm.vn[d] = quant_elem(vf[d], vsafe);
-    }
-    if (tid == 0) {
-      sm.kn_s = ksc;
-      sm.vn_s = vsc;
-    }
-  } else if (a.mode == kAppend) {
-    const size_t nb = (size_t)b * KVH + kvh;
-    for (int d = tid; d < hs; d += kThreads) {
-      sm.kn[d] = a.k_new[nb * hs + d];
-      sm.vn[d] = a.v_new[nb * hs + d];
-    }
-    if (tid == 0) {
-      sm.kn_s = a.ks_new[nb];
-      sm.vn_s = a.vs_new[nb];
-    }
-  }
-  if (tid < kRB) {
-    sm.m[tid] = -INFINITY;
-    sm.l[tid] = 0.f;
-  }
-  __syncthreads();
-
-  // the append: one item of each (b, kv head) writes the new row; no item
-  // reads that row back from the cache
-  if (has_new && split == 0 && rg == 0) {
-    const size_t at = new_row;
-    for (int d = tid; d < hs; d += kThreads) {
-      a.k8[at * hs + d] = sm.kn[d];
-      a.v8[at * hs + d] = sm.vn[d];
-    }
-    if (tid == 0) {
-      a.ks[at] = sm.kn_s;
-      a.vs[at] = sm.vn_s;
-    }
-  }
-
-  // this split's keys: whole chunks, the last split's cut at n_keys
-  const int per = ((n_keys + ns - 1) / ns + kCK - 1) / kCK * kCK;
-  const int t_begin = split * per;
-  const int t_end = min(n_keys, t_begin + per);
-  const bool vec16 = hs % 16 == 0;
-  const int hz_last = a.mode == kLayer ? pos - 1 : pos;  // the last row's horizon
-  const int rows_pad = nr <= 1 ? 1 : nr <= 2 ? 2 : nr <= 4 ? 4 : nr <= 8 ? 8 : kRB;
-  const int np = rows_pad * kCK >= kThreads ? 1 : kThreads / (rows_pad * kCK);
-
-  float acc[kNJ];
-#pragma unroll
-  for (int j = 0; j < kNJ; ++j) acc[j] = 0.f;
-
-  int nvalid = 0;
-  for (int c0 = t_begin; c0 < t_end; c0 += nvalid) {
-    nvalid = min(kCK, t_end - c0);
-    const size_t rc = row0 + c0;  // the chunk's rows are rc .. rc + nvalid - 1
-    __syncthreads();  // the previous chunk's rows and products are read
-    stage_rows(a.k8 + rc * hs, sm.k, nvalid * hs, hs, rsb, vec16);
-    stage_rows(a.v8 + rc * hs, sm.v, nvalid * hs, hs, rsb, vec16);
-    for (int c = tid; c < nvalid; c += kThreads) {
-      sm.ks[c] = a.ks[rc + c];
-      sm.vs[c] = a.vs[rc + c];
-    }
-    __syncthreads();
-    if ((a.mode == kAppend || a.mode == kFused) && new_row >= rc && new_row < rc + nvalid) {
-      const int c = static_cast<int>(new_row - rc);  // the new row, from the operand
-      for (int d = tid; d < hs; d += kThreads) {
-        sm.k[c * rsb + d] = sm.kn[d];
-        sm.v[c * rsb + d] = sm.vn[d];
-      }
-      if (tid == 0) {
-        sm.ks[c] = sm.kn_s;
-        sm.vs[c] = sm.vn_s;
-      }
-      __syncthreads();
-    }
-
-    // scores: np threads a (row, key), np = 8, 4, 2 for 1, 2, 4 rows (all
-    // threads busy), each a strided part of the dot, summed by a fixed
-    // butterfly over adjacent lanes
-    for (int e = tid; e < rows_pad * kCK * np; e += kThreads) {
-      const int part = e % np, pair = e / np;
-      const int r = pair / kCK, c = pair % kCK;
-      const int hz = hz_last - (T - 1) + (r0 + r) / G;
-      const bool live = r < nr && c < nvalid && c0 + c <= hz;
-      float dot = 0.f;
-      if (live) {
-        const float* qr = sm.q + r * qs;
-        const int8_t* kr = sm.k + c * rsb;
-        for (int w = part; w < qs / 4; w += np) {
-          const int kw = *reinterpret_cast<const int*>(kr + 4 * w);
-          dot = fmaf(qr[4 * w], byte_at(kw, 0), dot);
-          dot = fmaf(qr[4 * w + 1], byte_at(kw, 1), dot);
-          dot = fmaf(qr[4 * w + 2], byte_at(kw, 2), dot);
-          dot = fmaf(qr[4 * w + 3], byte_at(kw, 3), dot);
-        }
-      }
-      for (int o = np / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
-      if (part == 0 && r < nr) sm.p[r * kCK + c] = live ? dot * (sm.ks[c] * a.scale) : -INFINITY;
-    }
-    __syncthreads();
-
-    // softmax state: one warp a row, one lane a key
-    for (int r = warp; r < nr; r += kWarps) {
-      const float s = sm.p[r * kCK + lane];
-      const float m_old = sm.m[r];
-      const float m_new = fmaxf(m_old, warp_max(s));
-      // a row with no live key yet (K13's strict mask at pos 0, a window
-      // row's later chunks never are): zero contributions, not NaN
-      const bool dead = m_new == -INFINITY;
-      const float alpha = dead ? 0.f : expf(m_old - m_new);
-      const float p = dead ? 0.f : expf(s - m_new);
-      const float psum = warp_sum(p);
-      sm.p[r * kCK + lane] = lane < nvalid ? round_bf16(p * sm.vs[lane]) : 0.f;
-      if (lane == 0) {
-        sm.m[r] = m_new;
-        sm.l[r] = sm.l[r] * alpha + psum;
-        sm.alpha[r] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // values: one thread a (row, element)
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) {
-      const int e = tid + kThreads * j;
-      const int r = e / hs, d = e % hs;
-      if (r < nr) {
-        const float* pr = sm.p + r * kCK;
-        float o = acc[j] * sm.alpha[r];
-        for (int c = 0; c < nvalid; ++c) o = fmaf(pr[c], static_cast<float>(sm.v[c * rsb + d]), o);
-        acc[j] = o;
-      }
-    }
-  }
-  __syncthreads();
-
-  // publish this split's state: m, l, then acc, a row
-  const int stride = hs + 2;
-  float* mine = a.ws + (size_t)item * kRB * stride;
-#pragma unroll
-  for (int j = 0; j < kNJ; ++j) {
-    const int e = tid + kThreads * j;
-    const int r = e / hs, d = e % hs;
-    if (r < nr) mine[r * stride + 2 + d] = acc[j];
-  }
-  if (tid < nr) {
-    mine[tid * stride] = sm.m[tid];
-    mine[tid * stride + 1] = sm.l[tid];
-  }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) sm.last = atomicAdd(&a.tickets[group], 1) == ns - 1;
-  __syncthreads();
-  if (!sm.last) return;
-  __threadfence();
-
-  // the last split merges the states in split order (and K13's virtual
-  // row). The splits' (m, l) are fetched together into shared memory, and
-  // m is replaced there by the split's weight exp(m - M), 0 for a split
-  // that saw no live key (its l and acc are 0).
-  const float* states = a.ws + (size_t)group * a.nsplit * kRB * stride;
-  for (int e = tid; e < ns * nr; e += kThreads) {
-    const float* st = states + ((size_t)(e / nr) * kRB + e % nr) * stride;
-    sm.ml[2 * e] = __ldcg(st);
-    sm.ml[2 * e + 1] = __ldcg(st + 1);
-  }
-  __syncthreads();
-  if (tid < nr) {
-    const int r = tid;
-    float M = -INFINITY;
-    for (int s = 0; s < ns; ++s) M = fmaxf(M, sm.ml[2 * (s * nr + r)]);
-    float sv = -INFINITY;
-    if (a.mode == kLayer) {
-      float dot = 0.f;
-      for (int d = 0; d < hs; ++d) dot = fmaf(sm.q[r * qs + d], static_cast<float>(sm.kn[d]), dot);
-      sv = dot * (sm.kn_s * a.scale);
-      M = fmaxf(M, sv);
-    }
-    float L = 0.f;
-    for (int s = 0; s < ns; ++s) {
-      float* ml = sm.ml + 2 * (s * nr + r);
-      const float w = ml[0] != -INFINITY ? expf(ml[0] - M) : 0.f;
-      L = fmaf(ml[1], w, L);
-      ml[0] = w;
-    }
-    if (a.mode == kLayer) L += expf(sv - M);
-    sm.m[r] = M;
-    sm.l[r] = L;
-    sm.alpha[r] = sv;
-  }
-  __syncthreads();
-  for (int e = tid; e < nr * hs; e += kThreads) {
-    const int r = e / hs, d = e % hs;
-    const float M = sm.m[r];
-    float o = 0.f;
-#pragma unroll 4
-    for (int s = 0; s < ns; ++s)
-      o = fmaf(__ldcg(states + ((size_t)s * kRB + r) * stride + 2 + d), sm.ml[2 * (s * nr + r)], o);
-    if (a.mode == kLayer) {
-      const float vd = static_cast<float>(sm.vn[d]) * sm.vn_s;  // float32, not rounded to bf16
-      o = fmaf(expf(sm.alpha[r] - M), vd, o);
-    }
-    o = __fdiv_rn(o, sm.l[r]);
-    const int rr = r0 + r, t = rr / G, h = kvh * G + rr % G;
-    if (a.mode == kLayer)
-      a.out32[((size_t)b * H + h) * hs + d] = o;
-    else
-      store_act(a.out, (((size_t)b * T + t) * H + h) * hs + d, a.dtype, o);
-  }
-  if (tid == 0) a.tickets[group] = 0;
-}
-
-// ---------------------------------------------------------------------------
-// att_split: the T = 1 loop over paged int8 pools (K16 append, K18 fused).
-//
-// att_item was cut for windows of up to kRB query rows: at T = 1 with one
-// query row a kv head (Llama-2-7B), a whole block stages 32 keys at a time in
-// shared memory with four block barriers a chunk, and reads at a fifth of the
-// memory rate. Here a block takes one (b, kv head, group of up to NQ query
-// rows, split of the key range), and each warp walks its own runs of keys
-// with no block barrier in the loop: lane (r, j) takes key base + u * RPW + r
-// (RPW = 32 / LPR rows a warp load, U loads a pass, all issued before any is
-// used) and bytes (nv * LPR + j) * VB .. + VB of its K and V rows, with the
-// rows' scales; a 7B row (128 bytes) is 8 lanes of 16-byte loads, 4 rows a
-// warp load. Every query row of the group shares each K/V row the block
-// reads (one at 7B, up to eight under GQA). A score is summed over the LPR
-// lanes of its row; the warp keeps one running max a query row, so the row
-// slots' l and acc add up at the end. The key addresses come from the table:
-// one division a pass finds the page of the pass's first key, and a key past
-// the page's end moves to the next table entry.
-//
-// Arithmetic as att_item's: q rounded to bf16; score = (q . k8) in float32
-// times (k_scale * scale); online softmax in float32 against the warp's
-// running max; bf16(p * v_scale) times the int8 value, summed in float32;
-// out = acc / l (IEEE division). The warps' states (m, l, acc) merge in warp
-// order in shared memory (weight exp(m_w - M), 0 for a warp that saw no
-// key); the splits of a (b, kv head, group) merge in split order through the
-// workspace, the last to draw the ticket merging, writing out and zeroing the
-// ticket (a row whose keys fill one split writes out at once). No float
-// atomics: the same inputs give the same bits.
-//
-// The split count comes from the host's plan (ops/cuda/paged_attention.py::
-// q8_plan: the shapes, the table's reach and the SM count, never pos); row
-// b's keys 0..pos[b] are cut into at most nsplit runs of whole passes of the
-// block (split_keys), so a short context takes only the splits it fills.
-// This step's row is the last key, pos[b]: the block of the last split
-// (kFused: RoPE and quantization, as att_item; kAppend: the given row) holds
-// it in shared memory, reads it from there, and (its first row group) writes
-// it to (wpage[b], wrow[b]); no block reads it back from the pool.
 template <int VB>
 struct I8Vec {  // VB int8 values loaded as one vector (the address aligned to it)
   static constexpr int kWords = VB >= 4 ? VB / 4 : 1;
@@ -507,10 +147,14 @@ struct I8Vec {  // VB int8 values loaded as one vector (the address aligned to i
       w[1] = v.y;
       w[2] = v.z;
       w[3] = v.w;
+    } else if constexpr (VB == 8) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      w[0] = v.x;
+      w[1] = v.y;
     } else if constexpr (VB == 4) {
       w[0] = *reinterpret_cast<const uint32_t*>(p);
     } else {
-      static_assert(VB == 2, "16-, 4- or 2-byte vectors");
+      static_assert(VB == 2, "16-, 8-, 4- or 2-byte vectors");
       w[0] = *reinterpret_cast<const unsigned short*>(p);
     }
   }
@@ -521,34 +165,84 @@ struct I8Vec {  // VB int8 values loaded as one vector (the address aligned to i
 
 // The lane layout: VB bytes a vector, LPR lanes a row (a power of two), NV
 // vectors a lane a row, NQ query rows a block; U warp loads a pass.
-template <int VB, int LPR, int NV, int NQ>
+template <int VB, int LPR, int NV, int NQ, int U>
 struct SplitShape {
-  static constexpr int kU = NQ == 1 ? 4 : 2;
   static constexpr int kRowsPerWarp = 32 / LPR;
-  static constexpr int kWarpKeys = kU * kRowsPerWarp;  // keys of one warp pass
-  static constexpr int kChunk = kWarps * kWarpKeys;    // keys of one block pass
-  static constexpr int kElems = NV * VB;               // elements a lane holds of a row
+  static constexpr int kWarpKeys = U * kRowsPerWarp;  // keys of one warp pass
+  static constexpr int kChunk = kWarps * kWarpKeys;   // keys of one block pass
+  static constexpr int kElems = NV * VB;              // elements a lane holds of a row
 };
 
+// Every instance a plan can name: X(index, VB, LPR, NV, NQ). One query row
+// a block takes 16-byte loads, up to four (a verify window at the 7B layout)
+// 8-byte loads, eight 4-byte loads (LPR and NV from hs); 2-byte loads where
+// the rows are not aligned to those. The registers of a lane's query rows
+// and accumulators (2 * NQ * NV * VB floats) bound the vector.
+#define LLAMA2_Q8A_INSTANCES(X) \
+  X(0, 16, 4, 1, 1)             \
+  X(1, 16, 8, 1, 1)             \
+  X(2, 16, 16, 1, 1)            \
+  X(3, 8, 8, 1, 4)              \
+  X(4, 8, 16, 1, 4)             \
+  X(5, 8, 32, 1, 4)             \
+  X(6, 4, 16, 1, 8)             \
+  X(7, 4, 32, 1, 8)             \
+  X(8, 4, 32, 2, 8)             \
+  X(9, 2, 32, 4, 1)             \
+  X(10, 2, 32, 4, 8)
+
+// the index of the instance for nq query rows a block, vb bytes a vector
+// load and head size hs (q8_plan's rule), or -1
+__host__ __device__ inline int instance(int vb, int nq, int hs) {
+  if (nq == 1 && vb == 16 && hs % 16 == 0) return hs <= 64 ? 0 : hs <= 128 ? 1 : 2;
+  if (nq == 4 && vb == 8 && hs % 8 == 0) return hs <= 64 ? 3 : hs <= 128 ? 4 : 5;
+  if (nq == 8 && vb == 4 && hs % 4 == 0) return hs <= 64 ? 6 : hs <= 128 ? 7 : 8;
+  if (vb == 2) return nq == 1 ? 9 : nq == 8 ? 10 : -1;
+  return -1;
+}
+
+// warp loads a pass: u1 for one query row a block, else 2
+__host__ __device__ constexpr int unroll(int nq, int u1) { return nq == 1 ? u1 : 2; }
+
+// The whole-layer kernel's attention phase (K13) carries one loop: one
+// query row a block, 16-byte loads, 8 lanes a row, so head sizes that are
+// multiples of 16 up to 128. A GQA kv head's query rows are each a group of
+// their own, which reads the kv head's rows again (from L2: a kv head's
+// groups are neighbouring items). One loop only: with a second instance in
+// the same cooperative kernel its gemv phases spilled, and K13 ran a fifth
+// slower even where the second loop never ran (PERF.md, section 6).
+constexpr int kLayerVB = 16, kLayerLanes = 8, kLayerMaxHs = kLayerLanes * kLayerVB;
+
+// keys of one block pass of the instance `inst` (unroll u1 for one row), or -1
+__host__ __device__ inline int chunk_of(int inst, int u1) {
+#define LLAMA2_Q8A_CHUNK(i, VB, LPR, NV, NQ) \
+  case i:                                    \
+    return kWarps * unroll(NQ, u1) * (32 / LPR);
+  switch (inst) { LLAMA2_Q8A_INSTANCES(LLAMA2_Q8A_CHUNK) }
+#undef LLAMA2_Q8A_CHUNK
+  return -1;
+}
+
 // (ns, per): row b's n_keys keys in ns runs of per keys (whole chunks; the
-// last cut at n_keys), ns <= nsplit
+// last cut at n_keys), ns <= nsplit; no key (K13 at pos 0): one empty run
 struct KeySplit {
   int ns, per;
 };
 __host__ __device__ inline KeySplit split_keys(int n_keys, int nsplit, int chunk) {
-  const int chunks = (n_keys + chunk - 1) / chunk;
-  const int ns0 = nsplit < chunks ? nsplit : chunks > 0 ? chunks : 1;
-  const int per = ((n_keys + ns0 - 1) / ns0 + chunk - 1) / chunk * chunk;
-  return {(n_keys + per - 1) / per, per};
+  const int n = n_keys > 0 ? n_keys : 1;
+  const int chunks = (n + chunk - 1) / chunk;
+  const int ns0 = nsplit < chunks ? nsplit : chunks;
+  const int per = ((n + ns0 - 1) / ns0 + chunk - 1) / chunk * chunk;
+  return {(n + per - 1) / per, per};
 }
 
-constexpr int kMaxNQ = 8;
-
 struct SplitSmem {
+  float q[kMaxNQ * kMaxHs];                         // the group's query rows (bf16 values)
   float wm[kWarps * kMaxNQ], wl[kWarps * kMaxNQ];  // the warps' (m, l) a query row
   float w[kMaxSplit * kMaxNQ];                      // the merge: each state's weight
   float M[kMaxNQ], L[kMaxNQ];
-  float kf[kMaxHs], vf[kMaxHs];  // kFused: the new rows in float32
+  float sv[kMaxNQ], wv[kMaxNQ];  // K13: the virtual row's score, then its weight
+  float kf[kMaxHs], vf[kMaxHs];  // kFused, kLayer: the new rows in float32
   alignas(16) int8_t kn[kMaxHs];  // this step's quantized K and V rows (vector loads)
   alignas(16) int8_t vn[kMaxHs];
   float kn_s, vn_s;
@@ -559,30 +253,89 @@ struct SplitSmem {
 // floats of the dynamic shared memory att_split takes: the warps' acc
 __host__ __device__ constexpr int split_acc_floats(int nq, int hs) { return kWarps * nq * hs; }
 
-template <int VB, int LPR, int NV, int NQ>
-__device__ void att_split(const Params& a, SplitSmem& sm, float* wacc) {
-  using Shape = SplitShape<VB, LPR, NV, NQ>;
-  constexpr int U = Shape::kU, RPW = Shape::kRowsPerWarp, E = Shape::kElems;
+// Row policies: where key t of (b, kv head) lives, as a row index (of the
+// scales; times hs for the int8 rows), and where this step's row goes.
+struct DenseRows {  // row t of the (L, B, KVH, S) plane
+  size_t row0;
+  __device__ DenseRows(const Params& a, int b, int kvh)
+      : row0((((size_t)a.layer * a.B + b) * a.KVH + kvh) * (size_t)a.S) {}
+  __device__ size_t new_row(const Params&, int, int pos) const { return row0 + pos; }
+  __device__ void pass(int) {}
+  __device__ size_t at(int t, int) const { return row0 + t; }
+};
+
+struct PagedRows {  // row t % page of page table[b, t / page]
+  const int* table;
+  size_t layer_pages;
+  int KVH, kvh, page, pb, rb;
+  __device__ PagedRows(const Params& a, int b, int kvh_)
+      : table(a.table + (size_t)b * a.max_pages), layer_pages((size_t)a.layer * a.P), KVH(a.KVH),
+        kvh(kvh_), page(a.page), pb(0), rb(0) {}
+  __device__ size_t new_row(const Params& a, int b, int) const {
+    return ((layer_pages + a.wpage[b]) * KVH + kvh) * (size_t)page + a.wrow[b];
+  }
+  __device__ void pass(int base) {  // the pass's first key: page, row
+    pb = base / page;
+    rb = base - pb * page;
+  }
+  __device__ size_t at(int t, int base) const {
+    int pi = pb, rr = rb + (t - base);
+    while (rr >= page) {
+      rr -= page;
+      ++pi;
+    }
+    return ((layer_pages + table[pi]) * KVH + kvh) * (size_t)page + rr;
+  }
+};
+
+// One work item. Called by all threads of a block of kThreads; `wacc` is
+// split_acc_floats(NQ, hs) floats of shared memory.
+template <class Rows, int VB, int LPR, int NV, int NQ, int U>
+__device__ void att_split(const Params& a, int item, SplitSmem& sm, float* wacc) {
+  using Shape = SplitShape<VB, LPR, NV, NQ, U>;
+  constexpr int RPW = Shape::kRowsPerWarp, E = Shape::kElems;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int r = lane / LPR, j = lane % LPR;
   const int hs = a.hs, H = a.H, KVH = a.KVH, G = H / KVH;
-  const int item = blockIdx.x;
+  const int T = a.mode == kWindow ? a.T : 1;
   const int split = item % a.nsplit;
   const int group = item / a.nsplit;  // (b, kv head, row group): its ticket
   const int rg = group % a.n_rg;
   const int kvh = (group / a.n_rg) % KVH;
   const int b = group / a.n_rg / KVH;
-  const int q0 = rg * NQ;  // the group's first query row of the kv head
-  const int nq = min(NQ, G - q0);
+  const int q0 = rg * NQ;  // the group's first query row of the kv head (row t * G + g)
+  const int nq = min(NQ, T * G - q0);
   const int pos = a.pos[b];
-  const int n_keys = pos + 1;
+  const int n_keys = a.mode == kLayer ? pos : pos + 1;
   const KeySplit ks = split_keys(n_keys, a.nsplit, Shape::kChunk);
   if (split >= ks.ns) return;
   const int t_begin = split * ks.per;
   const int t_end = min(n_keys, t_begin + ks.per);
-  const bool holds_new = t_end == n_keys;  // the last split: key pos is this step's row
-  const bool fused = a.mode == kFused;
+  // the last split makes this step's row (no row in a window)
+  const bool holds_new = a.mode != kWindow && t_end == n_keys;
+  const bool fused = a.mode == kFused || a.mode == kLayer;
+  const bool virt = a.mode == kLayer && holds_new;  // K13: the virtual row joins this state
   const size_t qkv_row = (size_t)b * (H + 2 * KVH);
+  Rows rows(a, b, kvh);
+  __syncthreads();  // the block's previous item (K13 deals several) is done with sm
+
+  // the group's query rows, rotated (kFused, kLayer) and rounded to bf16,
+  // once a block into shared memory (a thread an element: one round of
+  // loads, where each lane's own elements took several)
+  for (int i = tid; i < nq * hs; i += kThreads) {
+    const int qq = i / hs, d = i - qq * hs;
+    const int rr = q0 + qq, t = rr / G, h = kvh * G + rr % G;
+    float val;
+    if (fused) {
+      const size_t base = (qkv_row + h) * hs;
+      val = rope_elem(load_act(a.qkv, base + d, a.dtype), load_act(a.qkv, base + (d ^ 1), a.dtype),
+                      a.cos_il[(size_t)b * hs + d], a.sin_il[(size_t)b * hs + d], d & 1);
+    } else {
+      val = load_act(a.q, (((size_t)b * T + t) * H + h) * hs + d, a.dtype);
+    }
+    sm.q[i] = round_bf16(val);
+  }
+  __syncthreads();
 
   // this lane's elements of a row: e[nv] .. e[nv] + VB - 1 (a lane past hs
   // re-reads the last vector; its q is 0)
@@ -590,30 +343,20 @@ __device__ void att_split(const Params& a, SplitSmem& sm, float* wacc) {
 #pragma unroll
   for (int nv = 0; nv < NV; ++nv) e[nv] = min((nv * LPR + j) * VB, hs - VB);
   float qv[NQ][E];
+  int hz[NQ];  // the last key each query row sees
 #pragma unroll
-  for (int qq = 0; qq < NQ; ++qq)
+  for (int qq = 0; qq < NQ; ++qq) {
+    hz[qq] = pos - (T - 1) + (q0 + qq) / G;
 #pragma unroll
     for (int nv = 0; nv < NV; ++nv)
 #pragma unroll
       for (int i = 0; i < VB; ++i) {
         const int d = (nv * LPR + j) * VB + i;
-        float val = 0.f;
-        if (qq < nq && d < hs) {
-          const int h = kvh * G + q0 + qq;
-          if (fused) {
-            const size_t base = (qkv_row + h) * hs;
-            val = rope_elem(load_act(a.qkv, base + d, a.dtype), load_act(a.qkv, base + (d ^ 1), a.dtype),
-                            a.cos_il[(size_t)b * hs + d], a.sin_il[(size_t)b * hs + d], d & 1);
-          } else {
-            val = load_act(a.q, ((size_t)b * H + h) * hs + d, a.dtype);
-          }
-          val = round_bf16(val);
-        }
-        qv[qq][nv * VB + i] = val;
+        qv[qq][nv * VB + i] = qq < nq && d < hs ? sm.q[qq * hs + d] : 0.f;
       }
+  }
 
   // this step's K and V rows: rotated and quantized here, or given
-  const size_t new_row = (((size_t)a.layer * a.P + a.wpage[b]) * KVH + kvh) * (size_t)a.page + a.wrow[b];
   if (holds_new) {
     if (fused) {
       const size_t kb = (qkv_row + H + kvh) * hs, vb = (qkv_row + H + KVH + kvh) * hs;
@@ -651,14 +394,15 @@ __device__ void att_split(const Params& a, SplitSmem& sm, float* wacc) {
       }
     }
     __syncthreads();
-    if (rg == 0) {  // the append, once a (b, kv head)
+    if (rg == 0) {  // the append, once a (b, kv head); no block reads it back
+      const size_t at = rows.new_row(a, b, pos);
       for (int d = tid; d < hs; d += kThreads) {
-        a.k8[new_row * hs + d] = sm.kn[d];
-        a.v8[new_row * hs + d] = sm.vn[d];
+        a.k8[at * hs + d] = sm.kn[d];
+        a.v8[at * hs + d] = sm.vn[d];
       }
       if (tid == 0) {
-        a.ks[new_row] = sm.kn_s;
-        a.vs[new_row] = sm.vn_s;
+        a.ks[at] = sm.kn_s;
+        a.vs[at] = sm.vn_s;
       }
     }
   }
@@ -671,17 +415,15 @@ __device__ void att_split(const Params& a, SplitSmem& sm, float* wacc) {
 #pragma unroll
     for (int i = 0; i < E; ++i) acc[qq][i] = 0.f;
   }
-  const int* table = a.table + (size_t)b * a.max_pages;
-  const size_t layer_pages = (size_t)a.layer * a.P;
   for (int base = t_begin + warp * Shape::kWarpKeys; base < t_end; base += kWarps * Shape::kWarpKeys) {
-    const int pb = base / a.page, rb = base - pb * a.page;  // the pass's first key: page, row
+    rows.pass(base);
     I8Vec<VB> kr[U][NV], vr[U][NV];
     float ksc[U], vsc[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       // a key past t_end re-reads key t_end - 1 (its score is masked)
       const int t = min(base + u * RPW + r, t_end - 1);
-      if (holds_new && t == pos) {
+      if (holds_new && t == pos) {  // K8, K9, K16, K18: key pos is this step's row
 #pragma unroll
         for (int nv = 0; nv < NV; ++nv) {
           kr[u][nv].load(sm.kn + e[nv]);
@@ -690,12 +432,7 @@ __device__ void att_split(const Params& a, SplitSmem& sm, float* wacc) {
         ksc[u] = sm.kn_s;
         vsc[u] = sm.vn_s;
       } else {
-        int pi = pb, rr = rb + (t - base);
-        while (rr >= a.page) {
-          rr -= a.page;
-          ++pi;
-        }
-        const size_t row = ((layer_pages + table[pi]) * KVH + kvh) * (size_t)a.page + rr;
+        const size_t row = rows.at(t, base);
 #pragma unroll
         for (int nv = 0; nv < NV; ++nv) {
           kr[u][nv].load(a.k8 + row * hs + e[nv]);
@@ -708,7 +445,7 @@ __device__ void att_split(const Params& a, SplitSmem& sm, float* wacc) {
     float s[U][NQ];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const bool live = base + u * RPW + r < t_end;
+      const int t = base + u * RPW + r;
       const float kscale = ksc[u] * a.scale;
 #pragma unroll
       for (int qq = 0; qq < NQ; ++qq) {
@@ -719,7 +456,7 @@ __device__ void att_split(const Params& a, SplitSmem& sm, float* wacc) {
           for (int i = 0; i < VB; ++i) part = fmaf(qv[qq][nv * VB + i], kr[u][nv].at(i), part);
 #pragma unroll
         for (int o = LPR / 2; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
-        s[u][qq] = live ? part * kscale : -INFINITY;
+        s[u][qq] = t < t_end && t <= hz[qq] ? part * kscale : -INFINITY;
       }
     }
 #pragma unroll
@@ -729,15 +466,16 @@ __device__ void att_split(const Params& a, SplitSmem& sm, float* wacc) {
       for (int u = 1; u < U; ++u) smax = fmaxf(smax, s[u][qq]);
 #pragma unroll
       for (int o = LPR; o < 32; o <<= 1) smax = fmaxf(smax, __shfl_xor_sync(0xffffffffu, smax, o));
-      // finite: key `base` < t_end is always in the pass
       const float m_new = fmaxf(m[qq], smax);
-      const float alpha = expf(m[qq] - m_new);
+      // a window row that sees no key yet keeps m = -inf, l = 0, acc = 0
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = expf(m[qq] - m_use);
       l[qq] *= alpha;
 #pragma unroll
       for (int i = 0; i < E; ++i) acc[qq][i] *= alpha;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        const float p = expf(s[u][qq] - m_new);
+        const float p = expf(s[u][qq] - m_use);
         l[qq] += p;
         const float pv = round_bf16(p * vsc[u]);
 #pragma unroll
@@ -758,8 +496,26 @@ __device__ void att_split(const Params& a, SplitSmem& sm, float* wacc) {
 #pragma unroll
       for (int i = 0; i < E; ++i) acc[qq][i] += __shfl_xor_sync(0xffffffffu, acc[qq][i], o);
     }
+  // K13: the virtual row's score, (q . k8_new) * (k_scale * scale)
+  if (virt && warp == 0) {
+#pragma unroll
+    for (int qq = 0; qq < NQ; ++qq) {
+      float part = 0.f;
+#pragma unroll
+      for (int nv = 0; nv < NV; ++nv) {
+        I8Vec<VB> kn;
+        kn.load(sm.kn + e[nv]);
+#pragma unroll
+        for (int i = 0; i < VB; ++i) part = fmaf(qv[qq][nv * VB + i], kn.at(i), part);
+      }
+#pragma unroll
+      for (int o = LPR / 2; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+      if (lane == 0) sm.sv[qq] = part * (sm.kn_s * a.scale);
+    }
+  }
 
-  // the warps' states into shared memory, merged in warp order
+  // the warps' states into shared memory, merged in warp order (and K13's
+  // virtual row, its value the float32 dequantized row)
   if (lane == 0)
 #pragma unroll
     for (int qq = 0; qq < NQ; ++qq) {
@@ -781,6 +537,8 @@ __device__ void att_split(const Params& a, SplitSmem& sm, float* wacc) {
     float M = -INFINITY;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sm.wm[w * NQ + tid]);
+    const float sv = virt ? sm.sv[tid] : -INFINITY;
+    M = fmaxf(M, sv);
     float L = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
@@ -788,18 +546,25 @@ __device__ void att_split(const Params& a, SplitSmem& sm, float* wacc) {
       sm.w[w * NQ + tid] = wt;
       L = fmaf(sm.wl[w * NQ + tid], wt, L);
     }
+    const float wv = virt ? expf(sv - M) : 0.f;
     sm.M[tid] = M;
-    sm.L[tid] = L;
+    sm.L[tid] = L + wv;
+    sm.wv[tid] = wv;
   }
   __syncthreads();
   auto warp_merged = [&](int qq, int d) {
     float o = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) o = fmaf(wacc[(w * NQ + qq) * hs + d], sm.w[w * NQ + qq], o);
+    if (virt) o = fmaf(sm.wv[qq], static_cast<float>(sm.vn[d]) * sm.vn_s, o);
     return o;
   };
   auto store = [&](int qq, int d, float o) {
-    store_act(a.out, ((size_t)b * H + kvh * G + q0 + qq) * hs + d, a.dtype, o);
+    const int rr = q0 + qq, t = rr / G, h = kvh * G + rr % G;
+    if (a.mode == kLayer)
+      a.out32[((size_t)b * H + h) * hs + d] = o;
+    else
+      store_act(a.out, (((size_t)b * T + t) * H + h) * hs + d, a.dtype, o);
   };
   if (ks.ns == 1) {
     for (int i = tid; i < nq * hs; i += kThreads) {
@@ -853,17 +618,43 @@ __device__ void att_split(const Params& a, SplitSmem& sm, float* wacc) {
   if (tid == 0) a.tickets[group] = 0;
 }
 
-// What the device code takes; 0 or a cudaError_t.
-inline int check(const Params& a, long long ws_floats, int n_tickets) {
+// The launch's work items, dealt to its blocks round-robin (one each where
+// the grid has as many blocks as items).
+template <class Rows, int VB, int LPR, int NV, int NQ, int U>
+__device__ void split_items(const Params& a, SplitSmem& sm, float* wacc) {
+  const int n = a.B * a.KVH * a.n_rg * a.nsplit;
+  for (int item = blockIdx.x; item < n; item += gridDim.x) att_split<Rows, VB, LPR, NV, NQ, U>(a, item, sm, wacc);
+}
+
+// The whole-layer kernel's attention phase over the dense planes (U warp
+// loads a pass).
+template <int U>
+__device__ void layer_items(const Params& a, SplitSmem& sm, float* wacc) {
+  split_items<DenseRows, kLayerVB, kLayerLanes, 1, 1, U>(a, sm, wacc);
+}
+
+// What the device code takes, for a launch whose block passes are `chunk`
+// keys (unroll u1 for one query row a block; `layer`: the whole-layer
+// kernel's one loop); 0 or a cudaError_t.
+inline int check(const Params& a, long long ws_floats, int n_tickets, int chunk, int u1, bool layer = false) {
   if (a.B <= 0 || a.H <= 0 || a.KVH <= 0 || a.H % a.KVH != 0) return cudaErrorInvalidValue;
   if (a.hs <= 0 || a.hs > kMaxHs || a.hs % 2 != 0) return cudaErrorInvalidValue;
   if (a.T <= 0 || a.S <= 0 || a.nsplit < 1 || a.nsplit > kMaxSplit || a.layer < 0 || a.layer >= a.L)
     return cudaErrorInvalidValue;
   if (a.dtype != kF32 && a.dtype != kBF16) return cudaErrorInvalidValue;
-  if (a.n_rg != (rows_per_head(a.mode, a.T, a.H, a.KVH) + kRB - 1) / kRB) return cudaErrorInvalidValue;
+  if (layer) {
+    if (a.vb != kLayerVB || a.nq != 1 || a.hs % 16 != 0 || a.hs > kLayerMaxHs ||
+        chunk != kWarps * u1 * (32 / kLayerLanes))
+      return cudaErrorInvalidValue;
+  } else {
+    const int inst = instance(a.vb, a.nq, a.hs);
+    if (inst < 0 || chunk_of(inst, u1) != chunk) return cudaErrorInvalidValue;
+  }
+  const int rows = (a.mode == kWindow ? a.T : 1) * (a.H / a.KVH);
+  if (a.n_rg != (rows + a.nq - 1) / a.nq) return cudaErrorInvalidValue;
   if (a.ws == nullptr || a.tickets == nullptr) return cudaErrorInvalidValue;
-  if (ws_floats < (long long)items(a) * kRB * (a.hs + 2)) return cudaErrorInvalidValue;
-  if (n_tickets < a.B * a.KVH * a.n_rg) return cudaErrorInvalidValue;
+  const long long groups = (long long)a.B * a.KVH * a.n_rg;
+  if (ws_floats < groups * a.nsplit * a.nq * (a.hs + 2) || n_tickets < groups) return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 

@@ -15,9 +15,12 @@
 //
 // then the wo phase on the float32 `att` (rounded to bf16 where it is used, as
 // every matmul operand), with or without the qkv phase. The attention phase is
-// attention_q8.cuh's work items (b, kv head, query-row group, key split) dealt
-// to the blocks round-robin, merged by the last split of each (b, kv head)
-// into a float32 workspace, then one more grid-wide barrier. It differs from
+// attention_q8.cuh's split decode loop over the dense planes (layer_items: its
+// one loop for this kernel, one query row a block), its work items (b, kv
+// head, query row, key split) dealt to the blocks round-robin, merged by the
+// last split of each into a float32 workspace, then one more grid-wide
+// barrier. The loop's warp accumulators take the dynamic shared memory that
+// the tensor-core form's rings use in the later phases. It differs from
 // the glue-fused attention kernel (K9) followed by this kernel in two ways,
 // as the Pallas kernel does: this step's row joins as a virtual row with a
 // float32 value (attention_q8.cuh), and `att` is never rounded to the
@@ -461,21 +464,27 @@ constexpr int kMinBlocks = !MMA && MT <= 2 ? 3 : 2;
 // shared memory of one block: the gemv phases' buffer, or (ATT) the
 // attention phase's, which the barrier after it frees
 template <int MT, bool ATT>
-constexpr size_t kSmemBytes = ATT && sizeof(q8a::Smem) > kStripSmemFloats<MT> * sizeof(float)
-                                  ? sizeof(q8a::Smem)
+constexpr size_t kSmemBytes = ATT && sizeof(q8a::SplitSmem) > kStripSmemFloats<MT> * sizeof(float)
+                                  ? sizeof(q8a::SplitSmem)
                                   : kStripSmemFloats<MT> * sizeof(float);
+
+// warp loads a pass of the attention phase's loop for one query row a block:
+// 2 where three blocks share an SM's registers (the FMA form at 1-2 rows, 80
+// registers a thread), else 4
+__host__ __device__ constexpr int att_unroll(int mt, bool mma) { return !mma && mt <= 2 ? 2 : 4; }
 
 template <int MT, int U, bool ATT, bool MMA>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<MT, MMA>) mlp_block_kernel(const Args a) {
   __shared__ __align__(16) unsigned char smem[kSmemBytes<MT, ATT>];
-  extern __shared__ __align__(16) unsigned char rings[];  // MMA: the warps' rings
+  // MMA: the warps' rings; ATT: first the attention phase's warp accumulators
+  extern __shared__ __align__(16) unsigned char rings[];
   float* sm = reinterpret_cast<float*>(smem);
   __shared__ float rstd[MT];
   __shared__ int last;
   cg::grid_group grid = cg::this_grid();
   if constexpr (ATT) {
-    for (int item = blockIdx.x; item < q8a::items(a.q8); item += gridDim.x)
-      q8a::att_item(a.q8, item, *reinterpret_cast<q8a::Smem*>(smem));
+    q8a::layer_items<att_unroll(MT, MMA)>(a.q8, *reinterpret_cast<q8a::SplitSmem*>(smem),
+                                          reinterpret_cast<float*>(rings));
     grid.sync();
   }
   const bool has_wo = ATT || a.att != nullptr;
@@ -561,41 +570,45 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<MT, MMA>) mlp_block_kerne
   }
 }
 
-// dynamic shared memory of an instance: the tensor-core form's rings, past
-// the default 48 KB with the static buffer, allowed once
-template <int MT, int U, bool MMA>
-cudaError_t dyn_smem(size_t* bytes) {
-  *bytes = MMA ? kRingBytes : 0;
-  if (!MMA) return cudaSuccess;
-  static cudaError_t set = [] {
-    cudaError_t e = cudaFuncSetAttribute(mlp_block_kernel<MT, U, true, MMA>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kRingBytes);
-    if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(mlp_block_kernel<MT, U, false, MMA>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kRingBytes);
-  }();
-  return set;
+// dynamic shared memory of an instance: the tensor-core form's rings and
+// (ATT) the attention phase's att_floats warp accumulators, which share it;
+// the attribute raised where the instance needs more than it allows
+template <int MT, int U, bool ATT, bool MMA>
+cudaError_t dyn_smem(int att_floats, size_t* bytes) {
+  *bytes = std::max(MMA ? kRingBytes : (size_t)0, ATT ? (size_t)att_floats * sizeof(float) : (size_t)0);
+  static size_t allowed = 0;
+  if (*bytes <= allowed) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(mlp_block_kernel<MT, U, ATT, MMA>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
+  if (e == cudaSuccess) allowed = *bytes;
+  return e;
 }
 
 template <int MT, int U, bool MMA>
-cudaError_t occupancy(int* blocks_per_sm, bool att) {
+cudaError_t occupancy(int* blocks_per_sm, int att_floats) {
   size_t dyn = 0;
-  const cudaError_t err = dyn_smem<MT, U, MMA>(&dyn);
+  if (att_floats > 0) {
+    const cudaError_t err = dyn_smem<MT, U, true, MMA>(att_floats, &dyn);
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, mlp_block_kernel<MT, U, true, MMA>,
+                                                         kThreads, dyn);
+  }
+  const cudaError_t err = dyn_smem<MT, U, false, MMA>(0, &dyn);
   if (err != cudaSuccess) return err;
-  return att ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                   blocks_per_sm, mlp_block_kernel<MT, U, true, MMA>, kThreads, dyn)
-             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                   blocks_per_sm, mlp_block_kernel<MT, U, false, MMA>, kThreads, dyn);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, mlp_block_kernel<MT, U, false, MMA>,
+                                                       kThreads, dyn);
 }
 
 template <int MT, int U, bool MMA>
 cudaError_t launch(Args& a, int grid, cudaStream_t st) {
   size_t dyn = 0;
-  const cudaError_t err = dyn_smem<MT, U, MMA>(&dyn);
+  const bool att = a.att32 != nullptr;
+  const cudaError_t err = att ? dyn_smem<MT, U, true, MMA>(q8a::split_acc_floats(a.q8.nq, a.q8.hs), &dyn)
+                              : dyn_smem<MT, U, false, MMA>(0, &dyn);
   if (err != cudaSuccess) return err;
   void* params[] = {&a};
-  const void* fn = a.att32 ? reinterpret_cast<const void*>(&mlp_block_kernel<MT, U, true, MMA>)
-                           : reinterpret_cast<const void*>(&mlp_block_kernel<MT, U, false, MMA>);
+  const void* fn = att ? reinterpret_cast<const void*>(&mlp_block_kernel<MT, U, true, MMA>)
+                       : reinterpret_cast<const void*>(&mlp_block_kernel<MT, U, false, MMA>);
   return cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kThreads), params, dyn, st);
 }
 
@@ -620,21 +633,23 @@ bool bad_matrix(int K, int N, int G, int ksplit, bool mma) {
 }  // namespace
 
 // The most blocks of the kernel for `mt` rows a thread (1, 2, 4 or 8; the
-// tensor-core form, mma != 0, only 8), with the attention phase (att != 0) or
-// without, that are resident together on the current device: *blocks_per_sm
-// times *sms. A cooperative launch takes no more. Returns a cudaError_t.
-extern "C" int mlp_block_occupancy(int mt, int att, int mma, int* blocks_per_sm, int* sms) {
+// tensor-core form, mma != 0, only 8), with the attention phase whose warp
+// accumulators take att_floats floats of shared memory (att_floats > 0;
+// q8a::split_acc_floats of the plan's nq and hs) or without (0), that are
+// resident together on the current device: *blocks_per_sm times *sms. A
+// cooperative launch takes no more. Returns a cudaError_t.
+extern "C" int mlp_block_occupancy(int mt, int att_floats, int mma, int* blocks_per_sm, int* sms) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  if (mma) return mt == 8 ? occupancy<8, 8, true>(blocks_per_sm, att) : cudaErrorInvalidValue;
+  if (mma) return mt == 8 ? occupancy<8, 8, true>(blocks_per_sm, att_floats) : cudaErrorInvalidValue;
   switch (mt) {
-    case 1: return occupancy<1, 16, false>(blocks_per_sm, att);
-    case 2: return occupancy<2, 16, false>(blocks_per_sm, att);
-    case 4: return occupancy<4, 16, false>(blocks_per_sm, att);
-    case 8: return occupancy<8, 8, false>(blocks_per_sm, att);
+    case 1: return occupancy<1, 16, false>(blocks_per_sm, att_floats);
+    case 2: return occupancy<2, 16, false>(blocks_per_sm, att_floats);
+    case 4: return occupancy<4, 16, false>(blocks_per_sm, att_floats);
+    case 8: return occupancy<8, 8, false>(blocks_per_sm, att_floats);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -756,10 +771,13 @@ extern "C" int mlp_block(const void* att, const void* x, const void* wo_q, const
 // k8 / v8 (L, M, KVH, S, hs) int8 and ks / vs (L, M, KVH, S) float32 in place;
 // then mlp_block's phases with att from it (x, weights, rms_*, out, qkv as
 // there; rms_* layer-stacked; qkv null for the last layer).
-//   ws: float32 workspace of ws_floats >= mlp_block's need + M * D + items *
-//     16 * (hs + 2), items = M * KVH * n_rg * nsplit, n_rg = ceil(H / KVH /
-//     16); tickets: n_tickets >= the strips + M * KVH * n_rg, zero on entry,
-//     left zero. D = H * hs. Returns the launch's cudaError_t.
+//   nsplit, nq, vb, chunk: the attention phase's plan (ops/cuda/
+//     attention_q8.py::q8_plan for this grid, unroll att_unroll(mt, mma)),
+//     chunk the keys of one block pass, which must be the instance's.
+//   ws: float32 workspace of ws_floats >= mlp_block's need + M * D + M * KVH
+//     * n_rg * nsplit * nq * (hs + 2), n_rg = ceil(H / KVH / nq); tickets:
+//     n_tickets >= the strips + M * KVH * n_rg, zero on entry, left zero.
+//     D = H * hs. Returns the launch's cudaError_t.
 extern "C" int layer_block(const void* qkv3, const void* cos_il, const void* sin_il, void* k8,
                            void* ks, void* v8, void* vs, const void* pos, const void* x,
                            const void* wo_q, const void* wo_s, const void* rms_ffn,
@@ -770,8 +788,8 @@ extern "C" int layer_block(const void* qkv3, const void* cos_il, const void* sin
                            int n_tickets, int dtype, int layer, int L, int M, int D, int HD,
                            int Dq, int G0, int G1, int G2, int Gq, int ks0, int ks1, int ks2,
                            int ksq, int mt, int mma, int grid, float eps, int H, int KVH, int S, int hs,
-                           int nsplit, float scale, void* stream) {
-  if (H <= 0 || KVH <= 0 || H % KVH != 0 || H * hs != D) return cudaErrorInvalidValue;
+                           int nsplit, int nq, int vb, int chunk, float scale, void* stream) {
+  if (H <= 0 || KVH <= 0 || H % KVH != 0 || H * hs != D || nq <= 0) return cudaErrorInvalidValue;
   if (!qkv3 || !cos_il || !sin_il || !k8 || !ks || !v8 || !vs || !pos) return cudaErrorInvalidValue;
   Args a{};
   size_t need = 0;
@@ -806,11 +824,13 @@ extern "C" int layer_block(const void* qkv3, const void* cos_il, const void* sin
   p.S = S;
   p.hs = hs;
   p.nsplit = nsplit;
+  p.nq = nq;
+  p.vb = vb;
   p.scale = scale;
-  p.n_rg = (q8a::rows_per_head(q8a::kLayer, 1, H, KVH) + q8a::kRB - 1) / q8a::kRB;
+  p.n_rg = (H / KVH + nq - 1) / nq;
   a.att32 = att32;
   const long long att_floats = ws_floats - (long long)need - (long long)M * D;
-  err = q8a::check(p, att_floats, n_tickets - strips);
+  err = q8a::check(p, att_floats, n_tickets - strips, chunk, att_unroll(mt, mma != 0), true);
   if (err != cudaSuccess) return err;
   return launch_mt(a, mt, mma != 0, grid, static_cast<cudaStream_t>(stream));
 }

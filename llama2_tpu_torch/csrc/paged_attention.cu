@@ -211,16 +211,16 @@ cudaError_t dispatch_read(const void* q, const void* kp, const void* vp, void* o
 
 template <int VB, int LPR, int NV, int NQ>
 __global__ void __launch_bounds__(llama2::q8a::kThreads) paged_attention_q8_kernel(const llama2::q8a::Params a) {
-  __shared__ __align__(16) llama2::q8a::SplitSmem sm;
+  namespace q8a = llama2::q8a;  // its PagedRows, not fpa's
+  __shared__ __align__(16) q8a::SplitSmem sm;
   extern __shared__ float wacc[];  // the warps' acc: split_acc_floats(NQ, hs)
-  llama2::q8a::att_split<VB, LPR, NV, NQ>(a, sm, wacc);
+  q8a::att_split<q8a::PagedRows, VB, LPR, NV, NQ, q8a::unroll(NQ, 4)>(a, blockIdx.x, sm, wacc);
 }
 
-// One launch of the instance (VB, LPR, NV, NQ), if `chunk` is its block pass
+// One launch of the instance (VB, LPR, NV, NQ)
 template <int VB, int LPR, int NV, int NQ>
-cudaError_t launch_q8(const llama2::q8a::Params& a, int chunk, cudaStream_t st) {
+cudaError_t launch_q8(const llama2::q8a::Params& a, cudaStream_t st) {
   using namespace llama2::q8a;
-  if (chunk != SplitShape<VB, LPR, NV, NQ>::kChunk) return cudaErrorInvalidValue;
   const int smem = split_acc_floats(NQ, a.hs) * (int)sizeof(float);
   auto kernel = paged_attention_q8_kernel<VB, LPR, NV, NQ>;
   if (smem > 48 * 1024) {
@@ -231,26 +231,17 @@ cudaError_t launch_q8(const llama2::q8a::Params& a, int chunk, cudaStream_t st) 
   return cudaGetLastError();
 }
 
-// The instance of the plan (ops/cuda/paged_attention.py::q8_plan): nq query
-// rows a block (1, or 8 where a kv head has more than one), vb bytes a
-// vector load (16 for one row, 4 for eight, else 2), the lanes a row and the
-// vectors a lane from hs
-cudaError_t dispatch_q8(const llama2::q8a::Params& a, int vb, int nq, int chunk, cudaStream_t st) {
-  const int hs = a.hs;
-  if (nq == 1 && vb == 16 && hs % 16 == 0) {
-    if (hs <= 64) return launch_q8<16, 4, 1, 1>(a, chunk, st);
-    if (hs <= 128) return launch_q8<16, 8, 1, 1>(a, chunk, st);
-    return launch_q8<16, 16, 1, 1>(a, chunk, st);
-  }
-  if (nq == 8 && vb == 4 && hs % 4 == 0) {
-    if (hs <= 64) return launch_q8<4, 16, 1, 8>(a, chunk, st);
-    if (hs <= 128) return launch_q8<4, 32, 1, 8>(a, chunk, st);
-    return launch_q8<4, 32, 2, 8>(a, chunk, st);
-  }
-  if (vb == 2) {
-    if (nq == 1) return hs <= 64 ? launch_q8<2, 32, 1, 1>(a, chunk, st) : launch_q8<2, 32, 4, 1>(a, chunk, st);
-    if (nq == 8) return hs <= 64 ? launch_q8<2, 32, 1, 8>(a, chunk, st) : launch_q8<2, 32, 4, 8>(a, chunk, st);
-  }
+// The instance of the plan (ops/cuda/attention_q8.py::q8_plan), if `chunk`
+// is its block pass
+cudaError_t dispatch_q8(const llama2::q8a::Params& a, int chunk, cudaStream_t st) {
+  using namespace llama2::q8a;
+  const int inst = instance(a.vb, a.nq, a.hs);
+  if (inst < 0 || chunk_of(inst, 4) != chunk) return cudaErrorInvalidValue;
+#define LLAMA2_Q8A_LAUNCH(i, VB, LPR, NV, NQ) \
+  case i:                                     \
+    return launch_q8<VB, LPR, NV, NQ>(a, st);
+  switch (inst) { LLAMA2_Q8A_INSTANCES(LLAMA2_Q8A_LAUNCH) }
+#undef LLAMA2_Q8A_LAUNCH
   return cudaErrorInvalidValue;
 }
 
@@ -304,7 +295,7 @@ extern "C" int paged_decode_attention_fused(
 // cos_il / sin_il (B, hs) float32). Pools: k8 / v8 (L, P, KVH, page, hs) int8
 // and ks / vs (L, P, KVH, page) float32, updated in place; table
 // (B, max_pages), write_page / write_row / pos (B,) int32; out (B, H, hs) in
-// the activation dtype. The plan (ops/cuda/paged_attention.py::q8_plan):
+// the activation dtype. The plan (ops/cuda/attention_q8.py::q8_plan):
 // nsplit splits of the key range, nq query rows a block, vb bytes a vector
 // load, chunk the keys of one block pass, which must be the instance's; ws
 // (ws_floats float32) holds B * KVH * n_rg * nsplit states of nq * (hs + 2)
@@ -326,7 +317,7 @@ extern "C" int paged_attention_q8(
     return cudaErrorInvalidValue;
   if (nsplit < 1 || nsplit > q8a::kMaxSplit || layer < 0 || layer >= L) return cudaErrorInvalidValue;
   if (dtype != kF32 && dtype != kBF16) return cudaErrorInvalidValue;
-  if (nq != 1 && nq != 8) return cudaErrorInvalidValue;
+  if (nq != 1 && nq != 4 && nq != 8) return cudaErrorInvalidValue;
   const int G = H / KVH;
   const int n_rg = (G + nq - 1) / nq;
   if (ws == nullptr || tickets == nullptr || n_tickets < B * KVH * n_rg) return cudaErrorInvalidValue;
@@ -363,6 +354,8 @@ extern "C" int paged_attention_q8(
   a.hs = hs;
   a.nsplit = nsplit;
   a.n_rg = n_rg;
+  a.nq = nq;
+  a.vb = vb;
   a.scale = scale;
   a.table = static_cast<const int*>(table);
   a.wpage = static_cast<const int*>(write_page);
@@ -370,5 +363,5 @@ extern "C" int paged_attention_q8(
   a.P = P;
   a.page = page;
   a.max_pages = max_pages;
-  return dispatch_q8(a, vb, nq, chunk, static_cast<cudaStream_t>(stream));
+  return dispatch_q8(a, chunk, static_cast<cudaStream_t>(stream));
 }

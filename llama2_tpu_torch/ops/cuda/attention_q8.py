@@ -21,7 +21,10 @@ bf16; a score is the float32-accumulated dot with the int8 row times
 ``k_scale[t] * scale`` (the two scalars multiplied first); softmax in float32;
 ``p * v_scale[t]`` is rounded to bf16 before its product with the int8 row;
 ``out = acc / l`` in the query's dtype. The kernel source's header says what
-bounds the kernel and how it is laid out.
+bounds the kernel and how it is laid out: the split decode loop of
+``csrc/attention_q8.cuh``, which the paged int8 kernels (K16, K18) and the
+whole-layer kernel's attention phase (K13) share, launched as
+:func:`q8_plan` says.
 
 ``*_plain`` are the same functions in plain PyTorch: the wrappers take them
 for CPU tensors, and ``chip_smoke.py`` holds the kernel against them on the
@@ -40,10 +43,79 @@ from llama2_tpu_torch.ops.cuda import build
 
 _LIB = "attention_q8"
 _MODES = {"window": 0, "append": 1, "fused": 2}
-ROWS_PER_ITEM = 16  # query rows a work item of the kernel (kRB)
-KEYS_PER_CHUNK = 32  # keys the kernel stages at a time (kCK)
 MAX_WINDOW = 16  # K7's longest window
 MAX_SPLITS = 32  # splits of the key range the kernel merges (kMaxSplit)
+Q8_WARPS = 8  # warps a block of the split loop (csrc/attention_q8.cuh: kWarps)
+Q8_BLOCKS_PER_SM = 2  # blocks a SM the split count aims at
+
+
+@functools.lru_cache(maxsize=None)
+def q8_plan(B: int, H: int, KVH: int, reach: int, hs: int, sms: int, aligned: bool = True,
+            splits: int | None = None, *, T: int = 1, blocks: int | None = None,
+            unroll1: int = 4, megakernel: bool = False) -> dict:
+    """The launch of the int8-cache split decode loop (``att_split`` in
+    ``csrc/attention_q8.cuh``: K7-K9 over dense planes, K13's attention
+    phase, K16/K18 over page pools), from the shapes alone: never from
+    ``pos``, which lives on the device. ``reach`` is the keys the cache can
+    hold (S of a dense plane, max_pages * page of a page table); ``T`` the
+    query rows of a window (K7), so a kv head has ``T * H / KVH`` query rows.
+
+    ``nq`` query rows a block: 1 where a kv head has one (T = 1 at the 7B
+    layout), 4 for two to four (a verify window of 4 at the 7B layout), else
+    8, a kv head's rows in ``n_rg`` groups (a 9-16-row window at the 7B
+    layout is two groups of 8, each reading the K/V rows). ``vb`` bytes a
+    vector load: 16 for one row (hs % 16 == 0 and the rows 16-byte aligned,
+    ``aligned``), 8 for four (hs % 8 == 0), 4 for eight (hs % 4 == 0), else 2
+    (eight rows a block); ``lanes`` a row (a power of two), ``nv`` vectors a
+    lane, ``unroll`` warp loads a pass (2 for several rows; for one
+    ``unroll1``: 4, or 2 where K13 shares an SM's registers among three
+    blocks); ``chunk`` the keys one pass of a block covers. ``megakernel``:
+    K13's attention phase, whose cooperative kernels carry one loop (one row
+    a block, 16-byte loads, 8 lanes a row: hs a multiple of 16 up to 128,
+    rows 16-byte aligned; a GQA kv head's query rows each a group of its
+    own, reading the kv head's rows again from L2). ``splits`` of the key
+    range: as many as keep the work items within ``blocks`` (the launch's
+    grid: ``Q8_BLOCKS_PER_SM`` blocks a SM for the kernels of their own, the
+    cooperative grid for K13; 1 where the (b, kv head, group) items fill it
+    already), each at least 4 chunks at full reach, at most ``MAX_SPLITS``;
+    given, it replaces the chosen count (``chip_smoke.py`` times other
+    counts). ``ws_floats`` and ``tickets`` are what the launch takes of
+    ``build.workspace``. The device cuts row b's keys into at most
+    ``splits`` runs of whole chunks (``split_keys``)."""
+    rows = T * (H // KVH)
+    if rows == 1 or megakernel:
+        nq = 1
+    elif rows <= 4 and aligned and hs % 8 == 0:
+        nq = 4
+    else:
+        nq = 8
+    if megakernel:
+        if not (aligned and hs % 16 == 0 and hs <= 128):
+            raise ValueError(f"the whole-layer kernel takes 16-byte aligned rows, hs % 16 == 0, hs <= 128 (hs={hs})")
+        vb, lanes, nv = 16, 8, 1
+    elif nq == 1 and aligned and hs % 16 == 0:
+        vb, lanes, nv = 16, 4 if hs <= 64 else 8 if hs <= 128 else 16, 1
+    elif nq == 4:
+        vb, lanes, nv = 8, 8 if hs <= 64 else 16 if hs <= 128 else 32, 1
+    elif nq == 8 and aligned and hs % 4 == 0:
+        vb, lanes, nv = 4, 16 if hs <= 64 else 32, 1 if hs <= 128 else 2
+    else:
+        vb, lanes, nv = 2, 32, 4
+    unroll = unroll1 if nq == 1 else 2
+    chunk = Q8_WARPS * unroll * (32 // lanes)
+    n_rg = -(-rows // nq)
+    groups = B * KVH * n_rg
+    if blocks is None:
+        blocks = Q8_BLOCKS_PER_SM * sms
+    if splits is None:
+        splits = max(1, min(MAX_SPLITS, -(-reach // (4 * chunk)), blocks // groups))
+    elif not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"splits {splits} outside 1..{MAX_SPLITS}")
+    return {
+        "nq": nq, "n_rg": n_rg, "vb": vb, "lanes": lanes, "nv": nv, "unroll": unroll,
+        "chunk": chunk, "splits": splits, "grid": groups * splits,
+        "ws_floats": groups * splits * nq * (hs + 2), "tickets": groups,
+    }
 
 
 def quantize_kv_rows(rows: torch.Tensor):
@@ -301,24 +373,15 @@ def flash_decode_attention_q8_fused(
 flash_decode_attention_q8_fused.launches = 0
 
 
-def splits(B: int, KVH: int, n_rg: int, S: int, blocks: int) -> int:
-    """Splits of the key range: enough work items for ``blocks`` blocks, each
-    split at least 4 chunks of keys at full context, at most MAX_SPLITS."""
-    items = B * KVH * n_rg
-    return max(1, min(-(-S // (4 * KEYS_PER_CHUNK)), -(-blocks // items), MAX_SPLITS))
-
-
-def n_row_groups(rows: int) -> int:
-    return -(-rows // ROWS_PER_ITEM)
-
-
 @functools.lru_cache(maxsize=None)
 def _sms(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _launch(which, mode, *, caches, pos, out, L, layer, T, H, q=None, qkv=None, news=None, rope=None):
-    """Check the operands of a CUDA launch, launch, count it."""
+def _launch(which, mode, *, caches, pos, out, L, layer, T, H, q=None, qkv=None, news=None, rope=None,
+            splits: int | None = None):
+    """Check the operands of a CUDA launch, launch (at :func:`q8_plan`'s
+    split count, or ``splits``), count it."""
     k8, ks, v8, vs = caches
     act = q if q is not None else qkv
     if act.device.type != "cuda":
@@ -332,19 +395,15 @@ def _launch(which, mode, *, caches, pos, out, L, layer, T, H, q=None, qkv=None, 
         raise ValueError("operands must be contiguous")
     hs, KVH, S = k8.shape[-1], k8.shape[-3], k8.shape[-2]
     B = pos.shape[0]
-    align = 16 if hs % 16 == 0 else 2
-    if any(t.data_ptr() % align for t in (k8, v8, *(news[::2] if news else ()))):
-        raise ValueError(f"int8 rows must be {align}-byte aligned")
-    n_rg = n_row_groups(T * (H // KVH))
-    if B * KVH * n_rg > build.MAX_TICKETS:
-        raise ValueError(f"{B * KVH * n_rg} (b, kv head, row group) triples: more than {build.MAX_TICKETS}")
+    if any(t.data_ptr() % 2 for t in (k8, v8)):
+        raise ValueError("int8 caches must be 2-byte aligned")
     device = act.device
-    # four blocks an SM are resident (registers), and each hides the others'
-    # load latency
-    nsplit = splits(B, KVH, n_rg, S, 4 * _sms(device.index if device.index is not None
-                                              else torch.cuda.current_device()))
-    ws_floats = B * KVH * n_rg * nsplit * ROWS_PER_ITEM * (hs + 2)
-    ws, tickets = build.workspace(device, ws_floats)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    aligned = all(t.data_ptr() % 16 == 0 for t in (k8, v8))
+    p = q8_plan(B, H, KVH, S, hs, _sms(index), aligned, splits, T=T)
+    if p["tickets"] > build.MAX_TICKETS:
+        raise ValueError(f"{p['tickets']} (b, kv head, row group) triples: more than {build.MAX_TICKETS}")
+    ws, tickets = build.workspace(device, p["ws_floats"])
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -355,8 +414,8 @@ def _launch(which, mode, *, caches, pos, out, L, layer, T, H, q=None, qkv=None, 
         _MODES[mode], ptr(q), ptr(qkv), ptr(cos_il), ptr(sin_il), k8.data_ptr(), ks.data_ptr(),
         v8.data_ptr(), vs.data_ptr(), ptr(k_new), ptr(ks_new), ptr(v_new), ptr(vs_new),
         pos.data_ptr(), out.data_ptr(), ws.data_ptr(), tickets.data_ptr(), ws.numel(),
-        tickets.numel(), build.DTYPE_CODES[act.dtype], layer, L, B, T, H, KVH, S, hs, nsplit,
-        1.0 / hs**0.5, torch.cuda.current_stream(device).cuda_stream,
+        tickets.numel(), build.DTYPE_CODES[act.dtype], layer, L, B, T, H, KVH, S, hs, p["splits"],
+        p["nq"], p["vb"], p["chunk"], 1.0 / hs**0.5, torch.cuda.current_stream(device).cuda_stream,
     )
     build.check(err, which.__name__)
     which.launches += 1
@@ -366,6 +425,6 @@ def _launch(which, mode, *, caches, pos, out, L, layer, T, H, q=None, qkv=None, 
 def _entry():
     fn = build.load_library(_LIB).attention_q8
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i] + [p] * 16 + [ctypes.c_longlong] + [i] * 11 + [ctypes.c_float, p]
+    fn.argtypes = [i] + [p] * 16 + [ctypes.c_longlong] + [i] * 14 + [ctypes.c_float, p]
     fn.restype = i
     return fn

@@ -9,7 +9,8 @@ weights and caches::
     qkv' = rmsnorm(out, rms_att[l']) @ wqkv[l'],   l' = min(l + 1, L - 1)  (with_qkv)
 
 as ONE cooperative launch of the kernel of ``csrc/mlp_block.cu`` with its
-attention phase (``csrc/attention_q8.cuh``), replacing
+attention phase (the split decode loop of ``csrc/attention_q8.cuh`` over the
+dense planes, launched as :func:`launch_plans` says), replacing
 ``llama2_tpu/ops/pallas/layer_block.py::layer_block_stacked``. It is the
 glue-fused int8 attention (K9) followed by the wo/FFN/next-QKV megakernel
 (K12, or K11 without ``qkv'``), with the two differences the Pallas kernel
@@ -26,17 +27,19 @@ against it on the card. On a CUDA tensor the wrapper launches or raises.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from llama2_tpu_torch.ops.cuda import build
 from llama2_tpu_torch.ops.cuda import mlp_block as mb
 from llama2_tpu_torch.ops.cuda.attention_q8 import (
-    ROWS_PER_ITEM,
-    append_rows,
+    Q8_WARPS,
     _check_stacked,
-    n_row_groups,
+    _sms,
+    append_rows,
+    q8_plan,
     rope_quantize_plain,
-    splits,
 )
 from llama2_tpu_torch.ops.cuda.quant_matmul import _check_layer
 
@@ -45,14 +48,31 @@ def layer_block_supported(wo, w1, w3, w2, wqkv, config) -> bool:
     """Whether ``layer_block_stacked`` takes these weights for ``config``:
     what ``layer_tail_qkv_stacked`` takes (``mb.layer_tail_qkv_supported``),
     query heads spanning the model width (``H * hs == D``), ``wqkv`` the fused
-    (H + 2*KVH) * hs outputs, the int8 attention's head limits (an even head
-    size up to 256, ``H % KVH == 0``), and whole ``wo`` quant groups a head."""
+    (H + 2*KVH) * hs outputs, the head sizes of its one attention loop (a
+    multiple of 16 up to 128, ``H % KVH == 0``; other heads take K9 + K12),
+    and whole ``wo`` quant groups a head."""
     if not mb.layer_tail_qkv_supported(wo, w1, w3, w2, wqkv):
         return False
     H, KVH, hs = config.n_heads, config.n_kv_heads, config.head_size
-    if H * hs != w1.q.shape[1] or H % KVH != 0 or hs > 256 or hs % 2 != 0:
+    if H * hs != w1.q.shape[1] or H % KVH != 0 or hs > 128 or hs % 16 != 0:
         return False
     return wqkv.q.shape[2] == (H + 2 * KVH) * hs and hs % wo.group_size == 0
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plans(B: int, D: int, HD: int, Dq: int, groups: tuple, H: int, KVH: int, S: int, hs: int,
+                 device_index: int) -> tuple[dict, dict]:
+    """The launch of K13 on this device, from the shapes alone: the
+    megakernel's plan (``mb.launch_plan`` with the attention phase, whose
+    cooperative grid keeps the instance's warp accumulators resident) and
+    the attention phase's (:func:`q8_plan` over the dense planes, reach S,
+    its work items dealt over that grid, in the megakernel's one loop; two
+    warp loads a pass where three blocks share an SM's registers, the FMA
+    form at 1-2 rows). Cached: a decode step asks 32 times."""
+    sms = _sms(device_index)
+    p = mb.launch_plan(B, D, HD, Dq, groups, device_index, att=Q8_WARPS * hs)  # one query row a block
+    unroll1 = 2 if p["variant"] == "fma" and p["mt"] <= 2 else 4
+    return p, q8_plan(B, H, KVH, S, hs, sms, blocks=p["grid"], unroll1=unroll1, megakernel=True)
 
 
 def _virtual_attend_plain(q, k8, ks, v8, vs, rows, pos, scale: float) -> torch.Tensor:
@@ -163,18 +183,15 @@ def layer_block_stacked(
         raise ValueError("all operands must be on one device")
     if not all(t.is_contiguous() for t in operands):
         raise ValueError("operands must be contiguous")
-    align = 16 if hs % 16 == 0 else 2
-    if k8.data_ptr() % align or v8.data_ptr() % align:
-        raise ValueError(f"int8 caches must be {align}-byte aligned")
+    if k8.data_ptr() % 16 or v8.data_ptr() % 16 or hs % 16 or hs > 128:
+        raise ValueError(f"the kernel takes 16-byte aligned int8 caches and hs % 16 == 0, hs <= 128 (hs={hs})")
     S = k8.shape[3]
     Dq = wqkv.q.shape[2] if with_qkv else 0
     groups = (wo.group_size, w1.group_size, w2.group_size, wqkv.group_size if with_qkv else 0)
     device = torch.device("cuda", x.device.index if x.device.index is not None else torch.cuda.current_device())
-    p = mb.launch_plan(B, D, HD, Dq, groups, device.index, att=True)
-    n_rg = n_row_groups(H // KVH)
-    nsplit = splits(B, KVH, n_rg, S, p["grid"])
-    ws_floats = p["ws_floats"] + B * D + B * KVH * n_rg * nsplit * ROWS_PER_ITEM * (hs + 2)
-    if -(-max(D, HD, Dq) // 128) + B * KVH * n_rg > build.MAX_TICKETS:
+    p, q = launch_plans(B, D, HD, Dq, groups, H, KVH, S, hs, device.index)
+    ws_floats = p["ws_floats"] + B * D + q["ws_floats"]
+    if -(-max(D, HD, Dq) // 128) + q["tickets"] > build.MAX_TICKETS:
         raise ValueError("more column strips and (b, kv head) pairs than the tickets cover")
     ws, tickets = build.workspace(device, ws_floats)
     out = torch.empty((B, D), dtype=x.dtype, device=x.device)
@@ -188,8 +205,8 @@ def layer_block_stacked(
         rms_att.data_ptr(), wqkv.q.data_ptr(), wqkv.scale.data_ptr(), out.data_ptr(),
         None if qkv is None else qkv.data_ptr(), ws.data_ptr(), tickets.data_ptr(), ws.numel(),
         tickets.numel(), build.DTYPE_CODES[x.dtype], layer, L, B, D, HD, Dq, *groups, *p["ksplit"],
-        p["mt"], int(p["variant"] == "mma"), p["grid"], float(eps), H, KVH, S, hs, nsplit, scale,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        p["mt"], int(p["variant"] == "mma"), p["grid"], float(eps), H, KVH, S, hs, q["splits"], q["nq"],
+        q["vb"], q["chunk"], scale, torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(err, "layer_block_stacked")
     mb.count(layer_block_stacked, p["variant"])

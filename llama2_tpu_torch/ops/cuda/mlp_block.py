@@ -228,11 +228,12 @@ def plan(M: int, D: int, HD: int, Dq: int, groups: tuple, blocks: int) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def _grid(mt: int, device_index: int, att: bool = False, mma: bool = False) -> int:
+def _grid(mt: int, device_index: int, att: int = 0, mma: bool = False) -> int:
     """Blocks of one launch on this device: three an SM, or fewer where fewer
     are resident together (a cooperative launch takes no more). ``att``: the
-    instance with the attention phase (``ops/cuda/layer_block.py``); ``mma``:
-    the tensor-core form."""
+    instance with the attention phase (``ops/cuda/layer_block.py``), whose
+    warp accumulators take ``att`` floats of shared memory (0: without it);
+    ``mma``: the tensor-core form."""
     per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device_index):
         err = _entries()[1](mt, int(att), int(mma), ctypes.byref(per_sm), ctypes.byref(sms))
@@ -244,10 +245,10 @@ def _grid(mt: int, device_index: int, att: bool = False, mma: bool = False) -> i
 
 @functools.lru_cache(maxsize=None)
 def launch_plan(M: int, D: int, HD: int, Dq: int, groups: tuple, device_index: int,
-                att: bool = False) -> dict:
+                att: int = 0) -> dict:
     """:func:`plan` for a launch on this device, with its ``grid``: the
     blocks the chosen form's instance keeps resident (``att``: with the
-    attention phase)."""
+    attention phase, its accumulators' floats, as :func:`_grid`)."""
     form = variant(M, D, HD, Dq, groups)
     mt = MMA_ROWS if form == "mma" else row_tile(M)
     grid = _grid(mt, device_index, att, form == "mma")
@@ -402,6 +403,6 @@ def _entries():
     lib.mlp_block.restype = i
     lib.mlp_block_occupancy.argtypes = [i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
     lib.mlp_block_occupancy.restype = i
-    lib.layer_block.argtypes = [p] * 25 + [ctypes.c_longlong] + [i] * 19 + [f] + [i] * 5 + [f, p]
+    lib.layer_block.argtypes = [p] * 25 + [ctypes.c_longlong] + [i] * 19 + [f] + [i] * 8 + [f, p]
     lib.layer_block.restype = i
     return lib.mlp_block, lib.mlp_block_occupancy, lib.layer_block

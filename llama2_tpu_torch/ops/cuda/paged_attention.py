@@ -51,61 +51,17 @@ import torch
 from llama2_tpu_torch.ops import ref
 from llama2_tpu_torch.ops.cuda import build
 from llama2_tpu_torch.ops.cuda.attention import pos_rows, rope_rows_plain
-from llama2_tpu_torch.ops.cuda.attention_q8 import (
-    MAX_SPLITS,
+from llama2_tpu_torch.ops.cuda.attention_q8 import (  # noqa: F401 (the plan's constants, re-exported)
+    Q8_BLOCKS_PER_SM,
+    Q8_WARPS,
     _sms,
     dequantize_kv,
+    q8_plan,
     rope_quantize_plain,
 )
 
 _LIB = "paged_attention"
 _MODES = {"append": 1, "fused": 2}
-Q8_WARPS = 8  # warps a block of the int8 kernels' split loop (csrc/attention_q8.cuh: kWarps)
-Q8_BLOCKS_PER_SM = 2  # blocks a SM the split count aims at
-
-
-@functools.lru_cache(maxsize=None)
-def q8_plan(B: int, H: int, KVH: int, reach: int, hs: int, sms: int, aligned: bool = True,
-            splits: int | None = None) -> dict:
-    """The launch of K16/K18's split loop (``att_split`` in
-    ``csrc/attention_q8.cuh``), from the shapes alone: never from ``pos``,
-    which lives on the device. ``reach`` is the keys the table can address
-    (max_pages * page).
-
-    ``nq`` query rows a block: 1 where a kv head has one (the 7B layout),
-    else 8, a kv head's rows in ``n_rg`` groups of 8. ``vb`` bytes a vector
-    load: 16 for one row (hs % 16 == 0 and the pools 16-byte aligned,
-    ``aligned``), 4 for eight (hs % 4 == 0), else 2; ``lanes`` a row (a
-    power of two), ``nv`` vectors a lane, ``unroll`` warp loads a pass;
-    ``chunk`` the keys one pass of a block covers. ``splits`` of the key
-    range: as many as keep the grid within ``Q8_BLOCKS_PER_SM`` blocks a SM
-    (1 where the (b, kv head, group) blocks fill the SMs already), each at
-    least 4 chunks at full reach, at most ``MAX_SPLITS``; given, it replaces
-    the chosen count (``chip_smoke.py --tick-timing`` times other counts).
-    ``ws_floats`` and ``tickets`` are what the launch takes of
-    ``build.workspace``. The device cuts row b's keys ``0..pos[b]`` into at
-    most ``splits`` runs of whole chunks (``split_keys``)."""
-    G = H // KVH
-    nq = 1 if G == 1 else 8
-    if nq == 1 and aligned and hs % 16 == 0:
-        vb, lanes, nv = 16, 4 if hs <= 64 else 8 if hs <= 128 else 16, 1
-    elif nq == 8 and aligned and hs % 4 == 0:
-        vb, lanes, nv = 4, 16 if hs <= 64 else 32, 1 if hs <= 128 else 2
-    else:
-        vb, lanes, nv = 2, 32, 1 if hs <= 64 else 4
-    unroll = 4 if nq == 1 else 2
-    chunk = Q8_WARPS * unroll * (32 // lanes)
-    n_rg = -(-G // nq)
-    groups = B * KVH * n_rg
-    if splits is None:
-        splits = max(1, min(MAX_SPLITS, -(-reach // (4 * chunk)), Q8_BLOCKS_PER_SM * sms // groups))
-    elif not 1 <= splits <= MAX_SPLITS:
-        raise ValueError(f"splits {splits} outside 1..{MAX_SPLITS}")
-    return {
-        "nq": nq, "n_rg": n_rg, "vb": vb, "lanes": lanes, "nv": nv, "unroll": unroll,
-        "chunk": chunk, "splits": splits, "grid": groups * splits,
-        "ws_floats": groups * splits * nq * (hs + 2), "tickets": groups,
-    }
 
 
 def gather_pages(pool: torch.Tensor, table: torch.Tensor, n_pages: int) -> torch.Tensor:

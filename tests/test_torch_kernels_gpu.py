@@ -561,8 +561,24 @@ def test_int8_cache_wrappers_raise_on_card_and_do_not_fall_back(cuda_device):
                                torch.ones((1, 16), device=cuda_device), torch.zeros((1, 16), device=cuda_device),
                                wide[0], torch.ones((1, 64), device=cuda_device), wide[1], wide[2], w2,
                                torch.ones((1, 64), device=cuda_device), wqkv, 0, pos, n_heads=2)
+    # the split loop's 2-byte instance takes rows off 16-byte alignment; an
+    # odd address is refused
+    odd = [_offset(t) for t in (k8, ks, v8, vs)]
+    for bad in (odd, [odd[0], ks, _offset(v8), vs]):
+        with pytest.raises(ValueError):
+            aq.flash_decode_attention_q8(q[:, :4], *bad, 20)
+    with pytest.raises(ValueError):
+        aq.flash_decode_attention_q8_stacked(q[:, 0], *[_offset(t) for t in stack], *rows, *rows, 0, pos)
     assert counts == (aq.flash_decode_attention_q8.launches, aq.flash_decode_attention_q8_stacked.launches,
                       lb.layer_block_stacked.launches)
+    # the new instances launch (and count) where they take the operands: a
+    # 12-row window in two row groups, and rows 2 bytes off 16-byte alignment
+    two = [buf[2:].view(t.shape).copy_(t) for t, buf in
+           ((t, torch.empty(t.numel() + 2, dtype=t.dtype, device=cuda_device)) for t in (k8, v8))]
+    for kk, vv, T in ((k8, v8, 12), (two[0], two[1], 4)):
+        n0 = aq.flash_decode_attention_q8.launches
+        aq.flash_decode_attention_q8(q[:, :T], kk, ks, vv, vs, 20)
+        assert aq.flash_decode_attention_q8.launches == n0 + 1
 
 
 @pytest.mark.gpu
@@ -1202,8 +1218,8 @@ def test_mlp_block_tensor_core_form_matches_plain_on_card(cuda_device, dtype):
 def test_paged_int8_split_loop_matches_plain_on_card(cuda_device, dtype):
     """K16 and K18 on the split loop at 8 slots whose positions straddle
     pages (0, 255, 256, 1000, 4095 and three more), 256-row pages handed out
-    shuffled, the 7B layout (one query row a kv head) and GQA (eight), at the
-    plan's split count and at three: against the plain versions at the
+    shuffled, the 7B layout (one query row a kv head) and GQA (eight, and
+    four in one block), at the plan's split count and at three: against the plain versions at the
     int8-cache tolerance, the pools equal to the plain version's, the same
     bits on a rerun and every ticket zero after; with one 256-key split
     dropped or doubled at pos 4095 the plain output fails the tolerance."""
@@ -1220,7 +1236,7 @@ def test_paged_int8_split_loop_matches_plain_on_card(cuda_device, dtype):
     def randn(*shape, dt=dtype):
         return torch.randn(shape, generator=g, device=cuda_device).to(dt)
 
-    for H, KVH, hs in ((32, 32, 128), (32, 4, 64)):
+    for H, KVH, hs in ((32, 32, 128), (32, 4, 64), (32, 8, 128)):
         table, wpage, wrow, pos, P = _paged_setup(cpu_g, cuda_device, pos_list, page, 0, S)
         cos, sin = ref.rope_angles(pos[:, None], hs)
         cos_il = cos[:, 0].repeat_interleave(2, -1).contiguous()
@@ -1301,3 +1317,168 @@ def test_tick_kernels_raise_on_card_and_do_not_fall_back(cuda_device):
                 tpa._q8_launch(tpa.paged_decode_attention_q8_fused, "fused", qkv, pools, table, ci, ci, 0, ci, H,
                                qkv=qkv, rope=rope, splits=33)
     assert tpa.paged_decode_attention_q8_fused.launches == n0
+
+
+def _tickets_zero(device):
+    from llama2_tpu_torch.ops.cuda import build
+
+    return int(build.workspace(device, 0)[1].count_nonzero()) == 0
+
+
+def _planted_fail(terms, want, tol, b, shape):
+    """Row b's plain output with one 256-key split dropped, or doubled, in
+    the merge at pos 4095 fails the tolerance ``tol``."""
+    S = terms[1].shape[2]
+    for factor in (0.0, 2.0):
+        weight = torch.ones(S, device=want.device)
+        weight[1024:1280] = factor
+        bad = shape(_q8kv_terms(*(t[b:b + 1] for t in terms), weight)[0]).to(want.dtype)
+        with pytest.raises(AssertionError):
+            _assert_close(bad, want[b:b + 1], {k: (v[b:b + 1] if isinstance(v, torch.Tensor) else v)
+                                               for k, v in tol.items()}, "planted")
+
+
+ROWS8 = [0, 1, 255, 256, 4095, 511, 1000, 9]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", [(32, 32, 128), (32, 4, 64), (32, 8, 128)], ids=["7B", "GQA", "GQA4"])
+def test_dense_int8_split_loop_matches_plain_on_card(cuda_device, dtype, layout):
+    """K7 (windows of 1, 4 and 12 rows: at the 7B layout one row a block,
+    four in one block, and two groups of eight), K8 and K9 (1 and 8 rows)
+    on the split decode loop over dense planes, rows at pos 0, 1, 255, 256 and 4095 (a window's rows at T - 1 or
+    later): against the plain versions at the int8-cache tolerance, the
+    appends equal to the plain version's, the same bits on a rerun, every
+    ticket zero after; one split dropped or doubled at pos 4095 fails the
+    bound."""
+    from llama2_tpu_torch.benchmarks.kernels import rope_tables
+    from llama2_tpu_torch.ops.cuda import attention_q8 as aq
+
+    H, KVH, hs = layout
+    S, L, layer = 4096, 2, 1
+    g = torch.Generator(device=cuda_device).manual_seed(24)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+
+    for B in (1, 8):
+        rows = [S - 1] if B == 1 else ROWS8
+        b4 = rows.index(S - 1)
+        cache1 = _int8_cache(g, cuda_device, B, KVH, S, hs)
+        for T in (1, 4, 12):
+            pos = torch.tensor([max(p, T - 1) for p in rows], dtype=torch.int32, device=cuda_device)
+            q = randn(B, T, H, hs)
+            n0 = aq.flash_decode_attention_q8.launches
+            got, again = (aq.flash_decode_attention_q8(q, *cache1, pos) for _ in range(2))
+            assert aq.flash_decode_attention_q8.launches == n0 + 2
+            want = aq.flash_decode_attention_q8_plain(q, *cache1, pos)
+            torch.cuda.synchronize()
+            horizon = pos.long()[:, None] - (T - 1) + torch.arange(T, device=cuda_device)[None, :]
+            terms = (q, *cache1, horizon)
+            tol = _q8kv_tol(dtype, *terms)
+            what = f"K7 {layout} {B=} {T=}"
+            _assert_close(got, want, tol, what)
+            assert torch.equal(got, again) and _tickets_zero(cuda_device), what
+            if T == 1:
+                _planted_fail(terms, want, tol, b4, lambda t: t)
+        caches = _int8_cache(g, cuda_device, L, B, KVH, S, hs)
+        pos = torch.tensor(rows, dtype=torch.int32, device=cuda_device)
+        q, qkv = randn(B, H, hs), randn(B, H + 2 * KVH, hs)
+        kn, ksn = aq.quantize_kv_rows(randn(B, KVH, 1, hs).float())
+        vn, vsn = aq.quantize_kv_rows(randn(B, KVH, 1, hs).float())
+        cos_il, sin_il = rope_tables(pos, hs)
+        q_rot = aq.rope_quantize_plain(qkv, cos_il, sin_il, H)[0]
+        for wrapper, kern, plain, qt in (
+            (aq.flash_decode_attention_q8_stacked,
+             lambda c: aq.flash_decode_attention_q8_stacked(q, *c, kn, ksn, vn, vsn, layer, pos),
+             lambda c: aq.flash_decode_attention_q8_stacked_plain(q, *c, kn, ksn, vn, vsn, layer, pos), q),
+            (aq.flash_decode_attention_q8_fused,
+             lambda c: aq.flash_decode_attention_q8_fused(qkv, *c, cos_il, sin_il, layer, pos, n_heads=H),
+             lambda c: aq.flash_decode_attention_q8_fused_plain(qkv, *c, cos_il, sin_il, layer, pos, H), q_rot),
+        ):
+            runs = [[t.clone() for t in caches] for _ in range(3)]
+            n0 = wrapper.launches
+            got = [kern(c) for c in runs[:2]]
+            assert wrapper.launches == n0 + 2
+            want = plain(runs[2])
+            torch.cuda.synchronize()
+            what = f"{wrapper.__name__} {layout} {B=}"
+            terms = (qt[:, None], *[t[layer] for t in runs[2]], pos.long()[:, None])
+            tol = _q8kv_tol(dtype, *terms, lambda t: t[:, 0])
+            _assert_close(got[0], want, tol, what)
+            assert torch.equal(got[0], got[1]) and _tickets_zero(cuda_device), what
+            assert all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(*runs)), what
+            _planted_fail(terms, want, tol, b4, lambda t: t[:, 0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("KVH", [32, 8], ids=["7B", "GQA"])
+def test_layer_block_split_attention_matches_plain_on_card(cuda_device, dtype, KVH):
+    """K13 with its attention phase on the split loop, at 1, 2, 3 and 8 rows
+    (the FMA form with two warp loads a pass at 1 and 2 rows, the
+    tensor-core form with four at 3 and 8), rows at pos 0 (only this step's
+    row), 1, 255, 256 and 4095, at the Llama-2-7B widths, and with 8 kv
+    heads (four query heads each, one group a query head); out and qkv'
+    within 1e-2 of max|want| of the plain version (bf16 one flip of the last
+    bit more), the appends equal to the plain version's, the same bits on a
+    rerun, every ticket zero after. Its attention phase alone (wo the
+    identity, w2 and x zero, so that out = bf16(att)) at the int8-cache
+    tolerance, which one split dropped or doubled at pos 4095 fails."""
+    from llama2_tpu_torch.benchmarks.kernels import rope_tables
+    from llama2_tpu_torch.ops.cuda import attention_q8 as aq
+    from llama2_tpu_torch.ops.cuda import layer_block as lb
+
+    g = torch.Generator(device=cuda_device).manual_seed(25)
+    H, hs, L, S, G = 32, 128, 2, 4096, 64
+    D, HD = H * hs, 11008
+    wo, w1, w3 = (_q8_stack(g, cuda_device, L, D, n, G) for n in (D, HD, HD))
+    w2, wqkv = _q8_stack(g, cuda_device, L, HD, D, G), _q8_stack(g, cuda_device, L, D, (H + 2 * KVH) * hs, G)
+    rms_ffn = (1 + 0.1 * torch.randn((L, D), generator=g, device=cuda_device)).to(dtype)
+    rms_att = (1 + 0.1 * torch.randn((L, D), generator=g, device=cuda_device)).to(dtype)
+    eye = (64 * torch.eye(D, device=cuda_device)).to(torch.int8)
+    wo_id = QuantTensor(eye.expand(L, D, D).contiguous(), torch.full((L, D // G, D), 2.0**-6, device=cuda_device), G)
+    w2_0 = QuantTensor(torch.zeros_like(w2.q), w2.scale, G)
+    del eye
+    rtol = 0.0 if dtype == torch.float32 else 2**-7  # bf16: one flip of the last bit
+    cases = ([0], [1], [255], [256], [S - 1], [0, S - 1], [1, 256], [255, 0, S - 1], ROWS8)
+    for pos_list in cases if KVH == H else ([S - 1], [0, 255, S - 1]):
+        M = len(pos_list)
+        caches = _int8_cache(g, cuda_device, L, M, KVH, S, hs)
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=cuda_device)
+        cos_il, sin_il = rope_tables(pos, hs)
+        qkv3 = torch.randn((M, H + 2 * KVH, hs), generator=g, device=cuda_device).to(dtype)
+        x = torch.randn((M, D), generator=g, device=cuda_device).to(dtype)
+        for with_qkv in (True, False):
+            layer = 0 if with_qkv else L - 1
+            args = (cos_il, sin_il, wo, rms_ffn, w1, w3, w2, rms_att, wqkv, layer, pos)
+            runs = [[t.clone() for t in caches] for _ in range(3)]
+            n0 = lb.layer_block_stacked.launches
+            got = [lb.layer_block_stacked(qkv3, x, *c, *args, n_heads=H, with_qkv=with_qkv) for c in runs[:2]]
+            assert lb.layer_block_stacked.launches == n0 + 2
+            want = lb.layer_block_stacked_plain(qkv3, x, *runs[2], *args, n_heads=H, with_qkv=with_qkv)
+            torch.cuda.synchronize()
+            what = f"K13 {dtype} {pos_list=} {with_qkv=}"
+            assert all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(*runs)), what
+            assert _tickets_zero(cuda_device), what
+            for i in range(2 if with_qkv else 1):
+                assert torch.equal(got[0][i], got[1][i]), what
+                scale = float(want[i].float().abs().max())
+                _assert_close(got[0][i], want[i], dict(rtol=rtol, atol=1e-2 * scale), what)
+        # the attention phase alone
+        args = (cos_il, sin_il, wo_id, rms_ffn, w1, w3, w2_0, rms_att, wqkv, L - 1, pos)
+        zero = torch.zeros((M, D), dtype=dtype, device=cuda_device)
+        runs = [[t.clone() for t in caches] for _ in range(2)]
+        got = lb.layer_block_stacked(qkv3, zero, *runs[0], *args, n_heads=H, with_qkv=False)[0]
+        want = lb.layer_block_stacked_plain(qkv3, zero, *runs[1], *args, n_heads=H, with_qkv=False)[0]
+        torch.cuda.synchronize()
+        q_rot = aq.rope_quantize_plain(qkv3, cos_il, sin_il, H)[0]
+        terms = (q_rot[:, None], *[t[L - 1] for t in runs[1]], pos.long()[:, None])
+        shape = lambda t: t.reshape(M, D)  # noqa: E731
+        tol = _q8kv_tol(dtype, *terms, shape)
+        tol["rtol"] = 2**-7  # att is rounded to bf16 in both dtypes
+        _assert_close(got, want, tol, f"K13 attention phase {dtype} {pos_list=}")
+        if S - 1 in pos_list:
+            _planted_fail(terms, want, tol, pos_list.index(S - 1), lambda t: t.reshape(1, D).to(torch.bfloat16))
+        del caches, runs

@@ -1,6 +1,6 @@
 """The served decode tick's two redesigned kernels on the CPU: the launch
 plans (``ops/cuda/mlp_block.py::plan``, the form of K10-K13's products;
-``ops/cuda/paged_attention.py::q8_plan``, K16/K18's split loop), a mirror of
+``ops/cuda/attention_q8.py::q8_plan``, K16/K18's split loop), a mirror of
 the device's cut of a row's keys into splits (``split_keys`` in
 ``csrc/attention_q8.cuh``), and the split loop's arithmetic emulated in plain
 PyTorch (keys dealt to warps and splits, each warp with its own running max,
@@ -73,11 +73,13 @@ def test_mlp_plan_keeps_fma_where_groups_or_widths_miss_16(groups, widths):
 
 def split_keys(n_keys: int, nsplit: int, chunk: int) -> tuple[int, int]:
     """The device's ``split_keys``: (ns, per); split s < ns holds keys
-    s * per .. min(n_keys, (s + 1) * per) - 1."""
-    chunks = -(-n_keys // chunk)
+    s * per .. min(n_keys, (s + 1) * per) - 1. No key (K13 at pos 0): one
+    empty split."""
+    n = max(n_keys, 1)
+    chunks = -(-n // chunk)
     ns0 = max(1, min(nsplit, chunks))
-    per = -(-(-(-n_keys // ns0)) // chunk) * chunk
-    return -(-n_keys // per), per
+    per = -(-(-(-n // ns0)) // chunk) * chunk
+    return -(-n // per), per
 
 
 def test_q8_plan_constants_are_the_kernels():
@@ -126,58 +128,76 @@ def test_split_keys_cover_every_key_once():
                 assert all(a < b for a, b in runs) and all(runs[i][1] == runs[i + 1][0] for i in range(ns - 1))
 
 
-def split_loop(q, k8, ks, v8, vs, pos, nsplit: int, chunk: int, scale: float):
-    """K16/K18's split loop in plain PyTorch on one layer's rows gathered
-    dense: q (B, H, hs) float32 (bf16 values), k8/v8 (B, KVH, n, hs), ks/vs
-    (B, KVH, n). Row b's keys 0..pos[b] cut by split_keys; within a split,
-    warp w takes passes of chunk / 8 keys at base t_begin + w * chunk / 8 +
-    i * chunk, each pass one online-softmax update against the warp's running
-    max (p * v_scale rounded to bf16 against it); the warps' states merge in
-    warp order (weight 0 for a warp that saw no key), the splits' in split
-    order. Returns float32 (B, H, hs)."""
-    B, H, hs = q.shape
+def split_loop(q, k8, ks, v8, vs, pos, nsplit: int, chunk: int, scale: float, virtual=None):
+    """The int8 split decode loop (K7-K9, K13, K16/K18) in plain PyTorch on
+    one layer's rows gathered dense: q (B, H, hs), or a window (B, T, H, hs),
+    float32 (bf16 values), k8/v8 (B, KVH, n, hs), ks/vs (B, KVH, n). A kv
+    head's query row r = t * G + g sees keys up to pos[b] - (T - 1) + t. With
+    ``virtual`` (K13: this step's int8 K and V rows (B, KVH, hs) and their
+    (B, KVH) scales) the keys are t < pos[b], and the last split's block
+    joins the virtual row after its warps, as one more state: m its score,
+    l 1, acc its float32 dequantized value. Row b's keys cut by split_keys;
+    within a split, warp w takes passes of chunk / 8 keys at base t_begin +
+    w * chunk / 8 + i * chunk, each pass one online-softmax update against
+    the warp's running max (p * v_scale rounded to bf16 against it; a row
+    that sees no key yet stays empty); the warps' states merge in warp order
+    (weight 0 for a warp that saw no key), the splits' in split order.
+    Returns float32 shaped like q."""
+    q4 = q if q.ndim == 4 else q[:, None]
+    B, T, H, hs = q4.shape
     KVH = k8.shape[1]
     G = H // KVH
+    R = T * G
     wk = chunk // tpa.Q8_WARPS
-    out = torch.zeros(B, H, hs)
+    out = torch.zeros(B, R * KVH, hs)
+    ninf = float("-inf")
 
     def merge(states):
-        m = torch.stack([s[0] for s in states])  # (n, G)
+        m = torch.stack([s[0] for s in states])  # (n, R)
         M = m.amax(0)
-        w = torch.where(m == float("-inf"), torch.zeros_like(m), torch.exp(m - M))
+        w = torch.where(m == ninf, torch.zeros_like(m), torch.exp(m - M))
         L = sum(s[1] * w[i] for i, s in enumerate(states))
         o = sum(s[2] * w[i][:, None] for i, s in enumerate(states))
         return M, L, o
 
     for b in range(B):
-        n = int(pos[b]) + 1
+        n = int(pos[b]) if virtual is not None else int(pos[b]) + 1
         ns, per = split_keys(n, nsplit, chunk)
+        hz = int(pos[b]) - (T - 1) + torch.arange(R) // G  # each query row's last key
         for kvh in range(KVH):
-            qg = q[b, kvh * G:(kvh + 1) * G]
-            k, v = k8[b, kvh, :n].float(), v8[b, kvh, :n].float()
-            kscale = ks[b, kvh, :n] * scale
+            qg = q4[b, :, kvh * G:(kvh + 1) * G].reshape(R, hs)
+            k, v = k8[b, kvh].float(), v8[b, kvh].float()
+            kscale = ks[b, kvh] * scale
             splits = []
             for s in range(ns):
                 t0, t1 = s * per, min(n, (s + 1) * per)
-                warps = []
+                states = []
                 for w in range(tpa.Q8_WARPS):
-                    m = torch.full((G,), float("-inf"))
-                    l, acc = torch.zeros(G), torch.zeros(G, hs)
+                    m = torch.full((R,), ninf)
+                    l, acc = torch.zeros(R), torch.zeros(R, hs)
                     for base in range(t0 + w * wk, t1, chunk):
                         t = torch.arange(base, min(base + wk, t1))
                         sc = (qg @ k[t].T) * kscale[t]
+                        sc = sc.masked_fill(t[None, :] > hz[:, None], ninf)
                         m_new = torch.maximum(m, sc.amax(-1))
-                        alpha = torch.exp(m - m_new)
-                        p = torch.exp(sc - m_new[:, None])
+                        m_use = torch.where(m_new == ninf, torch.zeros_like(m_new), m_new)
+                        alpha = torch.exp(m - m_use)
+                        p = torch.exp(sc - m_use[:, None])
                         l = l * alpha + p.sum(-1)
                         pv = (p * vs[b, kvh, t]).to(torch.bfloat16).float()
                         acc = acc * alpha[:, None] + pv @ v[t]
                         m = m_new
-                    warps.append((m, l, acc))
-                splits.append(merge(warps))
+                    states.append((m, l, acc))
+                if virtual is not None and s == ns - 1:
+                    kn8, kns, vn8, vns = (a[b, kvh] for a in virtual)
+                    sv = (qg @ kn8.float()) * (kns * scale)
+                    states.append((sv, torch.ones(R), (vn8.float() * vns).expand(R, hs)))
+                splits.append(merge(states))
             _, L, o = merge(splits) if ns > 1 else splits[0]
-            out[b, kvh * G:(kvh + 1) * G] = o / L[:, None]
-    return out
+            out[b, kvh * G * T:(kvh + 1) * G * T] = o / L[:, None]
+    # (B, KVH, T, G, hs) rows back to the query's (B, T, H, hs)
+    out = out.reshape(B, KVH, T, G, hs).permute(0, 2, 1, 3, 4).reshape(B, T, H, hs)
+    return out if q.ndim == 4 else out[:, 0]
 
 
 def _quantized(rng, shape):
