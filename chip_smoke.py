@@ -31,7 +31,8 @@ non-zero:
    K13 at the 8 rows of the batched engines, each at its own position; the
    paged kernels K15-K18 over fp and int8 page pools (8 slots, two of them
    inactive on the scratch page, shuffled pages of 256 and 128 rows, layers
-   0 and 31, the 7B and a GQA layout); the kernel benchmarks' kernels: K3
+   0 and 31, the 7B and a GQA layout), and K15/K17's split form at K2/K4's
+   split checks; the kernel benchmarks' kernels: K3
    over one layer's caches at the three layouts with per-row and scalar
    positions, K14 over one layer's shuffled pools whose unused table entries
    name a NaN page, K19 and K20 at the benchmark's and ragged widths;
@@ -107,12 +108,13 @@ builds the kernels and times only the dense decode attention kernels,
 ``--prefill-timing`` only the prefill segment's K1, K5 and K6,
 ``--decode-timing`` only single-stream decode on the two-launch route at
 positions 201-264, with K4's host time a call, ``--tick-timing`` only
-the served decode tick's kernels (K10-K13 at 8 rows, K16, K18), and
-``--q8kv-timing`` only the int8-cache decode step's kernels (K7-K9 and K13
-at 1 and 8 rows, beside the K9 + K12 pair, and a split-count sweep) (to
-compare two checkouts in one call, see ``phase_dense_timing``,
-``phase_prefill_timing``, ``phase_decode_timing``, ``phase_tick_timing``
-and ``phase_q8kv_timing``). Without a CUDA device, or outside a checkout
+the served decode tick's kernels (K10-K13 at 8 rows, K15-K18),
+``--serve-timing`` only the served bf16-pool path (a timed serving and the
+tick profiles), and ``--q8kv-timing`` only the int8-cache decode step's
+kernels (K7-K9 and K13 at 1 and 8 rows, beside the K9 + K12 pair, and a
+split-count sweep) (to compare two checkouts in one call, see
+``phase_dense_timing``, ``phase_prefill_timing``, ``phase_decode_timing``,
+``phase_tick_timing``, ``phase_serve_timing`` and ``phase_q8kv_timing``). Without a CUDA device, or outside a checkout
 of the repository, it fails before printing any result.
 """
 
@@ -1181,6 +1183,7 @@ def phase_kernels_paged() -> None:
                         append="equal_to_plain", bits="equal_on_rerun")
                 del pools
                 torch.cuda.empty_cache()
+    paged_split_checks(randn)
     # a CUDA tensor launches or raises: operands the kernels do not take
     z = torch.zeros
     pools = [z(1, 3, 2, 16, 33, device="cuda"), z(1, 3, 2, 16, 33, device="cuda")]
@@ -1198,6 +1201,68 @@ def phase_kernels_paged() -> None:
         raise AssertionError("K17 accepted operands its kernel does not take")
     if tpa.paged_decode_attention_fused.launches != n0:
         raise AssertionError("a refused K17 call counted a launch")
+
+
+def paged_split_checks(randn) -> None:
+    """K15 and K17 on the split form at K2/K4's checks (SPLIT_CASES at
+    split_positions: the one-element-a-lane loop at head size 46 and one
+    element off 16-byte alignment), every slot active, its pages (256 rows)
+    handed out shuffled, the table's reach S; at 8 slots also at 3 splits
+    (split edges inside pages) through ``_fp_launch``'s ``splits``. Against
+    the plain versions at ``tolerance``; the appended rows equal to the plain
+    version's, a rerun bit-equal, every ticket zero after."""
+    import torch
+
+    from llama2_tpu_torch.ops.cuda import paged_attention as tpa
+
+    gen = torch.Generator().manual_seed(SEED + 12)
+    L, layer, page = 2, 1, 256
+    for dtype in (torch.float32, torch.bfloat16):
+        for case, (H, KVH, hs, offset) in SPLIT_CASES.items():
+            at = offset_view if offset else (lambda t: t)
+            for pos_list in split_positions(H, KVH, hs, dtype):
+                B = len(pos_list)
+                need = [p // page + 1 for p in pos_list]
+                perm = (torch.randperm(sum(need), generator=gen) + 1).tolist()
+                table = torch.zeros((B, S // page), dtype=torch.int32)
+                for b, n in enumerate(need):
+                    table[b, :n] = torch.tensor(perm[sum(need[:b]) : sum(need[: b + 1])], dtype=torch.int32)
+                table = table.cuda()
+                pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+                wpage = table[torch.arange(B, device="cuda"), (pos // page).long()].contiguous()
+                coords = (table, wpage, (pos % page).contiguous(), layer, pos)
+                pools = [at(randn(L, sum(need) + 1, KVH, page, hs, dtype=dtype)) for _ in "kv"]
+                q = randn(B, H, hs, dtype=dtype)
+                kn, vn = at(randn(B, KVH, 1, hs, dtype=dtype)), at(randn(B, KVH, 1, hs, dtype=dtype))
+                qkv = at(randn(B, H + 2 * KVH, hs, dtype=dtype))
+                cos_il, sin_il = rope_tables(pos, hs)
+                for tag, which, act, news, rows, plain in (
+                    ("K15", tpa.paged_decode_attention_stacked, q, (kn, vn), (*pools, kn, vn),
+                     lambda c: tpa.paged_decode_attention_stacked_plain(q, *c, table, kn, vn, *coords[1:])[0]),
+                    ("K17", tpa.paged_decode_attention_fused, qkv, (cos_il, sin_il), (*pools, qkv),
+                     lambda c: tpa.paged_decode_attention_fused_plain(qkv, *c, table, cos_il, sin_il,
+                                                                      *coords[1:], H)[0]),
+                ):
+                    vec = split_vec(case, B, dtype, rows)
+                    want_pools = [t.clone() for t in pools]
+                    want = plain(want_pools)
+                    for splits in (None, 3) if B == 8 else (None,):
+                        runs = [[at(t.clone()) for t in pools] for _ in range(2)]
+                        n0 = which.launches
+                        got, again = (tpa._fp_launch(which, act, *c, *news, *coords, H, splits=splits)
+                                      for c in runs)
+                        torch.cuda.synchronize()
+                        if which.launches != n0 + 2:
+                            raise AssertionError(f"{tag}: {which.launches - n0} launches for 2 calls")
+                        err = compare(got, want, dtype)
+                        if not all(torch.equal(a, b) and torch.equal(a, w) for a, b, w in zip(*runs, want_pools)):
+                            raise AssertionError(f"{tag} pool append wrong at {case} pos={pos_list} {splits=}")
+                        split_rerun_checks(f"{tag} {case} splits={splits}", got, again, pos_list)
+                        say(tag, dtype=dtype_name(dtype), layout=case, B=B, page=page,
+                            pos=",".join(map(str, pos_list)), vec=vec, splits=splits or "plan",
+                            max_abs_err=f"{err:.3e}", append="equal_to_plain", rerun="equal_bits",
+                            tickets="zero")
+                del pools, want_pools, runs
 
 
 # the rmsnorm (K19) and swiglu (K20) check shapes: the benchmark's, then the
@@ -2383,6 +2448,64 @@ def profile_ticks(eng, dn: str, where: str, n: int = 16) -> None:
     profile_steps(dn, where, run)
 
 
+def tick_profiles(config, params, kw: dict, dn: str) -> None:
+    """Device and host time a tick of ``PagedBatchEngine(config, params,
+    **kw)``: 16 ticks of 8 slots seated on 16-token prompts (pos 17-32), and
+    16 seated at pos 4080 (``seat_long``: pos 4080-4095)."""
+    import torch
+
+    from llama2_tpu_torch.config import GenerationConfig
+    from llama2_tpu_torch.runtime.paged_engine import PagedBatchEngine
+
+    eng = PagedBatchEngine(config, params, page_size=SERVE_PAGE, prefix_cache=True, **kw)
+    for p, _ in serve_workload()[:SERVE_SLOTS]:
+        eng.submit(p[:16], GenerationConfig(temperature=0.0, steps=16 + 40))
+    eng._admit()
+    profile_ticks(eng, dn, "pos_17_to_32")
+    eng._fail_all(RuntimeError("profile done"))
+    eng = None
+    torch.cuda.empty_cache()
+    eng = PagedBatchEngine(config, params, page_size=SERVE_PAGE,
+                           n_pages=SERVE_SLOTS * (S // SERVE_PAGE) + 1, **kw)
+    seat_long(eng, S - 16)
+    profile_ticks(eng, dn, f"pos_{S - 16}_to_{S - 1}")
+    eng = None
+    torch.cuda.empty_cache()
+
+
+def phase_serve_timing() -> None:
+    """The served bf16-pool tick alone, for comparing two trees in one call:
+    ``python3 chip_smoke.py --serve-timing`` runs it and nothing else. The
+    path of ``phase_serve(False)``: one warm-up, one timed serving of
+    serve_workload() (the launches of every tick asserted; served and decode
+    tok/s), then ``tick_profiles``. It reaches the engine through its own
+    helpers and the engine's API only, so a copy of this script times an
+    older checkout from that checkout's root."""
+    import torch
+
+    from llama2_tpu_torch.config import GenerationConfig
+    from llama2_tpu_torch.io.convert import random_q8_params
+    from llama2_tpu_torch.runtime.paged_engine import PagedBatchEngine
+
+    config = config_7b(32)
+    dn = f"q8/bf16/cuda/paged-bf16-pool/{config.n_layers}L"
+    params = random_q8_params(config, SEED, "cuda", torch.bfloat16, group_size=GROUP)
+    kw = dict(batch_size=SERVE_SLOTS, dtype=torch.bfloat16, backend="cuda", device="cuda", kv_quant=False)
+    reqs = serve_workload()
+    eng = PagedBatchEngine(config, params, page_size=SERVE_PAGE, prefix_cache=True, **kw)
+    params = eng.params
+    served_run(eng, [(p[:40], GenerationConfig(temperature=0.0, steps=48)) for p, _ in reqs[:SERVE_SLOTS]])
+    eng = PagedBatchEngine(config, params, page_size=SERVE_PAGE, prefix_cache=True, **kw)
+    timed = served_run(eng, reqs)
+    assert_ticks(timed, SERVE_TICKS[("cuda", False)](config.n_layers), dn)
+    n_tok = sum(len(t) - len(p) for t, (p, _) in zip(timed["tokens"], reqs))
+    say("serve", path=dn, served_tok_s=f"{n_tok / timed['wall_s']:.2f}",
+        decode_tok_s=f"{eng.metrics['tokens'] / (timed['wall_s'] - timed['admit_s']):.2f}")
+    eng = None
+    torch.cuda.empty_cache()
+    tick_profiles(config, params, kw, dn)
+
+
 def phase_serve(kv_quant: bool) -> dict:
     """This slice's main path: ``PagedBatchEngine`` at full Llama-2-7B width,
     32 layers, INT8 weights, bf16 activations, backend ``cuda``, 8 slots,
@@ -2465,21 +2588,7 @@ def phase_serve(kv_quant: bool) -> dict:
     check_served_tokens(params, config, reqs, logged, kv_quant, torch.bfloat16, dn, "margin")
     logged = again = None
 
-    # device and host time a tick, short and long positions
-    eng = engine()
-    for p, g in reqs[:SERVE_SLOTS]:
-        eng.submit(p[:16], GenerationConfig(temperature=0.0, steps=16 + 40))
-    eng._admit()
-    profile_ticks(eng, dn, "pos_17_to_32")
-    eng._fail_all(RuntimeError("profile done"))
-    eng = None
-    torch.cuda.empty_cache()
-    eng = PagedBatchEngine(config, params, page_size=SERVE_PAGE,
-                           n_pages=SERVE_SLOTS * (S // SERVE_PAGE) + 1, **kw)
-    seat_long(eng, S - 16)
-    profile_ticks(eng, dn, f"pos_{S - 16}_to_{S - 1}")
-    eng = None
-    torch.cuda.empty_cache()
+    tick_profiles(config, params, kw, dn)
 
     # the dense engine on the same requests: 8 slots of seq_len rows
     dense = BatchEngine(config, params, **kw)
@@ -3258,12 +3367,14 @@ def phase_tick_timing(cycles_per_ms: float) -> None:
     at M = 1, 2, 4 and 8 (``mlp_timing``: beside the composed route and the
     summed bf16 matmuls on the dequantized weights at the same M); K13 at 8
     rows at pos 256 and 4095 (``k13_batch_timing``: beside the K9 + K12 pair);
-    K16 and K18 at 8 slots on 256-row pages at pos 256 and 4095
-    (``phase_timing_paged``: beside the dense twin K8 / K9 and SDPA on the
-    gathered rows), and K18 at pos 4095 at other split counts where the tree
-    has ``q8_plan``. Each with its bound and its plain version. It calls the
-    wrappers by their public signatures only, so this script also times an
-    older checkout: copy it into one and run it from that checkout's root."""
+    K15-K18 at 8 slots on 256-row pages at pos 256 and 4095, bf16
+    (``phase_timing_paged``: beside the dense twins K2 / K8 / K4 / K9 and
+    SDPA on the gathered rows), K15 again over an fp32 pool (the served
+    ``cuda-accurate`` path's), and at pos 4095 K18 and K17 at other split
+    counts where the tree has their plans (``q8_plan``, ``fp_plan``). Each
+    with its bound and its plain version. It calls the wrappers by their
+    public signatures only, so this script also times an older checkout:
+    copy it into one and run it from that checkout's root."""
     import torch
 
     from llama2_tpu_torch.io.convert import random_q8_params
@@ -3278,7 +3389,8 @@ def phase_tick_timing(cycles_per_ms: float) -> None:
     k13_batch_timing(params, cycles_per_ms)
     del params
     torch.cuda.empty_cache()
-    phase_timing_paged({"K16": 0, "K18": 0}, cycles_per_ms, tags=("K16", "K18"), sweep=True)
+    phase_timing_paged(dict.fromkeys(("K15", "K16", "K17", "K18"), 0), cycles_per_ms, sweep=True)
+    phase_timing_paged({"K15": 0}, cycles_per_ms, tags=("K15",), dtype=torch.float32)
 
 
 def q8kv_batch_timing(cycles_per_ms: float) -> None:
@@ -3547,20 +3659,24 @@ PAGED_LINES = {"K15": 364, "K16": 629, "K17": 824, "K18": 1015}
 
 
 def phase_timing_paged(launches: dict, cycles_per_ms: float, tags=("K15", "K16", "K17", "K18"),
-                       sweep: bool = False) -> list[dict]:
+                       sweep: bool = False, dtype=None) -> list[dict]:
     """K15-K18 at the served path's shapes: 8 slots at the 7B head layout,
     256-row pages handed out shuffled, every slot at pos 256 and at 4095,
-    bf16 activations over a bf16 pool (K15, K17) and an int8 pool (K16,
-    K18). Four layers of pool; call i uses layer i % 4, and a layer's K/V
-    (34-537 MB) passes the 50 MB L2. Bound: each byte once, the K/V rows of
-    keys 0..pos of every slot (int8 plus two float32 scales a row) and the
-    activations, over the memory rate; or 4 * hs operations a (query head,
-    key) pair over the bf16 peak. No PyTorch call computes paged attention,
-    so ``library_ms`` is null; printed beside it are SDPA on a dense bf16
-    cache of the same lengths and the dense twin kernel (K2, K8, K4, K9) on
-    the same rows gathered into a dense cache. ``tags``: the kernels timed;
-    ``sweep``: K18 at pos 4095 also at other split counts (``q8_plan``'s
-    ``splits``), where the tree has that plan."""
+    bf16 activations (or ``dtype``) over a pool of that dtype (K15, K17) and
+    an int8 pool (K16, K18). Four layers of pool; call i uses layer i % 4,
+    and a layer's K/V (34-537 MB in bf16) passes the 50 MB L2. Bound: each
+    byte once, the K/V rows of keys 0..pos of every slot (int8 plus two
+    float32 scales a row) and the activations, over the memory rate; or
+    4 * hs operations a (query head, key) pair over the dtype's peak. No
+    PyTorch call computes paged attention, so ``library_ms`` is null;
+    printed beside it are SDPA on a dense cache of the same lengths and
+    dtype and the dense twin kernel (K2, K8, K4, K9) on the same rows
+    gathered into a dense cache. ``tags``: the kernels timed; ``sweep``: at
+    pos 4095 also K18 at other split counts (``q8_plan``'s ``splits``) and
+    K17 at 1, 2 and 4 splits (``_fp_launch``'s ``splits``), where the tree
+    has those plans."""
+    import inspect
+
     import torch
     import torch.nn.functional as F
 
@@ -3568,11 +3684,14 @@ def phase_timing_paged(launches: dict, cycles_per_ms: float, tags=("K15", "K16",
     from llama2_tpu_torch.ops.cuda import attention_q8 as aq
     from llama2_tpu_torch.ops.cuda import paged_attention as tpa
 
-    dtype, dn, esize = torch.bfloat16, "bf16", 2
+    dtype = dtype or torch.bfloat16
+    dn, esize = dtype_name(dtype), dtype.itemsize
+    q8_tags = {"K16", "K18"} & set(tags)
     L, B, page, (H, KVH, hs) = 4, SERVE_SLOTS, SERVE_PAGE, LAYOUTS["7B"]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
     cpu_gen = torch.Generator().manual_seed(SEED + 13)
     rows, src = [], "llama2_tpu_torch/csrc/paged_attention.cu"
+    fp_sweep = sweep and "splits" in inspect.signature(tpa._fp_launch).parameters
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -3595,15 +3714,17 @@ def phase_timing_paged(launches: dict, cycles_per_ms: float, tags=("K15", "K16",
         shape = (L, n_pages, KVH, page, hs)
         kp = torch.empty(shape, dtype=dtype, device="cuda").normal_(generator=gen)
         vp = torch.empty(shape, dtype=dtype, device="cuda").normal_(generator=gen)
-        k8 = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
-        v8 = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
-        ks = 0.02 + 0.01 * torch.rand(shape[:-1], generator=gen, device="cuda")
-        vs = 0.02 + 0.01 * torch.rand(shape[:-1], generator=gen, device="cuda")
         # the dense twins' caches: the same rows, gathered (L, B, KVH, n * page, hs)
         kd, vd = (torch.stack([tpa.gather_pages(t[l], table, n) for l in range(L)]) for t in (kp, vp))
-        k8d, v8d = (torch.stack([tpa.gather_pages(t[l], table, n) for l in range(L)]) for t in (k8, v8))
-        ksd, vsd = (torch.stack([tpa.gather_pages(t[l], table, n) for l in range(L)]) for t in (ks, vs))
-        q8 = (k8, ks, v8, vs)
+        q8 = q8d = None
+        if q8_tags:
+            k8 = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+            v8 = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+            ks = 0.02 + 0.01 * torch.rand(shape[:-1], generator=gen, device="cuda")
+            vs = 0.02 + 0.01 * torch.rand(shape[:-1], generator=gen, device="cuda")
+            q8 = (k8, ks, v8, vs)
+            q8d = tuple(torch.stack([tpa.gather_pages(t[l], table, n) for l in range(L)]) for t in q8)
+            del k8, v8, ks, vs
         coords = (wpage, wrow)
 
         def sdpa(i):
@@ -3622,7 +3743,7 @@ def phase_timing_paged(launches: dict, cycles_per_ms: float, tags=("K15", "K16",
              lambda i: tpa.paged_decode_attention_q8_stacked(q, *q8, table, k8n, ksn, v8n, vsn, *coords, i % L, pos),
              lambda i: tpa.paged_decode_attention_q8_stacked_plain(q, *q8, table, k8n, ksn, v8n, vsn, *coords,
                                                                    i % L, pos),
-             lambda i: aq.flash_decode_attention_q8_stacked(q, k8d, ksd, v8d, vsd, k8n, ksn, v8n, vsn, i % L, pos),
+             lambda i: aq.flash_decode_attention_q8_stacked(q, *q8d, k8n, ksn, v8n, vsn, i % L, pos),
              "K8", kv_q8 + esize * 2 * B * H * hs + B * KVH * (2 * hs + 8)),
             ("K17", "paged_decode_attention_fused",
              lambda i: tpa.paged_decode_attention_fused(qkv, kp, vp, table, cos_il, sin_il, *coords, i % L, pos,
@@ -3636,7 +3757,7 @@ def phase_timing_paged(launches: dict, cycles_per_ms: float, tags=("K15", "K16",
                                                            n_heads=H),
              lambda i: tpa.paged_decode_attention_q8_fused_plain(qkv, *q8, table, cos_il, sin_il, *coords,
                                                                  i % L, pos, H),
-             lambda i: aq.flash_decode_attention_q8_fused(qkv, k8d, ksd, v8d, vsd, cos_il, sin_il, i % L, pos,
+             lambda i: aq.flash_decode_attention_q8_fused(qkv, *q8d, cos_il, sin_il, i % L, pos,
                                                           n_heads=H), "K9",
              kv_q8 + esize * B * (H + 2 * KVH + H) * hs + 8 * B * hs),
         )
@@ -3658,10 +3779,11 @@ def phase_timing_paged(launches: dict, cycles_per_ms: float, tags=("K15", "K16",
             twin_ms, qt_ = time_ms(twin, n_iter, cycles_per_ms)
             sdpa_ms, qs = time_ms(sdpa, n_iter, cycles_per_ms)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / PEAK_FLOPS["bf16"] * 1e3
+            t_ops = ops / PEAK_FLOPS[dn] * 1e3
             bound, by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
             say("time", kernel=f"{name}[{dn},B={B}]", pos=p, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-                **{f"dense_twin_{twin_tag}_ms": f"{twin_ms:.4f}"}, yardstick_SDPA_bf16_cache_ms=f"{sdpa_ms:.4f}",
+                **{f"dense_twin_{twin_tag}_ms": f"{twin_ms:.4f}"},
+                **{f"yardstick_SDPA_{dn}_cache_ms": f"{sdpa_ms:.4f}"},
                 library_ms="none_(no_single_call)", bound_ms=f"{bound:.4f}", bound_by=by,
                 share_of_bound=f"{bound / ms:.3f}",
                 MB=f"{nbytes / 1e6:.2f}", GB_per_s=f"{nbytes / ms / 1e6:.0f}", max_abs_err=f"{err:.3e}",
@@ -3675,6 +3797,16 @@ def phase_timing_paged(launches: dict, cycles_per_ms: float, tags=("K15", "K16",
                         qkv=qkv, rope=(cos_il, sin_il), splits=sp), n_iter, cycles_per_ms)[0]
                 say("tick-split", kernel=f"{name}[{dn},B={B}]", pos=p, plan_splits=own,
                     **{f"ms_at_{sp}": f"{t:.4f}" for sp, t in times.items()})
+            if fp_sweep and tag == "K17" and p == S - 1:
+                sms = aq._sms(torch.cuda.current_device())
+                own = tpa.fp_plan(qkv, kp, vp, cos_il, sin_il, table, H, sms, True)["splits"]
+                times = {}
+                for sp in sorted({1, 2, 4, own}):
+                    times[sp] = time_ms(lambda i, sp=sp: tpa._fp_launch(
+                        tpa.paged_decode_attention_fused, qkv, kp, vp, cos_il, sin_il, table, wpage, wrow, i % L,
+                        pos, H, splits=sp), n_iter, cycles_per_ms)[0]
+                say("tick-split", kernel=f"{name}[{dn},B={B}]", pos=p, plan_splits=own,
+                    **{f"ms_at_{sp}": f"{t:.4f}" for sp, t in times.items()})
             if p == 256:  # the kernel line's rows; full context is printed and kept in PERF.md
                 rows.append({
                     "name": f"{name}[{dn},B={B}]", "route": "cuda", "source": src,
@@ -3682,7 +3814,7 @@ def phase_timing_paged(launches: dict, cycles_per_ms: float, tags=("K15", "K16",
                     "launches": launches[tag], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound, "bound_by": by, "library_ms": None,
                 })
-        del kp, vp, k8, v8, ks, vs, kd, vd, k8d, v8d, ksd, vsd, q8
+        del kp, vp, kd, vd, q8, q8d
         torch.cuda.empty_cache()
     return rows
 
@@ -4106,6 +4238,10 @@ def main() -> int:
         phase_tick_timing(warm_cycles_per_ms())
         print(smi)
         return 0
+    if sys.argv[1:] == ["--serve-timing"]:
+        phase_serve_timing()
+        print(smi)
+        return 0
     if sys.argv[1:] == ["--q8kv-timing"]:
         phase_q8kv_timing(warm_cycles_per_ms())
         print(smi)
@@ -4153,6 +4289,9 @@ def main() -> int:
     kernels += phase_timing_q8(q8_launches, cycles_per_ms)
     kernels += phase_timing_paged({"K15": accurate[False]["K15"], "K16": accurate[True]["K16"],
                                    "K17": served[False]["K17"], "K18": served[True]["K18"]}, cycles_per_ms)
+    # K15's launches on a served path are over an fp32 pool
+    kernels += phase_timing_paged({"K15": accurate[False]["K15"]}, cycles_per_ms, tags=("K15",),
+                                  dtype=torch.float32)
     bench_rows = phase_timing_bench()
     # this slice's path: the kernel benchmarks' entry point, counted in its own process
     bench_launches = phase_bench(smi)

@@ -54,8 +54,8 @@
 // where a key row lives.
 //
 // K3 keeps the single-block loop (attend): one block per (b, query head)
-// over one layer's cache with a read-only row policy (DenseReadRows): no
-// new-row operands, no write, each row b at its own pos[b]. Bound on this
+// over one layer's cache, read only (DenseRows' addresses, no new-row
+// operands, no write), each row b at its own pos[b]. Bound on this
 // card: bytes, the K and V rows 0..pos[b] of every (b, kv head) once: 4.2 MB
 // at B = 1, KVH = 4, hs = 128, f32 and pos 1023, 1.25 us at 3.35 TB/s. At
 // B = 1 and H = 32 its grid is 32 blocks on 132 SMs: the split form is the
@@ -65,184 +65,32 @@
 namespace {
 
 using llama2::fpa::attend;
-using llama2::fpa::attend_split;
-using llama2::fpa::DenseReadRows;
 using llama2::fpa::DenseRows;
-using llama2::fpa::kMaxHs;
-using llama2::fpa::kMaxSplit;
 using llama2::fpa::kWarps;
-using llama2::fpa::rope_rows;
-using llama2::fpa::split_range;
-using llama2::fpa::SplitRange;
-using llama2::fpa::SplitShape;
-using llama2::fpa::SplitWork;
+using llama2::fpa::Launch;
+using llama2::fpa::run_split;
 using llama2::to_f32;
-
-// The split form's launch: operands, workspace and plan.
-struct Launch {
-  const void* q;       // K2: (B, H, hs)
-  const void* qkv;     // K4: (B, H + 2 KVH, hs), raw
-  const float* cos_il;  // K4: (B, hs)
-  const float* sin_il;
-  void* kc;
-  void* vc;
-  const void* kn;  // K2: (B, KVH, 1, hs)
-  const void* vn;
-  const int* pos;
-  void* out;
-  float* ws;
-  int* tickets;
-  int layer, B, H, KVH, S, hs, nsplit;
-  float scale;
-};
-
-// The key range and state slots of this block's split (blockIdx.x) of row b,
-// query head h; false where the split lies past the row's n_keys keys (the
-// block returns at once).
-__device__ __forceinline__ bool split_work(const Launch& a, int chunk, int b, int h, int n_keys,
-                                           SplitWork& sw) {
-  const int split = blockIdx.x;
-  const SplitRange sr = split_range(n_keys, a.nsplit, chunk);
-  if (split >= sr.ns) return false;
-  const size_t item = (size_t)b * a.H + h;
-  sw = {split * sr.per, min(n_keys, (split + 1) * sr.per), split, sr.ns, a.hs,
-        a.ws + item * a.nsplit * (a.hs + 2), a.tickets + item};
-  return true;
-}
-
-// this lane's query vectors (attend_split's layout) from float32 values
-template <int VE, int LPR, int NV, typename F>
-__device__ __forceinline__ void lane_query(float (&qv)[NV][VE], int hs, F value) {
-  const int j = (threadIdx.x & 31) % LPR;
-#pragma unroll
-  for (int nv = 0; nv < NV; ++nv) {
-    const int d0 = (nv * LPR + j) * VE;
-#pragma unroll
-    for (int i = 0; i < VE; ++i) qv[nv][i] = d0 < hs ? value(d0 + i) : 0.f;
-  }
-}
 
 template <typename T, int VE, int LPR, int NV, int U>
 __global__ void __launch_bounds__(kWarps * 32) decode_kernel(Launch a) {
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hs = a.hs, G = a.H / a.KVH, kvh = h / G;
-  // pos and q are loaded together: neither waits on the other
-  const int pos = a.pos[b];
-  // q pre-scaled in f32, as the JAX kernel does before its dot
-  const T* qh = static_cast<const T*>(a.q) + ((size_t)b * a.H + h) * hs;
-  float qv[NV][VE];
-  lane_query<VE, LPR>(qv, hs, [&](int d) { return to_f32(qh[d]) * a.scale; });
-  SplitWork sw;
-  if (!split_work(a, SplitShape<VE, LPR, NV, U>::kChunk, b, h, pos + 1, sw)) return;
-  T* kc = static_cast<T*>(a.kc);
-  T* vc = static_cast<T*>(a.vc);
-  const DenseRows rows{(((size_t)a.layer * a.B + b) * a.KVH + kvh) * (size_t)a.S * hs, hs, pos};
-  const T* kn = static_cast<const T*>(a.kn) + ((size_t)b * a.KVH + kvh) * hs;
-  const T* vn = static_cast<const T*>(a.vn) + ((size_t)b * a.KVH + kvh) * hs;
-  if (h % G == 0 && sw.split == sw.ns - 1) {  // the split that holds pos
-    for (int d = threadIdx.x; d < hs; d += blockDim.x) {
-      kc[rows.new_row() + d] = kn[d];
-      vc[rows.new_row() + d] = vn[d];
-    }
-  }
-  attend_split<T, VE, LPR, NV, U>(qv, kc, vc, kn, vn,
-                                  static_cast<T*>(a.out) + ((size_t)b * a.H + h) * hs, rows, sw);
+  llama2::fpa::split_block<T, VE, LPR, NV, U, DenseRows>(a);
 }
 
 template <typename T, int VE, int LPR, int NV, int U>
 __global__ void __launch_bounds__(kWarps * 32) decode_fused_kernel(Launch a) {
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hs = a.hs, G = a.H / a.KVH, kvh = h / G;
-  const int pos = a.pos[b];  // in flight during the prologue
-  const T* qkv = static_cast<const T*>(a.qkv);
-  __shared__ float q_s[kMaxHs];
-  __shared__ __align__(16) T k_roped[kMaxHs];
-  rope_rows<T>(qkv, a.cos_il, a.sin_il, b, h, kvh, a.H, a.KVH, hs, a.scale, q_s, k_roped);
-  SplitWork sw;
-  if (!split_work(a, SplitShape<VE, LPR, NV, U>::kChunk, b, h, pos + 1, sw)) return;
-  T* kc = static_cast<T*>(a.kc);
-  T* vc = static_cast<T*>(a.vc);
-  const DenseRows rows{(((size_t)a.layer * a.B + b) * a.KVH + kvh) * (size_t)a.S * hs, hs, pos};
-  const T* v_raw = qkv + ((size_t)b * (a.H + 2 * a.KVH) + a.H + a.KVH + kvh) * hs;
-  if (h % G == 0 && sw.split == sw.ns - 1) {
-    for (int d = threadIdx.x; d < hs; d += blockDim.x) {
-      kc[rows.new_row() + d] = k_roped[d];
-      vc[rows.new_row() + d] = v_raw[d];
-    }
+  llama2::fpa::split_block_fused<T, VE, LPR, NV, U, DenseRows>(a);
+}
+
+// K2 and K4's kernels, for run_split
+struct DenseKernels {
+  template <typename T, int VE, int LPR, int NV, int U>
+  static void launch(dim3 grid, const Launch& a, bool fused, cudaStream_t st) {
+    if (fused)
+      decode_fused_kernel<T, VE, LPR, NV, U><<<grid, kWarps * 32, 0, st>>>(a);
+    else
+      decode_kernel<T, VE, LPR, NV, U><<<grid, kWarps * 32, 0, st>>>(a);
   }
-  float qv[NV][VE];
-  lane_query<VE, LPR>(qv, hs, [&](int d) { return q_s[d]; });
-  attend_split<T, VE, LPR, NV, U>(qv, kc, vc, k_roped, v_raw,
-                                  static_cast<T*>(a.out) + ((size_t)b * a.H + h) * hs, rows, sw);
-}
-
-// one instantiation of the split form: launch it if the host's chunk is its
-template <typename T, int VE, int LPR, int NV, int U>
-cudaError_t launch(const Launch& a, bool fused, int chunk, cudaStream_t st) {
-  if (chunk != SplitShape<VE, LPR, NV, U>::kChunk) return cudaErrorInvalidValue;
-  const dim3 grid(a.nsplit, a.H, a.B);
-  if (fused)
-    decode_fused_kernel<T, VE, LPR, NV, U><<<grid, kWarps * 32, 0, st>>>(a);
-  else
-    decode_kernel<T, VE, LPR, NV, U><<<grid, kWarps * 32, 0, st>>>(a);
-  return cudaGetLastError();
-}
-
-// The lane layout for (vec, hs), as ops/cuda/attention.py::plan picks it:
-// vec = 16 / sizeof(T) takes LPR = the power of two in 4..32 that covers
-// hs / vec vectors (NV = 2 for fp32 past 128 elements), U = 4 / NV; vec = 1
-// takes LPR = 32, NV = hs / 32 rounded up to a power of two, U = 8 / NV.
-template <typename T>
-cudaError_t dispatch(const Launch& a, bool fused, int vec, int chunk, cudaStream_t st) {
-  constexpr int V = 16 / sizeof(T);
-  const int hs = a.hs;
-  if (vec == V && hs % V == 0) {
-    const int n = hs / V;
-    if (n <= 4) return launch<T, V, 4, 1, 4>(a, fused, chunk, st);
-    if (n <= 8) return launch<T, V, 8, 1, 4>(a, fused, chunk, st);
-    if (n <= 16) return launch<T, V, 16, 1, 4>(a, fused, chunk, st);
-    if (n <= 32) return launch<T, V, 32, 1, 4>(a, fused, chunk, st);
-    if constexpr (V == 4) {
-      if (n <= 64) return launch<T, V, 32, 2, 2>(a, fused, chunk, st);
-    }
-    return cudaErrorInvalidValue;
-  }
-  if (vec != 1) return cudaErrorInvalidValue;
-  if (hs <= 32) return launch<T, 1, 32, 1, 8>(a, fused, chunk, st);
-  if (hs <= 64) return launch<T, 1, 32, 2, 4>(a, fused, chunk, st);
-  if (hs <= 128) return launch<T, 1, 32, 4, 2>(a, fused, chunk, st);
-  return launch<T, 1, 32, 8, 1>(a, fused, chunk, st);
-}
-
-bool aligned(const void* p, int bytes) { return reinterpret_cast<size_t>(p) % bytes == 0; }
-
-// What the split form takes; 0 or a cudaError_t.
-int check(const Launch& a, int dtype, int vec, long long ws_floats, int n_tickets, bool fused) {
-  if (a.B <= 0 || a.H <= 0 || a.KVH <= 0 || a.H % a.KVH != 0 || a.S <= 0) return cudaErrorInvalidValue;
-  if (a.hs <= 0 || a.hs > kMaxHs || (fused && a.hs % 2 != 0)) return cudaErrorInvalidValue;
-  if (a.layer < 0 || a.nsplit < 1 || a.nsplit > kMaxSplit) return cudaErrorInvalidValue;
-  if (dtype != llama2::kF32 && dtype != llama2::kBF16) return cudaErrorInvalidValue;
-  if (!a.kc || !a.vc || !a.pos || !a.out || !a.ws || !a.tickets) return cudaErrorInvalidValue;
-  if (fused ? (!a.qkv || !a.cos_il || !a.sin_il) : (!a.q || !a.kn || !a.vn)) return cudaErrorInvalidValue;
-  if (ws_floats < (long long)a.B * a.H * a.nsplit * (a.hs + 2)) return cudaErrorInvalidValue;
-  if (n_tickets < a.B * a.H) return cudaErrorInvalidValue;
-  // the vector loads' operands: every row start a multiple of the vector
-  const int vbytes = vec * (dtype == llama2::kF32 ? 4 : 2);
-  if (vec < 1 || a.hs % vec != 0) return cudaErrorInvalidValue;
-  const void* rows[] = {a.kc, a.vc, fused ? a.qkv : a.kn, fused ? a.qkv : a.vn};
-  for (const void* p : rows)
-    if (!aligned(p, vbytes)) return cudaErrorInvalidValue;
-  return cudaSuccess;
-}
-
-int run(const Launch& a, int dtype, int vec, int chunk, long long ws_floats, int n_tickets,
-        bool fused, void* stream) {
-  const int err = check(a, dtype, vec, ws_floats, n_tickets, fused);
-  if (err != cudaSuccess) return err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == llama2::kF32) return dispatch<float>(a, fused, vec, chunk, st);
-  return dispatch<__nv_bfloat16>(a, fused, vec, chunk, st);
-}
+};
 
 template <typename T, int NPL, int KC>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -253,7 +101,7 @@ decode_read_kernel(const T* __restrict__ q, const T* k_cache, const T* v_cache,
   const int b = blockIdx.y;
   const int kvh = h / (H / KVH);
   const int lane = threadIdx.x & 31;
-  const DenseReadRows rows{{((size_t)b * KVH + kvh) * (size_t)S * hs, hs, 0}};
+  const DenseRows rows{((size_t)b * KVH + kvh) * (size_t)S * hs, hs, 0};
   float qr[NPL];
   const T* qh = q + ((size_t)b * H + h) * hs;
 #pragma unroll
@@ -261,8 +109,7 @@ decode_read_kernel(const T* __restrict__ q, const T* k_cache, const T* v_cache,
     const int d = lane + 32 * i;
     qr[i] = d < hs ? to_f32(qh[d]) * scale : 0.f;
   }
-  attend<T, NPL, KC>(qr, k_cache, v_cache, nullptr, nullptr,
-                     out + ((size_t)b * H + h) * hs, rows, pos[b], hs, false);
+  attend<T, NPL, KC>(qr, k_cache, v_cache, out + ((size_t)b * H + h) * hs, rows, pos[b], hs);
 }
 
 template <typename T, int NPL>
@@ -306,11 +153,9 @@ extern "C" int flash_decode_attention(const void* q, const void* k_cache, const 
   return cudaErrorInvalidValue;
 }
 
-// The split form's plan (ops/cuda/attention.py::plan): nsplit splits of the
-// key range, vec elements a vector load (16 / sizeof(T), or 1), chunk the
-// keys of one block pass, which must be the instantiation's; ws (ws_floats
-// float32) holds B * H * nsplit states of hs + 2 floats, tickets (n_tickets
-// int32, at least B * H) are zero on entry and left zero.
+// K2 and K4 take the split form's plan (nsplit, vec, chunk) and workspace
+// (ws, ws_floats, tickets, n_tickets) as decode_attention.cuh's run_split
+// says.
 
 // q (B, H, hs); caches (L, B, KVH, S, hs), updated in place; k_new/v_new
 // (B, KVH, 1, hs); pos (B,) int32 on the device; out (B, H, hs). All
@@ -323,7 +168,7 @@ extern "C" int flash_decode_attention_stacked(
   const Launch a{q, nullptr, nullptr, nullptr, k_cache, v_cache, k_new, v_new,
                  static_cast<const int*>(pos), out, static_cast<float*>(ws),
                  static_cast<int*>(tickets), layer, B, H, KVH, S, hs, nsplit, scale};
-  return run(a, dtype, vec, chunk, ws_floats, n_tickets, false, stream);
+  return run_split<DenseKernels>(a, dtype, vec, chunk, ws_floats, n_tickets, false, stream);
 }
 
 // qkv (B, H + 2*KVH, hs), the raw pre-RoPE projection rows; cos_il/sin_il
@@ -340,5 +185,5 @@ extern "C" int flash_decode_attention_fused(
                  k_cache, v_cache, nullptr, nullptr, static_cast<const int*>(pos), out,
                  static_cast<float*>(ws), static_cast<int*>(tickets), layer, B, H, KVH, S, hs,
                  nsplit, scale};
-  return run(a, dtype, vec, chunk, ws_floats, n_tickets, true, stream);
+  return run_split<DenseKernels>(a, dtype, vec, chunk, ws_floats, n_tickets, true, stream);
 }

@@ -4,9 +4,9 @@
 //
 // Replaces, in llama2_tpu/ops/pallas/paged_attention.py:
 //   ::paged_decode_attention (K14): one layer's fp pools (P, KVH, page, hs),
-//     the query (B, H, hs), no append: K15's loop with a read-only row
-//     policy (PagedReadRows), so it writes nothing and reads no table entry
-//     past pos[b] / page;
+//     the query (B, H, hs), no append: the single-block loop attend over
+//     PagedRows' addresses, read only, so it writes nothing and reads no
+//     table entry past pos[b] / page;
 //   ::paged_decode_attention_stacked (K15): fp pools; the roped query
 //     (B, H, hs) and this step's rows k_new/v_new (B, KVH, hs) in the pool
 //     dtype;
@@ -24,21 +24,27 @@
 // [layer, write_page[b], kvh, write_row[b]], and attention runs over keys
 // 0..pos[b]; a key whose address is the write address takes the new row.
 //
-// The fp pools take the dense kernels' device code, decode_attention.cuh's
-// single-block loop with a row-address policy that reads through the table
-// (one block a (b, query head), 8 warps over the keys). The int8 pools take
-// attention_q8.cuh's split decode loop (att_split): a block a (b, kv head,
-// group of query rows, split of the keys), each warp on its own runs of keys
-// with 16-byte loads, the splits merged in split order by a ticketed last
-// split; no float atomics, the same bits on a rerun. Its arithmetic is the
-// dense K8/K9's. Offsets are 64-bit: at Llama-2-7B widths a pool of 64 pages
-// holds 2^31 elements over its 32 layers.
+// The fp pools take the dense kernels' device code: K15 and K17 are K2 and
+// K4's split form (decode_attention.cuh: split_block, split_block_fused,
+// attend_split) with a row-address policy that reads through the table
+// (PagedRows): a block per (b, query head, split), grid (nsplit, H, B), the
+// split count from the shapes (ops/cuda/attention.py::plan at the table's
+// reach, max_pages * page rows), 16-byte loads, the splits merged in split
+// order through the workspace by a ticketed last split. K14 keeps the
+// single-block loop (attend: one block a (b, query head), 8 warps over the
+// keys). The int8 pools take attention_q8.cuh's split decode loop
+// (att_split): a block a (b, kv head, group of query rows, split of the
+// keys), each warp on its own runs of keys with 16-byte loads, the splits
+// merged in split order by a ticketed last split. Neither uses float
+// atomics: a rerun gives the same bits. The int8 arithmetic is the dense
+// K8/K9's. Offsets are 64-bit: at Llama-2-7B widths a pool of 64 pages holds
+// 2^31 elements over its 32 layers.
 //
 // Bound on this card: bytes. A step reads the K/V rows of keys 0..pos[b] of
 // every (b, kv head) once (plus two float32 scales a row over an int8 pool):
 // at 7B widths, 8 slots at pos 4095 and a bf16 pool, 537 MB, 0.160 ms at
 // 3.35 TB/s. The table lookup costs an integer division a key (fp) or a chunk
-// (int8): these are no faster than the dense kernels.
+// (int8) over the dense kernels.
 //
 // Inactive slots: the engine gives them all-zero table rows, so they read
 // the scratch page 0 and write their rows there; several may write the same
@@ -59,112 +65,80 @@ namespace {
 using llama2::to_f32;
 using llama2::fpa::attend;
 using llama2::fpa::kWarps;
-using llama2::fpa::PagedReadRows;
+using llama2::fpa::Launch;
 using llama2::fpa::PagedRows;
-using llama2::fpa::rope_prologue;
+using llama2::fpa::run_split;
 
-__device__ __forceinline__ PagedRows paged_rows(const int* table, const int* wpage, const int* wrow,
-                                                int b, int layer, int P, int page, int max_pages,
-                                                int KVH, int kvh, int hs) {
-  PagedRows r{table + (size_t)b * max_pages, (size_t)layer * P, KVH, kvh, page, hs, 0};
-  r.woff = r.at(wpage[b], wrow[b]);
-  return r;
-}
-
+// K14's operands
 struct PagedArgs {
   const void* table;
-  const void* wpage;
-  const void* wrow;
   const void* pos;
-  int layer, B, H, KVH, P, page, max_pages, hs;
+  int B, H, KVH, P, page, max_pages, hs;
   float scale;
 };
 
-template <typename T, int NPL, int KC>
-__global__ void __launch_bounds__(kWarps * 32)
-paged_decode_kernel(const T* __restrict__ q, T* k_pool, T* v_pool, const T* __restrict__ k_new,
-                    const T* __restrict__ v_new, T* __restrict__ out, const PagedArgs a) {
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int G = a.H / a.KVH;
-  const int kvh = h / G;
-  const int lane = threadIdx.x & 31;
-  const int hs = a.hs;
-  const PagedRows rows = paged_rows(static_cast<const int*>(a.table), static_cast<const int*>(a.wpage),
-                                    static_cast<const int*>(a.wrow), b, a.layer, a.P, a.page,
-                                    a.max_pages, a.KVH, kvh, hs);
-  // q pre-scaled in f32, as the Pallas kernel does before its dot
-  float qr[NPL];
-  const T* qh = q + ((size_t)b * a.H + h) * hs;
-#pragma unroll
-  for (int i = 0; i < NPL; ++i) {
-    const int d = lane + 32 * i;
-    qr[i] = d < hs ? to_f32(qh[d]) * a.scale : 0.f;
+template <typename T, int VE, int LPR, int NV, int U>
+__global__ void __launch_bounds__(kWarps * 32) paged_decode_kernel(Launch a) {
+  llama2::fpa::split_block<T, VE, LPR, NV, U, PagedRows>(a);
+}
+
+template <typename T, int VE, int LPR, int NV, int U>
+__global__ void __launch_bounds__(kWarps * 32) paged_decode_fused_kernel(Launch a) {
+  llama2::fpa::split_block_fused<T, VE, LPR, NV, U, PagedRows>(a);
+}
+
+// K15 and K17's kernels, for run_split
+struct PagedKernels {
+  template <typename T, int VE, int LPR, int NV, int U>
+  static void launch(dim3 grid, const Launch& a, bool fused, cudaStream_t st) {
+    if (fused)
+      paged_decode_fused_kernel<T, VE, LPR, NV, U><<<grid, kWarps * 32, 0, st>>>(a);
+    else
+      paged_decode_kernel<T, VE, LPR, NV, U><<<grid, kWarps * 32, 0, st>>>(a);
   }
-  attend<T, NPL, KC>(qr, k_pool, v_pool, k_new + ((size_t)b * a.KVH + kvh) * hs,
-                     v_new + ((size_t)b * a.KVH + kvh) * hs, out + ((size_t)b * a.H + h) * hs, rows,
-                     static_cast<const int*>(a.pos)[b], hs, h % G == 0);
-}
+};
 
-template <typename T, int NPL, int KC>
-__global__ void __launch_bounds__(kWarps * 32)
-paged_decode_fused_kernel(const T* __restrict__ qkv, const float* __restrict__ cos_il,
-                          const float* __restrict__ sin_il, T* k_pool, T* v_pool,
-                          T* __restrict__ out, const PagedArgs a) {
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int G = a.H / a.KVH;
-  const int kvh = h / G;
-  const int hs = a.hs;
-  const PagedRows rows = paged_rows(static_cast<const int*>(a.table), static_cast<const int*>(a.wpage),
-                                    static_cast<const int*>(a.wrow), b, a.layer, a.P, a.page,
-                                    a.max_pages, a.KVH, kvh, hs);
-  const T* v_raw = qkv + ((size_t)b * (a.H + 2 * a.KVH) + a.H + a.KVH + kvh) * hs;
-  __shared__ T k_roped[NPL * 32];
-  float qr[NPL];
-  rope_prologue<T, NPL>(qkv, cos_il, sin_il, b, h, kvh, a.H, a.KVH, hs, a.scale, qr, k_roped);
-  attend<T, NPL, KC>(qr, k_pool, v_pool, k_roped, v_raw, out + ((size_t)b * a.H + h) * hs, rows,
-                     static_cast<const int*>(a.pos)[b], hs, h % G == 0);
-}
-
-// fused: q is the raw qkv, kn/vn are the cos/sin tables
-template <typename T, int NPL>
-cudaError_t launch(bool fused, const void* q, void* kp, void* vp, const void* kn, const void* vn,
-                   void* out, const PagedArgs& a, cudaStream_t stream) {
-  constexpr int KC = NPL >= 8 ? 4 : 8;  // keeps the chunk within registers
-  const dim3 grid(a.H, a.B);
-  if (fused)
-    paged_decode_fused_kernel<T, NPL, KC><<<grid, kWarps * 32, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const float*>(kn), static_cast<const float*>(vn),
-        static_cast<T*>(kp), static_cast<T*>(vp), static_cast<T*>(out), a);
-  else
-    paged_decode_kernel<T, NPL, KC><<<grid, kWarps * 32, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<T*>(kp), static_cast<T*>(vp),
-        static_cast<const T*>(kn), static_cast<const T*>(vn), static_cast<T*>(out), a);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(bool fused, const void* q, void* kp, void* vp, const void* kn, const void* vn,
-                     void* out, const PagedArgs& a, cudaStream_t st) {
-  if (a.hs <= 32) return launch<T, 1>(fused, q, kp, vp, kn, vn, out, a, st);
-  if (a.hs <= 64) return launch<T, 2>(fused, q, kp, vp, kn, vn, out, a, st);
-  if (a.hs <= 128) return launch<T, 4>(fused, q, kp, vp, kn, vn, out, a, st);
-  if (a.hs <= 256) return launch<T, 8>(fused, q, kp, vp, kn, vn, out, a, st);
-  return cudaErrorInvalidValue;
-}
-
-int paged_fp(bool fused, const void* q, void* kp, void* vp, const void* kn, const void* vn,
-             void* out, int dtype, const PagedArgs& a, void* stream) {
-  if (a.B <= 0 || a.H <= 0 || a.KVH <= 0 || a.H % a.KVH != 0 || a.hs <= 0 || a.hs % 2 != 0 ||
-      a.P <= 0 || a.page <= 0 || a.max_pages <= 0 || a.layer < 0)
+// K15 (fused false: q, k_new, v_new) and K17 (fused true: qkv, cos_il,
+// sin_il in their places) over the pools; the plan and workspace as
+// run_split takes them.
+int paged_split(bool fused, const void* q, void* kp, void* vp, const void* kn, const void* vn,
+                const void* table, const void* wpage, const void* wrow, const void* pos, void* out,
+                void* ws, void* tickets, long long ws_floats, int n_tickets, int dtype, int layer,
+                int B, int H, int KVH, int P, int page, int max_pages, int hs, int nsplit, int vec,
+                int chunk, float scale, void* stream) {
+  if (P <= 0 || page <= 0 || max_pages <= 0 || hs % 2 != 0 || !table || !wpage || !wrow)
     return cudaErrorInvalidValue;
-  if (!q || !kp || !vp || !kn || !vn || !out || !a.table || !a.wpage || !a.wrow || !a.pos)
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == llama2::kF32) return dispatch<float>(fused, q, kp, vp, kn, vn, out, a, st);
-  if (dtype == llama2::kBF16) return dispatch<__nv_bfloat16>(fused, q, kp, vp, kn, vn, out, a, st);
-  return cudaErrorInvalidValue;
+  Launch a{};
+  if (fused) {
+    a.qkv = q;
+    a.cos_il = static_cast<const float*>(kn);
+    a.sin_il = static_cast<const float*>(vn);
+  } else {
+    a.q = q;
+    a.kn = kn;
+    a.vn = vn;
+  }
+  a.kc = kp;
+  a.vc = vp;
+  a.pos = static_cast<const int*>(pos);
+  a.out = out;
+  a.ws = static_cast<float*>(ws);
+  a.tickets = static_cast<int*>(tickets);
+  a.layer = layer;
+  a.B = B;
+  a.H = H;
+  a.KVH = KVH;
+  a.S = max_pages * page;  // the table's reach
+  a.hs = hs;
+  a.nsplit = nsplit;
+  a.scale = scale;
+  a.table = static_cast<const int*>(table);
+  a.wpage = static_cast<const int*>(wpage);
+  a.wrow = static_cast<const int*>(wrow);
+  a.P = P;
+  a.page = page;
+  a.max_pages = max_pages;
+  return run_split<PagedKernels>(a, dtype, vec, chunk, ws_floats, n_tickets, fused, stream);
 }
 
 template <typename T, int NPL, int KC>
@@ -176,8 +150,8 @@ paged_read_kernel(const T* __restrict__ q, const T* k_pool, const T* v_pool,
   const int kvh = h / (a.H / a.KVH);
   const int lane = threadIdx.x & 31;
   const int hs = a.hs;
-  const PagedReadRows rows{{static_cast<const int*>(a.table) + (size_t)b * a.max_pages, 0, a.KVH,
-                            kvh, a.page, hs, 0}};
+  const PagedRows rows{static_cast<const int*>(a.table) + (size_t)b * a.max_pages, 0, a.KVH, kvh, a.page,
+                       hs, 0};
   float qr[NPL];
   const T* qh = q + ((size_t)b * a.H + h) * hs;
 #pragma unroll
@@ -185,8 +159,8 @@ paged_read_kernel(const T* __restrict__ q, const T* k_pool, const T* v_pool,
     const int d = lane + 32 * i;
     qr[i] = d < hs ? to_f32(qh[d]) * a.scale : 0.f;
   }
-  attend<T, NPL, KC>(qr, k_pool, v_pool, nullptr, nullptr, out + ((size_t)b * a.H + h) * hs, rows,
-                     static_cast<const int*>(a.pos)[b], hs, false);
+  attend<T, NPL, KC>(qr, k_pool, v_pool, out + ((size_t)b * a.H + h) * hs, rows,
+                     static_cast<const int*>(a.pos)[b], hs);
 }
 
 template <typename T, int NPL>
@@ -258,7 +232,7 @@ extern "C" int paged_decode_attention(const void* q, const void* k_pool, const v
       max_pages <= 0)
     return cudaErrorInvalidValue;
   if (!q || !k_pool || !v_pool || !table || !pos || !out) return cudaErrorInvalidValue;
-  const PagedArgs a{table, nullptr, nullptr, pos, 0, B, H, KVH, P, page, max_pages, hs, scale};
+  const PagedArgs a{table, pos, B, H, KVH, P, page, max_pages, hs, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == llama2::kF32) return dispatch_read<float>(q, k_pool, v_pool, out, a, st);
   if (dtype == llama2::kBF16) return dispatch_read<__nv_bfloat16>(q, k_pool, v_pool, out, a, st);
@@ -266,28 +240,39 @@ extern "C" int paged_decode_attention(const void* q, const void* k_pool, const v
 }
 
 // K15. q (B, H, hs); pools (L, P, KVH, page, hs), updated in place; k_new /
-// v_new (B, KVH, hs); table (B, max_pages), write_page / write_row / pos (B,)
+// v_new (B, KVH, 1, hs); table (B, max_pages), write_page / write_row / pos (B,)
 // int32 on the device; out (B, H, hs). One dtype, contiguous; hs even and
-// <= 256. Returns the launch's cudaError_t.
+// <= 256. The plan (ops/cuda/attention.py::plan at S = max_pages * page):
+// nsplit splits of the key range, vec elements a vector load (16 bytes'
+// worth, or 1; the pools and k_new / v_new aligned to it), chunk the keys of
+// one block pass, which must be the instantiation's; ws (ws_floats float32)
+// holds B * H * nsplit states of hs + 2 floats, tickets (n_tickets int32, at
+// least B * H) are zero on entry and left zero. Returns the launch's
+// cudaError_t.
 extern "C" int paged_decode_attention_stacked(
     const void* q, void* k_pool, void* v_pool, const void* k_new, const void* v_new,
     const void* table, const void* write_page, const void* write_row, const void* pos, void* out,
-    int dtype, int layer, int B, int H, int KVH, int P, int page, int max_pages, int hs,
-    float scale, void* stream) {
-  const PagedArgs a{table, write_page, write_row, pos, layer, B, H, KVH, P, page, max_pages, hs, scale};
-  return paged_fp(false, q, k_pool, v_pool, k_new, v_new, out, dtype, a, stream);
+    void* ws, void* tickets, long long ws_floats, int n_tickets, int dtype, int layer, int B, int H,
+    int KVH, int P, int page, int max_pages, int hs, int nsplit, int vec, int chunk, float scale,
+    void* stream) {
+  return paged_split(false, q, k_pool, v_pool, k_new, v_new, table, write_page, write_row, pos, out,
+                     ws, tickets, ws_floats, n_tickets, dtype, layer, B, H, KVH, P, page, max_pages,
+                     hs, nsplit, vec, chunk, scale, stream);
 }
 
-// K17. qkv (B, H + 2 KVH, hs), the raw pre-RoPE rows; cos_il / sin_il (B, hs)
-// float32, each pair's value on both of its elements (in K15's k_new / v_new
-// places); the rest as K15's.
+// K17. qkv (B, H + 2 KVH, hs), the raw pre-RoPE rows (aligned to the vector
+// in K15's k_new / v_new stead); cos_il / sin_il (B, hs) float32, each
+// pair's value on both of its elements (in K15's k_new / v_new places); the
+// rest as K15's.
 extern "C" int paged_decode_attention_fused(
     const void* qkv, void* k_pool, void* v_pool, const void* cos_il, const void* sin_il,
     const void* table, const void* write_page, const void* write_row, const void* pos, void* out,
-    int dtype, int layer, int B, int H, int KVH, int P, int page, int max_pages, int hs,
-    float scale, void* stream) {
-  const PagedArgs a{table, write_page, write_row, pos, layer, B, H, KVH, P, page, max_pages, hs, scale};
-  return paged_fp(true, qkv, k_pool, v_pool, cos_il, sin_il, out, dtype, a, stream);
+    void* ws, void* tickets, long long ws_floats, int n_tickets, int dtype, int layer, int B, int H,
+    int KVH, int P, int page, int max_pages, int hs, int nsplit, int vec, int chunk, float scale,
+    void* stream) {
+  return paged_split(true, qkv, k_pool, v_pool, cos_il, sin_il, table, write_page, write_row, pos, out,
+                     ws, tickets, ws_floats, n_tickets, dtype, layer, B, H, KVH, P, page, max_pages,
+                     hs, nsplit, vec, chunk, scale, stream);
 }
 
 // K16 (mode 1: q (B, H, hs); k_new / v_new (B, KVH, hs) int8 and ks_new /

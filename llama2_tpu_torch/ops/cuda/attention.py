@@ -7,7 +7,8 @@ appends this step's K/V rows at ``[layer, b, :, pos_b]`` in place and runs
 single-query attention over keys ``0..pos_b``; the kernel source's header
 says what bounds it and how it is laid out. K2 and K4 cut the key range into
 splits merged in one launch through ``build.workspace``; :func:`plan` picks
-the split count and the lane layout from the shapes alone.
+the split count and the lane layout from the shapes alone (the paged K15 and
+K17 take the same form and plan, ``paged_attention.fp_plan``).
 ``flash_decode_attention_stacked_plain`` is the same function in plain
 PyTorch: the wrapper takes it for CPU tensors, and ``backend="torch"`` runs it
 on the card for comparison.
@@ -22,8 +23,8 @@ K row and the raw V row, and runs the same read.
 ``flash_decode_attention`` (K3) replaces
 ``llama2_tpu/ops/pallas/attention.py::flash_decode_attention``: single-query
 attention over one layer's read-only ``(B, KVH, S, hs)`` cache, each row at
-its own position, no append; the single-block loop of the paged kernels
-(``attend``) with a read-only row policy, not K2's split form.
+its own position, no append; the single-block loop (``attend``, K14's too)
+with a read-only row policy, not K2's split form.
 ``flash_decode_attention_plain`` is its plain version. No model path calls it
 (the JAX model sends every T = 1 step to the stacked kernel); the kernel
 benchmarks (``llama2_tpu_torch/benchmarks/kernels.py``) do.

@@ -27,10 +27,15 @@ which replace, in ``llama2_tpu/ops/pallas/paged_attention.py``:
 
 The arithmetic is the dense kernels' (K2/K4 for fp pools, K8/K9 for int8
 pools; see ``attention.py`` and ``attention_q8.py``); only where a key row
-lives differs. K16 and K18 run the int8 split decode loop (``att_split`` of
+lives differs. K15 and K17 run K2/K4's split form (``attend_split`` of
+``csrc/decode_attention.cuh``: a block per (b, query head, split), 16-byte
+loads, the splits merged in one launch through ``build.workspace``),
+launched as :func:`fp_plan` says; K14 keeps the single-block loop
+(``attend``). K16 and K18 run the int8 split decode loop (``att_split`` of
 ``csrc/attention_q8.cuh``: a block per (b, kv head, group of query rows,
-split), each warp on its own keys), launched as :func:`q8_plan` says. Each returns ``(att, *pools)`` with the pools updated in place,
-the argument order of the JAX functions minus ``scale`` and ``interpret``.
+split), each warp on its own keys), launched as :func:`q8_plan` says. Each
+returns ``(att, *pools)`` with the pools updated in place, the argument
+order of the JAX functions minus ``scale`` and ``interpret``.
 
 ``*_plain`` are the same functions in plain PyTorch: the wrappers take them
 for CPU tensors, and ``chip_smoke.py`` holds the kernels against them on the
@@ -50,6 +55,7 @@ import torch
 
 from llama2_tpu_torch.ops import ref
 from llama2_tpu_torch.ops.cuda import build
+from llama2_tpu_torch.ops.cuda import attention as fa
 from llama2_tpu_torch.ops.cuda.attention import pos_rows, rope_rows_plain
 from llama2_tpu_torch.ops.cuda.attention_q8 import (  # noqa: F401 (the plan's constants, re-exported)
     Q8_BLOCKS_PER_SM,
@@ -310,19 +316,42 @@ def _check_device(act, operands) -> None:
         raise ValueError("operands must be contiguous")
 
 
-def _fp_launch(which, entry, act, k_pool, v_pool, kn, vn, table, write_page, write_row, layer, pos,
-               H: int):
-    """Launch K15 (kn/vn: the new rows) or K17 (kn/vn: cos_il/sin_il) and count it."""
+def fp_plan(act, k_pool, v_pool, kn, vn, table, H: int, sms: int, fused: bool,
+            splits: int | None = None) -> dict:
+    """The launch of K15 (``act`` the query, kn/vn the new rows) or K17
+    (``act`` the raw qkv rows, which are also its new rows): K2/K4's
+    :func:`attention.plan` at the table's reach, ``max_pages * page`` rows,
+    from the shapes alone (never from ``pos``); 16-byte vectors where the
+    pools and the new-row operands start 16-byte aligned, else one element a
+    lane. ``splits`` as :func:`attention.plan` takes it."""
+    page, hs = k_pool.shape[3], k_pool.shape[4]
+    rows = (k_pool, v_pool, act) if fused else (k_pool, v_pool, kn, vn)
+    aligned = all(t.data_ptr() % 16 == 0 for t in rows)
+    return fa.plan(act.shape[0], H, k_pool.shape[2], table.shape[1] * page, hs, act.dtype, sms, aligned,
+                   splits)
+
+
+def _fp_launch(which, act, k_pool, v_pool, kn, vn, table, write_page, write_row, layer, pos, H: int,
+               splits: int | None = None):
+    """Launch K15 (kn/vn: the new rows) or K17 (kn/vn: cos_il/sin_il) on
+    :func:`fp_plan`'s split form, or at ``splits`` splits, and count it."""
     if k_pool.dtype != act.dtype:
         raise ValueError(f"pool dtype {k_pool.dtype} differs from the activations' {act.dtype}")
     _check_device(act, (act, k_pool, v_pool, kn, vn, table, write_page, write_row, pos))
+    fused = which is paged_decode_attention_fused
     L, P, KVH, page, hs = k_pool.shape
     B = act.shape[0]
+    if B * H > build.MAX_TICKETS:
+        raise ValueError(f"{B * H} (b, query head) pairs: more than {build.MAX_TICKETS}")
+    index = act.device.index if act.device.index is not None else torch.cuda.current_device()
+    p = fp_plan(act, k_pool, v_pool, kn, vn, table, H, _sms(index), fused, splits)
+    ws, tickets = build.workspace(act.device, p["ws_floats"])
     out = torch.empty((B, H, hs), dtype=act.dtype, device=act.device)
-    err = entry(
+    err = _entry(which.__name__)(
         act.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), kn.data_ptr(), vn.data_ptr(),
         table.data_ptr(), write_page.data_ptr(), write_row.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        build.DTYPE_CODES[act.dtype], layer, B, H, KVH, P, page, table.shape[1], hs, 1.0 / hs**0.5,
+        ws.data_ptr(), tickets.data_ptr(), ws.numel(), tickets.numel(), build.DTYPE_CODES[act.dtype],
+        layer, B, H, KVH, P, page, table.shape[1], hs, p["splits"], p["vec"], p["chunk"], 1.0 / hs**0.5,
         torch.cuda.current_stream(act.device).cuda_stream,
     )
     build.check(err, which.__name__)
@@ -358,8 +387,8 @@ def paged_decode_attention_stacked(
         )
     if k_new.dtype != q.dtype or v_new.dtype != q.dtype:
         raise ValueError(f"new rows {k_new.dtype}, {v_new.dtype}: want {q.dtype}")
-    out = _fp_launch(paged_decode_attention_stacked, _entry("paged_decode_attention_stacked"), q3,
-                     k_pool, v_pool, k_new, v_new, table, write_page, write_row, layer, pos, H)
+    out = _fp_launch(paged_decode_attention_stacked, q3, k_pool, v_pool, k_new, v_new, table, write_page,
+                     write_row, layer, pos, H)
     return out.view(q.shape), k_pool, v_pool
 
 
@@ -404,8 +433,8 @@ def paged_decode_attention_fused(
         return paged_decode_attention_fused_plain(
             qkv, k_pool, v_pool, table, cos_il, sin_il, write_page, write_row, layer, pos, H
         )
-    out = _fp_launch(paged_decode_attention_fused, _entry("paged_decode_attention_fused"), qkv,
-                     k_pool, v_pool, cos_il, sin_il, table, write_page, write_row, layer, pos, H)
+    out = _fp_launch(paged_decode_attention_fused, qkv, k_pool, v_pool, cos_il, sin_il, table, write_page,
+                     write_row, layer, pos, H)
     return out, k_pool, v_pool
 
 
@@ -530,9 +559,10 @@ paged_decode_attention_q8_fused.launches = 0
 
 @functools.cache
 def _entry(name: str):
+    """K15's or K17's entry: 12 pointers, the workspace's size, 13 ints, the scale, the stream."""
     fn = getattr(build.load_library(_LIB), name)
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 10 + [i] * 9 + [ctypes.c_float, p]
+    fn.argtypes = [p] * 12 + [ctypes.c_longlong] + [i] * 13 + [ctypes.c_float, p]
     fn.restype = i
     return fn
 

@@ -1286,8 +1286,11 @@ def test_paged_int8_split_loop_matches_plain_on_card(cuda_device, dtype):
 @pytest.mark.gpu
 def test_tick_kernels_raise_on_card_and_do_not_fall_back(cuda_device):
     """On a CUDA tensor the served tick's wrappers launch or raise: K12 with a
-    group of 256 (past the kernel's 128) and K18 with an odd head size or
-    a split count past the kernel's raise ValueError and count no launch."""
+    group of 256 (past the kernel's 128), K18 with an odd head size or a
+    split count past the kernel's, and K17 with a split count past the
+    kernel's raise ValueError and count no launch; K17's C entry refuses a
+    plan it cannot take (a chunk that is not its instance's, 33 splits)."""
+    from llama2_tpu_torch.ops.cuda import build
     from llama2_tpu_torch.ops.cuda import paged_attention as tpa
 
     g = torch.Generator(device=cuda_device).manual_seed(23)
@@ -1317,6 +1320,28 @@ def test_tick_kernels_raise_on_card_and_do_not_fall_back(cuda_device):
                 tpa._q8_launch(tpa.paged_decode_attention_q8_fused, "fused", qkv, pools, table, ci, ci, 0, ci, H,
                                qkv=qkv, rope=rope, splits=33)
     assert tpa.paged_decode_attention_q8_fused.launches == n0
+
+    # K17 on the split form: a split count past the kernel's is refused by the
+    # plan, and a chunk that is not the instance's by the C entry
+    hs = 32
+    pools = [z((1, 3, KVH, page, hs), device=cuda_device) for _ in range(2)]
+    qkv = z((B, H + 2 * KVH, hs), device=cuda_device)
+    rope = (z((B, hs), device=cuda_device), z((B, hs), device=cuda_device))
+    n0 = tpa.paged_decode_attention_fused.launches
+    with pytest.raises(ValueError, match="splits"):
+        tpa._fp_launch(tpa.paged_decode_attention_fused, qkv, *pools, *rope, table, ci, ci, 0, ci, H, splits=33)
+    assert tpa.paged_decode_attention_fused.launches == n0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    p = tpa.fp_plan(qkv, *pools, *rope, table, H, sms, True)
+    ws, tickets = build.workspace(cuda_device, p["ws_floats"])
+    out = z((B, H, hs), device=cuda_device)
+    for chunk, splits in ((p["chunk"] + 1, p["splits"]), (p["chunk"], 33)):
+        err = tpa._entry("paged_decode_attention_fused")(
+            qkv.data_ptr(), pools[0].data_ptr(), pools[1].data_ptr(), rope[0].data_ptr(), rope[1].data_ptr(),
+            table.data_ptr(), ci.data_ptr(), ci.data_ptr(), ci.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            tickets.data_ptr(), ws.numel(), tickets.numel(), 0, 0, B, H, KVH, 3, page, 2, hs, splits, p["vec"],
+            chunk, 1.0, torch.cuda.current_stream().cuda_stream)
+        assert err != 0, (chunk, splits)
 
 
 def _tickets_zero(device):
@@ -1482,3 +1507,78 @@ def test_layer_block_split_attention_matches_plain_on_card(cuda_device, dtype, K
         if S - 1 in pos_list:
             _planted_fail(terms, want, tol, pos_list.index(S - 1), lambda t: t.reshape(1, D).to(torch.bfloat16))
         del caches, runs
+
+
+def _planted_fp_fail(qf, k, v, want, tol, what):
+    """The fp attention of one slot with keys 1024..1279 (one split of 256
+    keys) dropped, or counted twice, fails ``tol`` against ``want``: qf
+    (H, hs) float32, scaled; k, v (KVH, n, hs) the slot's rows; want (H, hs)."""
+    H, KVH = qf.shape[0], k.shape[0]
+    s = torch.einsum("kgd,ktd->kgt", qf.reshape(KVH, H // KVH, -1), k.float())
+    for factor in (0.0, 2.0):
+        w = torch.exp(s - s.amax(-1, keepdim=True))
+        w[..., 1024:1280] *= factor
+        bad = (torch.einsum("kgt,ktd->kgd", w, v.float()) / w.sum(-1, keepdim=True)).reshape(H, -1)
+        with pytest.raises(AssertionError):
+            _assert_close(bad.to(want.dtype), want, tol, f"planted {what}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", [(32, 32, 128), (32, 4, 64), (6, 6, 48)], ids=["7B", "GQA", "stories15M"])
+def test_paged_fp_split_loop_matches_plain_on_card(cuda_device, dtype, layout):
+    """K15 and K17 on K2/K4's split form through the page table: 8 slots
+    whose positions straddle pages (0, 255, 256, 1000, 4095, a third page's
+    row; two inactive slots on the scratch page 0), 256-row pages handed out
+    shuffled, at the plan's split count and at 3 and 8 (split edges inside
+    pages): the active slots' outputs within the fp tolerance of the plain
+    versions, the inactive ones finite, the pools equal to the plain
+    version's, the same bits on a rerun and every ticket zero after; with
+    one 256-key split dropped or doubled at pos 4095 the plain output fails
+    the tolerance."""
+    from llama2_tpu_torch.benchmarks.kernels import rope_tables
+    from llama2_tpu_torch.ops.cuda import attention as fa
+    from llama2_tpu_torch.ops.cuda import paged_attention as tpa
+
+    H, KVH, hs = layout
+    g = torch.Generator(device=cuda_device).manual_seed(26)
+    cpu_g = torch.Generator().manual_seed(26)
+    S, L, page, act = 4096, 2, 256, 6
+    tol = dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32 else dict(rtol=2**-7, atol=1e-3)
+    pos_list = [0, 255, 256, 1000, S - 1, 2 * page + 77, 5, 9]
+    table, wpage, wrow, pos, P = _paged_setup(cpu_g, cuda_device, pos_list, page, 2, S)
+    cos_il, sin_il = rope_tables(pos, hs)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+
+    q, qkv = randn(8, H, hs), randn(8, H + 2 * KVH, hs)
+    kn, vn = randn(8, KVH, 1, hs), randn(8, KVH, 1, hs)
+    pools = [randn(L, P, KVH, page, hs), randn(L, P, KVH, page, hs)]
+    coords = (table, wpage, wrow, L - 1, pos)
+    q_rot = fa.rope_rows_plain(qkv, cos_il, sin_il, H, dtype)[0]
+    b4 = pos_list.index(S - 1)
+    for which, a, news, plain, kw, qf in (
+        (tpa.paged_decode_attention_stacked, q, (kn, vn),
+         lambda c: tpa.paged_decode_attention_stacked_plain(q, *c, table, kn, vn, *coords[1:])[0], {}, q.float()),
+        (tpa.paged_decode_attention_fused, qkv, (cos_il, sin_il),
+         lambda c: tpa.paged_decode_attention_fused_plain(qkv, *c, table, cos_il, sin_il, *coords[1:], H)[0],
+         {"n_heads": H}, q_rot),
+    ):
+        want_pools = [t.clone() for t in pools]
+        want = plain(want_pools)
+        for splits in (None, 3, 8):
+            runs = [[t.clone() for t in pools] for _ in range(2)]
+            n0 = which.launches
+            got = [tpa._fp_launch(which, a, *c, *news, *coords, H, splits=splits) for c in runs]
+            assert which.launches == n0 + 2
+            torch.cuda.synchronize()
+            what = f"{which.__name__} {layout} {dtype} {splits=}"
+            assert torch.equal(got[0][:act], got[1][:act]), what
+            assert bool(torch.isfinite(got[0].float()).all()), what
+            assert all(torch.equal(x, y) and torch.equal(x, w) for x, y, w in zip(*runs, want_pools)), what
+            assert _tickets_zero(cuda_device), what
+            _assert_close(got[0][:act], want[:act], tol, what)
+        k4, v4 = (tpa.gather_pages(t[L - 1], table[b4:b4 + 1], S // page)[0] for t in want_pools)
+        _planted_fp_fail(qf[b4] * hs**-0.5, k4, v4, want[b4], tol, which.__name__)
+
