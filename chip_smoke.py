@@ -35,7 +35,9 @@ non-zero:
    split checks; the kernel benchmarks' kernels: K3
    over one layer's caches at the three layouts with per-row and scalar
    positions, K14 over one layer's shuffled pools whose unused table entries
-   name a NaN page, K19 and K20 at the benchmark's and ragged widths;
+   name a NaN page, K19 and K20 at the benchmark's and ragged widths, and K3
+   and K14 (read only on the split form) at K2/K4's split checks at a given
+   scale, K14 also at 3 and 8 splits, the caches and pools unchanged;
 3. the served path, this slice's main path: ``PagedBatchEngine`` at full
    Llama-2-7B width and 32 layers, INT8 weights, bf16 activations,
    ``backend="cuda"``, 8 slots, 256-row pages, the prefix cache, serving 16
@@ -110,11 +112,14 @@ builds the kernels and times only the dense decode attention kernels,
 positions 201-264, with K4's host time a call, ``--tick-timing`` only
 the served decode tick's kernels (K10-K13 at 8 rows, K15-K18),
 ``--serve-timing`` only the served bf16-pool path (a timed serving and the
-tick profiles), and ``--q8kv-timing`` only the int8-cache decode step's
+tick profiles), ``--q8kv-timing`` only the int8-cache decode step's
 kernels (K7-K9 and K13 at 1 and 8 rows, beside the K9 + K12 pair, and a
-split-count sweep) (to compare two checkouts in one call, see
+split-count sweep), and ``--read-timing`` only the read-only decode
+attention kernels (K3, K14, their split sweeps, and K2/K4/K15/K17 at pos
+4095) (to compare two checkouts in one call, see
 ``phase_dense_timing``, ``phase_prefill_timing``, ``phase_decode_timing``,
-``phase_tick_timing``, ``phase_serve_timing`` and ``phase_q8kv_timing``). Without a CUDA device, or outside a checkout
+``phase_tick_timing``, ``phase_serve_timing``, ``phase_q8kv_timing`` and
+``phase_read_timing``). Without a CUDA device, or outside a checkout
 of the repository, it fails before printing any result.
 """
 
@@ -1265,6 +1270,89 @@ def paged_split_checks(randn) -> None:
                 del pools, want_pools, runs
 
 
+def read_split_checks(randn) -> None:
+    """K3 and K14, read only, on the split form at K2/K4's split checks
+    (SPLIT_CASES at split_positions: the one-element-a-lane loop at head size
+    46 and one element off 16-byte alignment), at a given scale (0.7 /
+    sqrt(hs)). K3 over one layer's caches (B, KVH, S, hs), per-row positions.
+    K14 over one layer's pools of 256-row pages handed out shuffled, every
+    slot active, the table's entries past each row's last page naming a
+    NaN-filled page (the plain version gets the scratch page 0 there), at the
+    plan's split count and at 3 and 8 (split edges inside pages) through
+    ``_read_launch``'s ``splits``. Against the plain versions at
+    ``tolerance``, one launch a call, a rerun bit-equal, every ticket zero
+    after, the caches and pools unchanged."""
+    import torch
+
+    from llama2_tpu_torch.ops.cuda import attention as fa
+    from llama2_tpu_torch.ops.cuda import paged_attention as tpa
+
+    gen = torch.Generator().manual_seed(SEED + 18)
+    page = 256
+    for dtype in (torch.float32, torch.bfloat16):
+        for case, (H, KVH, hs, offset) in SPLIT_CASES.items():
+            at = offset_view if offset else (lambda t: t)
+            scale = 0.7 / hs**0.5
+            for pos_list in split_positions(H, KVH, hs, dtype):
+                B = len(pos_list)
+                pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+                q = randn(B, H, hs, dtype=dtype)
+                k, v = at(randn(B, KVH, S, hs, dtype=dtype)), at(randn(B, KVH, S, hs, dtype=dtype))
+                k0, v0 = k.clone(), v.clone()
+                vec = split_vec(case, B, dtype, (k, v))
+                n0 = fa.flash_decode_attention.launches
+                got, again = (fa.flash_decode_attention(q, k, v, pos, scale=scale) for _ in range(2))
+                if fa.flash_decode_attention.launches != n0 + 2:
+                    raise AssertionError(f"K3: {fa.flash_decode_attention.launches - n0} launches for 2 calls")
+                want = fa.flash_decode_attention_plain(q, k, v, pos, scale=scale)
+                torch.cuda.synchronize()
+                err = compare(got, want, dtype)
+                if not (torch.equal(k, k0) and torch.equal(v, v0)):
+                    raise AssertionError(f"K3 wrote to its read-only caches at {case} pos={pos_list}")
+                split_rerun_checks(f"K3 {case}", got, again, pos_list)
+                say("K3", dtype=dtype_name(dtype), layout=case, B=B, pos=",".join(map(str, pos_list)), vec=vec,
+                    scale=f"{scale:.4f}", max_abs_err=f"{err:.3e}", rerun="equal_bits", tickets="zero",
+                    caches="unchanged")
+                del k, v, k0, v0
+                need = [p // page + 1 for p in pos_list]
+                nan_page = sum(need) + 1
+                perm = (torch.randperm(sum(need), generator=gen) + 1).tolist()
+                table = torch.zeros((B, S // page), dtype=torch.int32)
+                for b, n in enumerate(need):
+                    table[b, :n] = torch.tensor(perm[sum(need[:b]) : sum(need[: b + 1])], dtype=torch.int32)
+                table = table.cuda()
+                used = torch.arange(S // page, device="cuda")[None] <= (pos // page)[:, None]
+                nan_table = torch.where(used, table, torch.full_like(table, nan_page))
+                kp, vp = at(randn(nan_page + 1, KVH, page, hs, dtype=dtype)), at(randn(nan_page + 1, KVH, page, hs,
+                                                                                       dtype=dtype))
+                kp[nan_page], vp[nan_page] = float("nan"), float("nan")
+                kp0, vp0 = kp.clone(), vp.clone()
+                vec = split_vec(case, B, dtype, (kp, vp))
+                want = tpa.paged_decode_attention_plain(q, kp, vp, table, pos, scale=scale)
+                for splits in (None, 3, 8):
+                    n0 = tpa.paged_decode_attention.launches
+                    if splits is None:
+                        got, again = (tpa.paged_decode_attention(q, kp, vp, nan_table, pos, scale=scale)
+                                      for _ in range(2))
+                    else:
+                        got, again = (tpa._read_launch(q, kp, vp, nan_table, pos, scale, splits=splits)
+                                      for _ in range(2))
+                    torch.cuda.synchronize()
+                    if tpa.paged_decode_attention.launches != n0 + 2:
+                        raise AssertionError(f"K14: {tpa.paged_decode_attention.launches - n0} launches for 2 calls")
+                    err = compare(got, want, dtype)
+                    if not (torch.equal(kp.nan_to_num(), kp0.nan_to_num())
+                            and torch.equal(vp.nan_to_num(), vp0.nan_to_num())):
+                        raise AssertionError(f"K14 wrote to its read-only pools at {case} pos={pos_list}")
+                    split_rerun_checks(f"K14 {case} splits={splits}", got, again, pos_list)
+                    say("K14", dtype=dtype_name(dtype), layout=case, B=B, page=page,
+                        pos=",".join(map(str, pos_list)), vec=vec, splits=splits or "plan", scale=f"{scale:.4f}",
+                        unused_entries="a_NaN_page", max_abs_err=f"{err:.3e}", rerun="equal_bits",
+                        tickets="zero", pools="unchanged")
+                del kp, vp, kp0, vp0
+    torch.cuda.empty_cache()
+
+
 # the rmsnorm (K19) and swiglu (K20) check shapes: the benchmark's, then the
 # JAX tests' ragged ones (288, 64, 172 wide; 768, 64, 172)
 NORM_SHAPES = ((256, 4096), (1024, 8192), (1, 1, 288), (2, 7, 64), (1, 300, 172))
@@ -1298,7 +1386,8 @@ def phase_kernels_bench() -> None:
     ``tolerance`` and finite, the pools unchanged. K19 and K20 at
     ``NORM_SHAPES`` and ``SWIGLU_SHAPES``, K19 under a weight of the rows'
     dtype and a float32 one, to ``norm_tolerance``; the output in the rows'
-    dtype. Each call one launch."""
+    dtype. Each call one launch. Then K3 and K14 at the split form's checks
+    (``read_split_checks``)."""
     import torch
 
     from llama2_tpu_torch.ops.cuda import attention as fa
@@ -1384,6 +1473,7 @@ def phase_kernels_bench() -> None:
             say("K20", dtype=dn, shape="x".join(map(str, shape)), out_dtype=dtype_name(got.dtype),
                 max_abs_err=f"{err:.3e}", rtol=rtol, atol=atol)
     torch.cuda.empty_cache()
+    read_split_checks(randn)
 
 
 BATCH8_POS = [0, 255, 256, 1000, S - 1, 77, 3000, 2047]
@@ -3819,27 +3909,42 @@ def phase_timing_paged(launches: dict, cycles_per_ms: float, tags=("K15", "K16",
     return rows
 
 
-def phase_timing_bench() -> dict:
-    """K3, K14, K19 and K20 at the kernel benchmarks' shapes, on the
-    benchmark's own inputs (``llama2_tpu_torch/benchmarks/kernels.py``: the
-    operands rotate through 512 MB or more, so no call finds them in the 50
-    MB L2), beside the bound, the plain version and a library yardstick timed
-    here only: ``scaled_dot_product_attention`` (``enable_gqa``) on the
+def phase_timing_bench(tags=("K19", "K20", "K3", "K14"), sweep: bool = False) -> dict:
+    """K3, K14, K19 and K20 (or ``tags``) at the kernel benchmarks' shapes,
+    on the benchmark's own inputs (``llama2_tpu_torch/benchmarks/kernels.py``:
+    the operands rotate through 512 MB or more, so no call finds them in the
+    50 MB L2), beside the bound, the plain version and a library yardstick
+    timed here only: ``scaled_dot_product_attention`` (``enable_gqa``) on the
     caches cut to pos + 1 for K3; SDPA on the same rows gathered into a
     dense cache ahead for K14 (as the K15 line); ``F.rms_norm`` for K19; for
     K20, which no single call computes, the composed ``F.silu(h1) * h3``.
     Bound: the case's bytes (each input read once, each output written once)
-    over the memory rate, or its operations over the dtype's peak. Returns
-    the kernel line's row for each, by tag, ``launches`` still to be filled
-    from the benchmark run (phase 6)."""
+    over the memory rate, or its operations over the dtype's peak.
+    ``sweep``: K3 at pos 8191 also at 1, 2, 4, 8 and 16
+    splits and K14 at pos 4095 at 1, 2 and 4 (``read-split`` lines), where
+    the tree has their ``splits`` hooks. Returns the kernel line's row for
+    each, by tag, ``launches`` still to be filled from the benchmark run
+    (phase 6)."""
     import torch
     import torch.nn.functional as F
 
     from llama2_tpu_torch.benchmarks import kernels as kb
+    from llama2_tpu_torch.ops.cuda import attention as fa
     from llama2_tpu_torch.ops.cuda import paged_attention as tpa
 
     b = kb.Bench("cuda", seed=SEED + 16)
     rows = {}
+
+    def split_sweep_read(name, case, counts, call):
+        if not sweep:
+            return
+        if not (hasattr(fa, "launch_read") and hasattr(tpa, "_read_launch")):
+            say("read-split", kernel=name, shape=case.name, splits="no_splits_hook_in_this_tree")
+            return
+        times = {n: b.time(lambda i, n=n: call(i, n), 64, case.copies) for n in counts}
+        say("read-split", kernel=f"{name}[{dtype_name(case.dtype)}]", shape=case.name,
+            **{f"ms_at_{n}": f"{t:.4f}" for n, (t, _) in times.items()},
+            queued=",".join(str(q) for _, q in times.values()))
 
     def timed(tag, name, src, line, case, lib, lib_name, iters, dtype, tol=None, **extra):
         (_, kern, _), (_, plain, _) = case.variants[:2]
@@ -3864,28 +3969,32 @@ def phase_timing_bench() -> dict:
                 "library_ms": lib_ms if lib_name == "library" else None,
             }
 
-    for R, D in ((256, 4096), (1024, 8192)):
+    for R, D in ((256, 4096), (1024, 8192)) if "K19" in tags else ():
         c = kb.rmsnorm_case(b, R, D)
         x, w = c.inputs["x"], c.inputs["w"]
         timed("K19", "rmsnorm", "llama2_tpu_torch/csrc/rmsnorm.cu", "llama2_tpu/ops/pallas/rmsnorm.py:46",
               c, lambda i: F.rms_norm(x[i % c.copies], (D,), w, 1e-5), "library", 200, torch.float32,
               norm_tolerance(torch.float32), library_call="F.rms_norm")
-    for R, D in ((256, 11008), (512, 11008)):
+    for R, D in ((256, 11008), (512, 11008)) if "K20" in tags else ():
         c = kb.swiglu_case(b, R, D)
         h1, h3 = c.inputs["h1"], c.inputs["h3"]
         timed("K20", "swiglu", "llama2_tpu_torch/csrc/swiglu.cu", "llama2_tpu/ops/pallas/swiglu.py:43",
               c, lambda i: F.silu(h1[i % c.copies]) * h3[i % c.copies], "composed_silu_mul", 200,
               torch.float32, library_ms="none_(no_single_call)")
-    for S_, p in ((2048, 2047), (8192, 8191), (8192, 1023)):
+    for S_, p in ((2048, 2047), (8192, 8191), (8192, 1023)) if "K3" in tags else ():
         c = kb.attention_case(b, S_, p)
-        q4, k, v = c.inputs["q"].transpose(1, 2), c.inputs["k"], c.inputs["v"]
+        q4, k, v, posv = c.inputs["q"].transpose(1, 2), c.inputs["k"], c.inputs["v"], c.inputs["pos"]
         timed("K3", "flash_decode_attention", "llama2_tpu_torch/csrc/decode_attention.cu",
               "llama2_tpu/ops/pallas/attention.py:562", c,
               lambda i: F.scaled_dot_product_attention(q4, k[i % c.copies][:, :, : p + 1],
                                                        v[i % c.copies][:, :, : p + 1], enable_gqa=True),
               "library", 128, torch.float32, library_call="SDPA_enable_gqa")
+        if p == 8191:
+            q3, hs = c.inputs["q"][:, 0], c.inputs["q"].shape[-1]
+            split_sweep_read("flash_decode_attention", c, (1, 2, 4, 8, 16), lambda i, n: fa.launch_read(
+                q3, k[i % c.copies], v[i % c.copies], posv, 1.0 / hs**0.5, splits=n))
         del c, k, v
-    for p in (256, S - 1):
+    for p in (256, S - 1) if "K14" in tags else ():
         c = kb.paged_cases(b, p)[0]
         t = c.inputs
         kd, vd = (torch.stack([tpa.gather_pages(pool[l], t["table"], t["n_used"]) for l in range(t["L"])])
@@ -3896,6 +4005,10 @@ def phase_timing_bench() -> dict:
               lambda i: F.scaled_dot_product_attention(q4, kd[i % t["L"]][:, :, : p + 1],
                                                        vd[i % t["L"]][:, :, : p + 1]),
               "yardstick_SDPA_gathered", 64, torch.bfloat16, library_ms="none_(no_single_call)")
+        if p == S - 1:
+            hs = t["q"].shape[-1]
+            split_sweep_read("paged_decode_attention", c, (1, 2, 4), lambda i, n: tpa._read_launch(
+                t["q"], t["k"][i % t["L"]], t["v"][i % t["L"]], t["table"], t["pos"], 1.0 / hs**0.5, splits=n))
         del c, t, kd, vd
     torch.cuda.empty_cache()
     return rows
@@ -3963,6 +4076,47 @@ def phase_bench(smi: str) -> dict:
     say("bench", entry="python_-m_llama2_tpu_torch.benchmarks.kernels_all", exit=0, lines=len(names),
         seconds=f"{seconds:.1f}", launches=",".join(f"{t}:{n}" for t, n in launches.items()))
     return launches
+
+
+def phase_read_timing(cycles_per_ms: float) -> None:
+    """The read-only decode attention kernels alone, for comparing two trees
+    in one call: ``python3 chip_smoke.py --read-timing`` runs it and nothing
+    else. K3 at the kernel benchmarks' three shapes and K14 at pos 256 and
+    4095, on the benchmark's rotated inputs (``phase_timing_bench``: beside
+    the bound, the plain version and the yardstick), with K3 at pos 8191 at
+    1, 2, 4, 8 and 16 splits and K14 at pos 4095 at 1, 2 and 4 where the tree
+    has their ``splits`` hooks; then the appending kernels of the same split
+    form, which a change to K3 or K14 must leave where they were: K2 and K4
+    (bf16, 7B heads, 1 and 8 rows at pos 4095, call i on layer i % 4) and
+    K15 and K17 (8 slots at pos 256 and 4095, ``phase_timing_paged``). It calls the
+    wrappers by their public signatures (the sweep aside), so this script
+    also times an older checkout: copy it into one and run it from that
+    checkout's root, parent, this, this, parent."""
+    import torch
+
+    from llama2_tpu_torch.ops.cuda import attention as fa
+
+    phase_timing_bench(("K3", "K14"), sweep=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    L, (H, KVH, hs), p = 4, LAYOUTS["7B"], S - 1
+    for B in (1, 8):
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+        kc, vc = randn(L, B, KVH, S, hs), randn(L, B, KVH, S, hs)
+        q, qkv = randn(B, H, hs), randn(B, H + 2 * KVH, hs)
+        kn, vn = randn(B, KVH, 1, hs), randn(B, KVH, 1, hs)
+        pos = torch.full((B,), p, dtype=torch.int32, device="cuda")
+        cos_il, sin_il = rope_tables(pos, hs)
+        for tag, fn in (
+            ("K2", lambda i: fa.flash_decode_attention_stacked(q, kc, vc, kn, vn, i % L, pos)),
+            ("K4", lambda i: fa.flash_decode_attention_fused(qkv, kc, vc, cos_il, sin_il, i % L, pos, n_heads=H)),
+        ):
+            ms, queued = time_ms(fn, 64, cycles_per_ms)
+            say("dense-time", kernel=tag, dtype="bf16", B=B, pos=p, ms=f"{ms:.4f}", queued=queued)
+        del kc, vc
+        torch.cuda.empty_cache()
+    phase_timing_paged({"K15": 0, "K17": 0}, cycles_per_ms, tags=("K15", "K17"))
 
 
 def phase_dense_timing(cycles_per_ms: float) -> None:
@@ -4240,6 +4394,10 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--serve-timing"]:
         phase_serve_timing()
+        print(smi)
+        return 0
+    if sys.argv[1:] == ["--read-timing"]:
+        phase_read_timing(warm_cycles_per_ms())
         print(smi)
         return 0
     if sys.argv[1:] == ["--q8kv-timing"]:

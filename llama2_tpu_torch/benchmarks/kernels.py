@@ -36,8 +36,9 @@ Bytes are each input read once and each output written once (the JAX file
 counted the read side alone for rmsnorm and swiglu); for attention, the K
 and V rows of keys 0..pos. Operations are read against the peak of the
 activations' dtype (float32 FMA outside the tensor cores: 67 TFLOP/s; bf16:
-989). Calls are timed by ``timing.time_ms``: queued behind a device sleep,
-between CUDA events; a line marked ``[host gaps]`` could not be queued ahead
+989). Calls are timed by ``timing.time_ms``: queued behind a device sleep
+(calibrated on a warm card, ``timing.warm_cycles_per_ms``), between CUDA
+events; a line marked ``[host gaps]`` could not be queued ahead
 (the call waits on the device), and its time includes the host's. Inputs
 rotate through copies of at least ``STREAM_BYTES`` in all, call i on copy
 i % n, and the last n outputs are kept alive, so that no call finds its
@@ -129,7 +130,7 @@ class Bench:
         self.on_card = self.device.type == "cuda"
         self.iters = iters
         self.stream_bytes = stream_bytes
-        self.cycles_per_ms = timing.sleep_cycles_per_ms() if self.on_card else None
+        self.cycles_per_ms = timing.warm_cycles_per_ms() if self.on_card else None
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self.out = out or sys.stdout
 

@@ -21,6 +21,17 @@ def sleep_cycles_per_ms() -> float:
     return cycles / start.elapsed_time(end)
 
 
+def warm_cycles_per_ms() -> float:
+    """:func:`sleep_cycles_per_ms` on a card brought to its working clock
+    first (half a second of device sleep), the largest of three readings: a
+    reading at an idle clock makes the sleeps that hold the timed calls
+    (:func:`time_ms`) too short, and the calls then run as the host issues
+    them."""
+    torch.cuda._sleep(int(1e9))
+    torch.cuda.synchronize()
+    return max(sleep_cycles_per_ms() for _ in range(3))
+
+
 def time_ms(fn, n_iter: int, cycles_per_ms: float | None, n_warm: int = 3,
             slack: float = 1.5) -> tuple[float, bool]:
     """Mean ms per call of ``fn(i)`` over ``n_iter`` calls, after ``n_warm``

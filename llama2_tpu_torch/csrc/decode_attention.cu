@@ -4,8 +4,8 @@
 // Replaces llama2_tpu/ops/pallas/attention.py::flash_decode_attention_stacked
 // (decode_kernel) and ::flash_decode_attention_fused (decode_fused_kernel,
 // which takes the raw fused-QKV rows and applies RoPE itself; see below), and
-// ::flash_decode_attention (decode_read_kernel, K3: one layer's read-only
-// (B, KVH, S, hs) cache, no append; see the end of this header).
+// ::flash_decode_attention (K3: one layer's read-only (B, KVH, S, hs) cache,
+// no append; see the end of this header).
 //
 // Computes, for each batch row b and query head h (one query token):
 //   k_cache[layer, b, kvh, pos_b] = k_new[b, kvh];  v likewise
@@ -53,23 +53,24 @@
 // shared with the paged kernels of paged_attention.cu, which differ only in
 // where a key row lives.
 //
-// K3 keeps the single-block loop (attend): one block per (b, query head)
-// over one layer's cache, read only (DenseRows' addresses, no new-row
-// operands, no write), each row b at its own pos[b]. Bound on this
-// card: bytes, the K and V rows 0..pos[b] of every (b, kv head) once: 4.2 MB
-// at B = 1, KVH = 4, hs = 128, f32 and pos 1023, 1.25 us at 3.35 TB/s. At
-// B = 1 and H = 32 its grid is 32 blocks on 132 SMs: the split form is the
-// cure, not yet applied to it.
+// K3 runs the same split form read only (split_block_read: the ReadOnly
+// policy over DenseRows at layer 0 of its one-layer cache, no new-row
+// operands, no write), each row b at its own pos[b], at a given scale; its
+// plan is K2's at S. Bound on this card: bytes, the K and V rows 0..pos[b] of
+// every (b, kv head) once: 33.5 MB at the kernel benchmarks' B = 1, KVH = 4,
+// hs = 128, f32 and pos 8191, 0.010 ms at 3.35 TB/s. There each kv head
+// serves G = 8 query heads, and each query head is its own block (32 x 8
+// splits = 256 blocks), so the group's rows are read 8 times: once from the
+// card's memory, the rest from the L2.
 #include "decode_attention.cuh"
 
 namespace {
 
-using llama2::fpa::attend;
 using llama2::fpa::DenseRows;
+using llama2::fpa::Form;
 using llama2::fpa::kWarps;
 using llama2::fpa::Launch;
 using llama2::fpa::run_split;
-using llama2::to_f32;
 
 template <typename T, int VE, int LPR, int NV, int U>
 __global__ void __launch_bounds__(kWarps * 32) decode_kernel(Launch a) {
@@ -81,81 +82,57 @@ __global__ void __launch_bounds__(kWarps * 32) decode_fused_kernel(Launch a) {
   llama2::fpa::split_block_fused<T, VE, LPR, NV, U, DenseRows>(a);
 }
 
-// K2 and K4's kernels, for run_split
+template <typename T, int VE, int LPR, int NV, int U>
+__global__ void __launch_bounds__(kWarps * 32) decode_read_split_kernel(Launch a) {
+  llama2::fpa::split_block_read<T, VE, LPR, NV, U, DenseRows>(a);
+}
+
+// K2, K4 and K3's kernels, for run_split
 struct DenseKernels {
   template <typename T, int VE, int LPR, int NV, int U>
-  static void launch(dim3 grid, const Launch& a, bool fused, cudaStream_t st) {
-    if (fused)
+  static void launch(dim3 grid, const Launch& a, Form form, cudaStream_t st) {
+    if (form == Form::fused)
       decode_fused_kernel<T, VE, LPR, NV, U><<<grid, kWarps * 32, 0, st>>>(a);
-    else
+    else if (form == Form::append)
       decode_kernel<T, VE, LPR, NV, U><<<grid, kWarps * 32, 0, st>>>(a);
+    else
+      decode_read_split_kernel<T, VE, LPR, NV, U><<<grid, kWarps * 32, 0, st>>>(a);
   }
 };
 
-template <typename T, int NPL, int KC>
-__global__ void __launch_bounds__(kWarps * 32)
-decode_read_kernel(const T* __restrict__ q, const T* k_cache, const T* v_cache,
-                   const int* __restrict__ pos, T* __restrict__ out, int H, int KVH,
-                   int S, int hs, float scale) {
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int kvh = h / (H / KVH);
-  const int lane = threadIdx.x & 31;
-  const DenseRows rows{((size_t)b * KVH + kvh) * (size_t)S * hs, hs, 0};
-  float qr[NPL];
-  const T* qh = q + ((size_t)b * H + h) * hs;
-#pragma unroll
-  for (int i = 0; i < NPL; ++i) {
-    const int d = lane + 32 * i;
-    qr[i] = d < hs ? to_f32(qh[d]) * scale : 0.f;
-  }
-  attend<T, NPL, KC>(qr, k_cache, v_cache, out + ((size_t)b * H + h) * hs, rows, pos[b], hs);
-}
-
-template <typename T, int NPL>
-cudaError_t launch_read(const void* q, const void* kc, const void* vc, const void* pos,
-                        void* out, int B, int H, int KVH, int S, int hs, float scale,
-                        cudaStream_t stream) {
-  constexpr int KC = NPL >= 8 ? 4 : 8;
-  decode_read_kernel<T, NPL, KC><<<dim3(H, B), kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc),
-      static_cast<const int*>(pos), static_cast<T*>(out), H, KVH, S, hs, scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_read(const void* q, const void* kc, const void* vc, const void* pos,
-                          void* out, int B, int H, int KVH, int S, int hs, float scale,
-                          cudaStream_t st) {
-  if (hs <= 32) return launch_read<T, 1>(q, kc, vc, pos, out, B, H, KVH, S, hs, scale, st);
-  if (hs <= 64) return launch_read<T, 2>(q, kc, vc, pos, out, B, H, KVH, S, hs, scale, st);
-  if (hs <= 128) return launch_read<T, 4>(q, kc, vc, pos, out, B, H, KVH, S, hs, scale, st);
-  if (hs <= 256) return launch_read<T, 8>(q, kc, vc, pos, out, B, H, KVH, S, hs, scale, st);
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace
+
+// K2, K3 and K4 take the split form's plan (nsplit, vec, chunk) and
+// workspace (ws, ws_floats, tickets, n_tickets) as decode_attention.cuh's
+// run_split says.
 
 // K3. q (B, H, hs); one layer's caches (B, KVH, S, hs), read only; pos (B,)
 // int32 on the device, 0 <= pos[b] < S; out (B, H, hs). All contiguous, one
-// dtype. Returns the launch's cudaError_t.
+// dtype; hs <= 256; the caches aligned to the vector. Returns the launch's
+// cudaError_t.
 extern "C" int flash_decode_attention(const void* q, const void* k_cache, const void* v_cache,
-                                      const void* pos, void* out, int dtype, int B, int H,
-                                      int KVH, int S, int hs, float scale, void* stream) {
-  if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 || S <= 0 || hs <= 0)
-    return cudaErrorInvalidValue;
-  if (!q || !k_cache || !v_cache || !pos || !out) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == llama2::kF32)
-    return dispatch_read<float>(q, k_cache, v_cache, pos, out, B, H, KVH, S, hs, scale, st);
-  if (dtype == llama2::kBF16)
-    return dispatch_read<__nv_bfloat16>(q, k_cache, v_cache, pos, out, B, H, KVH, S, hs, scale, st);
-  return cudaErrorInvalidValue;
+                                      const void* pos, void* out, void* ws, void* tickets,
+                                      long long ws_floats, int n_tickets, int dtype, int B, int H,
+                                      int KVH, int S, int hs, int nsplit, int vec, int chunk,
+                                      float scale, void* stream) {
+  Launch a{};
+  a.q = q;
+  a.kc = const_cast<void*>(k_cache);
+  a.vc = const_cast<void*>(v_cache);
+  a.pos = static_cast<const int*>(pos);
+  a.out = out;
+  a.ws = static_cast<float*>(ws);
+  a.tickets = static_cast<int*>(tickets);
+  a.layer = 0;
+  a.B = B;
+  a.H = H;
+  a.KVH = KVH;
+  a.S = S;
+  a.hs = hs;
+  a.nsplit = nsplit;
+  a.scale = scale;
+  return run_split<DenseKernels>(a, dtype, vec, chunk, ws_floats, n_tickets, Form::read, stream);
 }
-
-// K2 and K4 take the split form's plan (nsplit, vec, chunk) and workspace
-// (ws, ws_floats, tickets, n_tickets) as decode_attention.cuh's run_split
-// says.
 
 // q (B, H, hs); caches (L, B, KVH, S, hs), updated in place; k_new/v_new
 // (B, KVH, 1, hs); pos (B,) int32 on the device; out (B, H, hs). All
@@ -168,7 +145,7 @@ extern "C" int flash_decode_attention_stacked(
   const Launch a{q, nullptr, nullptr, nullptr, k_cache, v_cache, k_new, v_new,
                  static_cast<const int*>(pos), out, static_cast<float*>(ws),
                  static_cast<int*>(tickets), layer, B, H, KVH, S, hs, nsplit, scale};
-  return run_split<DenseKernels>(a, dtype, vec, chunk, ws_floats, n_tickets, false, stream);
+  return run_split<DenseKernels>(a, dtype, vec, chunk, ws_floats, n_tickets, Form::append, stream);
 }
 
 // qkv (B, H + 2*KVH, hs), the raw pre-RoPE projection rows; cos_il/sin_il
@@ -185,5 +162,5 @@ extern "C" int flash_decode_attention_fused(
                  k_cache, v_cache, nullptr, nullptr, static_cast<const int*>(pos), out,
                  static_cast<float*>(ws), static_cast<int*>(tickets), layer, B, H, KVH, S, hs,
                  nsplit, scale};
-  return run_split<DenseKernels>(a, dtype, vec, chunk, ws_floats, n_tickets, true, stream);
+  return run_split<DenseKernels>(a, dtype, vec, chunk, ws_floats, n_tickets, Form::fused, stream);
 }

@@ -11,21 +11,21 @@
 // step's row is taken from the new-row operand (shared or global memory of
 // the caller's choice), never from the cache, so no block depends on another
 // block's write; the caller names the one block of each (b, kv head) that
-// writes the row back. The read-only kernels (K3, K14) use row() alone.
+// writes the row back. The read-only kernels (K3, K14) take either policy
+// through ReadOnly, whose is_new is false: every key comes from the cache,
+// and nothing is written back.
 //
-// Bound on this card: bytes (see decode_attention.cu). Two forms of the read:
-//   attend (K3, K14, read only): one block per (b, query head) streams keys
-//     0..pos: 8 warps interleave chunks of KC keys, each lane loads single
-//     elements of a whole chunk's K and V before it reduces, keeps its own
-//     online-softmax state, and the warps merge through shared memory;
-//   attend_split (K2, K4, K15, K17): the key range is cut into splits, one
-//     block per (b, query head, split); lanes load 16-byte vectors (LPR lanes
-//     a row, 32 / LPR rows a warp load), and the blocks of one (b, query
-//     head) merge their float32 states in split order through a workspace,
-//     the last to finish found by an integer ticket. split_block and
-//     split_block_fused are a whole block of K2 / K15 and K4 / K17 over
-//     either appending policy, and run_split the host side of their launch:
-//     the C entries of both sources share them.
+// Bound on this card: bytes (see decode_attention.cu). One loop,
+// attend_split, serves all six: the key range is cut into splits, one block
+// per (b, query head, split); lanes load 16-byte vectors (LPR lanes a row,
+// 32 / LPR rows a warp load), and the blocks of one (b, query head) merge
+// their float32 states in split order through a workspace, the last to
+// finish found by an integer ticket. split_block, split_block_fused and
+// split_block_read are a whole block of K2 / K15, K4 / K17 and K3 / K14 over
+// either policy, and run_split the host side of their launch: the C entries
+// of both sources share them. Under grouped-query attention each of a kv
+// head's G query heads is its own block, so a group's rows are read G times
+// (from the 50 MB L2, where they fit; the card's memory sees them about once).
 // Arithmetic is float32 FMA (no TF32), as the JAX kernels' HIGHEST dots.
 #pragma once
 
@@ -38,10 +38,11 @@ namespace fpa {
 
 constexpr int kWarps = 8;
 
-// The split form's launch (K2, K4, K15, K17): operands, workspace, plan and
-// the cache's layout.
+// The split form's launch (K2, K3, K4, K14, K15, K17): operands, workspace,
+// plan and the cache's layout. K3 and K14 read one layer's cache or pools
+// (layer 0 of L = 1) and take no new rows and no write coordinates.
 struct Launch {
-  const void* q;        // K2, K15: (B, H, hs)
+  const void* q;        // K2, K3, K14, K15: (B, H, hs)
   const void* qkv;      // K4, K17: (B, H + 2 KVH, hs), raw
   const float* cos_il;  // K4, K17: (B, hs)
   const float* sin_il;
@@ -71,6 +72,8 @@ struct DenseRows {
   static __device__ __forceinline__ DenseRows of(const Launch& a, int b, int kvh, int pos) {
     return {(((size_t)a.layer * a.B + b) * a.KVH + kvh) * (size_t)a.S * a.hs, a.hs, pos};
   }
+  // the rows alone, for a read-only block: no row is this step's
+  static __device__ __forceinline__ DenseRows read(const Launch& a, int b, int kvh) { return of(a, b, kvh, -1); }
 };
 
 // Rows of one (b, kv head) through a page table over an (L, P, KVH, page, hs)
@@ -87,101 +90,24 @@ struct PagedRows {
   __device__ __forceinline__ size_t row(int t) const { return at(table[t / page], t % page); }
   __device__ __forceinline__ bool is_new(int, size_t off) const { return off == woff; }
   __device__ __forceinline__ size_t new_row() const { return woff; }
+  // the rows alone, for a read-only block: no write coordinates are read
+  static __device__ __forceinline__ PagedRows read(const Launch& a, int b, int kvh) {
+    return {a.table + (size_t)b * a.max_pages, (size_t)a.layer * a.P, a.KVH, kvh, a.page, a.hs, 0};
+  }
   static __device__ __forceinline__ PagedRows of(const Launch& a, int b, int kvh, int) {
-    PagedRows r{a.table + (size_t)b * a.max_pages, (size_t)a.layer * a.P, a.KVH, kvh, a.page, a.hs, 0};
+    PagedRows r = read(a, b, kvh);
     r.woff = r.at(a.wpage[b], a.wrow[b]);
     return r;
   }
 };
 
-// The online-softmax read over keys 0..p of one (b, query head) of a
-// read-only cache, then the merge of the warps. qr: this lane's query
-// elements, scaled. NPL: head elements per lane (hs <= 32 * NPL); KC: keys
-// per warp chunk.
-template <typename T, int NPL, int KC, typename Rows>
-__device__ __forceinline__ void attend(const float (&qr)[NPL], const T* k_cache, const T* v_cache,
-                                       T* oh, const Rows& rows, int p, int hs) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-
-  float m = -INFINITY, l = 0.f;
-  float acc[NPL];
-#pragma unroll
-  for (int i = 0; i < NPL; ++i) acc[i] = 0.f;
-
-  for (int base = warp * KC; base <= p; base += kWarps * KC) {
-    // Every load is unconditional and raw, converted only after all are
-    // issued, so the chunk's loads are in flight together (predicated bf16
-    // loads converted one at a time compile to loads that wait on each
-    // other). A chunk row past p re-reads row p (its score is masked
-    // below); a lane past hs re-reads element hs-1 (its q is 0).
-    T kraw[KC][NPL], vraw[KC][NPL];
-#pragma unroll
-    for (int c = 0; c < KC; ++c) {
-      const size_t off = rows.row(min(base + c, p));
-      const T* kr = k_cache + off;
-      const T* vr = v_cache + off;
-#pragma unroll
-      for (int i = 0; i < NPL; ++i) {
-        const int d = min(lane + 32 * i, hs - 1);
-        kraw[c][i] = kr[d];
-        vraw[c][i] = vr[d];
-      }
-    }
-    float s[KC];
-    float smax = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < KC; ++c) {
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < NPL; ++i) part = fmaf(qr[i], to_f32(kraw[c][i]), part);
-      s[c] = base + c <= p ? warp_sum(part) : -INFINITY;
-      smax = fmaxf(smax, s[c]);
-    }
-    // finite: key `base` <= p is always in the window
-    const float m_new = fmaxf(m, smax);
-    const float alpha = expf(m - m_new);
-    l *= alpha;
-#pragma unroll
-    for (int i = 0; i < NPL; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int c = 0; c < KC; ++c) {
-      const float pc = expf(s[c] - m_new);
-      l += pc;
-#pragma unroll
-      for (int i = 0; i < NPL; ++i) acc[i] = fmaf(pc, to_f32(vraw[c][i]), acc[i]);
-    }
-    m = m_new;
-  }
-
-  // merge the warps' partial softmax states
-  __shared__ float sm_m[kWarps], sm_l[kWarps];
-  __shared__ float sm_acc[kWarps][NPL * 32];
-  if (lane == 0) {
-    sm_m[warp] = m;
-    sm_l[warp] = l;
-  }
-#pragma unroll
-  for (int i = 0; i < NPL; ++i) sm_acc[warp][lane + 32 * i] = acc[i];
-  __syncthreads();
-
-  float M = -INFINITY;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sm_m[w]);
-  float L = 0.f;
-  float wscale[kWarps];  // a warp that saw no key has m = -inf: weight 0
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    wscale[w] = expf(sm_m[w] - M);
-    L = fmaf(sm_l[w], wscale[w], L);
-  }
-  for (int d = threadIdx.x; d < hs; d += blockDim.x) {
-    float o = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) o = fmaf(sm_acc[w][d], wscale[w], o);
-    oh[d] = from_f32<T>(o / L);
-  }
-}
+// Either policy read only (K3, K14): no key is this step's row, so every key
+// comes from the cache and attend_split's choice of operand folds away.
+template <typename Rows>
+struct ReadOnly : Rows {
+  __device__ __forceinline__ bool is_new(int, size_t) const { return false; }
+  static __device__ __forceinline__ ReadOnly of(const Launch& a, int b, int kvh) { return {Rows::read(a, b, kvh)}; }
+};
 
 // one interleaved-pair rotation of element x with its partner `other`;
 // products are rounded separately so no FMA contraction changes the bits
@@ -551,14 +477,39 @@ __device__ __forceinline__ void split_block_fused(const Launch& a) {
                                   static_cast<T*>(a.out) + ((size_t)b * a.H + h) * hs, rows, sw);
 }
 
+// One block of K3 (Rows = DenseRows over one layer's cache) or K14
+// (PagedRows over one layer's pools), grid (nsplit, H, B): query head h =
+// blockIdx.y of row b = blockIdx.z over its split of keys 0..pos[b], read
+// only (ReadOnly: no new rows, nothing written but the output and, over more
+// than one split, the block's state).
+template <typename T, int VE, int LPR, int NV, int U, typename Rows>
+__device__ __forceinline__ void split_block_read(const Launch& a) {
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hs = a.hs, kvh = h / (a.H / a.KVH);
+  const int pos = a.pos[b];
+  const T* qh = static_cast<const T*>(a.q) + ((size_t)b * a.H + h) * hs;
+  float qv[NV][VE];
+  lane_query<VE, LPR>(qv, hs, [&](int d) { return to_f32(qh[d]) * a.scale; });
+  SplitWork sw;
+  if (!split_work(a, SplitShape<VE, LPR, NV, U>::kChunk, b, h, pos + 1, sw)) return;
+  const T* none = nullptr;
+  attend_split<T, VE, LPR, NV, U>(qv, static_cast<const T*>(a.kc), static_cast<const T*>(a.vc), none, none,
+                                  static_cast<T*>(a.out) + ((size_t)b * a.H + h) * hs,
+                                  ReadOnly<Rows>::of(a, b, kvh), sw);
+}
+
 // ------------------------------------------------ the split form's host side
+
+// Which block a launch runs: split_block (K2, K15), split_block_fused (K4,
+// K17) or split_block_read (K3, K14).
+enum class Form { append, fused, read };
 
 // One instantiation of the split form: launch it (K::launch, the source's
 // kernels) if the host's chunk is its.
 template <typename K, typename T, int VE, int LPR, int NV, int U>
-cudaError_t launch_split(const Launch& a, bool fused, int chunk, cudaStream_t st) {
+cudaError_t launch_split(const Launch& a, Form form, int chunk, cudaStream_t st) {
   if (chunk != SplitShape<VE, LPR, NV, U>::kChunk) return cudaErrorInvalidValue;
-  K::template launch<T, VE, LPR, NV, U>(dim3(a.nsplit, a.H, a.B), a, fused, st);
+  K::template launch<T, VE, LPR, NV, U>(dim3(a.nsplit, a.H, a.B), a, form, st);
   return cudaGetLastError();
 }
 
@@ -567,45 +518,49 @@ cudaError_t launch_split(const Launch& a, bool fused, int chunk, cudaStream_t st
 // hs / vec vectors (NV = 2 for fp32 past 128 elements), U = 4 / NV; vec = 1
 // takes LPR = 32, NV = hs / 32 rounded up to a power of two, U = 8 / NV.
 template <typename K, typename T>
-cudaError_t dispatch_split(const Launch& a, bool fused, int vec, int chunk, cudaStream_t st) {
+cudaError_t dispatch_split(const Launch& a, Form form, int vec, int chunk, cudaStream_t st) {
   constexpr int V = 16 / sizeof(T);
   const int hs = a.hs;
   if (vec == V && hs % V == 0) {
     const int n = hs / V;
-    if (n <= 4) return launch_split<K, T, V, 4, 1, 4>(a, fused, chunk, st);
-    if (n <= 8) return launch_split<K, T, V, 8, 1, 4>(a, fused, chunk, st);
-    if (n <= 16) return launch_split<K, T, V, 16, 1, 4>(a, fused, chunk, st);
-    if (n <= 32) return launch_split<K, T, V, 32, 1, 4>(a, fused, chunk, st);
+    if (n <= 4) return launch_split<K, T, V, 4, 1, 4>(a, form, chunk, st);
+    if (n <= 8) return launch_split<K, T, V, 8, 1, 4>(a, form, chunk, st);
+    if (n <= 16) return launch_split<K, T, V, 16, 1, 4>(a, form, chunk, st);
+    if (n <= 32) return launch_split<K, T, V, 32, 1, 4>(a, form, chunk, st);
     if constexpr (V == 4) {
-      if (n <= 64) return launch_split<K, T, V, 32, 2, 2>(a, fused, chunk, st);
+      if (n <= 64) return launch_split<K, T, V, 32, 2, 2>(a, form, chunk, st);
     }
     return cudaErrorInvalidValue;
   }
   if (vec != 1) return cudaErrorInvalidValue;
-  if (hs <= 32) return launch_split<K, T, 1, 32, 1, 8>(a, fused, chunk, st);
-  if (hs <= 64) return launch_split<K, T, 1, 32, 2, 4>(a, fused, chunk, st);
-  if (hs <= 128) return launch_split<K, T, 1, 32, 4, 2>(a, fused, chunk, st);
-  return launch_split<K, T, 1, 32, 8, 1>(a, fused, chunk, st);
+  if (hs <= 32) return launch_split<K, T, 1, 32, 1, 8>(a, form, chunk, st);
+  if (hs <= 64) return launch_split<K, T, 1, 32, 2, 4>(a, form, chunk, st);
+  if (hs <= 128) return launch_split<K, T, 1, 32, 4, 2>(a, form, chunk, st);
+  return launch_split<K, T, 1, 32, 8, 1>(a, form, chunk, st);
 }
 
 inline bool aligned(const void* p, int bytes) { return reinterpret_cast<size_t>(p) % bytes == 0; }
 
-// What the split form takes; 0 or a cudaError_t.
-inline int check_split(const Launch& a, int dtype, int vec, long long ws_floats, int n_tickets, bool fused) {
+// What the split form takes; 0 or a cudaError_t. One split writes out
+// directly, so it takes the workspace and tickets at any size.
+inline int check_split(const Launch& a, int dtype, int vec, long long ws_floats, int n_tickets, Form form) {
   if (a.B <= 0 || a.H <= 0 || a.KVH <= 0 || a.H % a.KVH != 0 || a.S <= 0) return cudaErrorInvalidValue;
-  if (a.hs <= 0 || a.hs > kMaxHs || (fused && a.hs % 2 != 0)) return cudaErrorInvalidValue;
+  if (a.hs <= 0 || a.hs > kMaxHs || (form == Form::fused && a.hs % 2 != 0)) return cudaErrorInvalidValue;
   if (a.layer < 0 || a.nsplit < 1 || a.nsplit > kMaxSplit) return cudaErrorInvalidValue;
   if (dtype != kF32 && dtype != kBF16) return cudaErrorInvalidValue;
   if (!a.kc || !a.vc || !a.pos || !a.out || !a.ws || !a.tickets) return cudaErrorInvalidValue;
-  if (fused ? (!a.qkv || !a.cos_il || !a.sin_il) : (!a.q || !a.kn || !a.vn)) return cudaErrorInvalidValue;
-  if (ws_floats < (long long)a.B * a.H * a.nsplit * (a.hs + 2)) return cudaErrorInvalidValue;
-  if (n_tickets < a.B * a.H) return cudaErrorInvalidValue;
+  if (form == Form::fused ? (!a.qkv || !a.cos_il || !a.sin_il)
+                          : (!a.q || (form == Form::append && (!a.kn || !a.vn))))
+    return cudaErrorInvalidValue;
+  if (a.nsplit > 1 && (ws_floats < (long long)a.B * a.H * a.nsplit * (a.hs + 2) || n_tickets < a.B * a.H))
+    return cudaErrorInvalidValue;
   // the vector loads' operands: every row start a multiple of the vector
+  // (the caches, and the new rows where the block reads them)
   const int vbytes = vec * (dtype == kF32 ? 4 : 2);
   if (vec < 1 || a.hs % vec != 0) return cudaErrorInvalidValue;
-  const void* rows[] = {a.kc, a.vc, fused ? a.qkv : a.kn, fused ? a.qkv : a.vn};
-  for (const void* p : rows)
-    if (!aligned(p, vbytes)) return cudaErrorInvalidValue;
+  const void* rows[] = {a.kc, a.vc, form == Form::fused ? a.qkv : a.kn, form == Form::fused ? a.qkv : a.vn};
+  for (int i = 0; i < (form == Form::read ? 2 : 4); ++i)
+    if (!aligned(rows[i], vbytes)) return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 
@@ -613,16 +568,17 @@ inline int check_split(const Launch& a, int dtype, int vec, long long ws_floats,
 // key range, vec elements a vector load (16 / sizeof(T), or 1), chunk the
 // keys of one block pass, which must be the instantiation's; ws (ws_floats
 // float32) holds B * H * nsplit states of hs + 2 floats, tickets (n_tickets
-// int32, at least B * H) are zero on entry and left zero. Checks the plan
-// and the operands, then launches K's kernels; 0 or a cudaError_t.
+// int32, at least B * H) are zero on entry and left zero (one split uses
+// neither). Checks the plan and the operands, then launches K's kernel of
+// `form`; 0 or a cudaError_t.
 template <typename K>
 int run_split(const Launch& a, int dtype, int vec, int chunk, long long ws_floats, int n_tickets,
-              bool fused, void* stream) {
-  const int err = check_split(a, dtype, vec, ws_floats, n_tickets, fused);
+              Form form, void* stream) {
+  const int err = check_split(a, dtype, vec, ws_floats, n_tickets, form);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) return dispatch_split<K, float>(a, fused, vec, chunk, st);
-  return dispatch_split<K, __nv_bfloat16>(a, fused, vec, chunk, st);
+  if (dtype == kF32) return dispatch_split<K, float>(a, form, vec, chunk, st);
+  return dispatch_split<K, __nv_bfloat16>(a, form, vec, chunk, st);
 }
 
 }  // namespace fpa

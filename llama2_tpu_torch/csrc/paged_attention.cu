@@ -4,9 +4,10 @@
 //
 // Replaces, in llama2_tpu/ops/pallas/paged_attention.py:
 //   ::paged_decode_attention (K14): one layer's fp pools (P, KVH, page, hs),
-//     the query (B, H, hs), no append: the single-block loop attend over
-//     PagedRows' addresses, read only, so it writes nothing and reads no
-//     table entry past pos[b] / page;
+//     the query (B, H, hs), no append: K15's split form read only
+//     (split_block_read, the ReadOnly policy over PagedRows at layer 0), so
+//     it writes nothing and reads no table entry past pos[b] / page (a
+//     split's last key is at most pos[b]);
 //   ::paged_decode_attention_stacked (K15): fp pools; the roped query
 //     (B, H, hs) and this step's rows k_new/v_new (B, KVH, hs) in the pool
 //     dtype;
@@ -24,15 +25,14 @@
 // [layer, write_page[b], kvh, write_row[b]], and attention runs over keys
 // 0..pos[b]; a key whose address is the write address takes the new row.
 //
-// The fp pools take the dense kernels' device code: K15 and K17 are K2 and
-// K4's split form (decode_attention.cuh: split_block, split_block_fused,
-// attend_split) with a row-address policy that reads through the table
-// (PagedRows): a block per (b, query head, split), grid (nsplit, H, B), the
-// split count from the shapes (ops/cuda/attention.py::plan at the table's
-// reach, max_pages * page rows), 16-byte loads, the splits merged in split
-// order through the workspace by a ticketed last split. K14 keeps the
-// single-block loop (attend: one block a (b, query head), 8 warps over the
-// keys). The int8 pools take attention_q8.cuh's split decode loop
+// The fp pools take the dense kernels' device code: K15, K17 and K14 are K2,
+// K4 and K3's split form (decode_attention.cuh: split_block,
+// split_block_fused, split_block_read, attend_split) with a row-address
+// policy that reads through the table (PagedRows): a block per (b, query
+// head, split), grid (nsplit, H, B), the split count from the shapes
+// (ops/cuda/attention.py::plan at the table's reach, max_pages * page rows),
+// 16-byte loads, the splits merged in split order through the workspace by
+// a ticketed last split. The int8 pools take attention_q8.cuh's split decode loop
 // (att_split): a block a (b, kv head, group of query rows, split of the
 // keys), each warp on its own runs of keys with 16-byte loads, the splits
 // merged in split order by a ticketed last split. Neither uses float
@@ -43,8 +43,11 @@
 // Bound on this card: bytes. A step reads the K/V rows of keys 0..pos[b] of
 // every (b, kv head) once (plus two float32 scales a row over an int8 pool):
 // at 7B widths, 8 slots at pos 4095 and a bf16 pool, 537 MB, 0.160 ms at
-// 3.35 TB/s. The table lookup costs an integer division a key (fp) or a chunk
-// (int8) over the dense kernels.
+// 3.35 TB/s; K14 reads the same rows without this step's row compare. The
+// table lookup costs an integer division a key (fp) or a chunk (int8) over
+// the dense kernels. At the 7B layout (G = 1) no fp block rereads another's
+// rows; under GQA a group's rows are read once a query head (see
+// decode_attention.cu).
 //
 // Inactive slots: the engine gives them all-zero table rows, so they read
 // the scratch page 0 and write their rows there; several may write the same
@@ -62,20 +65,11 @@
 
 namespace {
 
-using llama2::to_f32;
-using llama2::fpa::attend;
+using llama2::fpa::Form;
 using llama2::fpa::kWarps;
 using llama2::fpa::Launch;
 using llama2::fpa::PagedRows;
 using llama2::fpa::run_split;
-
-// K14's operands
-struct PagedArgs {
-  const void* table;
-  const void* pos;
-  int B, H, KVH, P, page, max_pages, hs;
-  float scale;
-};
 
 template <typename T, int VE, int LPR, int NV, int U>
 __global__ void __launch_bounds__(kWarps * 32) paged_decode_kernel(Launch a) {
@@ -87,29 +81,37 @@ __global__ void __launch_bounds__(kWarps * 32) paged_decode_fused_kernel(Launch 
   llama2::fpa::split_block_fused<T, VE, LPR, NV, U, PagedRows>(a);
 }
 
-// K15 and K17's kernels, for run_split
+template <typename T, int VE, int LPR, int NV, int U>
+__global__ void __launch_bounds__(kWarps * 32) paged_read_split_kernel(Launch a) {
+  llama2::fpa::split_block_read<T, VE, LPR, NV, U, PagedRows>(a);
+}
+
+// K15, K17 and K14's kernels, for run_split
 struct PagedKernels {
   template <typename T, int VE, int LPR, int NV, int U>
-  static void launch(dim3 grid, const Launch& a, bool fused, cudaStream_t st) {
-    if (fused)
+  static void launch(dim3 grid, const Launch& a, Form form, cudaStream_t st) {
+    if (form == Form::fused)
       paged_decode_fused_kernel<T, VE, LPR, NV, U><<<grid, kWarps * 32, 0, st>>>(a);
-    else
+    else if (form == Form::append)
       paged_decode_kernel<T, VE, LPR, NV, U><<<grid, kWarps * 32, 0, st>>>(a);
+    else
+      paged_read_split_kernel<T, VE, LPR, NV, U><<<grid, kWarps * 32, 0, st>>>(a);
   }
 };
 
-// K15 (fused false: q, k_new, v_new) and K17 (fused true: qkv, cos_il,
-// sin_il in their places) over the pools; the plan and workspace as
-// run_split takes them.
-int paged_split(bool fused, const void* q, void* kp, void* vp, const void* kn, const void* vn,
+// K15 (append: q, k_new, v_new), K17 (fused: qkv, cos_il, sin_il in their
+// places) and K14 (read: q alone, no new rows or write coordinates; layer 0
+// of one layer's pools) over the pools; the plan and workspace as run_split
+// takes them.
+int paged_split(Form form, const void* q, void* kp, void* vp, const void* kn, const void* vn,
                 const void* table, const void* wpage, const void* wrow, const void* pos, void* out,
                 void* ws, void* tickets, long long ws_floats, int n_tickets, int dtype, int layer,
                 int B, int H, int KVH, int P, int page, int max_pages, int hs, int nsplit, int vec,
                 int chunk, float scale, void* stream) {
-  if (P <= 0 || page <= 0 || max_pages <= 0 || hs % 2 != 0 || !table || !wpage || !wrow)
-    return cudaErrorInvalidValue;
+  if (P <= 0 || page <= 0 || max_pages <= 0 || !table) return cudaErrorInvalidValue;
+  if (form != Form::read && (hs % 2 != 0 || !wpage || !wrow)) return cudaErrorInvalidValue;
   Launch a{};
-  if (fused) {
+  if (form == Form::fused) {
     a.qkv = q;
     a.cos_il = static_cast<const float*>(kn);
     a.sin_il = static_cast<const float*>(vn);
@@ -138,49 +140,7 @@ int paged_split(bool fused, const void* q, void* kp, void* vp, const void* kn, c
   a.P = P;
   a.page = page;
   a.max_pages = max_pages;
-  return run_split<PagedKernels>(a, dtype, vec, chunk, ws_floats, n_tickets, fused, stream);
-}
-
-template <typename T, int NPL, int KC>
-__global__ void __launch_bounds__(kWarps * 32)
-paged_read_kernel(const T* __restrict__ q, const T* k_pool, const T* v_pool,
-                  T* __restrict__ out, const PagedArgs a) {
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int kvh = h / (a.H / a.KVH);
-  const int lane = threadIdx.x & 31;
-  const int hs = a.hs;
-  const PagedRows rows{static_cast<const int*>(a.table) + (size_t)b * a.max_pages, 0, a.KVH, kvh, a.page,
-                       hs, 0};
-  float qr[NPL];
-  const T* qh = q + ((size_t)b * a.H + h) * hs;
-#pragma unroll
-  for (int i = 0; i < NPL; ++i) {
-    const int d = lane + 32 * i;
-    qr[i] = d < hs ? to_f32(qh[d]) * a.scale : 0.f;
-  }
-  attend<T, NPL, KC>(qr, k_pool, v_pool, out + ((size_t)b * a.H + h) * hs, rows,
-                     static_cast<const int*>(a.pos)[b], hs);
-}
-
-template <typename T, int NPL>
-cudaError_t launch_read(const void* q, const void* kp, const void* vp, void* out, const PagedArgs& a,
-                        cudaStream_t stream) {
-  constexpr int KC = NPL >= 8 ? 4 : 8;
-  paged_read_kernel<T, NPL, KC><<<dim3(a.H, a.B), kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
-      static_cast<T*>(out), a);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_read(const void* q, const void* kp, const void* vp, void* out, const PagedArgs& a,
-                          cudaStream_t st) {
-  if (a.hs <= 32) return launch_read<T, 1>(q, kp, vp, out, a, st);
-  if (a.hs <= 64) return launch_read<T, 2>(q, kp, vp, out, a, st);
-  if (a.hs <= 128) return launch_read<T, 4>(q, kp, vp, out, a, st);
-  if (a.hs <= 256) return launch_read<T, 8>(q, kp, vp, out, a, st);
-  return cudaErrorInvalidValue;
+  return run_split<PagedKernels>(a, dtype, vec, chunk, ws_floats, n_tickets, form, stream);
 }
 
 template <int VB, int LPR, int NV, int NQ>
@@ -223,20 +183,16 @@ cudaError_t dispatch_q8(const llama2::q8a::Params& a, int chunk, cudaStream_t st
 
 // K14. q (B, H, hs); one layer's pools (P, KVH, page, hs), read only; table
 // (B, max_pages), pos (B,) int32 on the device; out (B, H, hs). One dtype,
-// contiguous; hs <= 256. Returns the launch's cudaError_t.
+// contiguous; hs <= 256; the pools aligned to the vector. The plan and
+// workspace as K15's. Returns the launch's cudaError_t.
 extern "C" int paged_decode_attention(const void* q, const void* k_pool, const void* v_pool,
-                                      const void* table, const void* pos, void* out, int dtype,
+                                      const void* table, const void* pos, void* out, void* ws,
+                                      void* tickets, long long ws_floats, int n_tickets, int dtype,
                                       int B, int H, int KVH, int P, int page, int max_pages, int hs,
-                                      float scale, void* stream) {
-  if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 || hs <= 0 || P <= 0 || page <= 0 ||
-      max_pages <= 0)
-    return cudaErrorInvalidValue;
-  if (!q || !k_pool || !v_pool || !table || !pos || !out) return cudaErrorInvalidValue;
-  const PagedArgs a{table, pos, B, H, KVH, P, page, max_pages, hs, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == llama2::kF32) return dispatch_read<float>(q, k_pool, v_pool, out, a, st);
-  if (dtype == llama2::kBF16) return dispatch_read<__nv_bfloat16>(q, k_pool, v_pool, out, a, st);
-  return cudaErrorInvalidValue;
+                                      int nsplit, int vec, int chunk, float scale, void* stream) {
+  return paged_split(Form::read, q, const_cast<void*>(k_pool), const_cast<void*>(v_pool), nullptr, nullptr,
+                     table, nullptr, nullptr, pos, out, ws, tickets, ws_floats, n_tickets, dtype, 0, B, H,
+                     KVH, P, page, max_pages, hs, nsplit, vec, chunk, scale, stream);
 }
 
 // K15. q (B, H, hs); pools (L, P, KVH, page, hs), updated in place; k_new /
@@ -255,7 +211,7 @@ extern "C" int paged_decode_attention_stacked(
     void* ws, void* tickets, long long ws_floats, int n_tickets, int dtype, int layer, int B, int H,
     int KVH, int P, int page, int max_pages, int hs, int nsplit, int vec, int chunk, float scale,
     void* stream) {
-  return paged_split(false, q, k_pool, v_pool, k_new, v_new, table, write_page, write_row, pos, out,
+  return paged_split(Form::append, q, k_pool, v_pool, k_new, v_new, table, write_page, write_row, pos, out,
                      ws, tickets, ws_floats, n_tickets, dtype, layer, B, H, KVH, P, page, max_pages,
                      hs, nsplit, vec, chunk, scale, stream);
 }
@@ -270,7 +226,7 @@ extern "C" int paged_decode_attention_fused(
     void* ws, void* tickets, long long ws_floats, int n_tickets, int dtype, int layer, int B, int H,
     int KVH, int P, int page, int max_pages, int hs, int nsplit, int vec, int chunk, float scale,
     void* stream) {
-  return paged_split(true, qkv, k_pool, v_pool, cos_il, sin_il, table, write_page, write_row, pos, out,
+  return paged_split(Form::fused, qkv, k_pool, v_pool, cos_il, sin_il, table, write_page, write_row, pos, out,
                      ws, tickets, ws_floats, n_tickets, dtype, layer, B, H, KVH, P, page, max_pages,
                      hs, nsplit, vec, chunk, scale, stream);
 }

@@ -1,4 +1,4 @@
-"""Flash decode attention over the layer-stacked KV cache (kernels K2, K4).
+"""Flash decode attention over the KV cache (kernels K2, K3, K4).
 
 ``flash_decode_attention_stacked`` launches the hand-written CUDA kernel
 ``csrc/decode_attention.cu``, which replaces
@@ -23,11 +23,14 @@ K row and the raw V row, and runs the same read.
 ``flash_decode_attention`` (K3) replaces
 ``llama2_tpu/ops/pallas/attention.py::flash_decode_attention``: single-query
 attention over one layer's read-only ``(B, KVH, S, hs)`` cache, each row at
-its own position, no append; the single-block loop (``attend``, K14's too)
-with a read-only row policy, not K2's split form.
-``flash_decode_attention_plain`` is its plain version. No model path calls it
-(the JAX model sends every T = 1 step to the stacked kernel); the kernel
-benchmarks (``llama2_tpu_torch/benchmarks/kernels.py``) do.
+its own position, no append: K2's split form and plan at ``S``, with a
+read-only block (``split_block_read``: nothing written back, every key from
+the cache). Under grouped-query attention each query head is its own block,
+so a kv head's rows are read once a query head of its group (the L2 serves
+the rereads where they fit). ``flash_decode_attention_plain`` is its plain
+version. No model path calls it (the JAX model sends every T = 1 step to the
+stacked kernel); the kernel benchmarks
+(``llama2_tpu_torch/benchmarks/kernels.py``) do.
 """
 
 from __future__ import annotations
@@ -71,7 +74,9 @@ def plan(B: int, H: int, KVH: int, S: int, hs: int, dtype, sms: int, aligned: bo
     ``0..pos[b]`` into at most ``splits`` runs of whole chunks
     (``split_range`` in ``csrc/decode_attention.cuh``). ``splits`` given
     (1..``MAX_SPLITS``) replaces the chosen count: ``chip_smoke.py
-    --dense-timing`` times the kernels at other counts with it.
+    --dense-timing`` times the kernels at other counts with it. Where the
+    B * H pairs fill the card (more than ``BLOCKS_PER_SM * sms``), the count
+    is 1, which takes no ticket (:func:`split_workspace`): any B * H.
     """
     v = 16 // dtype.itemsize
     if aligned and hs % v == 0:
@@ -95,17 +100,27 @@ def plan(B: int, H: int, KVH: int, S: int, hs: int, dtype, sms: int, aligned: bo
     }
 
 
+def split_workspace(device, p: dict, pairs: int) -> tuple:
+    """The workspace of a split-form launch of plan ``p`` over ``pairs``
+    (b, query head) pairs on ``device``, as the C entries take it: (ws,
+    tickets, ws floats, ticket count). One split writes out directly and
+    takes no state and no ticket, so it takes any number of pairs; more
+    splits take a ticket a pair, at most ``build.MAX_TICKETS``."""
+    if p["splits"] > 1 and pairs > build.MAX_TICKETS:
+        raise ValueError(f"{pairs} (b, query head) pairs over {p['splits']} splits: more than "
+                         f"{build.MAX_TICKETS} tickets")
+    ws, tickets = build.workspace(device, p["ws_floats"] if p["splits"] > 1 else 0)
+    return ws.data_ptr(), tickets.data_ptr(), ws.numel(), tickets.numel()
+
+
 def _launch_plan(device, B, H, KVH, S, hs, dtype, rows: tuple[int, ...], splits) -> tuple[dict, tuple]:
-    """The plan of a CUDA launch on ``device`` whose cache and new-row
-    operands start at the addresses ``rows``, and its workspace as the entry
-    takes it: (ws, tickets, ws floats, ticket count)."""
-    if B * H > build.MAX_TICKETS:
-        raise ValueError(f"{B * H} (b, query head) pairs: more than {build.MAX_TICKETS}")
+    """The plan of a CUDA launch on ``device`` whose cache (and new-row)
+    operands start at the addresses ``rows``, and its workspace
+    (:func:`split_workspace`)."""
     index = device.index if device.index is not None else torch.cuda.current_device()
     aligned = all(r % 16 == 0 for r in rows)
     p = plan(B, H, KVH, S, hs, dtype, _sms(index), aligned, splits)
-    ws, tickets = build.workspace(device, p["ws_floats"])
-    return p, (ws.data_ptr(), tickets.data_ptr(), ws.numel(), tickets.numel())
+    return p, split_workspace(device, p, B * H)
 
 
 def flash_decode_attention_stacked_plain(
@@ -414,16 +429,37 @@ def flash_decode_attention(q, k_cache, v_cache, pos, *, scale=None) -> torch.Ten
         raise ValueError("operands must be contiguous")
     if hs > 256:
         raise ValueError(f"kernel takes hs <= 256 (got {hs})")
-    posv = pos_rows(pos, B, q.device)
+    return launch_read(q3, k_cache, v_cache, pos_rows(pos, B, q.device), float(scale)).view(q.shape)
+
+
+def read_plan(q3, k_cache, v_cache, sms: int, splits: int | None = None) -> dict:
+    """K3's launch: :func:`plan` at the cache's ``S`` for q3 (B, H, hs) over
+    one layer's caches (B, KVH, S, hs), 16-byte vectors where both caches
+    start aligned to them (q is read by element), or ``splits`` splits."""
+    B, H, hs = q3.shape
+    KVH, S = k_cache.shape[1], k_cache.shape[2]
+    aligned = k_cache.data_ptr() % 16 == 0 and v_cache.data_ptr() % 16 == 0
+    return plan(B, H, KVH, S, hs, q3.dtype, sms, aligned, splits)
+
+
+def launch_read(q3, k_cache, v_cache, pos, scale: float, splits: int | None = None):
+    """K3's launch on operands the wrapper has checked, q3 (B, H, hs) and
+    ``pos`` an int32 (B,) tensor, as :func:`read_plan` says. Counts the
+    launch."""
+    B, H, hs = q3.shape
+    KVH, S = k_cache.shape[1], k_cache.shape[2]
+    index = q3.device.index if q3.device.index is not None else torch.cuda.current_device()
+    p = read_plan(q3, k_cache, v_cache, _sms(index), splits)
     out = torch.empty_like(q3)
     err = _entry_read()(
-        q3.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), posv.data_ptr(), out.data_ptr(),
-        build.DTYPE_CODES[q.dtype], B, H, KVH, S, hs, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        q3.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        *split_workspace(q3.device, p, B * H), build.DTYPE_CODES[q3.dtype],
+        B, H, KVH, S, hs, p["splits"], p["vec"], p["chunk"], scale,
+        torch.cuda.current_stream(q3.device).cuda_stream,
     )
     build.check(err, "flash_decode_attention")
     flash_decode_attention.launches += 1
-    return out.view(q.shape)
+    return out
 
 
 flash_decode_attention.launches = 0
@@ -431,9 +467,10 @@ flash_decode_attention.launches = 0
 
 @functools.cache
 def _entry_read():
+    """K3's entry: 7 pointers, the workspace's size, 10 ints, the scale, the stream."""
     fn = build.load_library(_LIB).flash_decode_attention
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 5 + [i] * 6 + [ctypes.c_float, p]
+    fn.argtypes = [p] * 7 + [ctypes.c_longlong] + [i] * 10 + [ctypes.c_float, p]
     fn.restype = i
     return fn
 

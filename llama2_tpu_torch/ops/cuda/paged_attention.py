@@ -27,11 +27,11 @@ which replace, in ``llama2_tpu/ops/pallas/paged_attention.py``:
 
 The arithmetic is the dense kernels' (K2/K4 for fp pools, K8/K9 for int8
 pools; see ``attention.py`` and ``attention_q8.py``); only where a key row
-lives differs. K15 and K17 run K2/K4's split form (``attend_split`` of
-``csrc/decode_attention.cuh``: a block per (b, query head, split), 16-byte
-loads, the splits merged in one launch through ``build.workspace``),
-launched as :func:`fp_plan` says; K14 keeps the single-block loop
-(``attend``). K16 and K18 run the int8 split decode loop (``att_split`` of
+lives differs. K15, K17 and K14 run K2, K4 and K3's split form
+(``attend_split`` of ``csrc/decode_attention.cuh``: a block per (b, query
+head, split), 16-byte loads, the splits merged in one launch through
+``build.workspace``; K14's block reads only, like K3's), launched as
+:func:`fp_plan` says. K16 and K18 run the int8 split decode loop (``att_split`` of
 ``csrc/attention_q8.cuh``: a block per (b, kv head, group of query rows,
 split), each warp on its own keys), launched as :func:`q8_plan` says. Each
 returns ``(att, *pools)`` with the pools updated in place, the argument
@@ -41,9 +41,9 @@ order of the JAX functions minus ``scale`` and ``interpret``.
 for CPU tensors, and ``chip_smoke.py`` holds the kernels against them on the
 card. Their shared reference is :func:`paged_attention_oracle`, the JAX
 package's gather-and-attend oracle. On a CUDA tensor a wrapper launches its
-kernel or raises. The limits are the port's own: an even ``hs <= 256``,
-``H % KVH == 0``, one query token; no TPU tiling rule (``hs % 128``,
-``page % 128`` for int8 pools) applies.
+kernel or raises. The limits are the port's own: an even ``hs <= 256``
+(K14: any ``hs <= 256``), ``H % KVH == 0``, one query token; no TPU tiling
+rule (``hs % 128``, ``page % 128`` for int8 pools) applies.
 """
 
 from __future__ import annotations
@@ -264,15 +264,27 @@ def paged_decode_attention(q, k_pool, v_pool, table, pos, *, scale=None) -> torc
     if k_pool.dtype != q.dtype:
         raise ValueError(f"pool dtype {k_pool.dtype} differs from the query's {q.dtype}")
     _check_device(q3, (q3, k_pool, v_pool, table, posv))
+    return _read_launch(q3, k_pool, v_pool, table, posv, float(scale)).view(q.shape)
+
+
+def _read_launch(q3, k_pool, v_pool, table, pos, scale: float, splits: int | None = None):
+    """K14's launch on operands the wrapper has checked (q3 (B, H, hs), one
+    layer's pools, ``pos`` an int32 (B,) tensor): :func:`fp_plan`'s read
+    form, or ``splits`` splits. Counts the launch."""
+    B, H, hs = q3.shape
+    P, KVH, page, _ = k_pool.shape
+    index = q3.device.index if q3.device.index is not None else torch.cuda.current_device()
+    p = fp_plan(q3, k_pool, v_pool, None, None, table, H, _sms(index), False, splits)
     out = torch.empty_like(q3)
     err = _entry_read()(
-        q3.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(), posv.data_ptr(),
-        out.data_ptr(), build.DTYPE_CODES[q.dtype], B, H, KVH, P, page, table.shape[1], hs,
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        q3.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        *fa.split_workspace(q3.device, p, B * H), build.DTYPE_CODES[q3.dtype], B, H, KVH, P, page,
+        table.shape[1], hs, p["splits"], p["vec"], p["chunk"], scale,
+        torch.cuda.current_stream(q3.device).cuda_stream,
     )
     build.check(err, "paged_decode_attention")
     paged_decode_attention.launches += 1
-    return out.view(q.shape)
+    return out
 
 
 paged_decode_attention.launches = 0
@@ -318,17 +330,18 @@ def _check_device(act, operands) -> None:
 
 def fp_plan(act, k_pool, v_pool, kn, vn, table, H: int, sms: int, fused: bool,
             splits: int | None = None) -> dict:
-    """The launch of K15 (``act`` the query, kn/vn the new rows) or K17
-    (``act`` the raw qkv rows, which are also its new rows): K2/K4's
+    """The launch of K15 (``act`` the query, kn/vn the new rows), K17
+    (``act`` the raw qkv rows, which are also its new rows) or K14 (``act``
+    the query over one layer's pools, kn = vn = None: read only): K2/K4's
     :func:`attention.plan` at the table's reach, ``max_pages * page`` rows,
     from the shapes alone (never from ``pos``); 16-byte vectors where the
     pools and the new-row operands start 16-byte aligned, else one element a
-    lane. ``splits`` as :func:`attention.plan` takes it."""
-    page, hs = k_pool.shape[3], k_pool.shape[4]
-    rows = (k_pool, v_pool, act) if fused else (k_pool, v_pool, kn, vn)
-    aligned = all(t.data_ptr() % 16 == 0 for t in rows)
-    return fa.plan(act.shape[0], H, k_pool.shape[2], table.shape[1] * page, hs, act.dtype, sms, aligned,
-                   splits)
+    lane; K14 (read only) the pools alone. ``splits`` as
+    :func:`attention.plan` takes it."""
+    KVH, page, hs = k_pool.shape[-3:]
+    operands = (k_pool, v_pool, act) if fused else (k_pool, v_pool) if kn is None else (k_pool, v_pool, kn, vn)
+    aligned = all(t.data_ptr() % 16 == 0 for t in operands)
+    return fa.plan(act.shape[0], H, KVH, table.shape[1] * page, hs, act.dtype, sms, aligned, splits)
 
 
 def _fp_launch(which, act, k_pool, v_pool, kn, vn, table, write_page, write_row, layer, pos, H: int,
@@ -341,16 +354,13 @@ def _fp_launch(which, act, k_pool, v_pool, kn, vn, table, write_page, write_row,
     fused = which is paged_decode_attention_fused
     L, P, KVH, page, hs = k_pool.shape
     B = act.shape[0]
-    if B * H > build.MAX_TICKETS:
-        raise ValueError(f"{B * H} (b, query head) pairs: more than {build.MAX_TICKETS}")
     index = act.device.index if act.device.index is not None else torch.cuda.current_device()
     p = fp_plan(act, k_pool, v_pool, kn, vn, table, H, _sms(index), fused, splits)
-    ws, tickets = build.workspace(act.device, p["ws_floats"])
     out = torch.empty((B, H, hs), dtype=act.dtype, device=act.device)
     err = _entry(which.__name__)(
         act.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), kn.data_ptr(), vn.data_ptr(),
         table.data_ptr(), write_page.data_ptr(), write_row.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        ws.data_ptr(), tickets.data_ptr(), ws.numel(), tickets.numel(), build.DTYPE_CODES[act.dtype],
+        *fa.split_workspace(act.device, p, B * H), build.DTYPE_CODES[act.dtype],
         layer, B, H, KVH, P, page, table.shape[1], hs, p["splits"], p["vec"], p["chunk"], 1.0 / hs**0.5,
         torch.cuda.current_stream(act.device).cuda_stream,
     )
@@ -569,9 +579,10 @@ def _entry(name: str):
 
 @functools.cache
 def _entry_read():
+    """K14's entry: 8 pointers, the workspace's size, 12 ints, the scale, the stream."""
     fn = build.load_library(_LIB).paged_decode_attention
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 6 + [i] * 8 + [ctypes.c_float, p]
+    fn.argtypes = [p] * 8 + [ctypes.c_longlong] + [i] * 12 + [ctypes.c_float, p]
     fn.restype = i
     return fn
 

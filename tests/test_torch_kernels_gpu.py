@@ -846,7 +846,10 @@ def test_read_only_decode_kernels_match_plain_on_card(cuda_device, dtype):
     table names a NaN-filled page past each row's last page (the plain
     version, which gathers the longest row's page count for every row, gets
     valid pages there): outputs within the fp tolerance and finite, one
-    launch a call, the caches and pools untouched."""
+    launch a call, the caches and pools untouched. Both run the split form:
+    a rerun gives the same bits and leaves every ticket zero; a given scale
+    is taken; and more (b, query head) pairs than the workspace has tickets
+    take one split and launch."""
     from llama2_tpu_torch.ops.cuda import attention as fa
     from llama2_tpu_torch.ops.cuda import paged_attention as tpa
 
@@ -863,13 +866,16 @@ def test_read_only_decode_kernels_match_plain_on_card(cuda_device, dtype):
         k0, v0 = k.clone(), v.clone()
         for q, pos in ((randn(3, 1, H, hs), torch.tensor([0, 300, S - 1], dtype=torch.int32, device=cuda_device)),
                        (randn(3, H, hs), 700)):
-            n0 = fa.flash_decode_attention.launches
-            got = fa.flash_decode_attention(q, k, v, pos)
-            assert fa.flash_decode_attention.launches == n0 + 1
-            want = fa.flash_decode_attention_plain(q, k, v, pos)
-            torch.cuda.synchronize()
-            assert got.shape == q.shape and got.dtype == dtype
-            _assert_close(got, want, tol, f"K3 {H=} {KVH=} {hs=}")
+            for scale in (None, 0.3):
+                n0 = fa.flash_decode_attention.launches
+                got = fa.flash_decode_attention(q, k, v, pos, scale=scale)
+                assert fa.flash_decode_attention.launches == n0 + 1
+                want = fa.flash_decode_attention_plain(q, k, v, pos, scale=scale)
+                torch.cuda.synchronize()
+                assert got.shape == q.shape and got.dtype == dtype
+                _assert_close(got, want, tol, f"K3 {H=} {KVH=} {hs=} {scale=}")
+                assert torch.equal(got, fa.flash_decode_attention(q, k, v, pos, scale=scale))
+                assert _tickets_zero(cuda_device)
         assert torch.equal(k, k0) and torch.equal(v, v0)
 
         page = 128
@@ -888,7 +894,28 @@ def test_read_only_decode_kernels_match_plain_on_card(cuda_device, dtype):
         torch.cuda.synchronize()
         assert torch.isfinite(got.float()).all()
         _assert_close(got, want, tol, f"K14 {H=} {KVH=} {hs=}")
+        assert torch.equal(got, tpa.paged_decode_attention(q, kp, vp, nan_table, pos))
+        assert _tickets_zero(cuda_device)
+        got = tpa.paged_decode_attention(q, kp, vp, nan_table, pos, scale=0.3)
+        _assert_close(got, tpa.paged_decode_attention_plain(q, kp, vp, table, pos, scale=0.3), tol,
+                      f"K14 {H=} {KVH=} {hs=} scale=0.3")
         assert torch.equal(kp.nan_to_num(), kp0.nan_to_num())
+
+    # B * H past the workspace's tickets: one split, no ticket, any B * H
+    from llama2_tpu_torch.ops.cuda import build
+
+    H, KVH, hs, S, page = 32, 4, 64, 40, 8
+    B = build.MAX_TICKETS // H + 3
+    pos = torch.randint(0, S, (B,), generator=cpu_g, dtype=torch.int32).to(cuda_device)
+    k, v, q = randn(B, KVH, S, hs), randn(B, KVH, S, hs), randn(B, H, hs)
+    got = fa.flash_decode_attention(q, k, v, pos)
+    _assert_close(got, fa.flash_decode_attention_plain(q, k, v, pos), tol, f"K3 {B=} {H=}")
+    table = torch.arange(B * S // page, dtype=torch.int32, device=cuda_device).reshape(B, S // page)
+    kp, vp = (t.reshape(B, KVH, S // page, page, hs).transpose(1, 2).reshape(-1, KVH, page, hs).contiguous()
+              for t in (k, v))
+    got = tpa.paged_decode_attention(q, kp, vp, table, pos)
+    _assert_close(got, fa.flash_decode_attention_plain(q, k, v, pos), tol, f"K14 {B=} {H=}")
+    assert _tickets_zero(cuda_device)
 
 
 @pytest.mark.gpu
@@ -1289,7 +1316,9 @@ def test_tick_kernels_raise_on_card_and_do_not_fall_back(cuda_device):
     group of 256 (past the kernel's 128), K18 with an odd head size or a
     split count past the kernel's, and K17 with a split count past the
     kernel's raise ValueError and count no launch; K17's C entry refuses a
-    plan it cannot take (a chunk that is not its instance's, 33 splits)."""
+    plan it cannot take (a chunk that is not its instance's, 33 splits).
+    So do K3 and K14 on the read-only split form, which also refuse more
+    than one split over more (b, query head) pairs than there are tickets."""
     from llama2_tpu_torch.ops.cuda import build
     from llama2_tpu_torch.ops.cuda import paged_attention as tpa
 
@@ -1342,6 +1371,40 @@ def test_tick_kernels_raise_on_card_and_do_not_fall_back(cuda_device):
             tickets.data_ptr(), ws.numel(), tickets.numel(), 0, 0, B, H, KVH, 3, page, 2, hs, splits, p["vec"],
             chunk, 1.0, torch.cuda.current_stream().cuda_stream)
         assert err != 0, (chunk, splits)
+
+    # K3 and K14 on the read-only split form: 33 splits are refused by the
+    # plan, with no launch counted, and by the C entries; more than one split
+    # over more pairs than there are tickets is refused too
+    from llama2_tpu_torch.ops.cuda import attention as fa
+
+    q, pos = z((B, H, hs), device=cuda_device), z((B,), **i32)
+    k3, kp = z((B, KVH, 2 * page, hs), device=cuda_device), pools[0][0]
+    n3, n14 = fa.flash_decode_attention.launches, tpa.paged_decode_attention.launches
+    with pytest.raises(ValueError, match="splits"):
+        fa.launch_read(q, k3, k3, pos, 1.0, splits=33)
+    with pytest.raises(ValueError, match="splits"):
+        tpa._read_launch(q, kp, kp, table, pos, 1.0, splits=33)
+    Bw = build.MAX_TICKETS // H + 1
+    qw, posw = z((Bw, H, hs), device=cuda_device), z((Bw,), **i32)
+    with pytest.raises(ValueError, match="tickets"):
+        fa.launch_read(qw, z((Bw, KVH, page, hs), device=cuda_device), z((Bw, KVH, page, hs), device=cuda_device),
+                       posw, 1.0, splits=2)
+    with pytest.raises(ValueError, match="tickets"):
+        tpa._read_launch(qw, kp, kp, z((Bw, 2), **i32), posw, 1.0, splits=2)
+    assert (fa.flash_decode_attention.launches, tpa.paged_decode_attention.launches) == (n3, n14)
+    p3 = fa.plan(B, H, KVH, 2 * page, hs, torch.float32, sms)
+    for chunk, splits in ((p3["chunk"] + 1, p3["splits"]), (p3["chunk"], 33)):
+        err = fa._entry_read()(
+            q.data_ptr(), k3.data_ptr(), k3.data_ptr(), pos.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            tickets.data_ptr(), ws.numel(), tickets.numel(), 0, B, H, KVH, 2 * page, hs, splits, p3["vec"], chunk,
+            1.0, torch.cuda.current_stream().cuda_stream)
+        assert err != 0, ("K3", chunk, splits)
+        err = tpa._entry_read()(
+            q.data_ptr(), kp.data_ptr(), kp.data_ptr(), table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            ws.data_ptr(), tickets.data_ptr(), ws.numel(), tickets.numel(), 0, B, H, KVH, 3, page, 2, hs, splits,
+            p3["vec"], chunk, 1.0, torch.cuda.current_stream().cuda_stream)
+        assert err != 0, ("K14", chunk, splits)
+    torch.cuda.synchronize()
 
 
 def _tickets_zero(device):
@@ -1582,3 +1645,58 @@ def test_paged_fp_split_loop_matches_plain_on_card(cuda_device, dtype, layout):
         k4, v4 = (tpa.gather_pages(t[L - 1], table[b4:b4 + 1], S // page)[0] for t in want_pools)
         _planted_fp_fail(qf[b4] * hs**-0.5, k4, v4, want[b4], tol, which.__name__)
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", [(32, 32, 128), (32, 4, 64)], ids=["7B", "GQA"])
+def test_read_only_split_block_matches_plain_on_card(cuda_device, dtype, layout):
+    """K3 and K14 on the read-only split block (``split_block_read``): 8 rows
+    whose positions straddle pages (0, 255, 256, 1000, 4095, a third page's
+    row, 5, 9), K3 over one layer's dense caches and K14 over the same rows
+    in shuffled 256-row pages whose table names a NaN page past each row's
+    last, at a given scale, at the plan's split count and at 3 and 8 (split
+    edges inside pages): within the fp tolerance of the plain version, the
+    same bits on a rerun, every ticket zero after, the caches and pools
+    untouched; with one 256-key split dropped or doubled at pos 4095 the
+    plain output fails the tolerance."""
+    from llama2_tpu_torch.ops.cuda import attention as fa
+    from llama2_tpu_torch.ops.cuda import paged_attention as tpa
+
+    H, KVH, hs = layout
+    g = torch.Generator(device=cuda_device).manual_seed(27)
+    cpu_g = torch.Generator().manual_seed(27)
+    S, page, scale = 4096, 256, 0.8 / hs**0.5
+    tol = dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32 else dict(rtol=2**-7, atol=1e-3)
+    pos_list = [0, 255, 256, 1000, S - 1, 2 * page + 77, 5, 9]
+    table, _, _, pos, P = _paged_setup(cpu_g, cuda_device, pos_list, page, 0, S)
+    used = torch.arange(table.shape[1], device=cuda_device)[None] <= (pos // page)[:, None]
+    nan_table = torch.where(used, table, torch.full_like(table, P))
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+
+    q = randn(8, H, hs)
+    k, v = randn(8, KVH, S, hs), randn(8, KVH, S, hs)
+    kp, vp = randn(P + 1, KVH, page, hs), randn(P + 1, KVH, page, hs)
+    kp[P], vp[P] = float("nan"), float("nan")
+    k0, v0, kp0, vp0 = (t.clone() for t in (k, v, kp, vp))
+    b4 = pos_list.index(S - 1)
+    for which, run, plain, rows in (
+        (fa.flash_decode_attention, lambda n: fa.launch_read(q, k, v, pos, scale, splits=n),
+         fa.flash_decode_attention_plain(q, k, v, pos, scale=scale), (k[b4], v[b4])),
+        (tpa.paged_decode_attention, lambda n: tpa._read_launch(q, kp, vp, nan_table, pos, scale, splits=n),
+         tpa.paged_decode_attention_plain(q, kp, vp, table, pos, scale=scale),
+         tuple(tpa.gather_pages(t, table[b4:b4 + 1], S // page)[0] for t in (kp, vp))),
+    ):
+        for splits in (None, 3, 8):
+            n0 = which.launches
+            got = [run(splits) for _ in range(2)]
+            assert which.launches == n0 + 2
+            torch.cuda.synchronize()
+            what = f"{which.__name__} {layout} {dtype} {splits=}"
+            assert torch.equal(got[0], got[1]), what
+            assert _tickets_zero(cuda_device), what
+            _assert_close(got[0], plain, tol, what)
+        _planted_fp_fail(q[b4].float() * scale, *rows, plain[b4], tol, which.__name__)
+    assert all(torch.equal(a.nan_to_num(), b.nan_to_num()) for a, b in zip((k, v, kp, vp), (k0, v0, kp0, vp0)))
