@@ -50,7 +50,14 @@ non-zero:
    the greedy streams held to their plain replays, ticks profiled at short
    and long positions, and
    the dense ``BatchEngine`` on the same requests for its memory;
-   ``cuda-accurate`` in fp32 at 8 layers over both pools (K15, K16). Then
+   ``cuda-accurate`` in fp32 at 8 layers over both pools (K15, K16);
+   engine-level speculation (``spec_window=4``) on the 12 greedy requests
+   through the paged engine over a bf16 pool and the dense engine over the
+   int8 cache, 32 layers, every window's launches asserted (K6 and K5 on the
+   M > 8 tile, K11 on the paged window; no decode attention kernel), the
+   streams held to the same engine's plain tick by the speculative margin
+   rule, served and decode tok/s, tokens and wall / device ms a window
+   beside the plain tick's (``phase_serve_spec``). Then
    the earlier main paths: ``Generator.generate`` at full Llama-2-7B width (random
    weights from a seed, built on the card), a ~200-token prompt and 64 greedy
    tokens. INT8 (Q8) weights, ``backend="cuda"``, bf16 activations, all 32
@@ -83,7 +90,8 @@ non-zero:
    (``python -m llama2_tpu_torch.runtime.server ... --quant int8 --paged``)
    as a subprocess, its greedy answers equal to an in-process paged engine's
    with its settings and held to ``Generator.generate`` by the margin rule
-   (``hold_server_streams``);
+   (``hold_server_streams``), and the server with ``--spec 4``, its greedy
+   answers equal to an in-process speculative paged engine's;
 5. kernel timing at the main paths' shapes with CUDA events, the calls
    queued behind a device sleep so that the host's launch rate does not set
    the time, beside the bound, the plain version and a library yardstick
@@ -114,12 +122,14 @@ the served decode tick's kernels (K10-K13 at 8 rows, K15-K18),
 ``--serve-timing`` only the served bf16-pool path (a timed serving and the
 tick profiles), ``--q8kv-timing`` only the int8-cache decode step's
 kernels (K7-K9 and K13 at 1 and 8 rows, beside the K9 + K12 pair, and a
-split-count sweep), and ``--read-timing`` only the read-only decode
+split-count sweep), ``--read-timing`` only the read-only decode
 attention kernels (K3, K14, their split sweeps, and K2/K4/K15/K17 at pos
-4095) (to compare two checkouts in one call, see
-``phase_dense_timing``, ``phase_prefill_timing``, ``phase_decode_timing``,
-``phase_tick_timing``, ``phase_serve_timing``, ``phase_q8kv_timing`` and
-``phase_read_timing``). Without a CUDA device, or outside a checkout
+4095), ``--norm-timing`` only K19 beside ``F.rms_norm``, an empty launch
+and a copy of the same bytes, and ``--window-timing`` only K5/K6 at the
+served tick's 8 rows and the speculative window's 32 (to compare two checkouts in one call,
+see ``phase_dense_timing``, ``phase_prefill_timing``,
+``phase_decode_timing``, ``phase_tick_timing``, ``phase_serve_timing``,
+``phase_q8kv_timing``, ``phase_read_timing`` and ``phase_norm_timing``). Without a CUDA device, or outside a checkout
 of the repository, it fails before printing any result.
 """
 
@@ -521,7 +531,9 @@ def phase_kernels_q8() -> None:
 
     params = all_layouts(random_q8_params(config_7b(), SEED + 4, "cuda", group_size=GROUP))
     combos = ((0, False, False), (31, True, False), (31, False, True), (0, True, True))
-    m_rows = (1, 8, 9, 201)  # decode rows, and the M > 8 tile just past them and at the chunk
+    # decode rows, and the M > 8 tile just past them, at a speculative window
+    # (8 slots x 4 tokens) and at the chunk
+    m_rows = (1, 8, 9, 32, 201)
     for dtype in (torch.float32, torch.bfloat16):
         for mode in ("accurate", "fast"):
             for name, (K, N) in Q8_SHAPES.items():
@@ -548,7 +560,7 @@ def phase_kernels_q8() -> None:
                         worst[M] = max(worst.get(M, 0.0), err)
                 say("K5" if name == "wcls" else "K6", dtype=dtype_name(dtype), mode=mode,
                     weight=name, K=K, N=N,
-                    max_abs_err_M1_M8_M9_M201=",".join(f"{worst[M]:.3e}" for M in m_rows),
+                    max_abs_err_M1_M8_M9_M32_M201=",".join(f"{worst[M]:.3e}" for M in m_rows),
                     tol_plain_and_fast_prologue=f"{q8_tolerance(dtype, mode, False)},"
                     f"{q8_tolerance(dtype, mode, True)}".replace(" ", ""))
     # no float atomics: the same launch gives the same bits, at a decode row
@@ -569,12 +581,12 @@ def phase_kernels_q8() -> None:
 
 def phase_kernels_mlp() -> None:
     """K10, K11, K12 against their plain versions: the 7B widths and the two
-    ragged shapes; 1, 2, 3, 4, 5, 8 and 12 rows; fp32 and bf16 activations;
+    ragged shapes; 1, 2, 3, 4, 5, 8, 12, 16 and 32 rows; fp32 and bf16 activations;
     layers 0, L-2 and L-1 of a stack (K12 reads the next layer's norm and QKV
     weights, clamped at the last); K10 with and without the residual. Every
     call is one launch in the form ``mlp_block.variant`` names (the
-    tensor-core form for 3 or more rows at group 64; 12 rows a pass of 8,
-    then 4; the first ragged shape's group of 8 keeps the FMA form), and a
+    tensor-core form for 3 or more rows at group 64; past 8 rows passes of
+    8, the last one shorter; the first ragged shape's group of 8 keeps the FMA form), and a
     second run of each gives the same bits."""
     import torch
 
@@ -622,7 +634,7 @@ def phase_kernels_mlp() -> None:
                 worst[name] = max(worst.get(name, (0.0, 0.0)), (err, rel))
 
             forms = set()
-            for M in (1, 2, 3, 4, 5, 8, 12):
+            for M in (1, 2, 3, 4, 5, 8, 12, 16, 32):
                 form[0] = mb.variant(M, D, HD, Dq, (G, G, G, G))
                 forms.add(f"M{M}:{form[0]}")
                 x, att = randn(M, D, dtype=dtype), randn(M, D, dtype=dtype)
@@ -1354,8 +1366,17 @@ def read_split_checks(randn) -> None:
 
 
 # the rmsnorm (K19) and swiglu (K20) check shapes: the benchmark's, then the
-# JAX tests' ragged ones (288, 64, 172 wide; 768, 64, 172)
-NORM_SHAPES = ((256, 4096), (1024, 8192), (1, 1, 288), (2, 7, 64), (1, 300, 172))
+# JAX tests' ragged ones (288, 64, 172 wide; 768, 64, 172). K19's also sit
+# on the edges of its register form's tiers (``rmsnorm.plan``: 32, 64, 128
+# and 256 threads a row, 8 vectors a thread): f32 rows of 1024, 2048, 4096
+# and 8192 fill a tier, 1028, 2052, 4100 are one vector past one, 8196 is
+# too long for any (the loop form); bf16 the same at 2048-16384 and 2056,
+# 4104, 8200 and 16392 (ragged in f32 widths: 1028 in bf16 is the scalar
+# form); 4098 is ragged in both (the scalar form); R = 1 and R = 3
+NORM_SHAPES = ((256, 4096), (1024, 8192), (1, 1, 288), (2, 7, 64), (1, 300, 172),
+               (3, 1024), (1, 1028), (3, 2048), (1, 2052), (1, 4096), (3, 4100), (3, 8192),
+               (1, 8196), (1, 2056), (3, 4104), (1, 8200), (3, 16384), (1, 16392), (3, 4098),
+               (300, 256))
 SWIGLU_SHAPES = ((256, 11008), (512, 11008), (1, 1, 768), (2, 7, 64), (1, 300, 172))
 
 
@@ -1392,6 +1413,7 @@ def phase_kernels_bench() -> None:
 
     from llama2_tpu_torch.ops.cuda import attention as fa
     from llama2_tpu_torch.ops.cuda import paged_attention as tpa
+    from llama2_tpu_torch.ops.cuda.rmsnorm import plan as rms_plan
     from llama2_tpu_torch.ops.cuda.rmsnorm import rmsnorm, rmsnorm_plain
     from llama2_tpu_torch.ops.cuda.swiglu import swiglu, swiglu_plain
 
@@ -1454,16 +1476,28 @@ def phase_kernels_bench() -> None:
                     rtol=rtol, atol=atol, finite=True)
                 del kp, vp, kp0
         nrtol, natol = norm_tolerance(dtype)
-        for shape in NORM_SHAPES:
-            x = randn(*shape, dtype=dtype)
+        # an unaligned view (one element in): the scalar form
+        for shape, view in [(s, False) for s in NORM_SHAPES] + [((2, 4096), True)]:
+            if view:
+                x = randn(2 * 4096 + 1, dtype=dtype)[1:].view(*shape)
+            else:
+                x = randn(*shape, dtype=dtype)
+            R = x.numel() // shape[-1]
             for wdt in dict.fromkeys((dtype, torch.float32)):
                 w = 1 + 0.1 * randn(shape[-1], dtype=wdt)
+                form = rms_plan(R, shape[-1], dtype, not view, torch.cuda.get_device_properties(0)
+                                .multi_processor_count)
+                n_form = getattr(rmsnorm, f"launches_{form['form']}")
                 got = launched(rmsnorm, x, w)
+                if getattr(rmsnorm, f"launches_{form['form']}") != n_form + 1:
+                    raise AssertionError(f"K19 {shape}: not launched in the {form['form']} form")
                 if got.dtype != dtype or got.shape != x.shape:
                     raise AssertionError(f"K19 gave {got.dtype} {tuple(got.shape)} for {dtype} rows")
                 err = compare(got, rmsnorm_plain(x, w), dtype, (nrtol, natol))
                 say("K19", dtype=dn, weight=dtype_name(wdt), shape="x".join(map(str, shape)),
-                    out_dtype=dtype_name(got.dtype), max_abs_err=f"{err:.3e}", rtol=nrtol, atol=natol)
+                    view="unaligned" if view else "contiguous", form=form["form"], threads_a_row=form["tpr"],
+                    rows_a_block=form["rows"], out_dtype=dtype_name(got.dtype), max_abs_err=f"{err:.3e}",
+                    rtol=nrtol, atol=natol)
         for shape in SWIGLU_SHAPES:
             h1, h3 = randn(*shape, dtype=dtype), randn(*shape, dtype=dtype)
             got = launched(swiglu, h1, h3)
@@ -2332,43 +2366,94 @@ SERVE_TICKS = {
 }
 
 
-def served_run(eng, reqs, log: bool = False) -> dict:
+def served_run(eng, reqs, log: bool = False, check=None) -> dict:
     """Serve ``reqs`` on ``eng``, all submitted at once and driven to idle,
     with every launch counter set to 0 just before and read just after; each
-    decode window's launches recorded apart (admission prefills launch too).
-    With ``log``, every sampled logits row is kept, per request in order:
-    its first token's, then one a tick it was seated in (meant for
-    ticks_per_sync 1 and pipeline depth 1, where each such row gives the
-    request's next token)."""
+    decode tick's launches recorded apart (admission prefills launch too),
+    and each speculative window's (ticks_per_sync 1: a speculative tick is
+    one window) under "windows", with its host wall seconds and seated
+    slots. With ``log``, every sampled logits row is kept on the device and
+    copied once at the end, per request in generated order: its first
+    token's, then one a plain tick it was seated in (meant for pipeline
+    depth 1, where each such row gives the request's next token), or the
+    rows behind the tokens a window committed. ``check(eng, seg, pos)``, if
+    given, is called before each window's forward and returns None or two
+    functions: one run before the forward, one after it on the window's (B,
+    d, V) logits; their time, with the device work they queue, is left out
+    of every time returned and reported as ``check_s``."""
     import torch
 
-    wrappers = count_launches()
-    ticks, admit_s = [], [0.0]
-    rows: dict = {}
-    dispatch, start, sample, sample_first = (
-        eng._dispatch_tick, eng._start_request, eng._sample, eng._sample_first)
+    from llama2_tpu_torch.ops.cuda.quant_matmul import quant_matmul, quant_matmul_stacked
+    from llama2_tpu_torch.runtime import batch_engine as be
 
-    def counted_dispatch(active):
+    wrappers = {**count_launches(), "K6-tile": VariantCount(quant_matmul_stacked, "launches_tile_fast"),
+                "K5-tile": VariantCount(quant_matmul, "launches_tile_fast"),
+                "K5-tile-acc": VariantCount(quant_matmul, "launches_tile_accurate")}
+    ticks, windows, walls, slots, rows = [], [], [], [], {}
+    spent = {"admit": 0.0, "check": 0.0}
+    dispatch, spec_tick, spec_forward, start, sample, sample_first = (
+        eng._dispatch_tick, eng._spec_tick, eng._spec_forward, eng._start_request, eng._sample,
+        eng._sample_first)
+    logits_from_hidden = be.logits_from_hidden
+    window = {}  # the window in flight: its logits and the check's verdict on them
+
+    def counted(fn, out, *args):
         before = {k: w.launches for k, w in wrappers.items()}
-        dispatch(active)
-        ticks.append({k: w.launches - before[k] for k, w in wrappers.items()})
+        fn(*args)
+        out.append({k: w.launches - before[k] for k, w in wrappers.items()})
+
+    def timed(what, fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        spent[what] += time.perf_counter() - t0
+        return out
+
+    def counted_spec_tick():
+        seated = [(b, r, len(r.tokens)) for b, r in enumerate(eng.slots) if r is not None]
+        check0, t0 = spent["check"], time.perf_counter()
+        be.logits_from_hidden = kept_logits
+        try:
+            counted(spec_tick, windows)
+        finally:
+            be.logits_from_hidden = logits_from_hidden
+        walls.append(time.perf_counter() - t0 - (spent["check"] - check0))
+        slots.append(len(seated))
+        for b, r, n0 in seated if log else ():
+            rows[id(r)].extend(window["logits"][b, : len(r.tokens) - n0])
+
+    def checked_forward(seg, pos, w):
+        due = check(eng, seg, pos) if check else None
+        if due:
+            timed("check", due[0])
+        window["after"] = due and due[1]
+        return spec_forward(seg, pos, w)
+
+    def kept_logits(params, hidden, backend="torch"):
+        out = logits_from_hidden(params, hidden, backend)
+        window["logits"] = out.detach().float()
+        if window.get("after"):
+            timed("check", window.pop("after"), window["logits"])
+        return out
 
     def timed_start(slot, req):
         t0 = time.perf_counter()
         start(slot, req)
-        admit_s[0] += time.perf_counter() - t0
+        spent["admit"] += time.perf_counter() - t0
 
     def logged_sample(logits, sampled, draws):
         for b, r in enumerate(eng.slots):
             if r is not None:
-                rows.setdefault(id(r), []).append(logits[b].detach().float().clone())
+                rows[id(r)].append(logits[b].detach().float().clone())
         return sample(logits, sampled, draws)
 
     def logged_first(logits, req, pos):
         rows[id(req)] = [logits.detach().float().clone()]
         return sample_first(logits, req, pos)
 
-    eng._dispatch_tick, eng._start_request = counted_dispatch, timed_start
+    eng._dispatch_tick = lambda active: counted(dispatch, ticks, active)
+    eng._spec_tick, eng._spec_forward, eng._start_request = counted_spec_tick, checked_forward, timed_start
     if log:
         eng._sample, eng._sample_first = logged_sample, logged_first
     for w in wrappers.values():
@@ -2383,16 +2468,17 @@ def served_run(eng, reqs, log: bool = False) -> dict:
         results = [q.get(timeout=600) for q in queues]
         torch.cuda.synchronize()
     finally:
-        for name in ("_dispatch_tick", "_start_request", "_sample", "_sample_first"):
+        for name in ("_dispatch_tick", "_spec_tick", "_spec_forward", "_start_request", "_sample",
+                     "_sample_first"):
             eng.__dict__.pop(name, None)
-    wall = time.perf_counter() - t0
+    wall = time.perf_counter() - t0 - spent["check"]
     for r in results:
         if isinstance(r, Exception):
             raise AssertionError(f"a served request failed: {r!r}")
     return {
-        "launches": {k: w.launches for k, w in wrappers.items()}, "ticks": ticks, "wall_s": wall,
-        "admit_s": admit_s[0], "peak": torch.cuda.max_memory_allocated(),
-        "tokens": [r.tokens for r in results], "results": results,
+        "launches": {k: w.launches for k, w in wrappers.items()}, "ticks": ticks, "windows": windows,
+        "walls": walls, "slots": slots, "wall_s": wall, "admit_s": spent["admit"], "check_s": spent["check"],
+        "peak": torch.cuda.max_memory_allocated(), "tokens": [r.tokens for r in results], "results": results,
         "logits": [torch.stack(rows[id(r)]).cpu() for r in submitted] if log else None,
     }
 
@@ -2698,6 +2784,249 @@ def phase_serve(kv_quant: bool) -> dict:
     return {**timed["launches"], **{f"dense-{k}": v for k, v in run["launches"].items()}}
 
 
+SPEC_WINDOW = 4  # the served speculative windows' tokens (the server's --spec 4)
+SPEC_CHECK_EVERY = 8  # the 32-layer legs hold one window in eight to its plain forwards, the 8-layer legs all
+# launches per speculative window (ticks_per_sync 1: a tick is one window) at
+# L layers, 8 slots x 4 tokens = 32 rows, by backend; a kernel not named
+# launches 0 times. ``cuda``: the segment's five K6 a layer (the paged
+# window's QKV with its rmsnorm prologue) and K5 for the 32 rows' logits,
+# all on the fast M > 8 tile, attention in plain PyTorch; ``cuda-accurate``:
+# the composed layer (wqkv, wo, w13, w2) on the accurate tile.
+SPEC_WINDOWS = {
+    "cuda": lambda L: {"K6": 5 * L, "K5": 1, "K6-tile": 5 * L, "K5-tile": 1},
+    "cuda-accurate": lambda L: {"K6": 4 * L, "K5": 1, "K6-tile-acc": 4 * L, "K5-tile-acc": 1},
+}
+
+
+def hold_spec_streams(reqs, spec: dict, plain: dict, dn: str) -> dict:
+    """Each speculative stream against the plain tick's stream of the same
+    requests (PERF.md section 2's speculative rule): equal up to the first
+    position whose plain top-2 margin is below twice the largest distance
+    between a window's logits row and the plain tick's row at the same
+    position (the rows of both runs up to and including the first token
+    they disagree on share their prefix). A stream ended by BOS before its
+    budget counts BOS as its last token. Returns what to report."""
+    from llama2_tpu_torch.runtime.generator import BOS
+
+    def stream(toks, prompt, gen):
+        out = toks[len(prompt):]
+        return out + [BOS] if len(toks) < gen.steps else out
+
+    dist, split = 0.0, []
+    for (prompt, gen), ts, tp, rs, lp in zip(reqs, spec["tokens"], plain["tokens"], spec["logits"],
+                                            plain["logits"]):
+        a, b = stream(ts, prompt, gen), stream(tp, prompt, gen)
+        k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if k is None and len(a) != len(b):
+            raise AssertionError(f"{dn}: a speculative stream and the plain one agree but end apart")
+        n = min(len(a) if k is None else k + 1, len(rs), len(lp))
+        dist = max(dist, float((rs[:n] - lp[:n]).abs().max()))
+        split.append((k, lp))
+    equal = 0
+    for k, lp in split:
+        if k is None:
+            equal += 1
+            continue
+        top2 = lp[: k + 1].topk(2, dim=-1).values
+        if not bool(((top2[:, 0] - top2[:, 1]) < 2 * dist).any()):
+            raise AssertionError(f"{dn}: a speculative stream leaves the plain one at {k} with every margin "
+                                 f"before it above twice the windows' distance {dist:.3e}")
+    return {"streams_equal_to_plain": f"{equal}/{len(split)}",
+            "first_split": ",".join(str(k) for k, _ in split if k is not None) or "none",
+            "logit_max_abs_diff_window_vs_tick": f"{dist:.3e}"}
+
+
+def window_checker(config, params, dtype, backend: str, every: int):
+    """A ``served_run`` check holding every row of one window in ``every``
+    (all d rows of each seated slot below seq_len, committed or not) to
+    teacher-forced plain forwards of the same window on the same cache:
+    ``backend="torch"`` in the engine's dtype and, for bf16, in float32
+    activations on the same weights. The plain windows run first; they
+    write the rows the engine's window then overwrites, and read only rows
+    before them or their own. The rules are PERF.md section 2's: fp32 on
+    ``cuda-accurate`` within F32_LOGIT_ATOL; fp32 on ``cuda`` (fast mode)
+    within F32_FAST_LOGIT_RTOL of the largest logit; bf16 against the
+    float32 logits, the window's max and mean distance at most the plain
+    window's + BF16_MAX_MARGIN and x (1 + BF16_MEAN_MARGIN). Returns
+    (check, verdict): ``verdict()`` raises past the rule, else returns what
+    to report."""
+    import torch
+
+    from llama2_tpu_torch.models.llama import forward, logits_from_hidden
+    from llama2_tpu_torch.models.paged import paged_forward_window
+    from llama2_tpu_torch.quant.q8 import QuantTensor
+
+    f32 = {k: v if isinstance(v, QuantTensor) else v.float() for k, v in params.items()} \
+        if dtype == torch.bfloat16 else None
+    st = {"windows": 0, "checked": 0, "rows": 0, "max": 0.0, "sum": 0.0, "max_plain": 0.0, "sum_plain": 0.0,
+          "absmax": 0.0}
+
+    def plain(eng, p, seg, pos):
+        if hasattr(eng, "pool"):
+            hidden = paged_forward_window(p, eng.pool.k, eng.pool.v, eng._upload(eng._tables), seg, pos, config,
+                                          "torch", eng.pool.ks, eng.pool.vs)[0]
+        else:
+            hidden = forward(p, eng.cache, seg, pos, config, "torch")
+        return logits_from_hidden(p, hidden, "torch").float()
+
+    def check(eng, seg, pos):
+        st["windows"] += 1
+        if (st["windows"] - 1) % every:
+            return None
+        live = torch.tensor([r is not None for r in eng.slots], device=seg.device)
+        keep = live[:, None] & (pos[:, None] + torch.arange(seg.shape[1], device=seg.device) < config.seq_len)
+        out = {}
+
+        def before():
+            out["ref"] = plain(eng, f32, seg, pos)[keep] if f32 is not None else None
+            out["want"] = plain(eng, params, seg, pos)[keep]
+
+        def after(logits):
+            ref, want = out["ref"], out["want"]
+            got = logits[keep]
+            st["checked"] += 1
+            st["rows"] += got.shape[0]
+            if ref is None:
+                st["max"] = max(st["max"], float((got - want).abs().max()))
+                st["absmax"] = max(st["absmax"], float(want.abs().max()))
+                return
+            dc, dt = (got - ref).abs(), (want - ref).abs()
+            st["max"], st["max_plain"] = max(st["max"], float(dc.max())), max(st["max_plain"], float(dt.max()))
+            st["sum"] += float(dc.mean(-1).sum())
+            st["sum_plain"] += float(dt.mean(-1).sum())
+
+        return before, after
+
+    def verdict(dn: str) -> dict:
+        out = {"windows_held_to_plain": f"{st['checked']}/{st['windows']}", "rows_held": st["rows"]}
+        if st["checked"] == 0:
+            raise AssertionError(f"{dn}: no window was held to its plain forward")
+        if f32 is None:
+            bound = F32_LOGIT_ATOL if backend == "cuda-accurate" else F32_FAST_LOGIT_RTOL * st["absmax"]
+            out.update(window_logit_max_abs_diff_vs_plain=f"{st['max']:.3e}", bound=f"{bound:.3e}")
+            if st["max"] > bound:
+                raise AssertionError(f"{dn}: window logits {st['max']} from the plain window's, past {bound}")
+            return out
+        mean_c, mean_t = st["sum"] / st["rows"], st["sum_plain"] / st["rows"]
+        out.update(vs_f32_activations_max_window=f"{st['max']:.4e}",
+                   vs_f32_activations_max_plain=f"{st['max_plain']:.4e}", max_margin=BF16_MAX_MARGIN,
+                   vs_f32_activations_mean_window=f"{mean_c:.4e}", vs_f32_activations_mean_plain=f"{mean_t:.4e}",
+                   mean_margin=BF16_MEAN_MARGIN)
+        if st["max"] > st["max_plain"] + BF16_MAX_MARGIN or mean_c > mean_t * (1 + BF16_MEAN_MARGIN):
+            raise AssertionError(f"{dn}: the windows are {st['max']} (max) / {mean_c} (mean) from the fp32-"
+                                 f"activation logits, the plain windows {st['max_plain']} / {mean_t}")
+        return out
+
+    return check, verdict
+
+
+def phase_serve_spec() -> None:
+    """Engine-level speculation on the served path: Llama-2-7B widths, 32
+    layers, INT8 weights, bf16, ``cuda``, 8 slots, ``spec_window=4``,
+    ``ticks_per_sync=1``, serving the greedy requests of serve_workload()
+    through ``PagedBatchEngine`` over a bf16 pool (256-row pages, the
+    prefix cache) and through the dense ``BatchEngine`` over the int8
+    cache; then the paged engine in fp32 at 8 layers on ``cuda`` (fast
+    mode: the bf16 legs' kernels) and on ``cuda-accurate``. Per leg: a
+    logged speculative run with every window's launches asserted
+    (SPEC_WINDOWS: no decode attention kernel and no megakernel in a window)
+    and every row of its windows (one in SPEC_CHECK_EVERY on the 32-layer
+    legs) held to plain forwards of the same window (``window_checker``);
+    a logged run of the same engine without speculation (pipeline depth
+    1), the streams held to each other by ``hold_spec_streams`` (on
+    ``cuda-accurate`` the windows' logits within twice F32_LOGIT_ATOL of the
+    ticks'). On the bf16 legs, printed beside the plain run's: served and
+    decode tok/s, tokens a window and a slot-window, wall ms a window, and
+    the wall and device ms of 8 windows (and, for the dense engine, of 8
+    plain ticks; the paged one's are phase_serve's) of 8 slots seated on
+    16-token prompts (profiled)."""
+    import torch
+
+    from llama2_tpu_torch.config import GenerationConfig
+    from llama2_tpu_torch.io.convert import random_q8_params
+    from llama2_tpu_torch.runtime.batch_engine import BatchEngine
+    from llama2_tpu_torch.runtime.paged_engine import PagedBatchEngine
+
+    t0 = time.perf_counter()
+    reqs = [r for i, r in enumerate(serve_workload()) if i not in SAMPLED]
+    legs = (("paged", 32, torch.bfloat16, "cuda"), ("dense", 32, torch.bfloat16, "cuda"),
+            ("paged", 8, torch.float32, "cuda"), ("paged", 8, torch.float32, "cuda-accurate"))
+    params, built = None, None
+    for kind, L, dtype, backend in legs:
+        t_leg = time.perf_counter()
+        config = config_7b(L)
+        if built != (L, dtype, backend):  # the two bf16 legs share their fused weights
+            params = None
+            torch.cuda.empty_cache()
+            params, built = random_q8_params(config, SEED, "cuda", dtype, group_size=GROUP), (L, dtype, backend)
+        kw = dict(batch_size=SERVE_SLOTS, dtype=dtype, backend=backend, device="cuda", ticks_per_sync=1)
+
+        def engine(**extra):
+            if kind == "dense":
+                return BatchEngine(config, params, kv_quant=True, **kw, **extra)
+            return PagedBatchEngine(config, params, page_size=SERVE_PAGE, prefix_cache=True, **kw, **extra)
+
+        pool = "int8-cache" if kind == "dense" else f"{dtype_name(dtype)}-pool"
+        dn = f"q8/{dtype_name(dtype)}/{backend}/{kind}-{pool}/{L}L/spec{SPEC_WINDOW}"
+        eng = engine(spec_window=SPEC_WINDOW)
+        params = eng.params  # fused once; the later engines take the same tensors
+        check, verdict = window_checker(config, params, dtype, backend, SPEC_CHECK_EVERY if L == 32 else 1)
+        spec = served_run(eng, reqs, log=True, check=check)
+        emitted = eng.metrics["tokens"]
+        eng = None
+        torch.cuda.empty_cache()
+        per_window = SPEC_WINDOWS[backend](L)
+        want = {k: per_window.get(k, 0) for k in spec["launches"]}
+        bad = [w for w in spec["windows"] if w != want]
+        if not spec["windows"] or bad or spec["ticks"]:
+            raise AssertionError(f"{dn}: launches per window {bad[:1]}, want {want}; "
+                                 f"{len(spec['ticks'])} plain ticks")
+        held_windows = verdict(dn)
+        eng = engine(pipeline_depth=1)
+        plain = served_run(eng, reqs, log=True)
+        plain_emitted = eng.metrics["tokens"]
+        eng = None
+        torch.cuda.empty_cache()
+        held = hold_spec_streams(reqs, spec, plain, dn)
+        if backend == "cuda-accurate" and float(held["logit_max_abs_diff_window_vs_tick"]) > 2 * F32_LOGIT_ATOL:
+            raise AssertionError(f"{dn}: windows {held['logit_max_abs_diff_window_vs_tick']} from the ticks, "
+                                 f"past twice F32_LOGIT_ATOL")
+        say("serve-spec", path=dn, requests=len(reqs), windows=len(spec["windows"]),
+            per_window=",".join(f"{k}={v}" for k, v in per_window.items()), **held_windows, **held)
+        if dtype == torch.float32:
+            say("serve-spec", path=dn, leg_seconds=f"{time.perf_counter() - t_leg:.1f}")
+            continue
+        n_win = len(spec["windows"])
+        for name, run, n_steps, n_emit in (("spec", spec, n_win, emitted),
+                                          ("plain_tick_depth_1", plain, len(plain["ticks"]), plain_emitted)):
+            n_tok = sum(len(t) - len(p) for t, (p, _) in zip(run["tokens"], reqs))
+            decode_s = run["wall_s"] - run["admit_s"]
+            say("serve-spec", path=dn, run=name, generated=n_tok, wall_s=f"{run['wall_s']:.3f}",
+                served_tok_s=f"{n_tok / run['wall_s']:.2f}", decode_tok_s=f"{n_emit / decode_s:.2f}",
+                admission_s=f"{run['admit_s']:.3f}", windows_or_ticks=n_steps,
+                tokens_per_window_or_tick=f"{n_emit / n_steps:.3f}",
+                wall_ms_per_window_or_tick=f"{decode_s * 1e3 / n_steps:.3f}",
+                checks_left_out_s=f"{run['check_s']:.3f}", peak_mem_GiB=f"{run['peak'] / 2**30:.2f}")
+        say("serve-spec", path=dn, tokens_per_slot_window=f"{emitted / sum(spec['slots']):.3f}",
+            window_wall_ms_in_spec_tick=f"{sum(spec['walls']) * 1e3 / n_win:.3f}")
+        spec = plain = None
+        # the paged engine's plain tick at these positions: phase_serve's tick_profiles
+        for window in (SPEC_WINDOW, 0) if kind == "dense" else (SPEC_WINDOW,):
+            eng = engine(spec_window=window)
+            for p, _ in reqs[:SERVE_SLOTS]:
+                eng.submit(p[:16], GenerationConfig(temperature=0.0, steps=16 + 40))
+            eng._admit()
+            profile_ticks(eng, dn if window else dn.replace(f"/spec{SPEC_WINDOW}", "/plain"),
+                          "pos_17_on_8_windows" if window else "pos_17_on_8_ticks", n=8)
+            eng._fail_all(RuntimeError("profile done"))
+            eng = None
+            torch.cuda.empty_cache()
+        say("serve-spec", path=dn, leg_seconds=f"{time.perf_counter() - t_leg:.1f}")
+    params = None
+    torch.cuda.empty_cache()
+    say("serve-spec", seconds=f"{time.perf_counter() - t0:.1f}")
+
+
 def phase_serve_accurate(kv_quant: bool) -> dict:
     """``cuda-accurate`` in fp32 at 8 layers, the paged engine over an fp32 or
     an int8 pool (the composed layer: K6 four a layer, K15 or K16 one a
@@ -2872,22 +3201,21 @@ def hold_server_streams(path: str, results: dict) -> dict:
             "tokens_equal_to_generator": f"{equal}/{sum(len(w) for w in wants)}"}
 
 
-def phase_server(path: str) -> None:
-    """The HTTP server on the 2-layer checkpoint at ``path``, as a user
-    starts it: ``python -m llama2_tpu_torch.runtime.server <path> --quant int8
-    --paged --kernels cuda --dtype f32 --port 0``. Three concurrent greedy
-    requests must return the tokens of an in-process paged engine with the
-    server's settings, and are held to ``Generator.generate`` on the same
-    prompts by the margin rule (fp32 activations, 2 layers;
-    ``hold_server_streams``), one sampled request
-    returns its budget; /health and /metrics answer; SIGINT stops it with
-    exit 0."""
+SERVER_ARGS = ("--quant", "int8", "--paged", "--kernels", "cuda", "--dtype", "f32", "--port", "0")
+
+
+def run_server(path: str, extra: tuple, bodies: list) -> dict:
+    """``python -m llama2_tpu_torch.runtime.server <path> SERVER_ARGS
+    extra`` as a subprocess: POST ``bodies`` to /generate, all at once,
+    read /health and /metrics, stop it with
+    SIGINT. Returns the answers by index, the two reads, its start-up
+    seconds and its exit code; the process is gone on return."""
     import signal
     import threading
     import urllib.request
 
     cmd = [sys.executable, "-m", "llama2_tpu_torch.runtime.server", path, "-z", TOKENIZER_BIN,
-           "--quant", "int8", "--paged", "--kernels", "cuda", "--dtype", "f32", "--port", "0"]
+           *SERVER_ARGS, *extra]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=REPO, stderr=subprocess.PIPE, text=True)
     killer = threading.Timer(600, proc.kill)  # a server that never comes up is killed
@@ -2910,8 +3238,6 @@ def phase_server(path: str) -> None:
                 return json.loads(r.read())
 
         results = {}
-        bodies = [{"prompt": p, "temperature": 0.0, "steps": 48} for p in SERVER_PROMPTS]
-        bodies.append({"prompt": SERVER_PROMPTS[0], "temperature": 0.8, "top_p": 0.9, "steps": 48, "seed": 7})
         threads = [threading.Thread(target=lambda i=i, b=b: results.__setitem__(i, post(b)))
                    for i, b in enumerate(bodies)]
         for t in threads:
@@ -2935,14 +3261,77 @@ def phase_server(path: str) -> None:
             proc.stderr.close()
     if rc != 0:
         raise AssertionError(f"the server exited {rc} on SIGINT")
+    return {"results": results, "health": health, "metrics": metrics, "up_s": up_s, "rc": rc}
+
+
+def hold_server_spec_streams(path: str, results: dict) -> dict:
+    """The greedy answers of the server run with ``--spec SPEC_WINDOW``,
+    sent all at once: their tokens equal, token for token, those of an
+    in-process paged engine with the server's settings and
+    ``spec_window=SPEC_WINDOW`` given the same prompts at once. The server
+    admits them as they arrive, the engine together: a window's rows do not
+    depend on the rows batched with them (the window attends over the
+    whole table), so the streams do not either. Returns what to report."""
+    import torch
+
+    from llama2_tpu_torch.config import GenerationConfig
+    from llama2_tpu_torch.io import load_any
+    from llama2_tpu_torch.quant.q8 import quantize_params
+    from llama2_tpu_torch.runtime.paged_engine import PagedBatchEngine
+    from llama2_tpu_torch.tokenizer.tokenizer import Tokenizer
+
+    config, params, _ = load_any(path)
+    params = quantize_params(params)
+    tok = Tokenizer.from_file(TOKENIZER_BIN, config.vocab_size)
+    eng = PagedBatchEngine(config, params, backend="cuda", device="cuda", batch_size=8, page_size=256,
+                           n_pages=None, prefix_cache=False, dtype=torch.float32, kv_quant=False,
+                           ticks_per_sync=1, pipeline_depth=2, spec_window=SPEC_WINDOW)
+    queues = [eng.submit(tok.encode(prompt), GenerationConfig(temperature=0.0, steps=48))
+              for prompt in SERVER_PROMPTS]
+    eng.run_until_idle()
+    want = [q.get(timeout=600).tokens for q in queues]
+    windows = eng.metrics["spec_windows"]
+    del eng
+    for i, (prompt, w) in enumerate(zip(SERVER_PROMPTS, want)):
+        if results[i]["tokens"] != w:
+            raise AssertionError(f"--spec {SPEC_WINDOW}: served tokens for {prompt!r} differ from the "
+                                 "in-process speculative engine's")
+    if windows < 1:
+        raise AssertionError("the in-process speculative engine ran no window")
+    return {"tokens_equal_to_in_process_spec_engine": "all", "in_process_windows": windows}
+
+
+def phase_server(path: str) -> None:
+    """The HTTP server on the 2-layer checkpoint at ``path``, as a user
+    starts it: ``python -m llama2_tpu_torch.runtime.server <path> --quant int8
+    --paged --kernels cuda --dtype f32 --port 0``. Three concurrent greedy
+    requests must return the tokens of an in-process paged engine with the
+    server's settings, and are held to ``Generator.generate`` on the same
+    prompts by the margin rule (fp32 activations, 2 layers;
+    ``hold_server_streams``), one sampled request
+    returns its budget; /health and /metrics answer; SIGINT stops it with
+    exit 0. Then the same server with ``--spec 4``: three concurrent greedy
+    requests must return the tokens of an in-process speculative engine with
+    its settings (``hold_server_spec_streams``)."""
+    bodies = [{"prompt": p, "temperature": 0.0, "steps": 48} for p in SERVER_PROMPTS]
+    bodies.append({"prompt": SERVER_PROMPTS[0], "temperature": 0.8, "top_p": 0.9, "steps": 48, "seed": 7})
+    run = run_server(path, (), bodies)
+    results, health, metrics, rc = run["results"], run["health"], run["metrics"], run["rc"]
     held = hold_server_streams(path, results)
     sampled = results[len(SERVER_PROMPTS)]["tokens"]
     if not 1 <= len(sampled) <= 48 or health.get("status") != "ok" or metrics.get("requests", 0) < len(bodies):
         raise AssertionError(f"server answers malformed: {sampled}, {health}, {metrics}")
-    say("server", args="--quant_int8_--paged_--kernels_cuda_--dtype_f32", up_s=f"{up_s:.1f}",
+    say("server", args="--quant_int8_--paged_--kernels_cuda_--dtype_f32", up_s=f"{run['up_s']:.1f}",
         greedy_requests=len(SERVER_PROMPTS), **held, sampled_tokens=len(sampled),
         health=health["status"], metrics_requests=metrics["requests"],
         ttft_p50_ms=f"{metrics['ttft_p50_ms']:.2f}", sigint_exit=rc)
+    spec = run_server(path, ("--spec", str(SPEC_WINDOW)), bodies[: len(SERVER_PROMPTS)])
+    held = hold_server_spec_streams(path, spec["results"])
+    if spec["health"].get("status") != "ok" or spec["metrics"].get("requests", 0) < len(SERVER_PROMPTS):
+        raise AssertionError(f"--spec server answers malformed: {spec['health']}, {spec['metrics']}")
+    say("server", args=f"--quant_int8_--paged_--kernels_cuda_--dtype_f32_--spec_{SPEC_WINDOW}",
+        up_s=f"{spec['up_s']:.1f}", greedy_requests=len(SERVER_PROMPTS), sent="at_once", **held,
+        sigint_exit=spec["rc"])
 
 
 def phase_cli() -> None:
@@ -4014,6 +4403,38 @@ def phase_timing_bench(tags=("K19", "K20", "K3", "K14"), sweep: bool = False) ->
     return rows
 
 
+def phase_norm_timing() -> None:
+    """K19 alone at the kernel benchmarks' two shapes (256 x 4096 and 1024 x
+    8192 f32, the operands rotating through 512 MB or more) beside
+    ``F.rms_norm``, its bound and its plain version (``phase_timing_bench``),
+    then, under the same timer and rotation, what any kernel of this size
+    pays: an empty launch (``torch.cuda._sleep(0)``) and one device copy of
+    each shape's rows (``copy_``: the same bytes read and written as K19's).
+    For two trees in one call: ``python3 chip_smoke.py --norm-timing`` runs
+    it and nothing else, and the script placed in an older tree's root times
+    that tree's kernel."""
+    import torch
+
+    from llama2_tpu_torch.benchmarks import kernels as kb
+    from llama2_tpu_torch.ops.cuda import rmsnorm as rn
+
+    phase_timing_bench(tags=("K19",))
+    b = kb.Bench("cuda", seed=SEED + 17)
+    ms, queued = b.time(lambda i: torch.cuda._sleep(0), 400)
+    say("norm-floor", call="empty_launch", ms=f"{ms:.4f}", queued=queued)
+    for R, D in ((256, 4096), (1024, 8192)):
+        c = kb.rmsnorm_case(b, R, D)
+        x = c.inputs["x"]
+        out = torch.empty_like(x[0])
+        ms, queued = b.time(lambda i: out.copy_(x[i % c.copies]), 200, c.copies)
+        plan = rn.plan(R, D, torch.float32, True, torch.cuda.get_device_properties(0).multi_processor_count) \
+            if hasattr(rn, "plan") else {"form": "one_block_a_row"}
+        say("norm-floor", call="copy", shape=f"{R}x{D}", ms=f"{ms:.4f}", MB=f"{2 * x[0].numel() * 4 / 1e6:.2f}",
+            GB_per_s=f"{2 * x[0].numel() * 4 / ms / 1e6:.0f}", k19_form=plan["form"], queued=queued)
+        del c, x, out
+    torch.cuda.empty_cache()
+
+
 BENCH_LINE = re.compile(
     r"^(?P<name>.+?) +(?P<us>\d+\.\d+) us/op"
     r"(?: +(?P<gbs>\d+\.\d) GB/s +(?P<hbm>\d+\.\d)% of 3\.35 TB/s)?"
@@ -4275,13 +4696,6 @@ def phase_prefill_timing(cycles_per_ms: float) -> None:
         flash_prefill_attention,
         flash_prefill_attention_plain,
     )
-    from llama2_tpu_torch.ops.cuda.quant_matmul import (
-        quant_matmul,
-        quant_matmul_plain,
-        quant_matmul_stacked,
-        quant_matmul_stacked_plain,
-    )
-    from llama2_tpu_torch.quant.q8 import dequantize
 
     L, B, (H, KVH, hs) = 32, 1, LAYOUTS["7B"]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
@@ -4325,9 +4739,30 @@ def phase_prefill_timing(cycles_per_ms: float) -> None:
         torch.cuda.empty_cache()
 
     params = all_layouts(random_q8_params(config_7b(L), SEED + 16, "cuda", torch.bfloat16, group_size=GROUP))
-    M = PROMPT_TOKENS + 1
     cases = [(mode, name, False) for mode in ("fast", "accurate") for name in Q8_SHAPES]
     cases[6:6] = [("fast", "wqkv", True), ("fast", "w13", True)]
+    q8_matmul_times(params, cases, PROMPT_TOKENS + 1, gen, cycles_per_ms, "prefill-time")
+    del params
+    torch.cuda.empty_cache()
+
+
+def q8_matmul_times(params, cases, M: int, gen, cycles_per_ms: float, tag: str) -> None:
+    """K5 (``wcls``) and K6 (the stacked weights) at M rows for each
+    ``(mode, weight, rmsnorm prologue)`` of ``cases``, call i on layer i % 32
+    of a 32-layer stack, beside the bound, the plain version and
+    ``torch.matmul`` on the weight dequantized ahead (4 layers: more than
+    the L2 holds)."""
+    import torch
+
+    from llama2_tpu_torch.ops.cuda.quant_matmul import (
+        quant_matmul,
+        quant_matmul_plain,
+        quant_matmul_stacked,
+        quant_matmul_stacked_plain,
+    )
+    from llama2_tpu_torch.quant.q8 import dequantize
+
+    L = 32
     for mode, name, norm in cases:
         dtype = torch.bfloat16 if mode == "fast" else torch.float32
         dn = dtype_name(dtype)
@@ -4337,7 +4772,6 @@ def phase_prefill_timing(cycles_per_ms: float) -> None:
         stacked = w.q.ndim == 3
         x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
         kw = {"rms_w": (1 + 0.1 * torch.randn(K, generator=gen, device="cuda")).to(dtype)} if norm else {}
-        # the yardstick's weights: 4 layers dequantized ahead (more than L2 holds)
         wd = dequantize(w[:4], dtype) if stacked else dequantize(w, dtype)[None]
         if stacked:
             def kern(i): return quant_matmul_stacked(x, w, i % L, mode=mode, **kw)
@@ -4352,7 +4786,7 @@ def phase_prefill_timing(cycles_per_ms: float) -> None:
         lib_ms, ql = time_ms(lib, 16, cycles_per_ms)
         nbytes = K * N + 4 * (K // GROUP) * N + esize * (M * K + M * N)
         t_bytes, t_ops, simt = q8_bounds_ms(M, K, N, mode, nbytes)
-        say("prefill-time", kernel=f"{'K6' if stacked else 'K5'}[{dn},{mode}]", weight=name,
+        say(tag, kernel=f"{'K6' if stacked else 'K5'}[{dn},{mode}]", weight=name,
             prologue=norm, M=M, K=K, N=N, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
             library_ms_matmul_on_dequantized=f"{lib_ms:.4f}", bound_ms=f"{max(t_bytes, t_ops):.4f}",
             bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -4360,6 +4794,26 @@ def phase_prefill_timing(cycles_per_ms: float) -> None:
             TFLOP_per_s=f"{2 * M * K * N / ms / 1e9:.2f}", max_abs_err=f"{err:.3e}",
             queued_kernel_plain_library=f"{qk},{qp},{ql}")
         del wd
+
+
+def phase_window_timing(cycles_per_ms: float) -> None:
+    """K5 and K6 in fast mode (bf16 rows) at the row counts of the served
+    paths: M = 8 (a decode tick of 8 slots: layer 0's rmsnorm-fused QKV and
+    the classifier) and M = 32 (a speculative window of 8 slots x 4 tokens:
+    the paged window's rmsnorm-fused QKV, the dense window's five
+    projections a layer, the classifier), on every Q8_SHAPES weight, wqkv
+    with and without the prologue, beside the bound, the plain version and
+    ``torch.matmul`` on the dequantized weight (``q8_matmul_times``).
+    ``python3 chip_smoke.py --window-timing`` runs it and nothing else."""
+    import torch
+
+    from llama2_tpu_torch.io.convert import random_q8_params
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    params = all_layouts(random_q8_params(config_7b(32), SEED + 16, "cuda", torch.bfloat16, group_size=GROUP))
+    cases = [("fast", name, False) for name in Q8_SHAPES] + [("fast", "wqkv", True)]
+    for M in (8, 32):
+        q8_matmul_times(params, cases, M, gen, cycles_per_ms, "window-time")
     del params
     torch.cuda.empty_cache()
 
@@ -4400,6 +4854,14 @@ def main() -> int:
         phase_read_timing(warm_cycles_per_ms())
         print(smi)
         return 0
+    if sys.argv[1:] == ["--window-timing"]:
+        phase_window_timing(warm_cycles_per_ms())
+        print(smi)
+        return 0
+    if sys.argv[1:] == ["--norm-timing"]:
+        phase_norm_timing()
+        print(smi)
+        return 0
     if sys.argv[1:] == ["--q8kv-timing"]:
         phase_q8kv_timing(warm_cycles_per_ms())
         print(smi)
@@ -4414,6 +4876,8 @@ def main() -> int:
     # this slice's main path, served: the paged engine over both pools
     served = {kv: phase_serve(kv) for kv in (False, True)}
     accurate = {kv: phase_serve_accurate(kv) for kv in (False, True)}
+    # engine-level speculation on the served path: the paged bf16 pool and the dense int8 cache
+    phase_serve_spec()
     # the fp-cache main path of slice 3, then this slice's: the int8 cache
     fast = phase_generate_q8("two-launch", "cuda", torch.bfloat16, speculative=True)
     q8_launches = {

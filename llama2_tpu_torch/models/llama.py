@@ -43,6 +43,11 @@ Backends (``BACKENDS``):
 * ``torch``: the plain versions, quantized weights dequantized beside
   ``torch.matmul``. The JAX ``xla``.
 
+A window of T > 1 tokens whose rows sit at their own positions (the batch
+engine's speculative verify window) takes the segment's projections (K6 and,
+for the logits, K5 on ``cuda``: at B * T > 8 rows the M > 8 tile) and attends
+in plain PyTorch, as the JAX package's per-row segment attends in XLA.
+
 The kernel wrappers use their plain versions for CPU tensors.
 """
 
@@ -209,6 +214,14 @@ def _ffn(x, lp, config: ModelConfig, backend: str, quant_idx):
     return x + linear(ref.swiglu(h1, h3), lp["w2"], backend, quant_idx)
 
 
+def _wo_ffn(x, att, lp, config: ModelConfig, backend: str, quant_idx):
+    """The post-attention half of a segment layer (a prefill chunk or a
+    verify window, any row count): the wo projection + residual, then the
+    composed FFN block, each projection one dequant-matmul launch."""
+    x = x + linear(att, lp["wo"], backend, quant_idx)
+    return _ffn(x, lp, config, backend, quant_idx)
+
+
 def _post_attention(x, att, lp, config: ModelConfig, backend: str, quant_idx):
     """The post-attention half of a decode layer: wo projection + residual,
     then the FFN block, by the fewest launches that take the weights: the
@@ -249,8 +262,8 @@ def _dequant_attention(q, k8, ks, v8, vs, pos, n: int):
 
 
 def _layer(
-    x, lp, k_cache, v_cache, pos: int, cos, sin, config: ModelConfig, backend: str,
-    quant_idx=None, ks_cache=None, vs_cache=None,
+    x, lp, k_cache, v_cache, pos, cos, sin, config: ModelConfig, backend: str,
+    quant_idx=None, ks_cache=None, vs_cache=None, rows: list[int] | None = None,
 ):
     """One decoder layer over a (B, T, D) prefill segment starting at ``pos``.
 
@@ -260,31 +273,46 @@ def _layer(
     cache, whose rows are quantized as they are written.
     ``quant_idx``: the layer index when quantized weights arrive
     layer-STACKED, else None.
+    ``rows``: a window whose batch rows start at their own positions (a
+    speculative verify window; ``pos`` then the (B,) tensor, ``rows`` the same
+    positions on the host). Each row's T rows are written by a slice write
+    of its own, and attention runs in plain PyTorch (``ref.attention``, or
+    over the dequantized int8 cache) with the mask per row over every row of
+    the cache, as the JAX package's per-row segment does: the shapes, and so
+    each row's result, do not depend on the positions of the rows batched
+    with it. The projections take the segment's route.
     """
     B, T, _ = x.shape
     H, hs = config.n_heads, config.head_size
     q, k, v = _qkv(x, lp, cos, sin, config, backend, quant_idx)
+    n = pos + T if rows is None else k_cache.shape[2]  # the keys attention reads
+
+    def put(cache, new):  # new (B, KVH, T, ...)
+        if rows is None:
+            cache[:, :, pos : pos + T] = new
+        else:
+            for b, p in enumerate(rows):
+                cache[b, :, p : p + T] = new[b]
+
     if ks_cache is not None:
         k8, ksc = quantize_kv_rows(k.transpose(1, 2))  # (B, KVH, T, hs), (B, KVH, T)
         v8, vsc = quantize_kv_rows(v.transpose(1, 2))
-        k_cache[:, :, pos : pos + T] = k8
-        ks_cache[:, :, pos : pos + T] = ksc
-        v_cache[:, :, pos : pos + T] = v8
-        vs_cache[:, :, pos : pos + T] = vsc
-        if backend.startswith("cuda") and T <= MAX_WINDOW:
+        for cache, new in ((k_cache, k8), (ks_cache, ksc), (v_cache, v8), (vs_cache, vsc)):
+            put(cache, new)
+        if backend.startswith("cuda") and T <= MAX_WINDOW and rows is None:
             # the window kernel takes the LAST query row's position
             att = flash_decode_attention_q8(q, k_cache, ks_cache, v_cache, vs_cache, pos + T - 1)
         else:
-            att = _dequant_attention(q, k_cache, ks_cache, v_cache, vs_cache, pos, pos + T)
-        att = att.reshape(B, T, H * hs)
-        x = x + linear(att, lp["wo"], backend, quant_idx)
-        return _ffn(x, lp, config, backend, quant_idx)
-    k_cache[:, :, pos : pos + T] = k.transpose(1, 2)
-    v_cache[:, :, pos : pos + T] = v.transpose(1, 2)
-    attend = flash_prefill_attention if backend.startswith("cuda") else flash_prefill_attention_plain
-    att = attend(q, k_cache, v_cache, pos).reshape(B, T, H * hs)
-    x = x + linear(att, lp["wo"], backend, quant_idx)
-    return _ffn(x, lp, config, backend, quant_idx)
+            att = _dequant_attention(q, k_cache, ks_cache, v_cache, vs_cache, pos, n)
+        return _wo_ffn(x, att.reshape(B, T, H * hs), lp, config, backend, quant_idx)
+    put(k_cache, k.transpose(1, 2))
+    put(v_cache, v.transpose(1, 2))
+    if rows is not None:
+        att = ref.attention(q, k_cache, v_cache, pos)
+    else:
+        attend = flash_prefill_attention if backend.startswith("cuda") else flash_prefill_attention_plain
+        att = attend(q, k_cache, v_cache, pos)
+    return _wo_ffn(x, att.reshape(B, T, H * hs), lp, config, backend, quant_idx)
 
 
 def _fused_attention(qkv3, cache: dict, cos_il, sin_il, layer_idx: int, pos, n_heads: int):
@@ -418,10 +446,14 @@ def forward(
 ) -> torch.Tensor:
     """Run T tokens at positions ``pos..pos+T-1`` through all layers.
 
-    tokens: (B, T) integer tensor. ``pos`` is an int, or for a decode step
-    (T = 1) also a per-row (B,) tensor. Writes the segment's K/V rows into
-    ``cache`` (fp or int8, see :func:`init_cache`) in place and returns the
-    hidden states (B, T, D), already final-rmsnormed; project with
+    tokens: (B, T) integer tensor. ``pos`` is an int, or a per-row (B,)
+    tensor: for a decode step (T = 1), or for a window of T > 1 tokens a row
+    (a speculative verify window, each row at positions ``pos[b]..pos[b] +
+    T - 1``; the positions are read on the host once a call, and a window
+    that runs past the cache's rows raises: pad the cache with
+    ``init_cache(pad=)``). Writes the segment's K/V rows into ``cache`` (fp
+    or int8, see :func:`init_cache`) in place and returns the hidden states
+    (B, T, D), already final-rmsnormed; project with
     :func:`logits_from_hidden`.
     """
     if backend not in BACKENDS:
@@ -478,13 +510,22 @@ def forward(
                     backend, i if stacked else None, cos_il, sin_il,
                 )
     else:
+        rows = None
         if pos_t is not None:
-            raise ValueError("a prefill segment (T > 1) takes one int start position")
+            # a window, each row at its own position: ONE host read of the
+            # positions a call, for every layer's slice writes
+            pos_t = pos_t.reshape(-1).expand(B)
+            rows = pos_t.tolist()
+            if max(rows) + T > cache["k"].shape[3]:
+                raise ValueError(
+                    f"a window reaching position {max(rows) + T - 1} needs a cache padded past "
+                    f"its {cache['k'].shape[3]} rows (init_cache(pad=))"
+                )
         for i in range(config.n_layers):
             scales = (cache["k_scale"][i], cache["v_scale"][i]) if kv_quant else (None, None)
             x = _layer(
-                x, layer_params(i), cache["k"][i], cache["v"][i], pos, cos, sin, config,
-                backend, i if stacked else None, *scales,
+                x, layer_params(i), cache["k"][i], cache["v"][i], pos if rows is None else pos_t,
+                cos, sin, config, backend, i if stacked else None, *scales, rows=rows,
             )
     return ref.rmsnorm(x, params["rms_final"], config.norm_eps)
 

@@ -1,6 +1,7 @@
-"""Decode forward step over a paged KV cache.
+"""Decode forward step, and speculative window, over a paged KV cache.
 
-Port of ``llama2_tpu/models/paged.py::paged_forward_step``: the paged
+Port of ``llama2_tpu/models/paged.py::paged_forward_step`` and
+``paged_forward_window``. The step is the paged
 counterpart of :func:`llama2_tpu_torch.models.llama.forward` for a T=1
 decode step. K/V live in layer-stacked page pools ``(L, P, KVH, page, hs)``
 (``runtime/paged_cache.py``) and each batch row reaches its positions
@@ -23,6 +24,13 @@ Routes, by backend and weights (as the JAX function's):
   ``quantize_kv_rows`` and K16 over an int8 pool) on ``cuda*``, or on
   ``torch`` the rows written in PyTorch and the gather-and-attend oracle
   (the JAX ``xla`` route).
+
+:func:`paged_forward_window` runs a (B, T) teacher-forced window (the paged
+engine's speculative verify window): its write coordinates come from the
+table on the device, the QKV projection is K6 with its rmsnorm prologue on
+``cuda`` with a stacked quantized ``wqkv``, attention the gather-and-attend
+oracle over the whole table, then the segment's wo and FFN projections
+(``models/llama.py::_wo_ffn``): at B * T rows, each one launch of K6.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from llama2_tpu_torch.config import ModelConfig
 from llama2_tpu_torch.models.llama import (
     _post_attention,
     _qkv,
+    _wo_ffn,
     activation_dtype,
     decode_two_launch,
     layer_keys,
@@ -166,3 +175,96 @@ def _layer(x, lp, pools, table, pos, page_ids, row_ids, i: int, quant_idx, cos, 
         write_rows(pools, (k_bh[:, :, 0], v_bh[:, :, 0]), i, page_ids, row_ids)
         att = paged_attention_oracle(q, pools[0][i], pools[1][i], table, pos, scale)
     return _post_attention(x, att.reshape(B, 1, H * hs), lp, config, backend, quant_idx)
+
+
+def _write_window(pool, rows, layer: int, page_ids, row_ids) -> None:
+    """Write a window's rows (B, KVH, T, ...) at per-(row, token) ``(page,
+    row)`` coordinates (each (B, T)) of ``layer`` of the pool (L, P, KVH,
+    page, ...), in place: one indexed write for the whole window, its
+    addresses on the device. Only scratch-page addresses repeat (rows past
+    ``seq_len``, inactive rows), and nothing reads those."""
+    B, KVH, T = rows.shape[:3]
+    flat = rows.transpose(1, 2).reshape(B * T, KVH, *rows.shape[3:])
+    pool[layer][page_ids.reshape(-1), :, row_ids.reshape(-1)] = flat.to(pool.dtype)
+
+
+def paged_forward_window(
+    params: dict,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    table: torch.Tensor,
+    seg: torch.Tensor,
+    pos: torch.Tensor,
+    config: ModelConfig,
+    backend: str = "torch",
+    ks_pool: torch.Tensor | None = None,
+    vs_pool: torch.Tensor | None = None,
+):
+    """A (B, T) teacher-forced window over the page pools: every batch row
+    runs the T tokens of ``seg`` at positions ``pos[b]..pos[b] + T - 1``,
+    writing each row's K/V through its page table. The paged twin of the
+    dense verify window (``models/llama.py::forward`` with per-row ``pos``).
+
+    Write coordinates are computed on the device from ``table`` (B,
+    max_pages): a window's position advance depends on the data, so the
+    host cannot compute them as it does for the step; positions at or past
+    ``seq_len`` go to the scratch page 0, never onto a committed row.
+    The QKV projection on ``cuda`` with a stacked quantized ``wqkv`` is K6
+    with the rmsnorm prologue, as the JAX ``fuse_glue``; the wo and FFN
+    projections take the segment's route (``_wo_ffn``: K6 at B * T rows,
+    never the decode megakernels, which run 8 rows a pass). Attention runs
+    :func:`paged_attention_oracle` over the window with the mask per row (an
+    int8 pool dequantized) and gathers every entry of the table, as the JAX
+    oracle does: no host read, and each row's result does not depend on the
+    positions of the rows batched with it.
+
+    Returns ``(hidden (B, T, D), *pools)`` with :func:`paged_forward_step`'s
+    pool arity; ``hidden`` is final-rmsnormed."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}: want one of {BACKENDS}")
+    B, T = seg.shape
+    H, KVH, hs = config.n_heads, config.n_kv_heads, config.head_size
+    ps = k_pool.shape[3]
+    keys = layer_keys(params)
+    stacked = {k for k in keys if isinstance(params[k], QuantTensor)}
+    kv_quant = ks_pool is not None
+    pools = (k_pool, ks_pool, v_pool, vs_pool) if kv_quant else (k_pool, v_pool)
+    x = params["tok_emb"][seg.long()].to(activation_dtype(params))  # (B, T, D)
+    positions = pos.long()[:, None] + torch.arange(T, device=seg.device)  # (B, T)
+    cos, sin = ref.rope_angles(positions, hs)
+    valid = positions < config.seq_len
+    pidx = (positions // ps).clamp(max=table.shape[1] - 1)
+    page_ids = torch.where(valid, table.long().gather(1, pidx), 0)
+    row_ids = torch.where(valid, positions % ps, 0)
+    scale = 1.0 / hs**0.5
+    qd, kd = H * hs, KVH * hs
+    n_pages = table.shape[1]
+    for i in range(config.n_layers):
+        lp = {k: params[k] if k in stacked else params[k][i] for k in keys}
+        quant_idx = i if stacked else None
+        if (
+            backend == "cuda"
+            and quant_idx is not None
+            and isinstance(lp.get("wqkv"), QuantTensor)
+            and lp["wqkv"].q.ndim == 3
+        ):
+            qkv = quant_matmul_stacked(x, lp["wqkv"], i, rms_w=lp["rms_att"], eps=config.norm_eps)
+            q = ref.apply_rope(qkv[..., :qd].reshape(B, T, H, hs), cos, sin)
+            k = ref.apply_rope(qkv[..., qd : qd + kd].reshape(B, T, KVH, hs), cos, sin)
+            v = qkv[..., qd + kd :].reshape(B, T, KVH, hs)
+        else:
+            q, k, v = _qkv(x, lp, cos, sin, config, backend, quant_idx)
+        k_bh, v_bh = k.transpose(1, 2), v.transpose(1, 2)  # (B, KVH, T, hs)
+        if kv_quant:
+            (k8, ksc), (v8, vsc) = quantize_kv_rows(k_bh), quantize_kv_rows(v_bh)
+            for pool, new in zip(pools, (k8, ksc, v8, vsc)):
+                _write_window(pool, new, i, page_ids, row_ids)
+            att = paged_attention_oracle(q, k_pool[i], v_pool[i], table, pos, scale, ks_pool[i],
+                                         vs_pool[i], n_pages=n_pages)
+        else:
+            _write_window(k_pool, k_bh, i, page_ids, row_ids)
+            _write_window(v_pool, v_bh, i, page_ids, row_ids)
+            att = paged_attention_oracle(q, k_pool[i], v_pool[i], table, pos, scale, n_pages=n_pages)
+        x = _wo_ffn(x, att.reshape(B, T, H * hs), lp, config, backend, quant_idx)
+    x = ref.rmsnorm(x, params["rms_final"], config.norm_eps)
+    return (x, *pools)

@@ -79,28 +79,38 @@ def gather_pages(pool: torch.Tensor, table: torch.Tensor, n_pages: int) -> torch
     return g.transpose(1, 2).reshape(B, KVH, n * page, *g.shape[4:])
 
 
-def _pages_read(pos: torch.Tensor, page: int) -> int:
-    """Pages of the table the longest row reads (a host read of ``pos``)."""
-    return int(pos.max()) // page + 1
+def _pages_read(pos: torch.Tensor, page: int, T: int = 1, max_pages: int | None = None) -> int:
+    """Pages of the table the longest row reads: its last query row sits at
+    ``pos + T - 1``, which may lie on the next page (a host read of
+    ``pos``); at most ``max_pages``, the table's width."""
+    n = (int(pos.max()) + T - 1) // page + 1
+    return n if max_pages is None else min(n, max_pages)
 
 
-def paged_attention_oracle(q, k_pool, v_pool, table, pos, scale=None, ks_pool=None, vs_pool=None):
+def paged_attention_oracle(q, k_pool, v_pool, table, pos, scale=None, ks_pool=None, vs_pool=None,
+                           n_pages: int | None = None):
     """Gather each row's pages into a dense cache, then masked attention
-    (``ref.attention``) over keys 0..pos[b]. q (B, H, hs) or (B, 1, H, hs);
-    one layer's pools (P, KVH, page, hs); returns q's shape. With the scale
-    pools (P, KVH, page) of an int8 pool, the gathered rows are dequantized
-    and the attention runs in float32, its output cast to q's dtype (the
-    JAX package dequantizes the layer's pool before this oracle: the same
-    values)."""
+    (``ref.attention``): query row ``t`` of batch row ``b`` attends to keys
+    ``0..pos[b] + t``. q (B, H, hs) for one query row, or a window (B, T, H,
+    hs) at positions ``pos[b]..pos[b] + T - 1``; one layer's pools (P, KVH,
+    page, hs); returns q's shape. The first ``n_pages`` table entries of
+    every row are gathered (pages past a row's keys are masked): by default
+    the pages the longest row's last query row reaches (a host read of
+    ``pos``), capped at the table's width; the table's width gathers what
+    the JAX oracle gathers, and makes the shapes independent of ``pos``.
+    With the scale pools (P, KVH, page) of an int8 pool, the gathered rows
+    are dequantized and the attention runs in float32, its output cast to
+    q's dtype (the JAX package dequantizes the layer's pool before this
+    oracle: the same values); fp rows are read in q's dtype."""
     q4 = q[:, None] if q.ndim == 3 else q
-    n = _pages_read(pos, k_pool.shape[2])
+    n = n_pages if n_pages is not None else _pages_read(pos, k_pool.shape[2], q4.shape[1], table.shape[1])
     k, v = gather_pages(k_pool, table, n), gather_pages(v_pool, table, n)
     if ks_pool is not None:
         k = dequantize_kv(k, gather_pages(ks_pool, table, n))
         v = dequantize_kv(v, gather_pages(vs_pool, table, n))
         out = ref.attention(q4.float(), k, v, pos, scale=scale).to(q.dtype)
     else:
-        out = ref.attention(q4, k, v, pos, scale=scale)
+        out = ref.attention(q4, k.to(q.dtype), v.to(q.dtype), pos, scale=scale)
     return out[:, 0] if q.ndim == 3 else out
 
 

@@ -8,9 +8,18 @@ PyTorch: ``ref.rmsnorm`` cast to x's dtype (``ref.rmsnorm`` returns the
 promoted dtype, float32 for bf16 rows under a float32 weight; the Pallas
 kernel stores into x's dtype). The rounding order is the Pallas kernel's:
 normalize in float32, round to x's dtype, multiply by the weight, round to
-x's dtype. No model path calls it (the model runs ``ref.rmsnorm``, as the
-JAX model runs the XLA one); the kernel benchmarks
-(``llama2_tpu_torch/benchmarks/kernels.py``) do.
+x's dtype.
+
+The kernel has three forms (``csrc/rmsnorm.cu``), chosen by :func:`plan`:
+``regs`` keeps a row and its slice of the weight in registers (a group of
+32-256 threads a row, up to ``VECS`` 16-byte vectors a thread, several short
+rows a block), ``loop`` is one block a row reading the row twice (rows too
+long for the register form), ``scalar`` the loop one element at a time
+(rows whose length or pointers do not allow 16-byte loads). Each launch
+counts in ``rmsnorm.launches`` and in ``launches_<form>``. No model path
+calls it (the model runs ``ref.rmsnorm``, as the JAX model runs the XLA
+one); the kernel benchmarks (``llama2_tpu_torch/benchmarks/kernels.py``)
+do.
 """
 
 from __future__ import annotations
@@ -24,6 +33,33 @@ from llama2_tpu_torch.ops import ref
 from llama2_tpu_torch.ops.cuda import build
 
 _LIB = "rmsnorm"
+FORMS = ("scalar", "loop", "regs")  # the kernel's form codes, in order
+VECS = 8  # 16-byte vectors a thread of the register form holds (kVecs)
+MAX_THREADS = 256  # the largest block of either form (kThreads)
+ELEMS = {torch.float32: 4, torch.bfloat16: 8}  # elements of x in 16 bytes
+
+
+def plan(R: int, D: int, dtype: torch.dtype, aligned: bool, sms: int) -> dict:
+    """How one launch over ``R`` rows of ``D`` elements of ``dtype`` runs:
+    its ``form``, and for the register form the threads a row ``tpr`` (the
+    fewest, a power of two from 32 to 256, that hold the row at ``VECS``
+    vectors a thread: 4 to 8 each above 32) and the rows a block ``rows``
+    (as many as fit 256 threads while the launch still has a block for each
+    of the ``sms`` SMs), and the ``grid``. ``aligned``: x, the weight and the
+    output all sit on 16-byte boundaries."""
+    n = ELEMS[dtype]
+    if D % n or not aligned:
+        return {"form": "scalar", "tpr": 0, "rows": 1, "grid": R}
+    nvec = D // n
+    tpr = 32
+    while tpr * VECS < nvec and tpr < MAX_THREADS:
+        tpr *= 2
+    if tpr * VECS < nvec:
+        return {"form": "loop", "tpr": 0, "rows": 1, "grid": R}
+    rows = MAX_THREADS // tpr
+    while rows > 1 and -(-R // rows) < sms:
+        rows //= 2
+    return {"form": "regs", "tpr": tpr, "rows": rows, "grid": -(-R // rows)}
 
 
 def rmsnorm_plain(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -35,7 +71,7 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.T
     x's shape and dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    count the launch in ``rmsnorm.launches``) or raise.
+    count the launch in ``rmsnorm.launches``, and by form) or raise.
     """
     D = x.shape[-1]
     if tuple(weight.shape) != (D,):
@@ -54,23 +90,35 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.T
     R = x.numel() // D if D else 0
     if R == 0:
         return out
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, weight, out))
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    p = plan(R, D, x.dtype, aligned, _sms(index))
     err = _entry()(
         x.data_ptr(), weight.data_ptr(), out.data_ptr(), build.DTYPE_CODES[x.dtype],
-        build.DTYPE_CODES[weight.dtype], R, D, float(eps),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        build.DTYPE_CODES[weight.dtype], R, D, float(eps), FORMS.index(p["form"]), p["tpr"],
+        p["rows"], torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(err, "rmsnorm")
     rmsnorm.launches += 1
+    name = f"launches_{p['form']}"
+    setattr(rmsnorm, name, getattr(rmsnorm, name) + 1)
     return out
 
 
 rmsnorm.launches = 0
+for _form in FORMS:
+    setattr(rmsnorm, f"launches_{_form}", 0)
+
+
+@functools.cache
+def _sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 @functools.cache
 def _entry():
     fn = build.load_library(_LIB).rmsnorm
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, i, i, i, i, ctypes.c_float, p]
+    fn.argtypes = [p, p, p, i, i, i, i, ctypes.c_float, i, i, i, p]
     fn.restype = i
     return fn

@@ -32,8 +32,19 @@ row by row. So a seeded stream equals the ``Generator``'s at any
 ``ticks_per_sync`` and pipeline depth (nucleus mode; the ``Generator``
 samples ``top_p`` in {0, 1} by the CDF walk).
 
-Not ported: speculative windows (``spec_window``), ``precompile`` (JAX AOT)
-and the mesh (tensor and data parallelism).
+Speculative windows (``spec_window`` = d >= 2): while every active slot is
+greedy, a tick runs ``ticks_per_sync`` windows instead of steps, each one
+(B, d) forward of every slot's last token and d - 1 prompt-lookup drafts
+from its own history (:func:`_spec_drafts`), and commits per slot the target
+prefix its drafts matched (:func:`_spec_commit`), on the device; then ONE
+host read of the packed result, which ``_replay`` applies as a plain tick's.
+The streams equal the plain tick's, slot by slot, up to the rounding of a
+(B, d) forward against a (B, 1) one. A batch with a sampled slot takes the
+plain tick. The dense cache is padded by d rows past ``seq_len`` so a window
+from the last position never runs off it.
+
+Not ported: ``precompile`` (JAX AOT) and the mesh (tensor and data
+parallelism).
 """
 
 from __future__ import annotations
@@ -54,6 +65,57 @@ from llama2_tpu_torch.runtime.generator import prepare_params, resolve_device, u
 BOS = 1
 
 PREFILL_CHUNKS = (128, 32, 8, 1)  # greedy power-of-two-ish decomposition
+
+
+def _spec_drafts(hist, tokens, pos, d: int, S: int) -> torch.Tensor:
+    """Each slot's window input ``[last_token, draft_1..draft_{d-1}]`` (B, d):
+    the d - 1 tokens that followed the latest occurrence of the slot's last
+    token in its own history ``hist`` (B, S), strictly before position
+    ``pos - 1``; where there is none, or the history ends, the token
+    repeated (a wrong draft only costs acceptance). As the JAX engine's
+    ``_spec_drafts``, on the device."""
+    idx = torch.arange(S, device=hist.device)
+    match = (hist == tokens[:, None]) & (idx[None, :] < pos[:, None] - 1)
+    j = torch.where(match, idx, -1).amax(dim=1)  # (B,)
+    at = (j[:, None] + 1 + torch.arange(d - 1, device=hist.device)).clamp(0, S - 1)
+    t = hist.gather(1, at)
+    drafts = torch.where((j[:, None] >= 0) & (t >= 0), t, tokens[:, None])
+    return torch.cat([tokens[:, None], drafts], dim=1)
+
+
+def _spec_commit(seg, targets, hist, tokens, pos, budget, active, d: int, S: int):
+    """Verify a window and commit the accepted prefix of each slot, on the
+    device, as the JAX engine's ``_spec_commit``. ``seg`` is the (B, d)
+    window input, ``targets`` its (B, d) argmaxes: draft i is verified by
+    target i - 1, and the emitted tokens are the target prefix whose drafts
+    matched, cut at BOS, at the slot's ``budget`` and where it is not
+    ``active``. Returns the new ``(hist, tokens, pos, budget, active)`` and
+    ``emitted`` (B, d), -1 where nothing was emitted (BOS itself is emitted,
+    so that the host's replay retires the slot)."""
+    ok = (seg[:, 1:] == targets[:, :-1]).long()
+    acc = 1 + torch.cumprod(ok, dim=1).sum(dim=1)  # (B,)
+    emit_idx = torch.arange(d, device=seg.device)[None, :]
+    is_bos = targets == BOS
+    bos = is_bos.long()
+    before_bos = (torch.cumsum(bos, dim=1) - bos) == 0
+    accepted = emit_idx < acc[:, None]
+    keep = accepted & before_bos & ~is_bos & (emit_idx < budget[:, None]) & active[:, None]
+    n_emit = keep.sum(dim=1)
+    saw_bos = (accepted & is_bos & active[:, None]).any(dim=1)
+    emitted = torch.where(keep, targets, -1)
+    emitted = torch.where((emit_idx == n_emit[:, None]) & saw_bos[:, None], BOS, emitted)
+    hist = hist.clone()
+    slots = torch.arange(hist.shape[0], device=hist.device)
+    for k in range(d):  # in order, as the JAX loop writes
+        at = (pos + k).clamp(0, S - 1).long()
+        hist[slots, at] = torch.where(keep[:, k], targets[:, k], hist[slots, at])
+    last = (n_emit - 1).clamp(0, d - 1)
+    new_tok = targets.gather(1, last[:, None])[:, 0]
+    tokens = torch.where(n_emit > 0, new_tok, tokens)
+    pos = torch.where(active, torch.clamp(pos + n_emit, max=S - 1), pos)
+    budget = budget - n_emit
+    active = active & ~saw_bos & (n_emit == acc) & (budget > 0)
+    return hist, tokens, pos, budget, active, emitted
 
 
 @dataclasses.dataclass
@@ -90,6 +152,8 @@ class BatchEngine:
     ``params``: numpy arrays, tensors or QuantTensors (``prepare_params``),
     moved to ``device`` (``None``: the card; the CPU only when asked) as
     ``dtype``; ``backend`` one of ``torch``, ``cuda``, ``cuda-accurate``.
+    ``spec_window`` >= 2: greedy speculative windows of that many tokens
+    (``ticks_per_sync`` then counts windows); 0 or 1: none.
     """
 
     _DENSE_CACHE = True  # PagedBatchEngine: pools replace the slot planes
@@ -107,6 +171,7 @@ class BatchEngine:
         kv_quant: bool = False,
         max_retries: int = 1,
         pipeline_depth: int = 2,
+        spec_window: int = 0,
     ):
         if backend not in BACKENDS:
             raise ValueError(f"backend {backend!r}: want one of {BACKENDS}")
@@ -124,6 +189,9 @@ class BatchEngine:
         # when a sync costs much against a step (tokens then come in bursts)
         self.ticks_per_sync = max(1, ticks_per_sync)
         self.kv_quant = kv_quant
+        # greedy speculative windows of spec_window tokens, used while every
+        # active slot is greedy; ticks_per_sync then counts windows
+        self.spec_window = spec_window if spec_window >= 2 else 0
         # subclasses with their own KV layout (paged) make no dense cache
         self.cache = self._make_cache() if self._DENSE_CACHE else None
         self.waiting: "queue.Queue[Request]" = queue.Queue()
@@ -153,11 +221,14 @@ class BatchEngine:
         self._thread: threading.Thread | None = None
         self.metrics = {
             "requests": 0, "tokens": 0, "ttft": [], "queue_wait": [],
-            "prefill": [], "preempted": 0,
+            "prefill": [], "preempted": 0, "spec_windows": 0,
         }
 
     def _make_cache(self):
-        return init_cache(self.config, self.batch_size, self.dtype, self.device, self.kv_quant)
+        # padded past seq_len by a window, so that a window from the last
+        # position never runs off the cache onto committed rows
+        return init_cache(self.config, self.batch_size, self.dtype, self.device, self.kv_quant,
+                          pad=self.spec_window)
 
     def _upload(self, a) -> torch.Tensor:
         """A host array as a new device tensor; on the card through pinned
@@ -402,13 +473,63 @@ class BatchEngine:
             [(r.steps - len(r.tokens)) if r is not None else 0 for r in self.slots], np.int32
         )
 
+    def _spec_ready(self) -> bool:
+        """Whether this tick runs speculative windows: every active slot
+        greedy (a sampled one sends the batch through the plain tick)."""
+        active = np.asarray([r is not None for r in self.slots])
+        return bool(self.spec_window and active.any() and self._argmax[active].all())
+
     def _decode_tick(self):
+        if self._spec_ready():
+            # the windows read the slots' histories from the host and cannot
+            # chain on the device: flush the pipeline first (its replays may
+            # retire slots)
+            self._drain(0)
+            if any(self.slots):
+                self._spec_tick()
+            return
         if self._chain is None:
             self._pos_ahead = self._pos.copy()  # a fresh pipeline: the mirrors are current
         self._dispatch_tick(np.asarray([r is not None for r in self.slots]))
         # pipelined sync: up to depth - 1 windows in flight, so the host read
         # overlaps the next window's device work
         self._drain(self.pipeline_depth - 1)
+
+    def _spec_tick(self):
+        """``ticks_per_sync`` speculative windows of every slot on the device,
+        then ONE host read of the packed ``(n_windows * d + 3, B)`` result:
+        the emitted rows, then tokens, pos and active, which ``_replay``
+        applies as it applies a plain tick's."""
+        d, S, B = self.spec_window, self.config.seq_len, self.batch_size
+        active = np.asarray([r is not None for r in self.slots])
+        hist = np.full((B, S), -1, np.int64)
+        for slot, req in enumerate(self.slots):
+            if req is not None:
+                hist[slot, : len(req.tokens)] = req.tokens[:S]
+        hist = self._upload(hist)
+        tokens = self._upload(self._tokens.astype(np.int64))
+        pos = self._upload(self._pos.astype(np.int64))
+        budget = self._upload(self._host_budget().astype(np.int64))
+        live = self._upload(active)
+        emitted = []
+        for w in range(self.ticks_per_sync):
+            seg = _spec_drafts(hist, tokens, pos, d, S)  # (B, d)
+            hidden = self._spec_forward(seg, pos, w)
+            targets = sampling.sample_argmax(logits_from_hidden(self.params, hidden, self.backend))
+            hist, tokens, pos, budget, live, em = _spec_commit(
+                seg, targets.to(seg.dtype), hist, tokens, pos, budget, live, d, S
+            )
+            emitted.append(em.T)  # (d, B)
+        self.metrics["spec_windows"] += self.ticks_per_sync
+        packed = torch.cat([*emitted, tokens[None], pos[None], live.long()[None]])
+        self._replay(packed.cpu().numpy())
+        self._pos_ahead = self._pos.copy()
+
+    def _spec_forward(self, seg, pos, w: int) -> torch.Tensor:
+        """Window ``w`` of a speculative tick: the (B, d, D) hidden states of
+        every slot's window ``seg`` at its positions ``pos`` (the paged engine
+        runs its own)."""
+        return forward(self.params, self.cache, seg, pos, self.config, self.backend)
 
     def _decode_step(self, tokens, pos, i: int) -> torch.Tensor:
         """Step ``i`` of a window: the (B, 1, D) hidden states of one decode

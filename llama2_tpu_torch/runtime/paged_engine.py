@@ -25,7 +25,13 @@ as the JAX package's), which is why paged int8 streams may differ from dense
 int8 ones. A prefix hit dequantizes the cached pages back into the plane, so
 the suffix attends to the values decode reads.
 
-Not ported: speculative windows and the mesh (``dp`` pools).
+Speculative windows (``spec_window``) run as the dense engine's, over the
+pools (``models/paged.py::paged_forward_window``): the tick flushes the
+pipeline, backs every slot's table for ``ticks_per_sync * spec_window``
+positions ahead (which may preempt, as a plain tick's growth), and the
+window computes its write coordinates from the table on the device.
+
+Not ported: the mesh (``dp`` pools).
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ import numpy as np
 import torch
 
 from llama2_tpu_torch.models.llama import init_cache
-from llama2_tpu_torch.models.paged import paged_forward_step
+from llama2_tpu_torch.models.paged import paged_forward_step, paged_forward_window
 from llama2_tpu_torch.ops.cuda.attention_q8 import dequantize_kv, quantize_kv_rows
 from llama2_tpu_torch.runtime.batch_engine import BatchEngine, Request
 from llama2_tpu_torch.runtime.paged_cache import OutOfPages, PagePool, PrefixCache, _bucket, write_pages
@@ -71,6 +77,7 @@ class PagedBatchEngine(BatchEngine):
         # admitted prompt (powers of two, at least 128 rows)
         self._staging = None
         self._coords = None  # the dispatched window's (table, page_ids, row_ids)
+        self._spec_table = None  # a speculative tick's table
 
     def _make_pool(self, n_pages: int) -> PagePool:
         return PagePool.create(self.config, n_pages, self.page_size, self.dtype, self.device,
@@ -308,6 +315,20 @@ class PagedBatchEngine(BatchEngine):
             self._finish(slot_req=req, slot=slot)
 
     def _decode_tick(self):
+        if self._spec_ready():
+            # flush first (the windows read the host's histories and
+            # cannot chain), then back every slot's table for the whole
+            # span of the tick's windows: a window's advance depends on the
+            # data, so the device computes its write coordinates from the
+            # table and the host only makes sure the pages exist. The growth
+            # may preempt: the spec tick reads the slots after it.
+            self._drain(0)
+            self._pos_ahead = self._pos.copy()
+            if any(self.slots):
+                self._grow_tables(self.ticks_per_sync * self.spec_window)
+            if any(self.slots):
+                self._spec_tick()
+            return
         K = self.ticks_per_sync
         if self._chain is None:
             self._pos_ahead = self._pos.copy()  # a fresh pipeline: the mirrors are current
@@ -337,6 +358,14 @@ class PagedBatchEngine(BatchEngine):
             self.config, self.backend, self.pool.ks, self.pool.vs,
         )
         return out[0]
+
+    def _spec_forward(self, seg, pos, w: int) -> torch.Tensor:
+        if w == 0:
+            self._spec_table = self._upload(self._tables)  # the tick's tables, grown for all its windows
+        return paged_forward_window(
+            self.params, self.pool.k, self.pool.v, self._spec_table, seg, pos, self.config,
+            self.backend, self.pool.ks, self.pool.vs,
+        )[0]
 
     def _on_retire(self, slot: int) -> None:
         self._release_slot(slot)

@@ -16,16 +16,18 @@ Run:  python -m llama2_tpu_torch.runtime.server <checkpoint> \\
           [--quant int8] [--dtype f32|bf16] [--platform cpu|gpu]
           [--paged [--page-size 256] [--pages N] [--prefix-cache]]
           [--ticks-per-sync K] [--pipeline-depth P] [--kv-cache f32|int8]
-          [--kernels cuda|cuda-accurate|torch]
+          [--kernels cuda|cuda-accurate|torch] [--spec N]
 
 ``--paged`` switches the KV cache to page pools (runtime/paged_engine.py):
 memory scales with the tokens in flight instead of batch_size * seq_len.
 ``--prefix-cache`` shares the full pages of prompt prefixes across requests,
 so a repeated system prompt prefills only its suffix. ``--port 0`` takes a
-free port (the address is printed). The engines run on the card
+free port (the address is printed). ``--spec N`` (0, or 2 to 64) runs
+greedy speculative windows of N tokens whenever every active request is
+greedy (``ticks_per_sync`` then counts windows). The engines run on the card
 (``--platform gpu``, the default; exit 1 without one) unless ``--platform
-cpu`` is given. ``--spec``, ``--mesh``, ``--collective-matmul`` and
-``--precompile`` are not yet ported and exit 1.
+cpu`` is given. ``--mesh``, ``--collective-matmul`` and ``--precompile`` are
+not yet ported and exit 1.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from llama2_tpu_torch.config import GenerationConfig
 
-_UNPORTED = ("--spec", "--mesh", "--collective-matmul", "--precompile")
+_UNPORTED = ("--mesh", "--collective-matmul", "--precompile")
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -171,7 +173,7 @@ def main(argv=None):
         "path": None, "tok_path": "tokenizer.bin", "port": 8000, "host": "127.0.0.1", "batch": 8,
         "quant": "none", "dtype": "f32", "platform": "gpu", "paged": False, "page_size": 256,
         "n_pages": None, "prefix_cache": False, "ticks": 1, "pipeline_depth": 2,
-        "kv_cache": "f32", "kernels": "cuda",
+        "kv_cache": "f32", "kernels": "cuda", "spec": 0,
     }
     valued = {
         "-z": ("tok_path", str), "--port": ("port", int), "--host": ("host", str),
@@ -179,6 +181,7 @@ def main(argv=None):
         "--platform": ("platform", str), "--ticks-per-sync": ("ticks", int),
         "--pipeline-depth": ("pipeline_depth", int), "--kv-cache": ("kv_cache", str),
         "--kernels": ("kernels", str), "--page-size": ("page_size", int), "--pages": ("n_pages", int),
+        "--spec": ("spec", int),
     }
     choices = {
         "quant": ("none", "int8"), "dtype": ("f32", "bf16"), "platform": ("cpu", "gpu"),
@@ -200,6 +203,8 @@ def main(argv=None):
                 return _die(f"{a}: bad value {argv[i]!r}")
             if key in choices and opts[key] not in choices[key]:
                 return _die(f"{a} must be one of {', '.join(choices[key])}")
+            if key == "spec" and not (opts["spec"] == 0 or 2 <= opts["spec"] <= 64):
+                return _die("--spec must be 0 or 2..64")
         elif a == "--paged":
             opts["paged"] = True
         elif a == "--prefix-cache":
@@ -239,6 +244,7 @@ def main(argv=None):
         ticks_per_sync=opts["ticks"],
         pipeline_depth=opts["pipeline_depth"],
         kv_quant=opts["kv_cache"] == "int8",
+        spec_window=opts["spec"],
     )
     if opts["paged"]:
         from llama2_tpu_torch.runtime.paged_engine import PagedBatchEngine

@@ -2,8 +2,8 @@
 port's own single stream.
 
 The contracts of ``tests/test_batch_engine.py`` that involve neither
-speculative windows nor ``precompile`` nor the JAX key layout, on the tiny
-checkpoint, on the CPU (``device="cpu"``; ``backend="torch"``, and
+``precompile`` nor the JAX key layout (speculative windows:
+``tests/test_torch_spec_engine.py``), on the tiny checkpoint, on the CPU (``device="cpu"``; ``backend="torch"``, and
 ``"cuda"``, whose wrappers run their plain versions on CPU tensors):
 
 * greedy streams equal the port ``Generator``'s, batched, reused slots, at

@@ -922,11 +922,13 @@ def test_read_only_decode_kernels_match_plain_on_card(cuda_device, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_and_swiglu_kernels_match_plain_on_card(cuda_device, dtype):
     """K19 and K20 against their plain versions at the JAX tests' ragged
-    widths (288, 64, 172; 768, 64, 172; no 16-byte vectors for some) and the
-    benchmark widths, the output in the rows' dtype. K19 in bf16 is held to
+    widths (288, 64, 172; 768, 64, 172; no 16-byte vectors for some), the
+    benchmark widths and K19's tier edges, each launch in the form its plan
+    names, the output in the rows' dtype. K19 in bf16 is held to
     two last-bit steps (it rounds twice, and its float32 sum of squares is
     taken in another order than the plain version's); the rest to the
     kernels' usual tolerance."""
+    from llama2_tpu_torch.ops.cuda.rmsnorm import plan as rms_plan
     from llama2_tpu_torch.ops.cuda.rmsnorm import rmsnorm, rmsnorm_plain
     from llama2_tpu_torch.ops.cuda.swiglu import swiglu, swiglu_plain
 
@@ -938,12 +940,20 @@ def test_rmsnorm_and_swiglu_kernels_match_plain_on_card(cuda_device, dtype):
     def randn(*shape, dt=dtype):
         return torch.randn(shape, generator=g, device=cuda_device).to(dt)
 
-    for shape in ((1, 1, 288), (2, 7, 64), (1, 300, 172), (256, 4096), (3, 8192)):
+    # the register form's tier edges (rmsnorm.plan: 32-256 threads a row, 8
+    # vectors a thread): a full tier and one vector past it in each dtype, a
+    # row too long for any tier (the loop form), a ragged one (scalar)
+    edges = ((3, 1024), (1, 1028), (1, 4096), (3, 4100), (1, 8196), (3, 2048), (1, 2056),
+             (3, 16384), (1, 16392), (3, 4098))
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for shape in ((1, 1, 288), (2, 7, 64), (1, 300, 172), (256, 4096), (3, 8192)) + edges:
         x = randn(*shape)
+        form = "launches_" + rms_plan(x.numel() // shape[-1], shape[-1], dtype, True, sms)["form"]
         for w in (1 + 0.1 * randn(shape[-1]), 1 + 0.1 * randn(shape[-1], dt=torch.float32)):
-            n0 = rmsnorm.launches
+            n0, n_form = rmsnorm.launches, getattr(rmsnorm, form)
             got = rmsnorm(x, w)
             assert rmsnorm.launches == n0 + 1 and got.dtype == dtype and got.shape == x.shape
+            assert getattr(rmsnorm, form) == n_form + 1, f"K19 {shape}: not the {form} form"
             _assert_close(got, rmsnorm_plain(x, w), norm_tol, f"K19 {shape} w {w.dtype}")
     for shape in ((1, 1, 768), (2, 7, 64), (1, 300, 172), (3, 11008), (5,)):
         h1, h3 = randn(*shape), randn(*shape)
@@ -954,7 +964,9 @@ def test_rmsnorm_and_swiglu_kernels_match_plain_on_card(cuda_device, dtype):
     # views one element in: no 16-byte alignment, the scalar paths
     x = randn(2 * 4096 + 1)[1:].view(2, 4096)
     w = 1 + 0.1 * randn(4096)
+    n_scalar = rmsnorm.launches_scalar
     _assert_close(rmsnorm(x, w), rmsnorm_plain(x, w), norm_tol, "K19 unaligned")
+    assert rmsnorm.launches_scalar == n_scalar + 1
     h = randn(4097)[1:]
     _assert_close(swiglu(h, h), swiglu_plain(h, h), tol, "K20 unaligned")
     with pytest.raises(ValueError):

@@ -84,3 +84,30 @@ def test_wrappers_refuse_mismatched_operands():
         rmsnorm(torch.zeros(2, 8), torch.zeros(7))
     with pytest.raises(ValueError):
         swiglu(torch.zeros(2, 8), torch.zeros(2, 7))
+
+
+@pytest.mark.parametrize("R,D,dtype,aligned,want", [
+    (256, 4096, torch.float32, True, ("regs", 128, 1)),  # 1024 vectors: 128 threads x 8
+    (1024, 8192, torch.float32, True, ("regs", 256, 1)),  # the largest tier, full
+    (1, 8196, torch.float32, True, ("loop", 0, 1)),  # one vector past every tier
+    (256, 1024, torch.float32, True, ("regs", 32, 1)),  # a warp a row, full
+    (256, 1028, torch.float32, True, ("regs", 64, 1)),  # one vector past it
+    (256, 4096, torch.bfloat16, True, ("regs", 64, 1)),  # 8 elements a vector
+    (3, 16392, torch.bfloat16, True, ("loop", 0, 1)),
+    (4096, 288, torch.float32, True, ("regs", 32, 8)),  # short rows, eight a block
+    (300, 172, torch.float32, True, ("regs", 32, 2)),  # as many a block as keep a block an SM
+    (3, 4098, torch.float32, True, ("scalar", 0, 1)),  # ragged
+    (2, 4096, torch.float32, False, ("scalar", 0, 1)),  # an unaligned view
+])
+def test_rmsnorm_plan(R, D, dtype, aligned, want):
+    """K19's form by row length, dtype and alignment: the register form at
+    the fewest threads a row (32-256, 8 vectors a thread) and as many rows a
+    block as leave a block for each of 132 SMs; the loop form past the
+    tiers; the scalar form for ragged or unaligned rows."""
+    from llama2_tpu_torch.ops.cuda.rmsnorm import plan
+
+    p = plan(R, D, dtype, aligned, 132)
+    assert (p["form"], p["tpr"], p["rows"]) == want
+    assert p["grid"] == -(-R // p["rows"])
+    if p["form"] == "regs":
+        assert p["tpr"] * p["rows"] <= 256 and D // (16 // dtype.itemsize) <= 8 * p["tpr"]

@@ -2,7 +2,8 @@
 dense engine, the single stream and the JAX paged engine; page accounting
 under reuse; behaviour under memory pressure; the prefix cache.
 
-The non-speculative contracts of ``tests/test_paged_engine.py`` (and the
+The non-speculative contracts of ``tests/test_paged_engine.py`` (the
+speculative ones are in ``tests/test_torch_spec_engine.py``; and the
 engine-level ones of ``tests/test_paged.py``), on the tiny checkpoint and the
 CPU (``device="cpu"``; the ``cuda`` backend's wrappers run their plain
 versions on CPU tensors), plus:

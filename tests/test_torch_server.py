@@ -6,8 +6,8 @@ bad parameters, an unknown codepoint (400), metrics (with the prefix cache's
 counters on a paged engine), 404; greedy text equal to the port
 ``Generator``'s. The entry point itself (``python -m
 llama2_tpu_torch.runtime.server ... --platform cpu --port 0``) serves a
-request in a subprocess; unported flags and ``--platform gpu`` without a card
-exit 1.
+request in a subprocess, also with ``--spec 4``; unported flags, bad values
+(``--spec 1``) and ``--platform gpu`` without a card exit 1.
 """
 
 import json
@@ -169,7 +169,7 @@ def test_404(server):
     assert code == 404
 
 
-@pytest.mark.parametrize("flag", [["--spec", "4"], ["--mesh", "2x4"], ["--collective-matmul"],
+@pytest.mark.parametrize("flag", [["--spec", "1"], ["--mesh", "2x4"], ["--collective-matmul"],
                                   ["--precompile", "16"], ["--kernels", "pallas"],
                                   ["--prefix-cache"], ["--bogus"]])
 def test_unported_and_bad_flags_exit_1(tiny_checkpoint, capsys, flag):
@@ -177,6 +177,31 @@ def test_unported_and_bad_flags_exit_1(tiny_checkpoint, capsys, flag):
     assert srv.main([path, "--platform", "cpu", *flag]) == 1
     err = capsys.readouterr().err
     assert flag[0] in err or "--prefix-cache requires --paged" in err
+
+
+def test_entry_point_serves_with_spec_on_the_cpu(tiny_checkpoint):
+    """``--spec 4`` on the dense engine: the greedy answer equals the
+    Generator's tokens (the windows emit the plain greedy stream)."""
+    path, _, _ = tiny_checkpoint
+    cmd = [sys.executable, "-m", "llama2_tpu_torch.runtime.server", path, "-z", TOKENIZER_BIN,
+           "--platform", "cpu", "--port", "0", "--spec", "4", "--ticks-per-sync", "2",
+           "--kernels", "torch", "--batch-size", "2"]
+    proc = subprocess.Popen(cmd, cwd=REPO, stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stderr.readline()
+        m = re.search(r"http://[\d.]+:\d+", line)
+        assert m, line
+        code, body = _post(m.group(0) + "/generate", {"prompt": "a b", "temperature": 0.0, "steps": 21})
+        assert code == 200, body
+        config, params, _ = load_checkpoint(path)
+        tok = Tokenizer.from_file(TOKENIZER_BIN, config.vocab_size)
+        want = Generator(config, params, backend="torch", device="cpu").generate(
+            tok.encode("a b"), GenerationConfig(temperature=0.0, steps=21)).tokens
+        assert body["tokens"] == want
+    finally:
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(timeout=60) == 0
+        proc.stderr.close()
 
 
 def test_gpu_platform_without_a_card_exits_1(tiny_checkpoint, capsys):
