@@ -38,10 +38,11 @@ non-zero:
    name a NaN page, K19 and K20 at the benchmark's and ragged widths, and K3
    and K14 (read only on the split form) at K2/K4's split checks at a given
    scale, K14 also at 3 and 8 splits, the caches and pools unchanged;
-3. the served path, this slice's main path: ``PagedBatchEngine`` at full
-   Llama-2-7B width and 32 layers, INT8 weights, bf16 activations,
+3. the served path, slice 5's main path: ``PagedBatchEngine`` at full
+   Llama-2-7B width, INT8 weights, bf16 activations,
    ``backend="cuda"``, 8 slots, 256-row pages, the prefix cache, serving 16
-   requests over a bf16 and over an int8 page pool, with the launches of
+   requests over a bf16 page pool at 32 layers and over an int8 one at 8,
+   with the launches of
    every decode tick asserted (K6 1, K17 or K18 32, K12 31, K11 1, K5 1)
    and every admission prefill's K1 through its tensor-core variant (bf16's
    and, on ``cuda-accurate``, fp32's), every K12 and K11 of a tick (and K13
@@ -52,9 +53,9 @@ non-zero:
    the dense ``BatchEngine`` on the same requests for its memory;
    ``cuda-accurate`` in fp32 at 8 layers over both pools (K15, K16);
    engine-level speculation (``spec_window=4``) on the 12 greedy requests
-   through the paged engine over a bf16 pool and the dense engine over the
-   int8 cache, 32 layers, every window's launches asserted (K6 and K5 on the
-   M > 8 tile, K11 on the paged window; no decode attention kernel), the
+   through the paged engine over a bf16 pool (32 layers) and the dense
+   engine over the int8 cache (8 layers), every window's launches asserted
+   (K6 and K5 on the M > 8 tile; no decode attention kernel), the
    streams held to the same engine's plain tick by the speculative margin
    rule, served and decode tok/s, tokens and wall / device ms a window
    beside the plain tick's (``phase_serve_spec``). Then
@@ -66,8 +67,9 @@ non-zero:
    main path: one whole-layer launch a layer), each also with speculative
    decoding (4-token verify windows), and over the int8 cache with the
    whole-layer kernel switched off (K9 + K12), each profiled at positions
-   0-16 and 4080-4095; ``cuda-accurate`` in fp32 over the fp cache, with
-   speculative decoding. Over 8 layers the int8 cache's other routes
+   0-16 and 4080-4095. Over 8 layers: ``cuda-accurate`` in fp32 over the
+   fp cache, with speculative decoding (its 32-layer prefill chunk runs in
+   the perplexity phase); the int8 cache's other routes
    (``cuda-accurate`` in fp32 with K8, with speculative decoding; bf16
    weights with K8), fp32 activations on the 2-launch route and the composed
    dequant-matmul route (the ``w13`` layout); a 2-layer model whose ``wo``
@@ -85,13 +87,26 @@ non-zero:
    7B width with 2 layers, written from a seed, as it is and with
    ``--quant int8``, on the ak42 INT8 file converted from it, on the
    param-cache directory that ``--save-cache`` writes from that, and on the
-   INT8 file with ``--kv-cache int8`` with and without ``--spec 4``, each
-   against ``Generator.generate`` in this process; and the HTTP server
+   INT8 file with ``--kv-cache int8 --spec 4``, against
+   ``Generator.generate`` in this process; and the HTTP server
    (``python -m llama2_tpu_torch.runtime.server ... --quant int8 --paged``)
    as a subprocess, its greedy answers equal to an in-process paged engine's
    with its settings and held to ``Generator.generate`` by the margin rule
    (``hold_server_streams``), and the server with ``--spec 4``, its greedy
    answers equal to an in-process speculative paged engine's;
+   then this slice's path, the tools and the host surface: the INT8
+   perplexity gate (``tools/perplexity.py`` at 7B width and 32 layers on a
+   512-token seeded corpus, chunk 256, the classifier K5 on its M > 8 tile
+   at M = 256: ``cuda-accurate`` against the plain path, bf16 ``cuda``
+   against fp32 by the bf16 rule, Q8 against the fp32 weights it came from
+   at the JAX gate's fixture and at 7B; ``phase_perplexity``); a Hugging Face
+   directory at 7B width and 2 layers written here (bf16 safetensors, two
+   shards) imported by ``tools/import_hf.py`` to a ``.bin`` and an INT8
+   param cache, the params exact, the CLI on both printing the same bytes,
+   and with ``--profile`` the same bytes and a trace holding K13's and K5's
+   events at their launch counts; the C++ tokenizer against the Python one;
+   the server's ``--precompile`` cold start from an empty ``build/``
+   (``phase_tools``);
 5. kernel timing at the main paths' shapes with CUDA events, the calls
    queued behind a device sleep so that the host's launch rate does not set
    the time, beside the bound, the plain version and a library yardstick
@@ -113,7 +128,9 @@ non-zero:
    peak, every kernel it runs launched (its own counts, from 0).
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
-``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py --dense-timing``
+``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py --tools`` builds
+the kernels and runs only this slice's phases (``phase_perplexity``,
+``phase_tools``); ``--dense-timing``
 builds the kernels and times only the dense decode attention kernels,
 ``--prefill-timing`` only the prefill segment's K1, K5 and K6,
 ``--decode-timing`` only single-stream decode on the two-launch route at
@@ -2682,9 +2699,10 @@ def phase_serve_timing() -> None:
     tick_profiles(config, params, kw, dn)
 
 
-def phase_serve(kv_quant: bool) -> dict:
-    """This slice's main path: ``PagedBatchEngine`` at full Llama-2-7B width,
-    32 layers, INT8 weights, bf16 activations, backend ``cuda``, 8 slots,
+def phase_serve(kv_quant: bool, n_layers: int = 32) -> dict:
+    """Slice 5's main path: ``PagedBatchEngine`` at full Llama-2-7B width,
+    ``n_layers`` layers (32; 8 over the int8 pool, to make room in the
+    script's time), INT8 weights, bf16 activations, backend ``cuda``, 8 slots,
     256-row pages, the prefix cache on, over a bf16 or an int8 pool, serving
     serve_workload(). Three runs on fresh engines (the prefix cache starts
     empty each time): timed, at pipeline depth 2; at depth 1 with every
@@ -2703,7 +2721,7 @@ def phase_serve(kv_quant: bool) -> dict:
     from llama2_tpu_torch.runtime.batch_engine import BatchEngine
     from llama2_tpu_torch.runtime.paged_engine import PagedBatchEngine
 
-    config = config_7b(32)
+    config = config_7b(n_layers)
     L = config.n_layers
     dn = f"q8/bf16/cuda/paged-{'int8' if kv_quant else 'bf16'}-pool/{L}L"
     t0 = time.perf_counter()
@@ -2718,6 +2736,7 @@ def phase_serve(kv_quant: bool) -> dict:
         return eng
 
     reqs = serve_workload()
+    mark = stopwatch(f"phase_serve/{dn}")
     eng = engine()
     params = eng.params  # fused once; the later engines take the same tensors
     # warm-up: kernels loaded, workspaces and the allocator's pools grown
@@ -2753,6 +2772,7 @@ def phase_serve(kv_quant: bool) -> dict:
         pool_GiB=f"{pool_bytes / 2**30:.2f}", peak_mem_GiB=f"{timed['peak'] / 2**30:.2f}")
     eng = None
     torch.cuda.empty_cache()
+    mark("warm_and_timed")
 
     logged = served_run(engine(pipeline_depth=1), reqs, log=True)
     torch.cuda.empty_cache()
@@ -2761,10 +2781,13 @@ def phase_serve(kv_quant: bool) -> dict:
     if not logged["tokens"] == timed["tokens"] == again["tokens"]:
         raise AssertionError(f"{dn}: a rerun, or pipeline depth 1, gave other tokens")
     say("serve", path=dn, rerun="tokens_equal", pipeline_depth_1_vs_2="tokens_equal")
+    mark("logged_and_rerun")
     check_served_tokens(params, config, reqs, logged, kv_quant, torch.bfloat16, dn, "margin")
     logged = again = None
+    mark("plain_replays")
 
     tick_profiles(config, params, kw, dn)
+    mark("tick_profiles")
 
     # the dense engine on the same requests: 8 slots of seq_len rows
     dense = BatchEngine(config, params, **kw)
@@ -2778,6 +2801,7 @@ def phase_serve(kv_quant: bool) -> dict:
         served_tok_s=f"{n_tok / run['wall_s']:.2f}", cache_GiB=f"{cache_bytes / 2**30:.2f}",
         peak_mem_GiB=f"{run['peak'] / 2**30:.2f}", paged_peak_mem_GiB=f"{timed['peak'] / 2**30:.2f}",
         tokens_equal_to_paged=f"{same}/{sum(len(t) for t in timed['tokens'])}")
+    mark("dense_engine")
     dense = None
     params = None
     torch.cuda.empty_cache()
@@ -2785,7 +2809,8 @@ def phase_serve(kv_quant: bool) -> dict:
 
 
 SPEC_WINDOW = 4  # the served speculative windows' tokens (the server's --spec 4)
-SPEC_CHECK_EVERY = 8  # the 32-layer legs hold one window in eight to its plain forwards, the 8-layer legs all
+SPEC_CHECK_EVERY = 32  # the 32-layer leg holds one window in 32 to its plain forwards, the 8-layer legs all
+SPEC_PROFILED = 3  # windows (and plain ticks) a leg profiles: tracing a window costs seconds
 # launches per speculative window (ticks_per_sync 1: a tick is one window) at
 # L layers, 8 slots x 4 tokens = 32 rows, by backend; a kernel not named
 # launches 0 times. ``cuda``: the segment's five K6 a layer (the paged
@@ -2921,25 +2946,25 @@ def window_checker(config, params, dtype, backend: str, every: int):
 
 
 def phase_serve_spec() -> None:
-    """Engine-level speculation on the served path: Llama-2-7B widths, 32
-    layers, INT8 weights, bf16, ``cuda``, 8 slots, ``spec_window=4``,
+    """Engine-level speculation on the served path: Llama-2-7B widths, INT8
+    weights, bf16, ``cuda``, 8 slots, ``spec_window=4``,
     ``ticks_per_sync=1``, serving the greedy requests of serve_workload()
     through ``PagedBatchEngine`` over a bf16 pool (256-row pages, the
-    prefix cache) and through the dense ``BatchEngine`` over the int8
-    cache; then the paged engine in fp32 at 8 layers on ``cuda`` (fast
+    prefix cache; 32 layers) and through the dense ``BatchEngine`` over the
+    int8 cache (8 layers); then the paged engine in fp32 at 8 layers on ``cuda`` (fast
     mode: the bf16 legs' kernels) and on ``cuda-accurate``. Per leg: a
     logged speculative run with every window's launches asserted
     (SPEC_WINDOWS: no decode attention kernel and no megakernel in a window)
     and every row of its windows (one in SPEC_CHECK_EVERY on the 32-layer
-    legs) held to plain forwards of the same window (``window_checker``);
+    leg) held to plain forwards of the same window (``window_checker``);
     a logged run of the same engine without speculation (pipeline depth
     1), the streams held to each other by ``hold_spec_streams`` (on
     ``cuda-accurate`` the windows' logits within twice F32_LOGIT_ATOL of the
     ticks'). On the bf16 legs, printed beside the plain run's: served and
     decode tok/s, tokens a window and a slot-window, wall ms a window, and
-    the wall and device ms of 8 windows (and, for the dense engine, of 8
-    plain ticks; the paged one's are phase_serve's) of 8 slots seated on
-    16-token prompts (profiled)."""
+    the wall and device ms of SPEC_PROFILED windows (and, for the dense
+    engine, of as many plain ticks; the paged one's are phase_serve's) of 8
+    slots seated on 16-token prompts (profiled)."""
     import torch
 
     from llama2_tpu_torch.config import GenerationConfig
@@ -2949,7 +2974,8 @@ def phase_serve_spec() -> None:
 
     t0 = time.perf_counter()
     reqs = [r for i, r in enumerate(serve_workload()) if i not in SAMPLED]
-    legs = (("paged", 32, torch.bfloat16, "cuda"), ("dense", 32, torch.bfloat16, "cuda"),
+    # the dense int8-cache leg at 8 layers: room for slice 16's phases in the script's time
+    legs = (("paged", 32, torch.bfloat16, "cuda"), ("dense", 8, torch.bfloat16, "cuda"),
             ("paged", 8, torch.float32, "cuda"), ("paged", 8, torch.float32, "cuda-accurate"))
     params, built = None, None
     for kind, L, dtype, backend in legs:
@@ -2968,10 +2994,12 @@ def phase_serve_spec() -> None:
 
         pool = "int8-cache" if kind == "dense" else f"{dtype_name(dtype)}-pool"
         dn = f"q8/{dtype_name(dtype)}/{backend}/{kind}-{pool}/{L}L/spec{SPEC_WINDOW}"
+        mark = stopwatch(f"phase_serve_spec/{dn}")
         eng = engine(spec_window=SPEC_WINDOW)
         params = eng.params  # fused once; the later engines take the same tensors
         check, verdict = window_checker(config, params, dtype, backend, SPEC_CHECK_EVERY if L == 32 else 1)
         spec = served_run(eng, reqs, log=True, check=check)
+        mark("params_and_spec_run")
         emitted = eng.metrics["tokens"]
         eng = None
         torch.cuda.empty_cache()
@@ -2987,6 +3015,7 @@ def phase_serve_spec() -> None:
         plain_emitted = eng.metrics["tokens"]
         eng = None
         torch.cuda.empty_cache()
+        mark("plain_run")
         held = hold_spec_streams(reqs, spec, plain, dn)
         if backend == "cuda-accurate" and float(held["logit_max_abs_diff_window_vs_tick"]) > 2 * F32_LOGIT_ATOL:
             raise AssertionError(f"{dn}: windows {held['logit_max_abs_diff_window_vs_tick']} from the ticks, "
@@ -3017,10 +3046,12 @@ def phase_serve_spec() -> None:
                 eng.submit(p[:16], GenerationConfig(temperature=0.0, steps=16 + 40))
             eng._admit()
             profile_ticks(eng, dn if window else dn.replace(f"/spec{SPEC_WINDOW}", "/plain"),
-                          "pos_17_on_8_windows" if window else "pos_17_on_8_ticks", n=8)
+                          f"pos_17_on_{SPEC_PROFILED}_windows" if window else f"pos_17_on_{SPEC_PROFILED}_ticks",
+                          n=SPEC_PROFILED)
             eng._fail_all(RuntimeError("profile done"))
             eng = None
             torch.cuda.empty_cache()
+            mark(f"profile_{'spec' if window else 'plain'}")
         say("serve-spec", path=dn, leg_seconds=f"{time.perf_counter() - t_leg:.1f}")
     params = None
     torch.cuda.empty_cache()
@@ -3096,7 +3127,7 @@ def run_cli(path: str, *extra: str) -> tuple[bytes, str]:
     return r.stdout, err
 
 
-def generate_bytes(path: str, spec: int) -> bytes:
+def generate_bytes(path: str, spec: int, counts: dict | None = None) -> bytes:
     """What the CLI prints for ``path`` with ``--kernels cuda --dtype bf16
     --kv-cache int8 [--spec spec] -t 0 -n 64``, through ``Generator.generate``
     in this process. The prompt is at most 16 tokens, so its prefill chunk
@@ -3118,6 +3149,8 @@ def generate_bytes(path: str, spec: int) -> bytes:
     for w in wrappers.values():
         w.launches = 0
     res = g.generate(prompt, GenerationConfig(temperature=0.0, steps=64))
+    if counts is not None:  # the run's launches, by kernel
+        counts.update({k: w.launches for k, w in wrappers.items()})
     k7, k13 = wrappers["K7"].launches, wrappers["K13"].launches
     if len(prompt) + 1 > 16 or k7 < config.n_layers or (not spec and k13 < config.n_layers):
         raise AssertionError(f"prompt of {len(prompt)} tokens: K7 {k7}, K13 {k13} launches")
@@ -3204,20 +3237,21 @@ def hold_server_streams(path: str, results: dict) -> dict:
 SERVER_ARGS = ("--quant", "int8", "--paged", "--kernels", "cuda", "--dtype", "f32", "--port", "0")
 
 
-def run_server(path: str, extra: tuple, bodies: list) -> dict:
-    """``python -m llama2_tpu_torch.runtime.server <path> SERVER_ARGS
-    extra`` as a subprocess: POST ``bodies`` to /generate, all at once,
-    read /health and /metrics, stop it with
-    SIGINT. Returns the answers by index, the two reads, its start-up
-    seconds and its exit code; the process is gone on return."""
+def run_server(path: str, extra: tuple, bodies: list, args: tuple = SERVER_ARGS, cwd: str = REPO,
+               on_ready=None) -> dict:
+    """``python -m llama2_tpu_torch.runtime.server <path> args extra`` as a
+    subprocess from ``cwd`` (the package it imports): once it serves, call
+    ``on_ready()``, POST ``bodies`` to /generate, all at once, read /health
+    and /metrics, stop it with SIGINT. Returns the answers by index, the two
+    reads, its start-up seconds and lines, and its exit code; the process is
+    gone on return."""
     import signal
     import threading
     import urllib.request
 
-    cmd = [sys.executable, "-m", "llama2_tpu_torch.runtime.server", path, "-z", TOKENIZER_BIN,
-           *SERVER_ARGS, *extra]
+    cmd = [sys.executable, "-m", "llama2_tpu_torch.runtime.server", path, "-z", TOKENIZER_BIN, *args, *extra]
     t0 = time.perf_counter()
-    proc = subprocess.Popen(cmd, cwd=REPO, stderr=subprocess.PIPE, text=True)
+    proc = subprocess.Popen(cmd, cwd=cwd, stderr=subprocess.PIPE, text=True)
     killer = threading.Timer(600, proc.kill)  # a server that never comes up is killed
     killer.start()
     try:
@@ -3230,6 +3264,8 @@ def run_server(path: str, extra: tuple, bodies: list) -> dict:
         if url is None:
             raise AssertionError("the server printed no address:\n" + "".join(lines))
         up_s = time.perf_counter() - t0
+        if on_ready is not None:
+            on_ready()
 
         def post(body):
             req = urllib.request.Request(url + "/generate", data=json.dumps(body).encode(),
@@ -3261,7 +3297,7 @@ def run_server(path: str, extra: tuple, bodies: list) -> dict:
             proc.stderr.close()
     if rc != 0:
         raise AssertionError(f"the server exited {rc} on SIGINT")
-    return {"results": results, "health": health, "metrics": metrics, "up_s": up_s, "rc": rc}
+    return {"results": results, "health": health, "metrics": metrics, "up_s": up_s, "rc": rc, "lines": lines}
 
 
 def hold_server_spec_streams(path: str, results: dict) -> dict:
@@ -3337,9 +3373,11 @@ def phase_server(path: str) -> None:
 def phase_cli() -> None:
     """The CLI on a v0 fp32 checkpoint at 7B width with 2 layers; the same
     file quantized on load (``--quant int8``); the ak42 INT8 file that
-    ``python -m llama2_tpu_torch.quant.convert`` writes from it; and the
+    ``python -m llama2_tpu_torch.quant.convert`` writes from it; the
     param-cache directory that ``--save-cache`` writes from that, which must
-    print the same bytes."""
+    print the same bytes; the INT8 file with ``--kv-cache int8 --spec 4``,
+    which must print ``Generator.generate``'s bytes (without ``--spec``:
+    ``phase_tools``, on the imported INT8 cache); then ``phase_server``."""
     import shutil
 
     import torch
@@ -3373,17 +3411,526 @@ def phase_cli() -> None:
         out2, _ = run_cli(cache_dir, "--kernels", "cuda", "--dtype", "bf16")
         if out2 != out:
             raise AssertionError("the param-cache directory gives other bytes than the file it was saved from")
-        for spec in (0, 4):
-            extra = ("--kv-cache", "int8") + (("--spec", str(spec)) if spec else ())
-            out_kv, _ = run_cli(q8_path, "--kernels", "cuda", "--dtype", "bf16", *extra)
-            if out_kv != generate_bytes(q8_path, spec):
-                raise AssertionError(f"the CLI with {' '.join(extra)} prints other bytes than Generator.generate")
+        # (without --spec: phase_tools holds it on the imported INT8 cache)
+        extra = ("--kv-cache", "int8", "--spec", "4")
+        out_kv, _ = run_cli(q8_path, "--kernels", "cuda", "--dtype", "bf16", *extra)
+        if out_kv != generate_bytes(q8_path, 4):
+            raise AssertionError(f"the CLI with {' '.join(extra)} prints other bytes than Generator.generate")
+        t_server = time.perf_counter()
         phase_server(path)
+        say("phase", name="phase_cli/phase_server", seconds=f"{time.perf_counter() - t_server:.1f}")
     finally:
         for f in (path, q8_path):
             if os.path.exists(f):
                 os.remove(f)
         shutil.rmtree(cache_dir, ignore_errors=True)
+
+
+# ---------------------------------------------------------------- phase 4b
+
+
+PPL_TOKENS = 512  # the perplexity corpus: seeded token ids
+PPL_CHUNK = 256
+# per-token NLL limits: a log-softmax moves by at most twice the largest
+# logit change, so section 2's logit limits, doubled
+PPL_F32_ATOL = 2 * F32_LOGIT_ATOL
+PPL_BF16_MAX_MARGIN = 2 * BF16_MAX_MARGIN
+PPL_GATE = 5e-3  # |dNLL| of Q8 weights from the fp32 weights they came from: the JAX package's gate, at its fixture
+# launches per 256-token chunk at L layers (K5: the classifier over every position, M = 256)
+PPL_CHUNKS = {
+    "cuda": lambda L: {"K1": L, "K1-mma": L, "K6": 5 * L, "K6-tile": 5 * L, "K5": 1, "K5-tile": 1},
+    "cuda-accurate": lambda L: {"K1": L, "K1-tf32": L, "K6": 4 * L, "K6-tile-acc": 4 * L, "K5": 1,
+                                "K5-tile-acc": 1},
+}
+
+
+def gate_fixture_params(config, seed: int = 5, scale: float = 0.02) -> dict:
+    """The JAX package's INT8 gate fixture (``tests/test_perplexity.py::
+    test_int8_ppl_gate_1b_shape``): the numpy weights of its
+    ``tests/conftest.py::random_params`` draw for draw, the classifier a copy
+    of the embedding's transpose."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def r(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * scale
+
+    L, D, HD, V, KV = config.n_layers, config.dim, config.hidden_dim, config.vocab_size, config.kv_dim
+    tok_emb = r(V, D)
+    return {"tok_emb": tok_emb, "rms_att": 1.0 + r(L, D), "wq": r(L, D, D), "wk": r(L, D, KV),
+            "wv": r(L, D, KV), "wo": r(L, D, D), "rms_ffn": 1.0 + r(L, D), "w1": r(L, D, HD),
+            "w2": r(L, HD, D), "w3": r(L, D, HD), "rms_final": 1.0 + r(D), "wcls": tok_emb.T.copy()}
+
+
+def ppl_corpus(vocab: int) -> list[int]:
+    import numpy as np
+
+    return [int(t) for t in np.random.default_rng(SEED).integers(3, vocab, PPL_TOKENS)]
+
+
+def ppl_run(config, params, corpus, backend: str, dn: str, counted: bool = False):
+    """``tools/perplexity.py::token_nlls`` of the corpus, chunk PPL_CHUNK, on
+    the card. ``counted``: every launch counted from 0 and held to
+    PPL_CHUNKS a chunk, then a second run timed and held bit-equal to the
+    first. Returns (per-token NLLs, seconds of the timed run or None,
+    launches)."""
+    import numpy as np
+    import torch
+
+    from llama2_tpu_torch.ops.cuda.quant_matmul import quant_matmul, quant_matmul_stacked
+    from llama2_tpu_torch.tools.perplexity import token_nlls
+
+    if not counted:
+        return token_nlls(config, params, corpus, PPL_CHUNK, backend), None, {}
+    wrappers = {**count_launches(), "K6-tile": VariantCount(quant_matmul_stacked, "launches_tile_fast"),
+                "K5-tile": VariantCount(quant_matmul, "launches_tile_fast"),
+                "K5-tile-acc": VariantCount(quant_matmul, "launches_tile_accurate")}
+    for w in wrappers.values():
+        w.launches = 0
+    nll = token_nlls(config, params, corpus, PPL_CHUNK, backend)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    chunks = -(-min(len(corpus), config.seq_len - 1) // PPL_CHUNK)
+    per_chunk = PPL_CHUNKS[backend](config.n_layers)
+    want = {k: chunks * per_chunk.get(k, 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"{dn}: perplexity launches {launches}, want {want}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = token_nlls(config, params, corpus, PPL_CHUNK, backend)
+    secs = time.perf_counter() - t0
+    if not np.array_equal(again, nll):
+        raise AssertionError(f"{dn}: a second perplexity run gives other NLLs")
+    say("ppl", path=dn, chunks=chunks, per_chunk=",".join(f"{k}={v}" for k, v in per_chunk.items()),
+        scored_tokens=len(nll), nll=f"{float(nll.mean()):.6f}", seconds=f"{secs:.3f}",
+        scored_tok_s=f"{len(nll) / secs:.1f}", ms_per_chunk=f"{secs * 1e3 / chunks:.2f}")
+    return nll, secs, launches
+
+
+def phase_perplexity() -> dict:
+    """``tools/perplexity.py`` at Llama-2-7B width and 32 layers on a
+    512-token seeded corpus, chunk 256 (the classifier K5 over all 256
+    positions of a chunk, on its M > 8 tile), on the main path's seeded
+    random Q8 weights: (a) ``cuda-accurate`` on fp32 activations against the
+    plain path (``backend="torch"``), every token's NLL within PPL_F32_ATOL;
+    (b) ``cuda`` on bf16 activations against the fp32 plain path's NLLs,
+    max distance at most the plain bf16 path's + PPL_BF16_MAX_MARGIN and
+    mean at most (1 + BF16_MEAN_MARGIN) times its; (c) the quality gate:
+    fp32 weights (cuBLAS projections, ``cuda-accurate``) against their own
+    quantization (on the card) on ``cuda-accurate``, the mean NLL's change
+    equal to the plain path's within 2 * PPL_F32_ATOL (the kernels add
+    nothing to the quantizer's loss), at the JAX gate's own fixture
+    (``gate_fixture_params``: TinyLlama-1.1B's shape, its seeds, 192 tokens,
+    chunk 64), where it must stay under the JAX package's PPL_GATE, and at
+    7B and 32 layers (seeded weights, the 512-token corpus), where random
+    weights move it past that gate: reported. Launches a chunk asserted
+    (PPL_CHUNKS). Returns the K5 launches of (a) and (b)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from llama2_tpu_torch.config import ModelConfig
+    from llama2_tpu_torch.io.convert import random_params, random_q8_params
+    from llama2_tpu_torch.quant.q8 import quantize_params
+    from llama2_tpu_torch.runtime.generator import prepare_params
+    from llama2_tpu_torch.tools.perplexity import token_nlls
+
+    t0 = time.perf_counter()
+    config = config_7b(32)
+    corpus = ppl_corpus(config.vocab_size)
+    dev = torch.device("cuda")
+    base = random_q8_params(config, SEED, dev, torch.float32, group_size=GROUP)
+    out = {}
+    ref, _, _ = ppl_run(config, prepare_params(base, torch.float32, "torch", dev), corpus, "torch", "")
+    p = prepare_params(base, torch.float32, "cuda-accurate", dev)
+    a, _, out["accurate"] = ppl_run(config, p, corpus, "cuda-accurate", "q8/f32/cuda-accurate/32L", True)
+    p = None
+    err_a = float(np.abs(a - ref).max())
+    say("ppl", rule="a", path="q8/f32/cuda-accurate/32L", nll_max_abs_diff_vs_plain=f"{err_a:.3e}",
+        bound=PPL_F32_ATOL, plain_nll=f"{float(ref.mean()):.6f}")
+    if err_a > PPL_F32_ATOL:
+        raise AssertionError(f"(a) per-token NLL {err_a} from the plain path's, past {PPL_F32_ATOL}")
+    plain16, _, _ = ppl_run(config, prepare_params(base, torch.bfloat16, "torch", dev), corpus, "torch", "")
+    p = prepare_params(base, torch.bfloat16, "cuda", dev)
+    b, _, out["fast"] = ppl_run(config, p, corpus, "cuda", "q8/bf16/cuda/32L", True)
+    p = base = None
+    torch.cuda.empty_cache()
+    db, dp = np.abs(b - ref), np.abs(plain16 - ref)
+    say("ppl", rule="b", path="q8/bf16/cuda/32L", vs_f32_max_kernel=f"{db.max():.4e}",
+        vs_f32_max_plain=f"{dp.max():.4e}", max_margin=PPL_BF16_MAX_MARGIN,
+        vs_f32_mean_kernel=f"{db.mean():.4e}", vs_f32_mean_plain=f"{dp.mean():.4e}", mean_margin=BF16_MEAN_MARGIN)
+    if db.max() > dp.max() + PPL_BF16_MAX_MARGIN or db.mean() > dp.mean() * (1 + BF16_MEAN_MARGIN):
+        raise AssertionError(f"(b) bf16 NLLs {db.max()} / {db.mean()} from fp32's, the plain bf16 path's "
+                             f"{dp.max()} / {dp.mean()}")
+    # (c): fp32 weights and their quantization, both on the card, at the JAX
+    # gate's own fixture and at 7B
+    gate_config = ModelConfig(dim=2048, hidden_dim=5632, n_layers=22, n_heads=32, n_kv_heads=4,
+                              vocab_size=32000, seq_len=256)
+    fixtures = (
+        ("jax-gate-fixture-1.1b/22L", gate_config, lambda: gate_fixture_params(gate_config),
+         [int(t) for t in np.random.default_rng(7).integers(3, gate_config.vocab_size, 192)], 64),
+        ("7b/32L", config, lambda: random_params(config, SEED, dev, torch.float32), corpus, PPL_CHUNK),
+    )
+    for name, cfg, make, toks, chunk in fixtures:
+        fp = make()
+        nll = {}
+        for backend in ("cuda-accurate", "torch"):
+            nll["fp32", backend] = float(token_nlls(cfg, prepare_params(fp, torch.float32, backend, dev), toks,
+                                                    chunk, backend).mean())
+        q8 = quantize_params(prepare_params(fp, torch.float32, "torch", dev))
+        fp = None
+        torch.cuda.empty_cache()
+        for backend in ("cuda-accurate", "torch"):
+            nll["q8", backend] = float(token_nlls(cfg, prepare_params(q8, torch.float32, backend, dev), toks,
+                                                  chunk, backend).mean())
+        q8 = None
+        torch.cuda.empty_cache()
+        delta = nll["q8", "cuda-accurate"] - nll["fp32", "cuda-accurate"]
+        delta_plain = nll["q8", "torch"] - nll["fp32", "torch"]
+        say("ppl", rule="c", fixture=name, tokens=len(toks), chunk=chunk,
+            fp32_nll=f"{nll['fp32', 'cuda-accurate']:.6f}", q8_nll=f"{nll['q8', 'cuda-accurate']:.6f}",
+            fp32_ppl=f"{math.exp(nll['fp32', 'cuda-accurate']):.2f}", q8_ppl=f"{math.exp(nll['q8', 'cuda-accurate']):.2f}",
+            delta_nll=f"{delta:.4e}", delta_nll_plain_path=f"{delta_plain:.4e}",
+            gate=PPL_GATE if cfg is gate_config else "none", peak_mem_GiB=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+        # the kernels add nothing to the quantizer's loss: each mean within (a)'s per-token bound
+        if abs(delta - delta_plain) > 2 * PPL_F32_ATOL:
+            raise AssertionError(f"(c) {name}: the kernels' Q8 delta {delta} is not the plain path's {delta_plain}")
+        if cfg is gate_config and not abs(delta) < PPL_GATE:
+            raise AssertionError(f"(c) {name}: Q8 NLL {delta} from the fp32 weights', past the gate {PPL_GATE}")
+    say("ppl", seconds=f"{time.perf_counter() - t0:.1f}")
+    return out
+
+
+HF_DTYPE = "BF16"
+
+
+def write_safetensors(path: str, tensors: dict) -> None:
+    """``tensors`` (name: uint16 numpy array of bf16 bits) as one
+    ``.safetensors`` file, written here without the ``safetensors``
+    package: an 8-byte little-endian header length, the JSON header, the
+    data."""
+    import struct
+
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, a in tensors.items():
+        header[name] = {"dtype": HF_DTYPE, "shape": list(a.shape), "data_offsets": [offset, offset + a.nbytes]}
+        offset += a.nbytes
+    h = json.dumps(header).encode()
+    h += b" " * (-len(h) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(h)))
+        f.write(h)
+        for a in tensors.values():
+            a.tofile(f)
+
+
+def write_hf_dir(d: str, config) -> dict:
+    """A Hugging Face Llama directory at ``config``'s widths and depth:
+    ``config.json`` and seeded bf16 weights (HF's names and (out, in)
+    layout, an untied ``lm_head``) in two safetensors shards. Returns every
+    tensor's bf16 bits (uint16 numpy arrays) by HF name."""
+    import torch
+
+    L, D, HD, V = config.n_layers, config.dim, config.hidden_dim, config.vocab_size
+    H, KVH, hs = config.n_heads, config.n_kv_heads, config.head_size
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+
+    def bits(*shape, loc=0.0):
+        t = torch.randn(shape, generator=gen, device="cuda").mul_(0.02).add_(loc).to(torch.bfloat16)
+        return t.view(torch.int16).cpu().numpy().view("<u2")
+
+    shards = [{"model.embed_tokens.weight": bits(V, D)}, {}]
+    for i in range(L):
+        p = f"model.layers.{i}."
+        shards[min(i, 1)].update({
+            p + "input_layernorm.weight": bits(D, loc=1.0),
+            p + "self_attn.q_proj.weight": bits(H * hs, D), p + "self_attn.k_proj.weight": bits(KVH * hs, D),
+            p + "self_attn.v_proj.weight": bits(KVH * hs, D), p + "self_attn.o_proj.weight": bits(D, H * hs),
+            p + "post_attention_layernorm.weight": bits(D, loc=1.0),
+            p + "mlp.gate_proj.weight": bits(HD, D), p + "mlp.up_proj.weight": bits(HD, D),
+            p + "mlp.down_proj.weight": bits(D, HD),
+        })
+    shards[1].update({"model.norm.weight": bits(D, loc=1.0), "lm_head.weight": bits(V, D)})
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({"model_type": "llama", "architectures": ["LlamaForCausalLM"], "hidden_size": D,
+                   "intermediate_size": HD, "num_hidden_layers": L, "num_attention_heads": H,
+                   "num_key_value_heads": KVH, "vocab_size": V, "max_position_embeddings": config.seq_len,
+                   "rms_norm_eps": config.norm_eps, "tie_word_embeddings": False, "torch_dtype": "bfloat16"}, f)
+    for k, shard in enumerate(shards):
+        write_safetensors(os.path.join(d, f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"), shard)
+    return {k: v for shard in shards for k, v in shard.items()}
+
+
+def hf_params(hf: dict, config) -> dict:
+    """The engine's params re-derived in numpy from HF bf16 bits: widened to
+    float32 (the upper half of a float32), wq/wk un-permuted from HF's
+    rotate_half row order (a head's (hs/2, 2) rows back to (2, hs/2)), every
+    matrix transposed to (in, out), layers stacked."""
+    import numpy as np
+
+    def f32(name):
+        return (hf[name].astype(np.uint32) << 16).view(np.float32)
+
+    def unpermute(w, heads):
+        return w.reshape(heads, 2, w.shape[0] // heads // 2, -1).transpose(0, 2, 1, 3).reshape(w.shape[0], -1)
+
+    def stack(fn):
+        return np.stack([fn(f"model.layers.{i}.") for i in range(config.n_layers)])
+
+    return {
+        "tok_emb": f32("model.embed_tokens.weight"),
+        "rms_att": stack(lambda p: f32(p + "input_layernorm.weight")),
+        "wq": stack(lambda p: unpermute(f32(p + "self_attn.q_proj.weight"), config.n_heads).T),
+        "wk": stack(lambda p: unpermute(f32(p + "self_attn.k_proj.weight"), config.n_kv_heads).T),
+        "wv": stack(lambda p: f32(p + "self_attn.v_proj.weight").T),
+        "wo": stack(lambda p: f32(p + "self_attn.o_proj.weight").T),
+        "rms_ffn": stack(lambda p: f32(p + "post_attention_layernorm.weight")),
+        "w1": stack(lambda p: f32(p + "mlp.gate_proj.weight").T),
+        "w2": stack(lambda p: f32(p + "mlp.down_proj.weight").T),
+        "w3": stack(lambda p: f32(p + "mlp.up_proj.weight").T),
+        "rms_final": f32("model.norm.weight"),
+        "wcls": f32("lm_head.weight").T,
+    }
+
+
+KERNEL_EVENT = re.compile(r"(\w+)<([^<>]*)>\(")
+
+
+def trace_counts(trace_dir: str, classifier_strips: int) -> dict:
+    """Kernel events of the one Chrome trace in ``trace_dir``: K13's (the
+    megakernel with its attention phase, ``mlp_block_kernel<MT, U, true,
+    MMA>``) and K5's (the decode-row kernel over the classifier's column
+    strips: ``gemv_kernel`` on a grid of ``classifier_strips`` blocks
+    across; K6 shares the kernel on narrower grids), and all of them."""
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    if len(files) != 1:
+        raise AssertionError(f"--profile wrote {files} into {trace_dir}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    counts = {"K13": 0, "K5": 0, "kernels": len(events)}
+    for e in events:
+        m = KERNEL_EVENT.search(e.get("name", ""))
+        if m is None:
+            continue
+        targs = [a.strip() for a in m.group(2).split(",")]
+        if m.group(1) == "mlp_block_kernel" and targs[2] == "true":
+            counts["K13"] += 1
+        elif m.group(1) == "gemv_kernel" and e.get("args", {}).get("grid", [0])[0] == classifier_strips:
+            counts["K5"] += 1
+    return counts
+
+
+def tokenizer_check() -> None:
+    """``load_tokenizer`` builds and returns the C++ tokenizer; its ids equal
+    the Python tokenizer's on the perplexity corpus's text and on seeded
+    random text of the vocabulary's one-codepoint tokens; both encode rates."""
+    import random
+
+    from llama2_tpu_torch.tokenizer.fast import FastTokenizer, lib_path, load_tokenizer
+    from llama2_tpu_torch.tokenizer.tokenizer import Tokenizer
+
+    t0 = time.perf_counter()
+    fast = load_tokenizer(TOKENIZER_BIN, 32000)
+    load_s = time.perf_counter() - t0
+    py = Tokenizer.from_file(TOKENIZER_BIN, 32000)
+    if not isinstance(fast, FastTokenizer) or not os.path.exists(lib_path()):
+        raise AssertionError(f"load_tokenizer gave {type(fast).__name__}")
+    corpus = "".join(ch for ch in py.decode(ppl_corpus(32000)).decode("utf-8", "ignore")
+                     if py.lookup(ch) is not None)
+    singles = sorted({t.decode("utf-8", "ignore") for t in py.tokens
+                      if len(t.decode("utf-8", "ignore")) == 1 and t.decode("utf-8", "ignore").encode() == t})
+    rng = random.Random(SEED)
+    unicode_text = "".join(rng.choice(singles) if rng.random() < 0.8 else " " for _ in range(2000))
+    rates = {}
+    for name, text in (("corpus", corpus), ("random_unicode", unicode_text)):
+        times = {}
+        for kind, tok in (("cpp", fast), ("python", py)):
+            t1 = time.perf_counter()
+            ids = tok.encode(text)
+            times[kind] = (time.perf_counter() - t1, ids)
+        if times["cpp"][1] != times["python"][1]:
+            raise AssertionError(f"the C++ tokenizer's ids differ from the Python one's on the {name} text")
+        n = len(times["cpp"][1])
+        rates[name] = {k: n / max(t, 1e-9) for k, (t, _) in times.items()}
+        say("tokenizer", text=name, chars=len(text), tokens=n, ids_equal="yes",
+            cpp_tok_s=f"{rates[name]['cpp']:.0f}", python_tok_s=f"{rates[name]['python']:.0f}")
+    say("tokenizer", load_tokenizer="FastTokenizer", first_load_s=f"{load_s:.2f}",
+        library=os.path.relpath(lib_path(), REPO))
+
+
+def precompile_in_process(path: str) -> None:
+    """The server's engine (dense, 8 slots, bf16, ``cuda``, int8 KV cache) on
+    the 2-layer INT8 cache at ``path``: ``precompile((16, 128), (False,
+    True))`` on emptied plan caches, which must fill some, then a first wave
+    (two 16- and two 128-token prompts, greedy and sampled) that must start
+    no ``nvcc`` and miss no launch plan."""
+    import numpy as np
+    import torch
+
+    from llama2_tpu_torch.config import GenerationConfig
+    from llama2_tpu_torch.io import load_any
+    from llama2_tpu_torch.ops.cuda import build
+    from llama2_tpu_torch.runtime.batch_engine import PLAN_CACHES, BatchEngine
+
+    config, params, _ = load_any(path)
+    eng = BatchEngine(config, params, batch_size=8, dtype=torch.bfloat16, backend="cuda", device="cuda",
+                      kv_quant=True)
+    for f in PLAN_CACHES.values():  # the earlier phases filled plans of these shapes: start cold
+        f.cache_clear()
+    t0 = time.perf_counter()
+    n = eng.precompile(prompt_lens=(16, 128), stochastic=(False, True))
+    secs = time.perf_counter() - t0
+    misses = {k: f.cache_info().misses for k, f in PLAN_CACHES.items()}
+    started, start_build = [], build._start_build
+    build._start_build = lambda *a: started.append(a[0]) or start_build(*a)
+    try:
+        rng = np.random.default_rng(SEED + 3)
+        gens = (GenerationConfig(temperature=0.0, steps=48), GenerationConfig(temperature=0.8, steps=48, seed=5))
+        queues = [eng.submit([int(t) for t in rng.integers(3, config.vocab_size, n_tok)], g)
+                  for n_tok in (16, 128) for g in gens]
+        eng.run_until_idle()
+        tokens = [q.get(timeout=600).tokens for q in queues]
+    finally:
+        build._start_build = start_build
+    missed = {k: f.cache_info().misses - misses[k] for k, f in PLAN_CACHES.items()}
+    if n < 1 or started or any(missed.values()) or not all(tokens):
+        raise AssertionError(f"after precompile the first wave built {started} and missed plans {missed}")
+    say("precompile", where="in_process", programs=n, seconds=f"{secs:.2f}", first_wave_requests=len(queues),
+        first_wave_nvcc=0, first_wave_plan_misses=0)
+
+
+def phase_precompile(path: str) -> None:
+    """Cold start: the server on the 2-layer INT8 cache at ``path`` (dense
+    engine, ``--kernels cuda --dtype bf16 --kv-cache int8``) started with
+    ``--precompile 16,128`` from a copy of the package whose ``build/`` is
+    empty, so that it builds every kernel library and the tokenizer itself:
+    its time to ready, its ``precompiled N programs`` line, and its first
+    request's TTFT, with no library built after it was ready; then the same
+    server without the flag from the repository (libraries built) and its
+    first request's TTFT; then ``precompile_in_process``."""
+    import shutil
+
+    cold = os.path.join(REPO, "build", "cold")
+    shutil.rmtree(cold, ignore_errors=True)
+    shutil.copytree(os.path.join(REPO, "llama2_tpu_torch"), os.path.join(cold, "llama2_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    libs = os.path.join(cold, "build", "kernels")
+    args = ("--kernels", "cuda", "--dtype", "bf16", "--kv-cache", "int8", "--port", "0")
+    body = [{"prompt": CLI_PROMPT, "temperature": 0.0, "steps": 48}]
+    ready = {}
+
+    def listing():
+        return sorted(os.listdir(libs)) if os.path.isdir(libs) else []
+
+    try:
+        run = run_server(path, ("--precompile", "16,128"), body, args=args, cwd=cold,
+                         on_ready=lambda: ready.setdefault("libs", listing()))
+        after = listing()
+        line = next((x.strip() for x in run["lines"] if x.startswith("precompiled ")), None)
+        m = re.match(r"precompiled (\d+) programs in ([\d.]+)s", line or "")
+        want = {"attention_q8", "quant_matmul", "mlp_block"}
+        built = {f.split("-")[0] for f in ready["libs"] if f.endswith(".so")}
+        if m is None or int(m.group(1)) < len(want) or built != want or after != ready["libs"]:
+            raise AssertionError(f"cold --precompile server: {line!r}, libraries at ready {ready['libs']}, "
+                                 f"after its first request {after}")
+        if not os.listdir(os.path.join(cold, "build", "tokenizer")):
+            raise AssertionError("the cold server built no tokenizer library")
+        cold_ttft = run["results"][0]["ttft_ms"]
+        say("precompile", where="cold_server", args="--kernels_cuda_--dtype_bf16_--kv-cache_int8_--precompile_16,128",
+            up_s=f"{run['up_s']:.1f}", programs=m.group(1), precompile_s=m.group(2),
+            libraries_built=",".join(sorted(built)), libraries_built_after_ready=0,
+            first_request_ttft_ms=f"{cold_ttft:.1f}", sigint_exit=run["rc"])
+    finally:
+        shutil.rmtree(cold, ignore_errors=True)
+    warm = run_server(path, (), body, args=args)
+    if warm["results"][0]["tokens"] != run["results"][0]["tokens"]:
+        raise AssertionError("the --precompile server's answer differs from the server's without it")
+    say("precompile", where="warm_server_no_flag", up_s=f"{warm['up_s']:.1f}",
+        first_request_ttft_ms=f"{warm['results'][0]['ttft_ms']:.1f}", answers_equal="yes", sigint_exit=warm["rc"])
+    precompile_in_process(path)
+
+
+def phase_tools() -> dict:
+    """This slice's path beside the perplexity gate (``phase_perplexity``):
+    the HF importer, the CLI's ``--profile``, the C++ tokenizer and
+    ``--precompile``. A Hugging Face directory at Llama-2-7B width and 2
+    layers (bf16, two shards, untied ``lm_head``; ``write_hf_dir``) is
+    imported by ``tools/import_hf.py`` to a v0 ``.bin`` and to an INT8 param
+    cache (``--cache --int8``); the ``.bin`` loads the numpy re-derivation's
+    params exactly (``hf_params``). The CLI (``--kernels cuda --dtype bf16
+    --kv-cache int8``) prints the same bytes on the INT8 cache, on the
+    ``.bin`` with ``--quant int8``, and on the cache with ``--profile DIR``,
+    whose trace holds K13's and K5's kernel events at the launch counts of
+    the same generate in this process. Then ``tokenizer_check`` and
+    ``phase_precompile`` on the INT8 cache."""
+    import shutil
+
+    import numpy as np
+
+    from llama2_tpu_torch.io import load_any
+    from llama2_tpu_torch.tools import import_hf
+
+    t0 = time.perf_counter()
+    config = config_7b(n_layers=2)
+    smoke = os.path.join(REPO, "build", "smoke")
+    hf_dir, bin_path = os.path.join(smoke, "hf-llama-7b-width-2-layers"), os.path.join(smoke, "imported.bin")
+    cache_dir, trace_dir = os.path.join(smoke, "imported-q8-cache"), os.path.join(smoke, "trace")
+    mark = stopwatch("phase_tools")
+    try:
+        hf = write_hf_dir(hf_dir, config)
+        mark("write_hf_dir")
+        hf_bytes = sum(os.path.getsize(os.path.join(hf_dir, f)) for f in os.listdir(hf_dir))
+        t1 = time.perf_counter()
+        if import_hf.main([hf_dir, bin_path]) != 0 or import_hf.main([hf_dir, cache_dir, "--cache", "--int8"]) != 0:
+            raise AssertionError("import_hf exited non-zero")
+        import_s = time.perf_counter() - t1
+        got_config, got, shared = load_any(bin_path)
+        want = hf_params(hf, config)
+        hf = None
+        if got_config != config or shared or sorted(got) != sorted(want):
+            raise AssertionError(f"imported {got_config}, shared={shared}, {sorted(got)}")
+        for k in want:
+            if not np.array_equal(got[k], want[k]):
+                raise AssertionError(f"imported {k} differs from the numpy re-derivation")
+        got = want = None
+        mark("import_and_compare")
+        say("import_hf", hf_dir_GB=f"{hf_bytes / 1e9:.2f}", shards=2, dtype="bf16", lm_head="untied",
+            bin_GB=f"{os.path.getsize(bin_path) / 1e9:.2f}", seconds_bin_and_int8_cache=f"{import_s:.1f}",
+            params_equal_to_numpy="exact")
+        flags = ("--kernels", "cuda", "--dtype", "bf16", "--kv-cache", "int8")
+        out_cache, _ = run_cli(cache_dir, *flags)
+        out_bin, _ = run_cli(bin_path, "--quant", "int8", *flags)
+        if out_bin != out_cache:
+            raise AssertionError("the imported .bin with --quant int8 prints other bytes than the imported INT8 cache")
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        out_prof, err = run_cli(cache_dir, *flags, "--profile", trace_dir)
+        if out_prof != out_cache or "wrote profile trace to" not in err:
+            raise AssertionError("--profile changed the CLI's bytes or wrote no trace")
+        counts: dict = {}
+        if generate_bytes(cache_dir, 0, counts) != out_cache:
+            raise AssertionError("the CLI on the imported cache prints other bytes than Generator.generate")
+        from llama2_tpu_torch.ops.cuda.quant_matmul import _STRIP
+
+        traced = trace_counts(trace_dir, -(-config.vocab_size // _STRIP))
+        if traced["K13"] != counts["K13"] or traced["K5"] != counts["K5"] or not counts["K13"]:
+            raise AssertionError(f"the trace holds K13 {traced['K13']}, K5 {traced['K5']} kernel events; "
+                                 f"the generate launched K13 {counts['K13']}, K5 {counts['K5']}")
+        say("profile", args="--kernels_cuda_--dtype_bf16_--kv-cache_int8_--profile", stdout_equal="yes",
+            trace_kernel_events=traced["kernels"], K13_events=traced["K13"], K13_launches=counts["K13"],
+            K5_events=traced["K5"], K5_launches=counts["K5"])
+        mark("cli_and_profile")
+        tokenizer_check()
+        phase_precompile(cache_dir)
+        mark("tokenizer_and_precompile")
+    finally:
+        shutil.rmtree(hf_dir, ignore_errors=True)
+        shutil.rmtree(cache_dir, ignore_errors=True)
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        if os.path.exists(bin_path):
+            os.remove(bin_path)
+    say("tools", seconds=f"{time.perf_counter() - t0:.1f}")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -3621,7 +4168,8 @@ def phase_timing_q8(launches: dict, cycles_per_ms: float) -> list[dict]:
     ``w13`` layout runs them) and the sum of the matmul yardsticks instead.
     ``launches``: the Q8 routes' counts, by the names ``main`` gives them
     (the M = 201 rows: the accurate route's prefill-chunk tile launches; the
-    8-row rows: the served runs', "served").
+    8-row rows: the served runs', "served"; the classifier at M = 256: the
+    perplexity runs', "ppl-fast" and "ppl-accurate").
     """
     import torch
     import torch.nn.functional as F
@@ -3654,7 +4202,8 @@ def phase_timing_q8(launches: dict, cycles_per_ms: float) -> list[dict]:
             stacked = w.q.ndim == 3
             # the yardstick's weights: 4 layers dequantized ahead (more than L2 holds)
             wd = dequantize(w[:4], dtype) if stacked else dequantize(w, dtype)[None]
-            for M in (1, PROMPT_TOKENS + 1):
+            # the classifier also at the perplexity chunk: K5 over 256 positions
+            for M in (1, PROMPT_TOKENS + 1) + ((PPL_CHUNK,) if name == "wcls" else ()):
                 x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
                 if stacked:
                     def kern(i): return quant_matmul_stacked(x, w, i % L, mode=mode)
@@ -3678,15 +4227,22 @@ def phase_timing_q8(launches: dict, cycles_per_ms: float) -> list[dict]:
                     GB_per_s=f"{nbytes / ms / 1e6:.0f}",
                     TFLOP_per_s=f"{2 * M * K * N / ms / 1e9:.2f}", max_abs_err=f"{err:.3e}",
                     queued_kernel_plain_library=f"{qk},{qp},{ql}")
-                # the kernel line's rows: the main path's decode rows, and the
-                # accurate route's prefill chunk (K6 on the accurate M > 8 tile)
-                if name in (("wqkv", "wcls") if M == 1 else ("w13",) if mode == "accurate" else ()):
-                    key = ("K6" if stacked else "K5") + ("-tile-acc" if M > 8 else "")
+                # the kernel line's rows: the main path's decode rows, the
+                # accurate route's prefill chunk (K6 on the accurate M > 8
+                # tile) and the perplexity chunk's classifier (K5 on the tile
+                # of its mode)
+                if M == PPL_CHUNK:
+                    n_launch = launches[f"ppl-{mode}"]["K5"]
+                elif name in (("wqkv", "wcls") if M == 1 else ("w13",) if mode == "accurate" else ()):
+                    n_launch = launches[mode][("K6" if stacked else "K5") + ("-tile-acc" if M > 8 else "")]
+                else:
+                    n_launch = None
+                if n_launch is not None:
                     rows.append({
                         "name": f"{kname}[{dn},{mode},{name},M={M}]", "route": "cuda", "source": src,
                         "replaces": "llama2_tpu/ops/pallas/quant_matmul.py:"
                         + ("340" if stacked else "476"),
-                        "launches": launches[mode][key],
+                        "launches": n_launch,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                         "bound_by": by, "library_ms": lib_ms,
                     })
@@ -4818,6 +5374,28 @@ def phase_window_timing(cycles_per_ms: float) -> None:
     torch.cuda.empty_cache()
 
 
+def stopwatch(phase: str):
+    """``mark(step)``: prints the seconds since the last mark (or since the
+    call) on a ``[phase]`` line for ``phase/step``."""
+    last = [time.perf_counter()]
+
+    def mark(step: str) -> None:
+        now = time.perf_counter()
+        say("phase", name=f"{phase}/{step}", seconds=f"{now - last[0]:.1f}")
+        last[0] = now
+
+    return mark
+
+
+def timed(phase, *args, **kw):
+    """``phase(*args, **kw)``, its wall seconds printed on a ``[phase]`` line."""
+    t0 = time.perf_counter()
+    out = phase(*args, **kw)
+    label = "/".join([phase.__name__, *(str(a).replace("torch.", "") for a in args)])
+    say("phase", name=label, seconds=f"{time.perf_counter() - t0:.1f}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4862,39 +5440,42 @@ def main() -> int:
         phase_norm_timing()
         print(smi)
         return 0
+    if sys.argv[1:] == ["--tools"]:
+        phase_perplexity()
+        phase_tools()
+        print(smi)
+        return 0
     if sys.argv[1:] == ["--q8kv-timing"]:
         phase_q8kv_timing(warm_cycles_per_ms())
         print(smi)
         return 0
-    phase_kernels()
-    phase_kernels_q8()
-    phase_kernels_mlp()
-    phase_kernels_q8kv()
-    phase_kernels_batch8()
-    phase_kernels_paged()
-    phase_kernels_bench()
-    # this slice's main path, served: the paged engine over both pools
-    served = {kv: phase_serve(kv) for kv in (False, True)}
-    accurate = {kv: phase_serve_accurate(kv) for kv in (False, True)}
+    for phase in (phase_kernels, phase_kernels_q8, phase_kernels_mlp, phase_kernels_q8kv,
+                  phase_kernels_batch8, phase_kernels_paged, phase_kernels_bench):
+        timed(phase)
+    # slice 5's main path, served: the paged engine over both pools
+    # the int8 pool at 8 layers: room for slice 16's phases in the script's time
+    served = {kv: timed(phase_serve, kv, 8 if kv else 32) for kv in (False, True)}
+    accurate = {kv: timed(phase_serve_accurate, kv) for kv in (False, True)}
     # engine-level speculation on the served path: the paged bf16 pool and the dense int8 cache
-    phase_serve_spec()
-    # the fp-cache main path of slice 3, then this slice's: the int8 cache
-    fast = phase_generate_q8("two-launch", "cuda", torch.bfloat16, speculative=True)
+    timed(phase_serve_spec)
+    # the fp-cache main path of slice 3, then slice 4's: the int8 cache
+    fast = timed(phase_generate_q8, "two-launch", "cuda", torch.bfloat16, speculative=True)
     q8_launches = {
         "fast": fast,
-        "int8kv": phase_generate_q8("int8kv", "cuda", torch.bfloat16, speculative=True,
-                                    fp_stream=fast["tokens"]),
+        "int8kv": timed(phase_generate_q8, "int8kv", "cuda", torch.bfloat16, speculative=True,
+                        fp_stream=fast["tokens"]),
         # the route K13 replaces, at the main path's depth: both end to end
-        "int8kv-two-launch": phase_generate_q8("int8kv-two-launch", "cuda", torch.bfloat16),
+        "int8kv-two-launch": timed(phase_generate_q8, "int8kv-two-launch", "cuda", torch.bfloat16),
         # fp32 activations keep T = 1 and T = 4 logits close: the spec check
         # covers most positions there
-        "int8kv-accurate": phase_generate_q8("int8kv-accurate", "cuda-accurate", torch.float32, 8,
-                                             speculative=True),
-        "int8kv-fp": phase_generate_q8("int8kv-fp", "cuda", torch.bfloat16, 8),
-        "fast-f32": phase_generate_q8("two-launch", "cuda", torch.float32, 8),
-        "composed": phase_generate_q8("composed", "cuda", torch.bfloat16, 8),
-        "ffn-only": phase_generate_q8("ffn-only", "cuda", torch.bfloat16, 2),
-        "accurate": phase_generate_q8("accurate", "cuda-accurate", torch.float32, speculative=True),
+        "int8kv-accurate": timed(phase_generate_q8, "int8kv-accurate", "cuda-accurate", torch.float32, 8,
+                                 speculative=True),
+        "int8kv-fp": timed(phase_generate_q8, "int8kv-fp", "cuda", torch.bfloat16, 8),
+        "fast-f32": timed(phase_generate_q8, "two-launch", "cuda", torch.float32, 8),
+        "composed": timed(phase_generate_q8, "composed", "cuda", torch.bfloat16, 8),
+        "ffn-only": timed(phase_generate_q8, "ffn-only", "cuda", torch.bfloat16, 2),
+        # 8 layers: the perplexity phase runs this route's prefill chunk at 32
+        "accurate": timed(phase_generate_q8, "accurate", "cuda-accurate", torch.float32, 8, speculative=True),
         # the 8-row megakernels: the served runs over both pools (K11, K12),
         # the dense engine over the int8 cache (K13)
         "served": {"K12": served[False]["K12"] + served[True]["K12"],
@@ -4902,8 +5483,13 @@ def main() -> int:
     }
     launches = {}
     for dtype in (torch.bfloat16, torch.float32):
-        launches[dtype] = phase_generate(dtype, 8)
-    phase_cli()
+        launches[dtype] = timed(phase_generate, dtype, 8)
+    timed(phase_cli)
+    # this slice's path: the INT8 perplexity gate, then the importer, --profile, the tokenizer, --precompile
+    ppl = timed(phase_perplexity)
+    q8_launches["ppl-fast"], q8_launches["ppl-accurate"] = ppl["fast"], ppl["accurate"]
+    timed(phase_tools)
+    t_timing = time.perf_counter()
     kernels = []
     cycles_per_ms = warm_cycles_per_ms()
     for dtype in (torch.bfloat16, torch.float32):
@@ -4915,8 +5501,9 @@ def main() -> int:
     kernels += phase_timing_paged({"K15": accurate[False]["K15"]}, cycles_per_ms, tags=("K15",),
                                   dtype=torch.float32)
     bench_rows = phase_timing_bench()
-    # this slice's path: the kernel benchmarks' entry point, counted in its own process
-    bench_launches = phase_bench(smi)
+    say("phase", name="timing", seconds=f"{time.perf_counter() - t_timing:.1f}")
+    # slice 6's path: the kernel benchmarks' entry point, counted in its own process
+    bench_launches = timed(phase_bench, smi)
     for tag in ("K3", "K14", "K19", "K20"):
         kernels.append({**bench_rows[tag], "launches": bench_launches[tag]})
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")

@@ -6,9 +6,12 @@ checkpoint -> error exit 1), output framing and ``{d} tokens per second``
 verbose report. Runs on the card unless ``--platform cpu`` asks for the CPU.
 
 ``--kv-cache int8`` runs with the int8 KV cache and ``--spec N`` with exact
-speculative decoding (greedy only). Flags whose path is not ported to the
-torch package yet (``--seq-shards N``, ``--profile``) exit 1 with a message
-rather than being ignored.
+speculative decoding (greedy only). ``--profile DIR`` traces the timed
+``generate`` with ``torch.profiler`` (the CPU, and the card when it runs
+there) and writes a Chrome trace into DIR. The prompt is encoded by the C++
+tokenizer (``tokenizer/fast/``). ``--seq-shards N``, whose path is not
+ported to the torch package yet, exits 1 with a message rather than being
+ignored.
 """
 
 from __future__ import annotations
@@ -44,8 +47,10 @@ GPU options:
  --spec <int>              exact speculative decoding: 2..64 tokens per verify
                            window (prompt-lookup drafts), greedy (-t 0) only
  --warmup                  run a warmup generate before the timed one
+ --profile <dir>           write a torch.profiler Chrome trace of the timed
+                           generate into dir
 Not yet ported to the torch package (exit 1 when set):
- --seq-shards <int>, --profile <dir>
+ --seq-shards <int>
 """
 
 
@@ -173,8 +178,6 @@ def parse_args(argv: list[str]) -> dict | None:
 
 def _refuse_unported(opts: dict) -> None:
     """Exit 1 for a flag whose path the torch package does not have yet."""
-    if opts["profile"] is not None:
-        _die("--profile is not yet ported to the torch package")
     if opts["seq_shards"] >= 2:
         _die("--seq-shards is not yet ported to the torch package")
 
@@ -191,7 +194,8 @@ def main(argv: list[str] | None = None) -> int:
     from llama2_tpu_torch.config import GenerationConfig
     from llama2_tpu_torch.io import load_any
     from llama2_tpu_torch.runtime.generator import Generator
-    from llama2_tpu_torch.tokenizer.tokenizer import BOS, Tokenizer
+    from llama2_tpu_torch.tokenizer.fast import load_tokenizer
+    from llama2_tpu_torch.tokenizer.tokenizer import BOS
 
     if opts["platform"] == "gpu" and not torch.cuda.is_available():
         _die("no CUDA device available; pass --platform cpu to run on the CPU")
@@ -211,7 +215,7 @@ def main(argv: list[str] | None = None) -> int:
         f"kv-cache: {opts['kv_cache']}  spec: {opts['spec']}")
     log("")
 
-    tokenizer = Tokenizer.from_file(opts["tokenizer_path"], config.vocab_size)
+    tokenizer = load_tokenizer(opts["tokenizer_path"], config.vocab_size)
     prompt_tokens: list[int] = []
     if opts["input"]:
         prompt_tokens = tokenizer.encode(opts["input"])
@@ -220,7 +224,8 @@ def main(argv: list[str] | None = None) -> int:
         from llama2_tpu_torch.quant.q8 import QuantTensor, quantize_params
 
         if not any(isinstance(v, QuantTensor) for v in params.values()):
-            params = quantize_params(params)
+            # on the device: the quantizer gives the numpy path's bytes there
+            params = quantize_params({k: torch.as_tensor(v).to(device) for k, v in params.items()})
     if opts["save_cache"]:
         from llama2_tpu_torch.io.cache import save_cache
 
@@ -255,10 +260,31 @@ def main(argv: list[str] | None = None) -> int:
                 temperature=opts["temperature"], top_p=opts["top_p"], steps=2, seed=0
             ),
         )
-    result = generator.generate(prompt_tokens, gen, prefill_chunk=opts["prefill_chunk"])
+    def run():
+        return generator.generate(prompt_tokens, gen, prefill_chunk=opts["prefill_chunk"])
+
+    result = _profiled(opts["profile"], device, log, run) if opts["profile"] else run()
 
     sys.stdout.buffer.write(tokenizer.decode(result.tokens, first_prev=BOS))
     sys.stdout.buffer.flush()
     log(f"\n\n{int(result.tokens_per_sec)} tokens per second")
     log(f"ttft: {result.ttft_s * 1e3:.1f} ms")
     return 0
+
+
+def _profiled(trace_dir: str, device, log, run):
+    """``run()`` under ``torch.profiler`` (the CPU's activity, and the card's
+    when ``device`` is one); the trace goes to ``trace_dir`` (made if absent)
+    as a Chrome trace. Returns what ``run`` returns."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    with profile(activities=activities) as prof:
+        out = run()
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, f"llama2_tpu_torch.{os.getpid()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    log(f"wrote profile trace to {path}")
+    return out

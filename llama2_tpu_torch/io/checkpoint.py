@@ -19,8 +19,9 @@ All matmul weights are row-major out-features-major, computing ``W(d,n) @ x(n)``
 (main.zig:470-483). The engine computes activations as row vectors
 (``x @ W``), so every matmul weight is **transposed on load** to
 ``(in_features, out_features)`` and per-layer weights are stacked along a
-leading layer axis. A numpy-only copy of ``llama2_tpu/io/checkpoint.py``, in
-the same layout, so both packages read the same parameter dict.
+leading layer axis. A copy of ``llama2_tpu/io/checkpoint.py`` in numpy, in
+the same layout, so both packages read the same parameter dict; the
+transposes go through torch's blocked copy (:func:`transposed`).
 
 Param tree layout (all numpy float32 unless converted later):
 
@@ -43,10 +44,22 @@ from __future__ import annotations
 import struct
 
 import numpy as np
+import torch
 
 from llama2_tpu_torch.config import ModelConfig
 
 _HEADER_STRUCT = struct.Struct("<7i")
+
+
+def transposed(a: np.ndarray) -> np.ndarray:
+    """A float32 C-contiguous copy of ``a`` with its last two axes swapped,
+    one matrix at a time by torch's blocked transposing copy (numpy's
+    strided copy is several times slower at the model's sizes)."""
+    a = np.asarray(a, dtype=np.float32)
+    out = np.empty((*a.shape[:-2], a.shape[-1], a.shape[-2]), np.float32)
+    for i in np.ndindex(*a.shape[:-2]):
+        torch.from_numpy(out[i]).copy_(torch.from_numpy(np.ascontiguousarray(a[i])).t())
+    return out
 
 
 def _take(buf: np.ndarray, offset: int, shape: tuple[int, ...]):
@@ -126,16 +139,16 @@ def load_checkpoint(path: str) -> tuple[ModelConfig, dict, bool]:
     params = {
         "tok_emb": np.ascontiguousarray(tok_emb),
         "rms_att": np.ascontiguousarray(rms_att),
-        "wq": np.ascontiguousarray(wq.transpose(0, 2, 1)),
-        "wk": np.ascontiguousarray(wk.transpose(0, 2, 1)),
-        "wv": np.ascontiguousarray(wv.transpose(0, 2, 1)),
-        "wo": np.ascontiguousarray(wo.transpose(0, 2, 1)),
+        "wq": transposed(wq),
+        "wk": transposed(wk),
+        "wv": transposed(wv),
+        "wo": transposed(wo),
         "rms_ffn": np.ascontiguousarray(rms_ffn),
-        "w1": np.ascontiguousarray(w1.transpose(0, 2, 1)),
-        "w2": np.ascontiguousarray(w2.transpose(0, 2, 1)),
-        "w3": np.ascontiguousarray(w3.transpose(0, 2, 1)),
+        "w1": transposed(w1),
+        "w2": transposed(w2),
+        "w3": transposed(w3),
         "rms_final": np.ascontiguousarray(rms_final),
-        "wcls": np.ascontiguousarray(wcls.T),
+        "wcls": transposed(wcls),
     }
     return config, params, shared_weights
 
@@ -171,20 +184,20 @@ def save_checkpoint(
         )
 
         def put(a: np.ndarray):
-            np.asarray(a, dtype="<f4").tofile(f)
+            np.ascontiguousarray(a, dtype="<f4").tofile(f)
 
         put(params["tok_emb"])
         put(params["rms_att"])
-        put(params["wq"].transpose(0, 2, 1))
-        put(params["wk"].transpose(0, 2, 1))
-        put(params["wv"].transpose(0, 2, 1))
-        put(params["wo"].transpose(0, 2, 1))
+        put(transposed(params["wq"]))
+        put(transposed(params["wk"]))
+        put(transposed(params["wv"]))
+        put(transposed(params["wo"]))
         put(params["rms_ffn"])
-        put(params["w1"].transpose(0, 2, 1))
-        put(params["w2"].transpose(0, 2, 1))
-        put(params["w3"].transpose(0, 2, 1))
+        put(transposed(params["w1"]))
+        put(transposed(params["w2"]))
+        put(transposed(params["w3"]))
         put(params["rms_final"])
         put(np.cos(angles))
         put(np.sin(angles))
         if not shared_weights:
-            put(params["wcls"].T)
+            put(transposed(params["wcls"]))

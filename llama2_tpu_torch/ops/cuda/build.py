@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` is compiled by its own ``nvcc -shared`` call into a
 shared library with a plain ``extern "C"`` interface, loaded with ``ctypes``.
 Nothing is compiled at import time: a kernel's library is built the first
 time its wrapper launches on a CUDA tensor, or by :func:`build_all` up
-front, which starts one ``nvcc`` per source at once. Libraries go to
+front, which starts one ``nvcc`` per source at once (:func:`start_builds`
+starts them without waiting; whoever needs a library first waits for its
+build). Libraries go to
 ``build/kernels/`` at the repository root, named by a hash of the sources and
 flags, so a changed source is rebuilt and an unchanged one is reused. A build
 failure raises; there is no fallback.
@@ -35,6 +37,7 @@ MAX_TICKETS = 8192  # the tickets of one launch's fixed-order reductions
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_pending: dict[str, tuple] = {}  # name: (library path, nvcc process, temp path) of a build in flight
 _workspaces: dict = {}
 
 
@@ -95,19 +98,27 @@ def _finish_build(name: str, so: str, proc: subprocess.Popen, tmp: str) -> str:
     return log
 
 
-def build_all(names: list[str]) -> dict[str, str]:
-    """Build every named kernel library that is missing, one ``nvcc`` each,
-    all started together, then load them. Returns each build's compiler
-    output (registers, shared memory and spills per kernel, from ptxas)."""
-    logs = {}
+def start_builds(names: list[str]) -> None:
+    """Start, without waiting, one ``nvcc`` for each named kernel library
+    that is not loaded, not built and not being built."""
     with _lock:
-        pending = []
         for name in names:
             so = _lib_path(name)
-            if name not in _libs and not os.path.exists(so):
-                pending.append((name, so, *_start_build(name, so)))
-        for name, so, proc, tmp in pending:
-            logs[name] = _finish_build(name, so, proc, tmp)
+            if name not in _libs and name not in _pending and not os.path.exists(so):
+                _pending[name] = (so, *_start_build(name, so))
+
+
+def build_all(names: list[str]) -> dict[str, str]:
+    """Build every named kernel library that is missing, one ``nvcc`` each,
+    all started together (or waited for, where :func:`start_builds` started
+    them), then load them. Returns each build's compiler output (registers,
+    shared memory and spills per kernel, from ptxas)."""
+    start_builds(names)
+    logs = {}
+    with _lock:
+        for name in names:
+            if name in _pending:
+                logs[name] = _finish_build(name, *_pending.pop(name))
     for name in names:
         load_library(name)
     return logs
@@ -118,6 +129,8 @@ def load_library(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            if name in _pending:
+                _finish_build(name, *_pending.pop(name))
             so = _lib_path(name)
             if not os.path.exists(so):
                 _finish_build(name, so, *_start_build(name, so))

@@ -53,9 +53,11 @@ class QuantTensor:
 
 
 def quantize(w, group_size: int = DEFAULT_GROUP_SIZE) -> QuantTensor:
-    """Group-quantize along axis -2 (in-features). Shape (..., in, out)."""
+    """Group-quantize along axis -2 (in-features). Shape (..., in, out). A
+    tensor is quantized on its device (a leading index at a time), to the
+    same bytes as the numpy path."""
     if isinstance(w, torch.Tensor):
-        w = w.detach().float().cpu().numpy()
+        return _quantize_tensor(w.detach(), group_size)
     w = np.asarray(w, dtype=np.float32)
     *lead, n_in, n_out = w.shape
     if n_in % group_size != 0:
@@ -71,6 +73,25 @@ def quantize(w, group_size: int = DEFAULT_GROUP_SIZE) -> QuantTensor:
         scale=torch.from_numpy(np.ascontiguousarray(scale, dtype=np.float32)),
         group_size=group_size,
     )
+
+
+def _quantize_tensor(w: torch.Tensor, group_size: int) -> QuantTensor:
+    *lead, n_in, n_out = w.shape
+    if n_in % group_size != 0:
+        raise ValueError(f"in-features {n_in} not divisible by group size {group_size}")
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    scale = torch.empty((*lead, n_in // group_size, n_out), dtype=torch.float32, device=w.device)
+    for i in np.ndindex(*lead):  # one leading slice at a time bounds the temporaries
+        g = w[i].float().reshape(n_in // group_size, group_size, n_out)
+        absmax = g.abs().amax(dim=-2)
+        # a full divisor: a scalar one is a multiply by its reciprocal on the
+        # card, a bit off the numpy path's division
+        s = absmax / torch.full_like(absmax, 127.0)
+        safe = torch.where(s == 0.0, 1.0, s)
+        # round half to even, as np.rint
+        q[i] = torch.round(g / safe[:, None, :]).to(torch.int8).reshape(n_in, n_out)
+        scale[i] = s
+    return QuantTensor(q=q, scale=scale, group_size=group_size)
 
 
 def dequantize(t: QuantTensor, dtype=torch.float32) -> torch.Tensor:

@@ -43,8 +43,16 @@ The streams equal the plain tick's, slot by slot, up to the rounding of a
 plain tick. The dense cache is padded by d rows past ``seq_len`` so a window
 from the last position never runs off it.
 
-Not ported: ``precompile`` (JAX AOT) and the mesh (tensor and data
-parallelism).
+Cold start (:meth:`BatchEngine.precompile`, the server's ``--precompile``):
+each kernel library is built by ``nvcc`` at its first launch and each
+kernel's launch plan is worked out at its first shape, so the first request
+would pay for both. ``precompile`` builds every library the engine's paths
+launch, all at once (:func:`start_kernel_builds` starts them before the
+weight upload, so that the two overlap), and runs the prefill chunks of
+given prompt lengths, the decode tick and the speculative window once on a
+scratch two-layer cache of the engine's shapes, which fills the plans.
+
+Not ported: the mesh (tensor and data parallelism).
 """
 
 from __future__ import annotations
@@ -58,13 +66,65 @@ import numpy as np
 import torch
 
 from llama2_tpu_torch.config import GenerationConfig, ModelConfig
-from llama2_tpu_torch.models.llama import BACKENDS, forward, init_cache, logits_from_hidden
+from llama2_tpu_torch.models.llama import BACKENDS, forward, init_cache, layer_keys, logits_from_hidden
 from llama2_tpu_torch.ops import sampling
+from llama2_tpu_torch.ops.cuda import attention, attention_q8, build, layer_block, mlp_block, quant_matmul
+from llama2_tpu_torch.quant.q8 import QuantTensor
 from llama2_tpu_torch.runtime.generator import prepare_params, resolve_device, uniform_draw
 
 BOS = 1
 
 PREFILL_CHUNKS = (128, 32, 8, 1)  # greedy power-of-two-ish decomposition
+
+
+# the kernels' cached launch plans, by name: what precompile fills
+PLAN_CACHES = {
+    "attention.plan": attention.plan, "attention_q8.q8_plan": attention_q8.q8_plan,
+    "layer_block.launch_plans": layer_block.launch_plans, "mlp_block.launch_plan": mlp_block.launch_plan,
+    "quant_matmul.plan": quant_matmul.plan,
+}
+
+
+def plan_entries() -> int:
+    """The launch plans cached so far, over :data:`PLAN_CACHES`."""
+    return sum(f.cache_info().currsize for f in PLAN_CACHES.values())
+
+
+def kernel_libraries(params: dict, backend: str, kv_quant: bool) -> list[str]:
+    """The kernel libraries (``csrc/<name>.cu``) the dense engine's paths
+    launch with these weights, backend and cache kind: the prefill chunks
+    (K1 over the fp cache, K7 over the int8 one), the decode tick (K2/K4 or
+    K8/K9, the megakernels K10-K13 on ``cuda``) and, with INT8 weights, K5/K6
+    in all three and in the speculative window. ``torch`` launches none."""
+    if not backend.startswith("cuda"):
+        return []
+    names = ["attention_q8"] if kv_quant else ["prefill_attention", "decode_attention"]
+    if isinstance(params.get("wq", params.get("wqkv")), QuantTensor):
+        names.append("quant_matmul")
+        if backend == "cuda":
+            names.append("mlp_block")
+    return names
+
+
+def start_kernel_builds(params: dict, backend: str, kv_quant: bool) -> None:
+    """Start, without waiting, the builds of :func:`kernel_libraries` that
+    are missing (one ``nvcc`` each), so that they overlap what the caller
+    does next on the card (the engine's weight upload);
+    :meth:`BatchEngine.precompile` finishes them."""
+    build.start_builds(kernel_libraries(params, backend, kv_quant))
+
+
+def _chunks(prompt_lens) -> list[int]:
+    """The chunk sizes of the PREFILL_CHUNKS decomposition of ``[BOS] +
+    prompt`` for each prompt length."""
+    chunks: set[int] = set()
+    for plen in prompt_lens:
+        rem = plen + 1
+        while rem:
+            c = next(c for c in PREFILL_CHUNKS if rem >= c)
+            chunks.add(c)
+            rem -= c
+    return sorted(chunks)
 
 
 def _spec_drafts(hist, tokens, pos, d: int, S: int) -> torch.Tensor:
@@ -378,21 +438,74 @@ class BatchEngine:
         remaining = feed
         while len(remaining):
             c = next(c for c in PREFILL_CHUNKS if len(remaining) >= c)
-            seg = torch.as_tensor(remaining[None, :c], device=self.device)
-            if c == 1 and not all(t.is_contiguous() for t in cache.values()):
-                # a one-token chunk runs the decode layer, whose kernels take
-                # whole layer-stacked caches: the slot's plane, copied there
-                # and back (the JAX engine copies the plane for every chunk)
-                plane = {k: t.contiguous() for k, t in cache.items()}
-                hidden = forward(self.params, plane, seg, pos, self.config, self.backend)
-                for k, t in cache.items():
-                    t.copy_(plane[k])
-            else:
-                hidden = forward(self.params, cache, seg, pos, self.config, self.backend)
-            logits = logits_from_hidden(self.params, hidden[:, -1, :], self.backend)[0]
+            logits = self._chunk(self.params, self.config, cache, remaining[:c], pos)
             pos += c
             remaining = remaining[c:]
         return logits
+
+    def _chunk(self, params: dict, config: ModelConfig, cache: dict, seg: np.ndarray, pos: int):
+        """One prefill chunk ``seg`` at ``pos`` into a batch-1 cache: the
+        last position's logits (V,)."""
+        seg = torch.as_tensor(seg[None, :], device=self.device)
+        if seg.shape[1] == 1 and not all(t.is_contiguous() for t in cache.values()):
+            # a one-token chunk runs the decode layer, whose kernels take
+            # whole layer-stacked caches: the slot's plane, copied there
+            # and back (the JAX engine copies the plane for every chunk)
+            plane = {k: t.contiguous() for k, t in cache.items()}
+            hidden = forward(params, plane, seg, pos, config, self.backend)
+            for k, t in cache.items():
+                t.copy_(plane[k])
+        else:
+            hidden = forward(params, cache, seg, pos, config, self.backend)
+        return logits_from_hidden(params, hidden[:, -1, :], self.backend)[0]
+
+    def precompile(self, prompt_lens=(), stochastic=(False,), spec: bool = False) -> int:
+        """Pay the cold start before the first request: build (:mod:`build`,
+        one ``nvcc`` a source, all at once; those :func:`start_kernel_builds`
+        started are waited for) every kernel library the engine's backend,
+        weights and cache kind launch, then run, once each, on a scratch
+        cache of two layers and the engine's batch, rows and dtype (the
+        weights' first two layers; a launch plan does not depend on the
+        depth): the prefill chunks of the PREFILL_CHUNKS decomposition of
+        ``prompt_lens`` (on slot 0's plane), the decode tick with each
+        sampler of ``stochastic`` (greedy, nucleus), and with ``spec`` and
+        ``spec_window`` the speculative window. That fills every kernel's
+        launch plan for those shapes. Nothing runs on the engine's cache and
+        nothing is stored for dispatch. Call it before :meth:`start`.
+
+        Returns the number of libraries built plus the plans filled; 0 on
+        the CPU or on ``backend="torch"``, where nothing is built. The paged
+        engine raises ``NotImplementedError``."""
+        if self.cache is None:
+            raise NotImplementedError(
+                "precompile covers the dense engine; the paged ticks have their own shapes"
+            )
+        names = kernel_libraries(self.params, self.backend, self.kv_quant)
+        if self.device.type != "cuda" or not names:
+            return 0
+        built = len(build.build_all(names))
+        before = plan_entries()
+        L = min(2, self.config.n_layers)
+        config = dataclasses.replace(self.config, n_layers=L)
+        stacked = set(layer_keys(self.params))
+        params = {k: v[:L] if k in stacked else v for k, v in self.params.items()}
+        cache = init_cache(config, self.batch_size, self.dtype, self.device, self.kv_quant, pad=self.spec_window)
+        plane = {k: v[:, :1] for k, v in cache.items()}
+        for c in _chunks(prompt_lens):
+            self._chunk(params, config, plane, np.ones(c, np.int64), 0)
+        B = self.batch_size
+        tokens = self._upload(np.ones(B, np.int32))
+        pos = self._upload(np.zeros(B, np.int32))
+        for st in stochastic:
+            hidden = forward(params, cache, tokens[:, None], pos, config, self.backend)
+            logits = logits_from_hidden(params, hidden[:, -1, :], self.backend)
+            self._sample(logits, list(range(B)) if st else [], self._upload(np.full(B, 0.5, np.float32)))
+        if spec and self.spec_window:
+            seg = self._upload(np.ones((B, self.spec_window), np.int64))
+            hidden = forward(params, cache, seg, pos.long(), config, self.backend)
+            sampling.sample_argmax(logits_from_hidden(params, hidden, self.backend))
+        torch.cuda.synchronize(self.device)
+        return built + plan_entries() - before
 
     def _start_request(self, slot: int, req: Request):
         # prefill edits device and host state outside the pipelined chain:

@@ -16,7 +16,7 @@ Run:  python -m llama2_tpu_torch.runtime.server <checkpoint> \\
           [--quant int8] [--dtype f32|bf16] [--platform cpu|gpu]
           [--paged [--page-size 256] [--pages N] [--prefix-cache]]
           [--ticks-per-sync K] [--pipeline-depth P] [--kv-cache f32|int8]
-          [--kernels cuda|cuda-accurate|torch] [--spec N]
+          [--kernels cuda|cuda-accurate|torch] [--spec N] [--precompile L1,L2,...]
 
 ``--paged`` switches the KV cache to page pools (runtime/paged_engine.py):
 memory scales with the tokens in flight instead of batch_size * seq_len.
@@ -24,21 +24,27 @@ memory scales with the tokens in flight instead of batch_size * seq_len.
 so a repeated system prompt prefills only its suffix. ``--port 0`` takes a
 free port (the address is printed). ``--spec N`` (0, or 2 to 64) runs
 greedy speculative windows of N tokens whenever every active request is
-greedy (``ticks_per_sync`` then counts windows). The engines run on the card
-(``--platform gpu``, the default; exit 1 without one) unless ``--platform
-cpu`` is given. ``--mesh``, ``--collective-matmul`` and ``--precompile`` are
-not yet ported and exit 1.
+greedy (``ticks_per_sync`` then counts windows). ``--precompile L1,L2,...``
+(the dense engine only; exit 1 with ``--paged``) pays the cold start before
+the server answers: the kernel builds start before the weight upload, then
+``BatchEngine.precompile`` builds and warms the prefill chunks of those prompt
+lengths, the decode tick (greedy and sampled) and, with ``--spec``, the
+window. The engines run on the card (``--platform gpu``, the default; exit 1
+without one) unless ``--platform cpu`` is given; prompts are encoded by the
+C++ tokenizer (``tokenizer/fast/``). ``--mesh`` and ``--collective-matmul``
+are not yet ported and exit 1.
 """
 
 from __future__ import annotations
 
 import json
 import sys
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from llama2_tpu_torch.config import GenerationConfig
 
-_UNPORTED = ("--mesh", "--collective-matmul", "--precompile")
+_UNPORTED = ("--mesh", "--collective-matmul")
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -162,6 +168,14 @@ def serve(engine, tokenizer, host: str = "127.0.0.1", port: int = 8000):
         engine.stop()
 
 
+def _lengths(value: str) -> list[int]:
+    """``--precompile``'s prompt lengths: ``L1,L2,...``."""
+    lens = [int(v) for v in value.split(",") if v]
+    if any(n < 0 for n in lens):
+        raise ValueError(value)
+    return lens
+
+
 def _die(msg: str) -> int:
     print(msg, file=sys.stderr)
     return 1
@@ -173,7 +187,7 @@ def main(argv=None):
         "path": None, "tok_path": "tokenizer.bin", "port": 8000, "host": "127.0.0.1", "batch": 8,
         "quant": "none", "dtype": "f32", "platform": "gpu", "paged": False, "page_size": 256,
         "n_pages": None, "prefix_cache": False, "ticks": 1, "pipeline_depth": 2,
-        "kv_cache": "f32", "kernels": "cuda", "spec": 0,
+        "kv_cache": "f32", "kernels": "cuda", "spec": 0, "precompile": None,
     }
     valued = {
         "-z": ("tok_path", str), "--port": ("port", int), "--host": ("host", str),
@@ -181,7 +195,7 @@ def main(argv=None):
         "--platform": ("platform", str), "--ticks-per-sync": ("ticks", int),
         "--pipeline-depth": ("pipeline_depth", int), "--kv-cache": ("kv_cache", str),
         "--kernels": ("kernels", str), "--page-size": ("page_size", int), "--pages": ("n_pages", int),
-        "--spec": ("spec", int),
+        "--spec": ("spec", int), "--precompile": ("precompile", _lengths),
     }
     choices = {
         "quant": ("none", "int8"), "dtype": ("f32", "bf16"), "platform": ("cpu", "gpu"),
@@ -218,6 +232,8 @@ def main(argv=None):
         return _die(__doc__)
     if opts["prefix_cache"] and not opts["paged"]:
         return _die("--prefix-cache requires --paged")
+    if opts["precompile"] is not None and opts["paged"]:
+        return _die("--precompile covers the dense engine (not --paged)")
 
     import torch
 
@@ -226,16 +242,17 @@ def main(argv=None):
     device = torch.device("cuda" if opts["platform"] == "gpu" else "cpu")
 
     from llama2_tpu_torch.io import load_any
-    from llama2_tpu_torch.runtime.batch_engine import BatchEngine
-    from llama2_tpu_torch.tokenizer.tokenizer import Tokenizer
+    from llama2_tpu_torch.runtime.batch_engine import BatchEngine, start_kernel_builds
+    from llama2_tpu_torch.tokenizer.fast import load_tokenizer
 
     config, params, _ = load_any(opts["path"])
-    tokenizer = Tokenizer.from_file(opts["tok_path"], config.vocab_size)
+    tokenizer = load_tokenizer(opts["tok_path"], config.vocab_size)
     if opts["quant"] == "int8":
         from llama2_tpu_torch.quant.q8 import QuantTensor, quantize_params
 
         if not any(isinstance(v, QuantTensor) for v in params.values()):
-            params = quantize_params(params)
+            # on the device: the quantizer gives the numpy path's bytes there
+            params = quantize_params({k: torch.as_tensor(v).to(device) for k, v in params.items()})
     kw = dict(
         batch_size=opts["batch"],
         dtype=torch.float32 if opts["dtype"] == "f32" else torch.bfloat16,
@@ -252,7 +269,15 @@ def main(argv=None):
         engine = PagedBatchEngine(config, params, page_size=opts["page_size"], n_pages=opts["n_pages"],
                                   prefix_cache=opts["prefix_cache"], **kw)
     else:
+        t0 = time.perf_counter()
+        if opts["precompile"] is not None and device.type == "cuda":
+            # the builds run while the weights upload
+            start_kernel_builds(params, opts["kernels"], kw["kv_quant"])
         engine = BatchEngine(config, params, **kw)
+        if opts["precompile"] is not None:
+            n = engine.precompile(prompt_lens=opts["precompile"], stochastic=(False, True), spec=opts["spec"] > 0)
+            print(f"precompiled {n} programs in {time.perf_counter() - t0:.1f}s (builds overlapped with the "
+                  "weight upload)", file=sys.stderr, flush=True)
     del params
     serve(engine, tokenizer, opts["host"], opts["port"])
     return 0

@@ -23,8 +23,8 @@ Where the reference linear-scans the 32k vocab per lookup (main.zig:208-215,
 O(n^2 * V) encode), this implementation uses a bytes->id hash map built with
 first-occurrence-wins semantics, which preserves the linear scan's
 first-match behavior for duplicate token strings while being O(1) per lookup.
-A copy of ``llama2_tpu/tokenizer/tokenizer.py``; the JAX package's C++ fast
-encoder is not ported yet.
+A copy of ``llama2_tpu/tokenizer/tokenizer.py``; the entry points load the
+C++ encoder of the same semantics (``tokenizer/fast/``).
 """
 
 from __future__ import annotations

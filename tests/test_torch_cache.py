@@ -172,8 +172,9 @@ def test_cli_save_cache_then_run_from_the_directory(capfd, tiny_checkpoint, tmp_
 
 def test_cli_as_a_module_takes_a_cache_directory(tmp_path):
     """``python -m llama2_tpu_torch DIR`` on a directory from the random-Q8
-    tool, also over the int8 KV cache with speculative decoding; the flags
-    still unported exit 1."""
+    tool, also over the int8 KV cache with speculative decoding, and with
+    ``--profile d`` (a trace in d, the same bytes); ``--seq-shards``, still
+    unported, exits 1."""
     env = dict(os.environ, PYTHONPATH=REPO)
     env.pop("JAX_PLATFORMS", None)
     cdir = str(tmp_path / "tiny-q8")
@@ -185,9 +186,14 @@ def test_cli_as_a_module_takes_a_cache_directory(tmp_path):
     r = subprocess.run(base, capture_output=True, timeout=240, env=env, cwd=REPO)
     assert r.returncode == 0, r.stderr.decode()
     assert len(r.stdout) > 0 and b"tokens per second" in r.stderr
-    for flag in (("--kv-cache", "int8", "--spec", "4"), ("--seq-shards", "2"), ("--profile", "d")):
+    plain = r.stdout
+    trace_dir = str(tmp_path / "d")
+    for flag in (("--kv-cache", "int8", "--spec", "4"), ("--seq-shards", "2"), ("--profile", trace_dir)):
         r = subprocess.run([*base, *flag], capture_output=True, timeout=240, env=env, cwd=REPO)
         if flag[0] == "--kv-cache":  # ported with slice 4
             assert r.returncode == 0 and len(r.stdout) > 0, r.stderr.decode()
+        elif flag[0] == "--profile":  # ported with slice 16
+            assert r.returncode == 0 and r.stdout == plain, r.stderr.decode()
+            assert [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
         else:
             assert r.returncode == 1 and b"not yet ported" in r.stderr

@@ -151,7 +151,7 @@ def run_main(capsys, *argv):
         (("ck.bin", "--spec", "65"), 1, "err", "--spec must be 0 (off) or 2..64"),
         (("ck.bin", "--seq-shards", "2"), 1, "err", "not yet ported to the torch package"),
         (("ck.bin", "--save-cache"), 1, "err", "missing argument"),
-        (("ck.bin", "--profile", "d"), 1, "err", "not yet ported to the torch package"),
+        (("ck.bin", "--profile"), 1, "err", "missing argument"),
     ],
 )
 def test_cli_parse_surface(capsys, argv, rc, where, text):

@@ -1712,3 +1712,101 @@ def test_read_only_split_block_matches_plain_on_card(cuda_device, dtype, layout)
             _assert_close(got[0], plain, tol, what)
         _planted_fp_fail(q[b4].float() * scale, *rows, plain[b4], tol, which.__name__)
     assert all(torch.equal(a.nan_to_num(), b.nan_to_num()) for a, b in zip((k, v, kp, vp), (k0, v0, kp0, vp0)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["fast", "accurate"])
+def test_classifier_at_the_perplexity_chunk_matches_plain_on_card(cuda_device, mode):
+    """K5 at M = 256 x K = 4096 x V = 32000, the perplexity chunk's
+    classifier over every position: on the M > 8 tile of its mode, against
+    the plain version at the tolerances of
+    ``test_quant_matmul_wgmma_tile_matches_plain_on_card``, bf16 and fp32
+    activations; the same bits on a rerun."""
+    g = torch.Generator(device=cuda_device).manual_seed(160)
+    K, V, G, M = 4096, 32000, 64, 256
+    q = torch.randint(-127, 128, (K, V), generator=g, device=cuda_device, dtype=torch.int8)
+    w = QuantTensor(q, 2.7e-4 * (0.7 + 0.6 * torch.rand((K // G, V), generator=g, device=cuda_device)), G)
+    tiles = f"launches_tile_{mode}"
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn((M, K), generator=g, device=cuda_device).to(dtype)
+        n0, n_tile = quant_matmul.launches, getattr(quant_matmul, tiles)
+        got = quant_matmul(x, w, mode=mode)
+        assert quant_matmul.launches == n0 + 1 and getattr(quant_matmul, tiles) == n_tile + 1
+        tol = dict(rtol=2**-7, atol=1e-3) if dtype == torch.bfloat16 else dict(rtol=4e-5, atol=4e-5)
+        _assert_close(got, quant_matmul_plain(x, w, mode=mode), tol, f"K5 {mode} M={M} {dtype}")
+        assert torch.equal(got, quant_matmul(x, w, mode=mode))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,kv_quant", [("cuda", True), ("cuda", False), ("cuda-accurate", False)])
+def test_precompile_leaves_the_first_wave_no_build_and_no_plan_miss(cuda_device, backend, kv_quant, monkeypatch):
+    """``BatchEngine.precompile`` for prompts of 16 and 40 tokens, both
+    samplers and the speculative window: a first wave of such requests
+    (greedy and sampled, so plain ticks and windows both run) then starts
+    no ``nvcc`` and misses no launch plan, and its streams equal an
+    engine's without precompile."""
+    from llama2_tpu_torch.ops.cuda import build
+    from llama2_tpu_torch.runtime.batch_engine import PLAN_CACHES, BatchEngine
+
+    config = ModelConfig(dim=256, hidden_dim=704, n_layers=3, n_heads=2, n_kv_heads=2, vocab_size=512,
+                         seq_len=256)
+    dtype = torch.bfloat16 if backend == "cuda" else torch.float32
+    params = random_q8_params(config, 16, cuda_device, dtype, group_size=64)
+    g = torch.Generator().manual_seed(16)
+    prompts = [torch.randint(3, 512, (n,), generator=g).tolist() for n in (16, 40, 16, 40)]
+    # the sampled requests end first: the greedy ones then run speculative windows
+    gens = [GenerationConfig(temperature=0.0, steps=80), GenerationConfig(temperature=0.8, steps=50, seed=2),
+            GenerationConfig(temperature=0.8, steps=30, seed=3), GenerationConfig(temperature=0.0, steps=80)]
+
+    def wave(precompile: bool):
+        eng = BatchEngine(config, params, batch_size=4, dtype=dtype, backend=backend, device=cuda_device,
+                          kv_quant=kv_quant, spec_window=4)
+        if precompile:
+            assert eng.precompile(prompt_lens=(16, 40), stochastic=(False, True), spec=True) >= 0
+            misses = {k: f.cache_info().misses for k, f in PLAN_CACHES.items()}
+            monkeypatch.setattr(build, "_start_build", lambda *a: pytest.fail(f"the first wave built {a[0]}"))
+        queues = [eng.submit(p, gen) for p, gen in zip(prompts, gens)]
+        eng.run_until_idle()
+        out = [q.get(timeout=300).tokens for q in queues]
+        if precompile:
+            assert {k: f.cache_info().misses for k, f in PLAN_CACHES.items()} == misses
+            assert eng.metrics["spec_windows"] > 0
+            monkeypatch.undo()
+        return out
+
+    assert wave(True) == wave(False)
+
+
+@pytest.mark.gpu
+def test_load_tokenizer_builds_the_cpp_tokenizer_on_card(cuda_device):
+    """Where the kernels run, the entry points' tokenizer is the C++ one,
+    with the Python tokenizer's ids."""
+    import os
+
+    from llama2_tpu_torch.tokenizer.fast import FastTokenizer, load_tokenizer
+    from llama2_tpu_torch.tokenizer.tokenizer import Tokenizer
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures", "tokenizer.bin")
+    fast, py = load_tokenizer(path, 32000), Tokenizer.from_file(path, 32000)
+    assert isinstance(fast, FastTokenizer)
+    text = "Once upon a time, there was a little girl named Lily. Zebras & émus aren't common—café.\n"
+    assert fast.encode(text) == py.encode(text) and fast.decode(py.encode(text)) == py.decode(py.encode(text))
+
+
+@pytest.mark.gpu
+def test_quantize_on_card_gives_the_numpy_bytes(cuda_device):
+    """``quant/q8.py::quantize`` of a tensor on the card: the numpy path's
+    int8 values and scales bit for bit (the CLI and the server quantize on
+    load there), with zero groups and exact halves among the values."""
+    import numpy as np
+
+    from llama2_tpu_torch.quant.q8 import quantize
+
+    rng = np.random.default_rng(17)
+    for shape, G in (((3, 4096, 1000), 64), ((640, 4099), 32), ((2, 128, 48), 16)):
+        w = (rng.standard_normal(shape) * 0.02).astype(np.float32)
+        w[..., :G, 0] = 0.0
+        w[..., G : 2 * G, 1] = np.arange(G, dtype=np.float32) - G / 2  # ties at .5 after scaling
+        want, got = quantize(w, G), quantize(torch.from_numpy(w).to(cuda_device), G)
+        assert got.q.device.type == "cuda"
+        assert torch.equal(got.q.cpu(), want.q) and torch.equal(got.scale.cpu(), want.scale)

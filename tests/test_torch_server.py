@@ -1,13 +1,14 @@
 """The torch port's HTTP server over the port's engines (in-process, CPU).
 
-The contracts of ``tests/test_server.py`` that involve no mesh and no
-``precompile``: health, generate, determinism, concurrent requests, bad JSON,
+The contracts of ``tests/test_server.py`` that involve no mesh: health, generate, determinism, concurrent requests, bad JSON,
 bad parameters, an unknown codepoint (400), metrics (with the prefix cache's
 counters on a paged engine), 404; greedy text equal to the port
 ``Generator``'s. The entry point itself (``python -m
 llama2_tpu_torch.runtime.server ... --platform cpu --port 0``) serves a
 request in a subprocess, also with ``--spec 4``; unported flags, bad values
-(``--spec 1``) and ``--platform gpu`` without a card exit 1.
+(``--spec 1``), ``--precompile`` with ``--paged`` (as the JAX server) and
+``--platform gpu`` without a card exit 1. ``--precompile`` on the dense
+engine: ``tests/test_torch_tools.py``.
 """
 
 import json
@@ -170,7 +171,7 @@ def test_404(server):
 
 
 @pytest.mark.parametrize("flag", [["--spec", "1"], ["--mesh", "2x4"], ["--collective-matmul"],
-                                  ["--precompile", "16"], ["--kernels", "pallas"],
+                                  ["--precompile", "16", "--paged"], ["--kernels", "pallas"],
                                   ["--prefix-cache"], ["--bogus"]])
 def test_unported_and_bad_flags_exit_1(tiny_checkpoint, capsys, flag):
     path, _, _ = tiny_checkpoint
