@@ -41,7 +41,8 @@ non-zero:
 3. the served path, slice 5's main path: ``PagedBatchEngine`` at full
    Llama-2-7B width, INT8 weights, bf16 activations,
    ``backend="cuda"``, 8 slots, 256-row pages, the prefix cache, serving 16
-   requests over a bf16 page pool at 32 layers and over an int8 one at 8,
+   requests over a bf16 page pool and an int8 one at 8 layers (the bf16
+   pool at 32 before slice 17),
    with the launches of
    every decode tick asserted (K6 1, K17 or K18 32, K12 31, K11 1, K5 1)
    and every admission prefill's K1 through its tensor-core variant (bf16's
@@ -53,7 +54,7 @@ non-zero:
    the dense ``BatchEngine`` on the same requests for its memory;
    ``cuda-accurate`` in fp32 at 8 layers over both pools (K15, K16);
    engine-level speculation (``spec_window=4``) on the 12 greedy requests
-   through the paged engine over a bf16 pool (32 layers) and the dense
+   through the paged engine over a bf16 pool (16 layers) and the dense
    engine over the int8 cache (8 layers), every window's launches asserted
    (K6 and K5 on the M > 8 tile; no decode attention kernel), the
    streams held to the same engine's plain tick by the speculative margin
@@ -61,8 +62,8 @@ non-zero:
    beside the plain tick's (``phase_serve_spec``). Then
    the earlier main paths: ``Generator.generate`` at full Llama-2-7B width (random
    weights from a seed, built on the card), a ~200-token prompt and 64 greedy
-   tokens. INT8 (Q8) weights, ``backend="cuda"``, bf16 activations, all 32
-   layers: over the fp cache (the 2-launch decode layer: glue-fused attention
+   tokens. INT8 (Q8) weights, ``backend="cuda"``, bf16 activations, 16
+   layers (32 before slice 17): over the fp cache (the 2-launch decode layer: glue-fused attention
    + the wo/FFN/next-QKV megakernel) and over the int8 KV cache (this slice's
    main path: one whole-layer launch a layer), each also with speculative
    decoding (4-token verify windows), and over the int8 cache with the
@@ -106,7 +107,16 @@ non-zero:
    and with ``--profile`` the same bytes and a trace holding K13's and K5's
    events at their launch counts; the C++ tokenizer against the Python one;
    the server's ``--precompile`` cold start from an empty ``build/``
-   (``phase_tools``);
+   (``phase_tools``); then slice 17's path, tensor- and data-parallel
+   serving: ``BatchEngine(mesh=)`` in two or four ranks on the one card
+   (gloo, the backend rule printed) at 7B width with random INT8 weights
+   written once as a param cache that each rank loads its slices of, 1x2 at
+   32 layers over both caches, 2x2 and a speculative 1x2 leg at 2 layers,
+   every decode tick's launches asserted on every rank (K6 twice, K4 or K9
+   and K10 with ``residual=False`` a layer, K5 once on the 16000-column
+   vocab slice), the streams held to the one-card engine by the margin
+   rule, tick ms and the reduces' share; and the server with ``--mesh 1x2``
+   (``phase_mesh``);
 5. kernel timing at the main paths' shapes with CUDA events, the calls
    queued behind a device sleep so that the host's launch rate does not set
    the time, beside the bound, the plain version and a library yardstick
@@ -129,8 +139,8 @@ non-zero:
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py --tools`` builds
-the kernels and runs only this slice's phases (``phase_perplexity``,
-``phase_tools``); ``--dense-timing``
+the kernels and runs only slice 16's phases (``phase_perplexity``,
+``phase_tools``), ``--mesh`` only slice 17's (``phase_mesh``); ``--dense-timing``
 builds the kernels and times only the dense decode attention kernels,
 ``--prefill-timing`` only the prefill segment's K1, K5 and K6,
 ``--decode-timing`` only single-stream decode on the two-launch route at
@@ -328,6 +338,7 @@ SPLIT_CASES = {
     **{name: (*layout, False) for name, layout in LAYOUTS.items()},
     "hs46": (8, 2, 46, False),
     "7B-offset": (32, 32, 128, True),
+    "7B/tp2": (16, 16, 128, False),  # a rank's heads at tp = 2 (phase_mesh)
 }
 
 
@@ -491,9 +502,11 @@ def all_layouts(params: dict) -> dict:
 
 def phase_kernels_q8() -> None:
     """K4 against its plain version at SPLIT_CASES; K5/K6 against
-    theirs at the five 7B shapes, M = 1, 8 and 201, both modes, fp32 and bf16
-    activations, with and without prologue and epilogue, on layers 0 and 31
-    of 32-layer stacks."""
+    theirs at the five 7B shapes and at a rank's slices of wqkv, wo, w2 and
+    wcls at tp = 2 (``parallel/sharding.py::shard_params``: N 6144, K 2048,
+    K 5504, N 16000, the shapes ``phase_mesh`` gives them), M = 1, 8, 9, 32
+    and 201, both modes, fp32 and bf16 activations, with and without
+    prologue and epilogue, on layers 0 and 31 of 32-layer stacks."""
     import torch
 
     from llama2_tpu_torch.io.convert import random_q8_params
@@ -507,6 +520,7 @@ def phase_kernels_q8() -> None:
         quant_matmul_stacked,
         quant_matmul_stacked_plain,
     )
+    from llama2_tpu_torch.parallel.sharding import shard_params
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
 
@@ -547,13 +561,17 @@ def phase_kernels_q8() -> None:
                 del kc, vc, k_plain, v_plain, k_again, v_again
 
     params = all_layouts(random_q8_params(config_7b(), SEED + 4, "cuda", group_size=GROUP))
+    # rank 1's slices at tp = 2: column-parallel wqkv and wcls, row-parallel wo and w2
+    tp2 = shard_params({k: params[k] for k in ("wqkv", "wo", "w2", "wcls")}, (1, 2), coord=(0, 1))
+    cases = [(name, name, params[name]) for name in Q8_SHAPES] + [(name, f"{name}/tp2", tp2[name]) for name in tp2]
     combos = ((0, False, False), (31, True, False), (31, False, True), (0, True, True))
     # decode rows, and the M > 8 tile just past them, at a speculative window
     # (8 slots x 4 tokens) and at the chunk
     m_rows = (1, 8, 9, 32, 201)
     for dtype in (torch.float32, torch.bfloat16):
         for mode in ("accurate", "fast"):
-            for name, (K, N) in Q8_SHAPES.items():
+            for name, label, wt in cases:
+                K, N = wt.q.shape[-2:]
                 worst = {}
                 fn = quant_matmul if name == "wcls" else quant_matmul_stacked
                 for M in m_rows:
@@ -565,18 +583,18 @@ def phase_kernels_q8() -> None:
                                   residual=res if resid else None)
                         tiles = getattr(fn, f"launches_tile_{mode}")
                         if name == "wcls":
-                            got = quant_matmul(x, params[name], mode=mode)
-                            want = quant_matmul_plain(x, params[name], mode=mode)
+                            got = quant_matmul(x, wt, mode=mode)
+                            want = quant_matmul_plain(x, wt, mode=mode)
                         else:
-                            got = quant_matmul_stacked(x, params[name], layer, **kw)
-                            want = quant_matmul_stacked_plain(x, params[name], layer, **kw)
+                            got = quant_matmul_stacked(x, wt, layer, **kw)
+                            want = quant_matmul_stacked_plain(x, wt, layer, **kw)
                         if getattr(fn, f"launches_tile_{mode}") != tiles + (M > 8):
                             raise AssertionError(f"{name} {mode} M={M}: the M > 8 tile count moved wrongly")
                         torch.cuda.synchronize()
                         err = compare(got, want, dtype, q8_tolerance(dtype, mode, norm))
                         worst[M] = max(worst.get(M, 0.0), err)
                 say("K5" if name == "wcls" else "K6", dtype=dtype_name(dtype), mode=mode,
-                    weight=name, K=K, N=N,
+                    weight=label, K=K, N=N,
                     max_abs_err_M1_M8_M9_M32_M201=",".join(f"{worst[M]:.3e}" for M in m_rows),
                     tol_plain_and_fast_prologue=f"{q8_tolerance(dtype, mode, False)},"
                     f"{q8_tolerance(dtype, mode, True)}".replace(" ", ""))
@@ -592,7 +610,7 @@ def phase_kernels_q8() -> None:
                 for _ in range(3):
                     if not torch.equal(a, quant_matmul_stacked(x, w, 5, mode=mode, **kw)):
                         raise AssertionError(f"K6 {mode} gave different bits on the same inputs (M={M})")
-    del params
+    del params, tp2, cases
     torch.cuda.empty_cache()
 
 
@@ -674,6 +692,32 @@ def phase_kernels_mlp() -> None:
                 **{f"{k}_max_abs_err": f"{e:.3e}" for k, (e, _) in worst.items()},
                 **{f"{k}_err_over_max": f"{r:.2e}" for k, (_, r) in worst.items()})
         del wo, w1, w3, w2, wqkv
+    # K10 as a rank runs it at tp = 2 (phase_mesh): D 4096, HD/tp = 5504 (86
+    # groups of 64), after the wo all-reduce without its residual; the rows
+    # of a tick (8) and of the one-token chunks (1), and the forms between
+    D, HD = 4096, 11008 // 2
+    w1, w3, w2 = qt(L, D, HD, GROUP, 1.0), qt(L, D, HD, GROUP, 1.0), qt(L, HD, D, GROUP, 1.0)
+    for dtype in (torch.float32, torch.bfloat16):
+        rms_ffn = 1 + 0.1 * randn(L, D, dtype=dtype)
+        worst, forms = (0.0, 0.0), set()
+        for M in (1, 2, 3, 4, 5, 8):
+            form[0] = mb.variant(M, D, HD, 0, (0, GROUP, GROUP, 0))
+            forms.add(f"M{M}:{form[0]}")
+            x = randn(M, D, dtype=dtype)
+            for layer in (0, L - 1):
+                r0 = mb.mlp_block_stacked.launches_no_residual
+                got = once(mb.mlp_block_stacked, x, rms_ffn[layer], w1, w3, w2, layer, residual=False)
+                if mb.mlp_block_stacked.launches_no_residual != r0 + 2:
+                    raise AssertionError("K10 residual=False: not counted in launches_no_residual")
+                want = mb.mlp_block_plain(x, rms_ffn[layer], w1, w3, w2, layer, residual=False)
+                torch.cuda.synchronize()
+                err = compare(got, want, dtype, mlp_tolerance(dtype, want))
+                worst = max(worst, (err, err / float(want.float().abs().max())))
+        say("K10-K12", kernel="K10/tp2", dtype=dtype_name(dtype), D=D, HD=HD, G=GROUP, residual=False,
+            forms=",".join(sorted(forms)), layers=f"0,{L - 1}", bits="equal_on_rerun",
+            tol="rtol=%g,atol=2e-3*max|want|" % mlp_tolerance(dtype, x)[0],
+            K10_max_abs_err=f"{worst[0]:.3e}", K10_err_over_max=f"{worst[1]:.2e}")
+    del w1, w3, w2
     for mt in (1, 2, 4, 8):
         say("K10-K12", rows_a_thread=mt, cooperative_grid_blocks=mb._grid(mt, torch.cuda.current_device()))
     say("K10-K12", form="mma", cooperative_grid_blocks=mb._grid(8, torch.cuda.current_device(), False, True))
@@ -870,8 +914,8 @@ def phase_kernels_q8kv() -> None:
 
     for dtype in (torch.float32, torch.bfloat16):
         dn = dtype_name(dtype)
-        for lname in ("7B", "GQA"):
-            H, KVH, hs = LAYOUTS[lname]
+        # and a rank's 16 heads at tp = 2 (phase_mesh)
+        for lname, (H, KVH, hs) in (("7B", LAYOUTS["7B"]), ("GQA", LAYOUTS["GQA"]), ("7B/tp2", (16, 16, 128))):
             k8, ks, v8, vs = cache(2, KVH, S, hs)
             worst = (0.0, 0.0)
             for T in (1, 4, 16):
@@ -2019,8 +2063,8 @@ def run_counted(g, prompt: list[int]):
 def phase_generate_q8(route: str, backend: str, dtype, n_layers: int = 32,
                       speculative: bool = False, fp_stream=None) -> dict:
     """One route of the INT8-weight path at full 7B width: generate, count
-    launches, replay teacher-forced through the plain path; at 32 layers on
-    ``cuda``, profile decode steps at positions 0-16 and 4080-4095; with
+    launches, replay teacher-forced through the plain path; at 16 layers or
+    more on ``cuda``, profile decode steps at positions 0-16 and 4080-4095; with
     ``speculative``, then the same greedy run with 4-token verify windows.
     Routes named "int8kv..." run over the int8 KV cache ("int8kv-fp" on bf16
     weights); ``fp_stream``: the tokens of the same weights over the fp cache,
@@ -2102,7 +2146,7 @@ def _generate_q8(g, config, route, backend, dtype, dn, kv_quant, speculative, fp
         wall_ms_per_decode_step=f"{decode_s * 1e3 / steps:.3f}",
         reference_protocol_tok_s=f"{res.tokens_per_sec:.2f}",
         peak_mem_GiB=f"{peak / 2**30:.2f}")
-    if L == 32 and backend == "cuda":
+    if L >= 16 and backend == "cuda":
         decode_profile(g, dn)
         long_context_profile(g, config, dn)
 
@@ -2447,8 +2491,8 @@ def served_run(eng, reqs, log: bool = False, check=None) -> dict:
         window["after"] = due and due[1]
         return spec_forward(seg, pos, w)
 
-    def kept_logits(params, hidden, backend="torch"):
-        out = logits_from_hidden(params, hidden, backend)
+    def kept_logits(params, hidden, backend="torch", mesh=None):
+        out = logits_from_hidden(params, hidden, backend, mesh)
         window["logits"] = out.detach().float()
         if window.get("after"):
             timed("check", window.pop("after"), window["logits"])
@@ -2701,8 +2745,8 @@ def phase_serve_timing() -> None:
 
 def phase_serve(kv_quant: bool, n_layers: int = 32) -> dict:
     """Slice 5's main path: ``PagedBatchEngine`` at full Llama-2-7B width,
-    ``n_layers`` layers (32; 8 over the int8 pool, to make room in the
-    script's time), INT8 weights, bf16 activations, backend ``cuda``, 8 slots,
+    ``n_layers`` layers (8 over either pool, to make room in the script's
+    time), INT8 weights, bf16 activations, backend ``cuda``, 8 slots,
     256-row pages, the prefix cache on, over a bf16 or an int8 pool, serving
     serve_workload(). Three runs on fresh engines (the prefix cache starts
     empty each time): timed, at pipeline depth 2; at depth 1 with every
@@ -2809,7 +2853,7 @@ def phase_serve(kv_quant: bool, n_layers: int = 32) -> dict:
 
 
 SPEC_WINDOW = 4  # the served speculative windows' tokens (the server's --spec 4)
-SPEC_CHECK_EVERY = 32  # the 32-layer leg holds one window in 32 to its plain forwards, the 8-layer legs all
+SPEC_CHECK_EVERY = 32  # the 16-layer leg holds one window in 32 to its plain forwards, the 8-layer legs all
 SPEC_PROFILED = 3  # windows (and plain ticks) a leg profiles: tracing a window costs seconds
 # launches per speculative window (ticks_per_sync 1: a tick is one window) at
 # L layers, 8 slots x 4 tokens = 32 rows, by backend; a kernel not named
@@ -2950,12 +2994,12 @@ def phase_serve_spec() -> None:
     weights, bf16, ``cuda``, 8 slots, ``spec_window=4``,
     ``ticks_per_sync=1``, serving the greedy requests of serve_workload()
     through ``PagedBatchEngine`` over a bf16 pool (256-row pages, the
-    prefix cache; 32 layers) and through the dense ``BatchEngine`` over the
+    prefix cache; 16 layers) and through the dense ``BatchEngine`` over the
     int8 cache (8 layers); then the paged engine in fp32 at 8 layers on ``cuda`` (fast
     mode: the bf16 legs' kernels) and on ``cuda-accurate``. Per leg: a
     logged speculative run with every window's launches asserted
     (SPEC_WINDOWS: no decode attention kernel and no megakernel in a window)
-    and every row of its windows (one in SPEC_CHECK_EVERY on the 32-layer
+    and every row of its windows (one in SPEC_CHECK_EVERY on the 16-layer
     leg) held to plain forwards of the same window (``window_checker``);
     a logged run of the same engine without speculation (pipeline depth
     1), the streams held to each other by ``hold_spec_streams`` (on
@@ -2975,7 +3019,7 @@ def phase_serve_spec() -> None:
     t0 = time.perf_counter()
     reqs = [r for i, r in enumerate(serve_workload()) if i not in SAMPLED]
     # the dense int8-cache leg at 8 layers: room for slice 16's phases in the script's time
-    legs = (("paged", 32, torch.bfloat16, "cuda"), ("dense", 8, torch.bfloat16, "cuda"),
+    legs = (("paged", 16, torch.bfloat16, "cuda"), ("dense", 8, torch.bfloat16, "cuda"),
             ("paged", 8, torch.float32, "cuda"), ("paged", 8, torch.float32, "cuda-accurate"))
     params, built = None, None
     for kind, L, dtype, backend in legs:
@@ -2997,7 +3041,7 @@ def phase_serve_spec() -> None:
         mark = stopwatch(f"phase_serve_spec/{dn}")
         eng = engine(spec_window=SPEC_WINDOW)
         params = eng.params  # fused once; the later engines take the same tensors
-        check, verdict = window_checker(config, params, dtype, backend, SPEC_CHECK_EVERY if L == 32 else 1)
+        check, verdict = window_checker(config, params, dtype, backend, SPEC_CHECK_EVERY if L >= 16 else 1)
         spec = served_run(eng, reqs, log=True, check=check)
         mark("params_and_spec_run")
         emitted = eng.metrics["tokens"]
@@ -3251,11 +3295,19 @@ def run_server(path: str, extra: tuple, bodies: list, args: tuple = SERVER_ARGS,
 
     cmd = [sys.executable, "-m", "llama2_tpu_torch.runtime.server", path, "-z", TOKENIZER_BIN, *args, *extra]
     t0 = time.perf_counter()
-    proc = subprocess.Popen(cmd, cwd=cwd, stderr=subprocess.PIPE, text=True)
-    killer = threading.Timer(600, proc.kill)  # a server that never comes up is killed
+    # a session of its own: the server and the ranks it spawns are killed together if it hangs
+    proc = subprocess.Popen(cmd, cwd=cwd, stderr=subprocess.PIPE, text=True, start_new_session=True)
+
+    def kill_all():
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+
+    killer = threading.Timer(600, kill_all)  # a server that never comes up is killed
     killer.start()
+    lines = []
     try:
-        lines = []
         for line in proc.stderr:
             lines.append(line)
             if "serving on http://" in line:
@@ -3263,6 +3315,8 @@ def run_server(path: str, extra: tuple, bodies: list, args: tuple = SERVER_ARGS,
         url = next((w for w in lines[-1].split() if w.startswith("http://")), None) if lines else None
         if url is None:
             raise AssertionError("the server printed no address:\n" + "".join(lines))
+        # keep reading: a full pipe would stall the server
+        threading.Thread(target=lambda: lines.extend(proc.stderr), daemon=True).start()
         up_s = time.perf_counter() - t0
         if on_ready is not None:
             on_ready()
@@ -3290,13 +3344,14 @@ def run_server(path: str, extra: tuple, bodies: list, args: tuple = SERVER_ARGS,
         proc.send_signal(signal.SIGINT)
         try:
             rc = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            rc = None
         finally:
             killer.cancel()
-            if proc.poll() is None:
-                proc.kill()
-            proc.stderr.close()
+            kill_all()
+            proc.wait(timeout=30)
     if rc != 0:
-        raise AssertionError(f"the server exited {rc} on SIGINT")
+        raise AssertionError(f"the server exited {rc} on SIGINT; its last lines:\n" + "".join(lines[-40:]))
     return {"results": results, "health": health, "metrics": metrics, "up_s": up_s, "rc": rc, "lines": lines}
 
 
@@ -4148,6 +4203,67 @@ def mlp_timing(params, mats: dict, M: int, tags, cycles_per_ms: float, gen) -> d
     return rows
 
 
+def mesh_k10_timing(cycles_per_ms: float, gen) -> dict:
+    """K10 as a rank of ``phase_mesh``'s 1x2 leg runs it in a decode tick: 8
+    rows of bf16 activations, D 4096, HD/tp = 5504, ``residual=False``, call i
+    on layer i % 32 of a random 32-layer Q8 stack, against its plain version
+    at ``mlp_tolerance``, beside the composed route of that rank (w1 and w3
+    separate, as ``fuse_layer_params`` keeps them under shards, then swiglu
+    and w2, each output without the residual) and its bound (each weight
+    byte and scale, the 8 input and 8 output rows once over the memory rate,
+    or 2 * 8 operations a weight over the bf16 peak). No one PyTorch call
+    computes it: ``library_ms`` null. Returns the kernel line's row without
+    ``launches``."""
+    import torch
+
+    from llama2_tpu_torch.ops import ref
+    from llama2_tpu_torch.ops.cuda import mlp_block as mb
+    from llama2_tpu_torch.ops.cuda.quant_matmul import quant_matmul_stacked
+    from llama2_tpu_torch.quant.q8 import QuantTensor
+
+    L, M, D, HD, dtype, eps = 32, SERVE_SLOTS, 4096, 11008 // 2, torch.bfloat16, 1e-5
+
+    def qt(K, N):
+        q = torch.randint(-127, 128, (L, K, N), generator=gen, device="cuda", dtype=torch.int8)
+        return QuantTensor(q, 2.7e-4 * (0.7 + 0.6 * torch.rand((L, K // GROUP, N), generator=gen, device="cuda")),
+                           GROUP)
+
+    w1, w3, w2 = qt(D, HD), qt(D, HD), qt(HD, D)
+    rms = 1 + 0.1 * torch.randn((L, D), generator=gen, device="cuda").to(dtype)
+    x = torch.randn((M, D), generator=gen, device="cuda").to(dtype)
+
+    def kern(i): return mb.mlp_block_stacked(x, rms[i % L], w1, w3, w2, i % L, eps, residual=False)
+    def plain(i): return mb.mlp_block_plain(x, rms[i % L], w1, w3, w2, i % L, eps, residual=False)
+
+    def composed(i):
+        l, h = i % L, ref.rmsnorm(x, rms[i % L], eps)
+        return quant_matmul_stacked(ref.swiglu(quant_matmul_stacked(h, w1, l), quant_matmul_stacked(h, w3, l)),
+                                    w2, l)
+
+    forms = {f: getattr(mb.mlp_block_stacked, f"launches_{f}") for f in ("mma", "fma")}
+    got, want = kern(3), plain(3)
+    err = compare(got, want, dtype, mlp_tolerance(dtype, want))
+    form = ",".join(f for f, n in forms.items() if getattr(mb.mlp_block_stacked, f"launches_{f}") > n)
+    ms, qk = time_ms(kern, 128, cycles_per_ms)
+    plain_ms, qp = time_ms(plain, 8, cycles_per_ms, n_warm=1)
+    comp_ms, qc = time_ms(composed, 32, cycles_per_ms, slack=3.0)
+    wbytes = 3 * D * HD
+    nbytes = wbytes + 4 * wbytes // GROUP + 2 * M * 2 * D
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * M * wbytes / PEAK_FLOPS["bf16"] * 1e3
+    bound, by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    name = f"mlp_block_stacked[bf16,M={M},HD={HD},no_residual]"
+    say("time", kernel=name, tag="K10/tp2", M=M, form=form or "not_counted", ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", composed_route_ms=f"{comp_ms:.4f}", library_ms="none_(no_single_call)",
+        bound_ms=f"{bound:.4f}", bound_by=by, share_of_bound=f"{bound / ms:.3f}", MB=f"{nbytes / 1e6:.1f}",
+        GB_per_s=f"{nbytes / ms / 1e6:.0f}", max_abs_err=f"{err:.3e}", queued_kernel_plain_composed=f"{qk},{qp},{qc}")
+    del w1, w3, w2
+    torch.cuda.empty_cache()
+    return {"name": name, "route": "cuda", "source": "llama2_tpu_torch/csrc/mlp_block.cu",
+            "replaces": f"llama2_tpu/ops/pallas/mlp_block.py:{MLP_LINES['K10'][1]}", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
 def phase_timing_q8(launches: dict, cycles_per_ms: float) -> list[dict]:
     """K5/K6 at the 7B shapes, M = 1 (a decode step) and M = 201 (the
     prefill chunk), fast mode on bf16 activations and accurate mode on fp32;
@@ -4167,7 +4283,9 @@ def phase_timing_q8(launches: dict, cycles_per_ms: float) -> list[dict]:
     launches and the plain rmsnorm, swiglu and add between them, as the
     ``w13`` layout runs them) and the sum of the matmul yardsticks instead.
     ``launches``: the Q8 routes' counts, by the names ``main`` gives them
-    (the M = 201 rows: the accurate route's prefill-chunk tile launches; the
+    (K10's at M = 1: the ffn-only route's; K10 at a rank's shape,
+    ``mesh_k10_timing``: the mesh path's, ``phase_mesh``'s 1x2 leg on rank 0;
+    the M = 201 rows: the accurate route's prefill-chunk tile launches; the
     8-row rows: the served runs', "served"; the classifier at M = 256: the
     perplexity runs', "ppl-fast" and "ppl-accurate").
     """
@@ -4257,6 +4375,7 @@ def phase_timing_q8(launches: dict, cycles_per_ms: float) -> list[dict]:
                 else launches["served"][tag]
             rows.append({**r, "launches": n_launch})
     del mats
+    rows.append({**mesh_k10_timing(cycles_per_ms, gen), "launches": launches["mesh"]["K10-no-residual"]})
     rows.append({**k13_batch_timing(params, cycles_per_ms), "launches": launches["served"]["K13"]})
     kv_launches = {"K7": launches["int8kv"]["spec"]["K7"], "K8": launches["int8kv-accurate"]["K8"],
                    "K9": launches["int8kv-two-launch"]["K9"], "K13": launches["int8kv"]["K13"]}
@@ -5374,6 +5493,510 @@ def phase_window_timing(cycles_per_ms: float) -> None:
     torch.cuda.empty_cache()
 
 
+# ---- slice 17: tensor- and data-parallel serving over a (data, model) mesh ----
+
+MESH_DIR = os.path.join(REPO, "build", "mesh")
+# (name, dp, tp, layers, the KV caches it serves over (int8 or not), speculative window)
+MESH_LEGS = (("1x2", 1, 2, 32, (False, True), 0), ("2x2", 2, 2, 2, (True,), 0), ("1x2-spec", 1, 2, 2, (True,), 4))
+MESH_SERVER_ARGS = ("--mesh", "1x2", "--quant", "int8", "--kernels", "cuda", "--dtype", "f32", "--port", "0")
+MESH_DEADLINE_S = 600.0
+MESH_COMM_REQUESTS = 8  # the short run that times the reduces and gathers: 8 requests, 32 new tokens each
+MESH_F32_WINDOW = 128  # the fp32 plain logits' teacher-forced segments
+
+
+def mesh_requests() -> list:
+    """The served workload's greedy requests (12 of 16)."""
+    return [(p, g) for p, g in serve_workload() if g.temperature == 0.0]
+
+
+def mesh_per_tick(L: int, kv_quant: bool) -> dict:
+    """A sharded decode tick's launches at L layers: per layer K6 twice
+    (wqkv with the rmsnorm prologue, wo without its residual), the glue-fused
+    attention (K4, or K9 over the int8 cache) and K10 with ``residual=False``;
+    K5 once on the vocab slice. The megakernels spanning the reduces never."""
+    return {"K6": 2 * L, "K9" if kv_quant else "K4": L, "K10": L, "K10-no-residual": L, "K5": 1}
+
+
+def mesh_chunk_k1(T: int, L: int, kv_quant: bool) -> int:
+    """K1's launches in a T-token prefill chunk: once a layer over the fp
+    cache past one token (a one-token chunk is a decode step)."""
+    return L if T > 1 and not kv_quant else 0
+
+
+def mesh_counters() -> dict:
+    from llama2_tpu_torch.ops.cuda.mlp_block import mlp_block_stacked
+
+    return {**count_launches(), "K10-no-residual": VariantCount(mlp_block_stacked, "launches_no_residual")}
+
+
+def mesh_served(eng, mesh, reqs, log: bool = False, comm: bool = False) -> dict:
+    """Serve ``reqs`` on this rank's mesh engine (rank 0 submits, every rank
+    runs to idle) with the launch counters at 0 just before and read just
+    after: each decode tick's and each prefill chunk's launches apart, and
+    the ticks' wall seconds. With ``comm`` the seconds in the reduces and
+    gathers, each timed between two synchronizations (which slow the tick
+    they time); with ``log`` the logits row behind each generated token of
+    the rank's slots (pipeline depth 1; a speculative window's rows behind
+    the tokens it committed), by prompt."""
+    import torch
+
+    from llama2_tpu_torch.models import llama
+    from llama2_tpu_torch.parallel import tp as tpm
+    from llama2_tpu_torch.runtime import batch_engine as be
+
+    wrappers = mesh_counters()
+    ticks, chunks, tick_s, spent = [], [], [], [0.0]
+    rows: dict = {}
+    lo = eng._rows.start
+    hi = lo + len(eng.cache["k"][0])  # the rank's slots
+    saved = (llama.add_reduced, tpm.gather, be.gather)
+    logits_from_hidden, window = be.logits_from_hidden, {}
+
+    def synced(fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            return out
+        return run
+
+    def counted(fn):
+        def run(*a, **kw):
+            before = {k: w.launches for k, w in wrappers.items()}
+            res = fn(*a, **kw)
+            ticks.append({k: w.launches - before[k] for k, w in wrappers.items()})
+            return res
+        return run
+
+    decode_tick, chunk, sample, sample_first = eng._decode_tick, eng._chunk, eng._sample, eng._sample_first
+    start, spec_tick, admitting = eng._start_request, eng._spec_tick, [None]
+
+    def noted_start(slot, req):
+        admitting[0] = slot
+        start(slot, req)
+
+    def counted_chunk(params, config, cache, seg, pos, mesh_=None):
+        before = {k: w.launches for k, w in wrappers.items()}
+        out = chunk(params, config, cache, seg, pos, mesh_)
+        chunks.append((len(seg), {k: w.launches - before[k] for k, w in wrappers.items()}))
+        return out
+
+    def timed_tick():
+        t0 = time.perf_counter()
+        decode_tick()
+        tick_s.append(time.perf_counter() - t0)
+
+    def logged_sample(logits, sampled, draws):
+        for b, r in enumerate(eng.slots):
+            if r is not None and lo <= b < hi:
+                rows[tuple(r.prompt)].append(logits[b - lo].detach().float().cpu())
+        return sample(logits, sampled, draws)
+
+    def logged_first(logits, req, pos):
+        if lo <= admitting[0] < hi:
+            rows[tuple(req.prompt)] = [logits.detach().float().cpu()]
+        return sample_first(logits, req, pos)
+
+    def kept_logits(params, hidden, backend="torch", mesh_=None):
+        out = logits_from_hidden(params, hidden, backend, mesh_)
+        window["logits"] = out.detach().float()  # (rank's slots, d, V)
+        return out
+
+    def logged_spec_tick():
+        seated = [(b, r, len(r.tokens)) for b, r in enumerate(eng.slots) if r is not None and lo <= b < hi]
+        be.logits_from_hidden = kept_logits
+        try:
+            spec_tick()
+        finally:
+            be.logits_from_hidden = logits_from_hidden
+        for b, r, n0 in seated:
+            rows[tuple(r.prompt)].extend(window["logits"][b - lo, : len(r.tokens) - n0].cpu())
+
+    eng._dispatch_tick, eng._chunk, eng._decode_tick = counted(eng._dispatch_tick), counted_chunk, timed_tick
+    if log:
+        eng._sample, eng._sample_first, eng._start_request = logged_sample, logged_first, noted_start
+        eng._spec_tick = logged_spec_tick
+    if comm:
+        llama.add_reduced, tpm.gather, be.gather = (synced(f) for f in saved)
+    for w in wrappers.values():
+        w.launches = 0
+    n_followed = len(eng.followed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        queues = [eng.submit(p, g) for p, g in reqs] if mesh.rank == 0 else []
+        eng.run_until_idle()
+        results = [q.get(timeout=60) for q in (queues or eng.followed[n_followed:])]
+        torch.cuda.synchronize()
+    finally:
+        llama.add_reduced, tpm.gather, be.gather = saved
+        be.logits_from_hidden = logits_from_hidden
+        for name in ("_dispatch_tick", "_chunk", "_decode_tick", "_sample", "_sample_first", "_start_request",
+                     "_spec_tick"):
+            eng.__dict__.pop(name, None)
+    wall = time.perf_counter() - t0
+    for r in results:
+        if isinstance(r, Exception):
+            raise AssertionError(f"rank {mesh.rank}: a request failed: {r!r}")
+    return {"launches": {k: w.launches for k, w in wrappers.items()}, "ticks": ticks, "chunks": chunks,
+            "tick_s": tick_s, "comm_s": spent[0], "wall_s": wall, "rows": rows,
+            "tokens": {tuple(r.tokens[: r.prompt_len]): r.tokens for r in results}}
+
+
+def mesh_hold(rows: dict, tokens: dict, ref: dict) -> list:
+    """Each logged stream of a rank against the one-card reference ``ref``
+    ({prompt: (tokens, logits rows, fp32 plain rows or None)}), over the
+    rows both computed from the same prefix: the first generated token where
+    they part (None), the largest |logits difference|, the one-card top-2
+    margin where they part, and with fp32 rows the largest distance of each
+    (this rank's and the one-card engine's) from them."""
+    import torch
+
+    out = []
+    for prompt, mine in rows.items():
+        want, want_rows, f32_rows = ref[prompt]
+        got, gen = tokens[prompt][len(prompt):], want[len(prompt):]
+        n = min(len(got), len(gen))
+        part = next((i for i in range(n) if got[i] != gen[i]), None)
+        k = min(n if part is None else part + 1, len(mine), len(want_rows))
+        got_rows = torch.stack(mine[:k])
+        margin = None
+        if part is not None:
+            top2 = want_rows[part].topk(2).values
+            margin = float(top2[0] - top2[1])
+        elif len(got) != len(gen):
+            part = n  # one stream ended (BOS) where the other did not: no margin allows it
+        h = {"generated": len(got), "part": part, "dist": float((got_rows - want_rows[:k]).abs().max()),
+             "margin": margin, "rows": k, "absmax": float(want_rows[:k].abs().max())}
+        if f32_rows is not None:
+            h["vs_f32"] = float((got_rows - f32_rows[:k]).abs().max())
+            h["one_card_vs_f32"] = float((want_rows[:k] - f32_rows[:k]).abs().max())
+        out.append(h)
+    return out
+
+
+def mesh_f32_rows(path: str, kv_quant: bool, ref: dict) -> dict:
+    """The fp32 plain logits (``backend="torch"``, float32 activations, the
+    same Q8 weights, one card) along each one-card stream of ``ref``,
+    teacher-forced in MESH_F32_WINDOW-token segments over the same kind of
+    KV cache, one row for each of ``ref``'s rows: {prompt: rows}."""
+    import torch
+
+    from llama2_tpu_torch.io.cache import load_cache
+    from llama2_tpu_torch.runtime.generator import BOS, prepare_params
+
+    config, params, _ = load_cache(path)
+    p32 = prepare_params(params, torch.float32, "torch", torch.device("cuda"))
+    del params
+    out = {p: teacher_forced_logits(p32, config, [BOS] + list(toks), len(p), "torch", kv_quant,
+                                    window=MESH_F32_WINDOW)[: len(rows)]
+           for p, (toks, rows) in ref.items()}
+    del p32
+    torch.cuda.empty_cache()
+    return out
+
+
+def skip_first_reduce(L: int):
+    """A planted fault for ``llama.add_reduced``: every forward's first
+    row-parallel all-reduce (layer 0's wo) left out, each rank adding only
+    its own partial sum (every rank skips the same call: no collective
+    waits)."""
+    from llama2_tpu_torch.parallel.tp import add_reduced
+
+    calls = [0]
+
+    def skipping(x, partial, group):
+        calls[0] += 1
+        return add_reduced(x, partial, None if calls[0] % (2 * L) == 1 else group)
+
+    return skipping
+
+
+def mesh_rank(mesh, leg: dict) -> dict:
+    """One rank of a mesh leg: pass the memory-mapped param cache to a mesh
+    ``BatchEngine``, which copies out only this rank's slices; serve the
+    leg's requests over each of its caches (a short warm-up first), assert
+    the launches, hold the logged streams to the one-card references, time
+    the reduces in a short run of their own; with ``plant``, a run with one
+    all-reduce a forward left out (``skip_first_reduce``); with ``twin``,
+    the server's twin. Returns what the parent reports and checks."""
+    import torch
+    import torch.distributed as dist
+
+    from llama2_tpu_torch.config import GenerationConfig
+    from llama2_tpu_torch.io.cache import load_cache
+    from llama2_tpu_torch.models import llama
+    from llama2_tpu_torch.parallel import distributed
+    from llama2_tpu_torch.runtime.batch_engine import BatchEngine
+
+    backend, why = distributed.backend_rule(mesh.size, "cuda")
+    if dist.get_backend() != backend:
+        raise AssertionError(f"rank {mesh.rank}: {dist.get_backend()} where the rule says {why}")
+    t0 = time.perf_counter()
+    config, params, _ = load_cache(leg["path"])  # memory-mapped: the engine reads the rank's slices
+    L = config.n_layers
+    reqs = [(p, GenerationConfig(**g)) for p, g in leg["reqs"]]
+    warm = [(p[:8], GenerationConfig(temperature=0.0, steps=12)) for p, _ in reqs[:SERVE_SLOTS]]
+    short = [(p[:40], GenerationConfig(temperature=0.0, steps=72)) for p, _ in reqs[:MESH_COMM_REQUESTS]]
+    leader = mesh.coord[1] == 0  # one rank of each data group logs its slots
+    out = {"rank": mesh.rank, "coord": mesh.coord, "rule": why, "load_s": None, "runs": {}}
+
+    def engine(**kw):
+        eng = BatchEngine(config, params, mesh=mesh, backend="cuda", pipeline_depth=1, **kw)
+        if eng.backend != "cuda" or eng.fwd_mesh is not mesh:
+            raise AssertionError(f"rank {mesh.rank}: the engine runs {eng.backend} on {eng.fwd_mesh}")
+        if eng.params["wcls"].q.shape[-1] != config.vocab_size // mesh.tp:
+            raise AssertionError(f"rank {mesh.rank}: the classifier slice has {eng.params['wcls'].q.shape}")
+        if out["load_s"] is None:  # the map, the slices copied out and sent to the card
+            torch.cuda.synchronize()
+            out["load_s"] = time.perf_counter() - t0
+        return eng
+
+    for kv in leg["caches"]:
+        eng = engine(batch_size=SERVE_SLOTS, dtype=torch.bfloat16, kv_quant=kv, spec_window=leg["spec"])
+        mesh_served(eng, mesh, warm)
+        torch.cuda.reset_peak_memory_stats()
+        run = mesh_served(eng, mesh, reqs, log=leader)
+        launches = run["launches"]
+        if leg["spec"]:
+            if eng.metrics["spec_windows"] < 1 or launches["K11"] + launches["K12"] + launches["K13"]:
+                raise AssertionError(f"rank {mesh.rank}: the spec leg ran no window, or a megakernel: {launches}")
+        else:
+            want = {k: mesh_per_tick(L, kv).get(k, 0) for k in launches}
+            bad = [t for t in run["ticks"] if t != want]
+            if not run["ticks"] or bad:
+                raise AssertionError(f"rank {mesh.rank}: launches per decode tick {bad[:1]}, want {want}")
+            k1 = {(T, c["K1"]) for T, c in run["chunks"]}
+            if any(n != mesh_chunk_k1(T, L, kv) for T, n in k1):
+                raise AssertionError(f"rank {mesh.rank}: (tokens, K1) of the prefill chunks {sorted(k1)}")
+        timed = mesh_served(eng, mesh, short, comm=True)
+        refs = torch.load(leg["refs"][kv]) if run["rows"] else None
+        out["runs"][kv] = {
+            "launches": launches, "n_ticks": len(run["ticks"]), "n_chunks": len(run["chunks"]),
+            "spec_windows": eng.metrics["spec_windows"], "tick_s": run["tick_s"], "wall_s": run["wall_s"],
+            "comm_s": timed["comm_s"], "comm_wall_s": timed["wall_s"], "comm_tick_s": timed["tick_s"],
+            "peak_GiB": torch.cuda.max_memory_allocated() / 2**30,
+            "held": mesh_hold(run["rows"], run["tokens"], refs) if refs else []}
+        if leg.get("plant") and kv:
+            # the same engine, plain ticks, one all-reduce a forward left out: the parent's check must fail
+            eng.spec_window, add_reduced = 0, llama.add_reduced
+            llama.add_reduced = skip_first_reduce(L)
+            try:
+                bad = mesh_served(eng, mesh, reqs, log=leader)
+            finally:
+                llama.add_reduced = add_reduced
+            out["planted"] = mesh_hold(bad["rows"], bad["tokens"], refs) if refs else []
+        del eng
+        torch.cuda.empty_cache()
+    if leg.get("twin"):
+        # the server's twin: its settings (fp32, fp cache, 8 slots), its prompts, all at once
+        eng = engine(batch_size=8, dtype=torch.float32)
+        twin = mesh_served(eng, mesh, [(p, GenerationConfig(temperature=0.0, steps=48)) for p in leg["twin"]],
+                           log=leader)
+        out["twin"] = {"tokens": twin["tokens"] if mesh.rank == 0 else None,
+                       "held": mesh_hold(twin["rows"], twin["tokens"], torch.load(leg["twin_ref"]))
+                       if twin["rows"] else []}
+    return out
+
+
+def mesh_reference(path: str, kv_quant: bool, reqs, dtype=None, batch: int = SERVE_SLOTS) -> dict:
+    """The one-card ``BatchEngine`` on the cache at ``path`` (bf16 unless
+    ``dtype``): {prompt: (tokens, logits rows)} (pipeline depth 1, every
+    logits row behind a generated token kept), its wall seconds and ticks."""
+    import torch
+
+    from llama2_tpu_torch.config import GenerationConfig
+    from llama2_tpu_torch.io.cache import load_cache
+    from llama2_tpu_torch.runtime.batch_engine import BatchEngine
+
+    config, params, _ = load_cache(path)
+    eng = BatchEngine(config, params, batch_size=batch, dtype=dtype or torch.bfloat16, backend="cuda",
+                      device="cuda", kv_quant=kv_quant, pipeline_depth=1)
+    del params
+    served_run(eng, [(p[:8], GenerationConfig(temperature=0.0, steps=12)) for p, _ in reqs[:batch]])
+    run = served_run(eng, reqs, log=True)
+    ref = {tuple(p): (t, rows) for (p, _), t, rows in zip(reqs, run["tokens"], run["logits"])}
+    del eng
+    torch.cuda.empty_cache()
+    return {"ref": ref, "wall_s": run["wall_s"], "n_ticks": len(run["ticks"])}
+
+
+def mesh_cap(name: str, held: list, cap: str) -> str:
+    """The logits tolerance of a leg's logged streams, over the rows each
+    computed from the same prefix as the one-card engine: ``"bf16"``: the
+    largest distance from the fp32 plain logits at most the one-card bf16
+    engine's + BF16_MAX_MARGIN (the bf16 rule of the single-card paths);
+    ``"f32"`` (fast-mode kernels on fp32 activations): the largest distance
+    from the one-card engine at most F32_FAST_LOGIT_RTOL x max |logit|.
+    Returns the fault, or "" where the leg holds."""
+    dist, absmax = max(h["dist"] for h in held), max(h["absmax"] for h in held)
+    if cap == "bf16":
+        got, one = max(h["vs_f32"] for h in held), max(h["one_card_vs_f32"] for h in held)
+        limit, what = one + BF16_MAX_MARGIN, f"vs_f32 {got:.4e}, one card's {one:.4e} + {BF16_MAX_MARGIN}"
+    else:
+        got, limit, what = dist, F32_FAST_LOGIT_RTOL * absmax, f"{dist:.4e} vs {F32_FAST_LOGIT_RTOL} x {absmax:.3f}"
+    return f"{name}: the logits are past their tolerance ({what})" if got > limit else ""
+
+
+def mesh_margin_rule(name: str, held: list, cap: str) -> list:
+    """A leg's logged streams: the logits tolerance (``mesh_cap``), then the
+    margin rule: where a stream parts from the one-card stream, the one-card
+    top-2 margin there is at most twice the largest logits difference over
+    the rows both computed from the same prefix (a stream that ends where
+    the other does not fails). Prints the readings; returns the faults."""
+    dist = max(h["dist"] for h in held)
+    faults = [f for f in [mesh_cap(name, held, cap)] if f]
+    for h in held:
+        if h["part"] is not None and (h["margin"] is None or h["margin"] > 2 * dist):
+            faults.append(f"{name}: a stream parts from the one-card engine where the margin allows no flip: "
+                          f"{h}, bound {2 * dist}")
+    n_gen = sum(h["generated"] for h in held)
+    same = sum(h["generated"] if h["part"] is None else h["part"] for h in held)
+    if cap == "bf16":
+        f32 = {"logit_max_abs_diff_vs_f32_plain": f"{max(h['vs_f32'] for h in held):.4e}",
+               "one_card_bf16_vs_f32_plain": f"{max(h['one_card_vs_f32'] for h in held):.4e}",
+               "cap": f"one_card+{BF16_MAX_MARGIN}"}
+    else:
+        f32 = {"cap": f"{F32_FAST_LOGIT_RTOL}*logit_absmax"}
+    say("mesh", leg=name, streams=len(held), generated=n_gen, tokens_equal_to_one_card=f"{same}/{n_gen}",
+        parted=sum(h["part"] is not None for h in held), rows_compared=sum(h["rows"] for h in held),
+        logit_max_abs_diff=f"{dist:.4e}", logit_absmax=f"{max(h['absmax'] for h in held):.3f}", **f32,
+        rule="cap+margin", held="yes" if not faults else "NO")
+    return faults
+
+
+def mesh_server(path: str, twin_prompts: list, twin: dict) -> None:
+    """The server as a user starts it, ``--mesh 1x2 --quant int8 --kernels
+    cuda --dtype f32`` on the 2-layer cache: three concurrent greedy answers
+    equal the in-process mesh engine's (the twin's), /health answers, SIGINT
+    exits 0 (the server joins its follower before it exits)."""
+    bodies = [{"prompt": p, "temperature": 0.0, "steps": 48} for p in SERVER_PROMPTS]
+    run = run_server(path, (), bodies, args=MESH_SERVER_ARGS)
+    for i, p in enumerate(twin_prompts):
+        if run["results"][i]["tokens"] != twin[tuple(p)]:
+            raise AssertionError(f"--mesh 1x2: served tokens for {SERVER_PROMPTS[i]!r} differ from the "
+                                 "in-process mesh engine's")
+    if not any("[mesh] 2 ranks" in line for line in run["lines"]) or run["health"].get("status") != "ok":
+        raise AssertionError(f"--mesh 1x2 server: {run['lines']}, {run['health']}")
+    say("server", args="_".join(MESH_SERVER_ARGS[:-2]), up_s=f"{run['up_s']:.1f}",
+        greedy_requests=len(SERVER_PROMPTS), tokens_equal_to_in_process_mesh_engine="all", sigint_exit=run["rc"])
+
+
+def phase_mesh() -> dict:
+    """This slice's main path: ``BatchEngine(mesh=)`` over a ``(data,
+    model)`` mesh of ranks on the one card (two or four ranks on cuda:0 over
+    gloo, the rule printed), at full Llama-2-7B width with random INT8
+    weights (bf16 activations, ``backend="cuda"``) written once as a param
+    cache (``tools/make_random_q8.py --device cuda``), memory-mapped by each
+    rank, whose engine copies out only its slices, serving the served
+    workload's 12 greedy requests on 8 slots. Legs (MESH_LEGS): 1x2 at 32
+    layers over the fp and the int8 cache, 2x2 at 2 layers over the int8
+    cache, 1x2 at 2 layers with 4-token speculative windows over the int8
+    cache, and the server's twin (1x2, 2 layers, fp32, the fp cache).
+    Asserted on every rank: ``engine.backend == "cuda"``, the backend rule,
+    each decode tick's launches (``mesh_per_tick``: K10 with
+    ``residual=False`` on every layer; K11-K13 never), K1 once a layer of
+    every fp-cache prefill chunk, the classifier's 16000-column slice. Every
+    logged stream is held to the one-card ``BatchEngine`` on the same weights
+    (``mesh_reference``), over the rows both computed from the same prefix:
+    a stated logits tolerance (``mesh_cap``: bf16 legs against the fp32
+    plain logits, ``mesh_f32_rows``; the fp32 twin against the one-card
+    fp32 engine), then the margin rule (``mesh_margin_rule``). A planted
+    fault, one all-reduce a forward left out (``skip_first_reduce``, on the
+    spec leg's ranks), must fail the tolerance. Then the server
+    (``mesh_server``). Printed per leg and rank: tick ms (host wall), the
+    reduces' share of a short timed run (``mesh_served(comm=True)``), load
+    seconds, peak memory. Two ranks time-slice one card and reduce through
+    the host: these times say nothing of NVLink scaling. Every leg is
+    checked and printed before a fault fails the phase. Returns the 1x2
+    fp-cache run's launches (rank 0's)."""
+    import shutil
+
+    import torch
+
+    from llama2_tpu_torch.config import GenerationConfig
+    from llama2_tpu_torch.parallel import distributed
+    from llama2_tpu_torch.tokenizer.tokenizer import Tokenizer
+    from llama2_tpu_torch.tools.make_random_q8 import build
+
+    smi = nvidia_smi()
+    mark = stopwatch("phase_mesh")
+    shutil.rmtree(MESH_DIR, ignore_errors=True)  # nothing of an earlier run: caches and references made anew
+    os.makedirs(MESH_DIR)
+    reqs = mesh_requests()
+    plain = [(p, {"temperature": 0.0, "steps": g.steps}) for p, g in reqs]
+    tok = Tokenizer.from_file(TOKENIZER_BIN, 32000)
+    twin_prompts = [tok.encode(p) for p in SERVER_PROMPTS]
+    paths = {}
+    for L in sorted({leg[3] for leg in MESH_LEGS}):
+        paths[L] = os.path.join(MESH_DIR, f"7b-{L}L")
+        build(paths[L], "7b", GROUP, SEED, seq_len=4096, n_layers=L, device="cuda")
+        torch.cuda.empty_cache()
+    mark("write_caches")
+    out, refs, faults = {}, {}, []
+    for name, dp, tp, L, caches, spec in MESH_LEGS:
+        leg = {"path": paths[L], "caches": caches, "spec": spec, "reqs": plain, "refs": {}}
+        for kv in caches:
+            if (L, kv) not in refs:  # the spec leg holds to the 2x2 leg's: the same weights and cache
+                ref = mesh_reference(paths[L], kv, reqs)
+                ref["f32"] = mesh_f32_rows(paths[L], kv, ref["ref"])
+                ref["file"] = os.path.join(MESH_DIR, f"ref-{L}L-{'int8' if kv else 'fp'}.pt")
+                torch.save({p: (t, rows, ref["f32"][p]) for p, (t, rows) in ref["ref"].items()}, ref["file"])
+                refs[(L, kv)] = ref
+            leg["refs"][kv] = refs[(L, kv)]["file"]
+        if spec:
+            leg["twin"], leg["plant"] = twin_prompts, True
+            leg["twin_ref"] = os.path.join(MESH_DIR, "ref-twin.pt")
+            twin_reqs = [(p, GenerationConfig(temperature=0.0, steps=48)) for p in twin_prompts]
+            twin_ref = mesh_reference(paths[L], False, twin_reqs, torch.float32, 8)["ref"]
+            torch.save({p: (t, rows, None) for p, (t, rows) in twin_ref.items()}, leg["twin_ref"])
+        mark(f"{name}/one_card")
+        ranks = distributed.launch(mesh_rank, dp, tp, "cuda", leg, deadline=MESH_DEADLINE_S)
+        mark(f"{name}/mesh")
+        rule = distributed.backend_rule(dp * tp, "cuda")[1]
+        if any(r["rule"] != rule for r in ranks):
+            raise AssertionError(f"{name}: the ranks' backend rule {[r['rule'] for r in ranks]}, want {rule!r}")
+        print(rule, flush=True)
+        for kv in caches:
+            dn = f"{name}/{L}L/{'int8' if kv else 'fp'}-cache"
+            runs = [r["runs"][kv] for r in ranks]
+            faults += mesh_margin_rule(dn, [h for r in runs for h in r["held"]], "bf16")
+            for r, run in zip(ranks, runs):
+                tick, comm_tick = sorted(run["tick_s"]), sorted(run["comm_tick_s"])
+                say("mesh", leg=dn, rank=r["rank"], coord=f"{r['coord'][0]},{r['coord'][1]}",
+                    decode_ticks=run["n_ticks"], spec_windows=run["spec_windows"], prefill_chunks=run["n_chunks"],
+                    wall_s=f"{run['wall_s']:.3f}",
+                    tick_ms_median=f"{1e3 * tick[len(tick) // 2]:.3f}" if tick else "none",
+                    timed_run_tick_ms_median=f"{1e3 * comm_tick[len(comm_tick) // 2]:.3f}" if comm_tick else "none",
+                    reduce_share_of_timed_run=f"{run['comm_s'] / run['comm_wall_s']:.3f}",
+                    load_s=f"{r['load_s']:.1f}", peak_GiB=f"{run['peak_GiB']:.2f}",
+                    **{f"{k}_launches": v for k, v in run["launches"].items() if v})
+            ref = refs[(L, kv)]
+            say("mesh", leg=dn, one_card_wall_s=f"{ref['wall_s']:.3f}", one_card_ticks=ref["n_ticks"],
+                mesh_wall_s=f"{runs[0]['wall_s']:.3f}", rule=rule.replace(" ", "_"), card=smi.replace(" ", "_"))
+        if spec:
+            faults += mesh_margin_rule(f"{name}/server-twin/{L}L/fp32/fp-cache",
+                                       [h for r in ranks for h in r["twin"]["held"]], "f32")
+            planted = [h for r in ranks for h in r["planted"]]
+            caught = mesh_cap(f"{name}/planted", planted, "bf16")
+            say("mesh", leg=f"{name}/{L}L/int8-cache", planted_fault="one_all_reduce_a_forward_left_out",
+                vs_f32=f"{max(h['vs_f32'] for h in planted):.4e}",
+                one_card_vs_f32=f"{max(h['one_card_vs_f32'] for h in planted):.4e}",
+                tolerance="fails" if caught else "PASSES")
+            if not caught:
+                faults.append(f"{name}: the logits tolerance passes a planted fault (one all-reduce left out)")
+        out[name] = ranks
+    mark("legs")
+    if faults:
+        raise AssertionError("; ".join(faults))
+    mesh_server(paths[2], twin_prompts, out["1x2-spec"][0]["twin"]["tokens"])
+    mark("server")
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    return out["1x2"][0]["runs"][False]["launches"]
+
+
 def stopwatch(phase: str):
     """``mark(step)``: prints the seconds since the last mark (or since the
     call) on a ``[phase]`` line for ``phase/step``."""
@@ -5445,6 +6068,14 @@ def main() -> int:
         phase_tools()
         print(smi)
         return 0
+    if sys.argv[1:] == ["--mesh"]:
+        # this slice's phases alone: the kernels at the shard shapes too
+        for phase in (phase_kernels, phase_kernels_q8, phase_kernels_mlp, phase_kernels_q8kv, phase_kernels_paged):
+            timed(phase)
+        timed(phase_mesh)
+        mesh_k10_timing(warm_cycles_per_ms(), torch.Generator(device="cuda").manual_seed(SEED + 17))
+        print(smi)
+        return 0
     if sys.argv[1:] == ["--q8kv-timing"]:
         phase_q8kv_timing(warm_cycles_per_ms())
         print(smi)
@@ -5453,19 +6084,21 @@ def main() -> int:
                   phase_kernels_batch8, phase_kernels_paged, phase_kernels_bench):
         timed(phase)
     # slice 5's main path, served: the paged engine over both pools
-    # the int8 pool at 8 layers: room for slice 16's phases in the script's time
-    served = {kv: timed(phase_serve, kv, 8 if kv else 32) for kv in (False, True)}
+    # both pools at 8 layers (the bf16 one at 32 until slice 16, 16 in slice 17): room for slices 16's and
+    # 17's phases in the script's time
+    served = {kv: timed(phase_serve, kv, 8) for kv in (False, True)}
     accurate = {kv: timed(phase_serve_accurate, kv) for kv in (False, True)}
     # engine-level speculation on the served path: the paged bf16 pool and the dense int8 cache
     timed(phase_serve_spec)
     # the fp-cache main path of slice 3, then slice 4's: the int8 cache
-    fast = timed(phase_generate_q8, "two-launch", "cuda", torch.bfloat16, speculative=True)
+    # at 16 layers since slice 17 (32 before): room for its phase in the script's time
+    fast = timed(phase_generate_q8, "two-launch", "cuda", torch.bfloat16, 16, speculative=True)
     q8_launches = {
         "fast": fast,
-        "int8kv": timed(phase_generate_q8, "int8kv", "cuda", torch.bfloat16, speculative=True,
+        "int8kv": timed(phase_generate_q8, "int8kv", "cuda", torch.bfloat16, 16, speculative=True,
                         fp_stream=fast["tokens"]),
-        # the route K13 replaces, at the main path's depth: both end to end
-        "int8kv-two-launch": timed(phase_generate_q8, "int8kv-two-launch", "cuda", torch.bfloat16),
+        # the route K13 replaces, end to end (8 layers since slice 17, 16 and 32 before)
+        "int8kv-two-launch": timed(phase_generate_q8, "int8kv-two-launch", "cuda", torch.bfloat16, 8),
         # fp32 activations keep T = 1 and T = 4 logits close: the spec check
         # covers most positions there
         "int8kv-accurate": timed(phase_generate_q8, "int8kv-accurate", "cuda-accurate", torch.float32, 8,
@@ -5489,6 +6122,8 @@ def main() -> int:
     ppl = timed(phase_perplexity)
     q8_launches["ppl-fast"], q8_launches["ppl-accurate"] = ppl["fast"], ppl["accurate"]
     timed(phase_tools)
+    # this slice's path: tensor- and data-parallel serving over a (data, model) mesh
+    q8_launches["mesh"] = timed(phase_mesh)
     t_timing = time.perf_counter()
     kernels = []
     cycles_per_ms = warm_cycles_per_ms()

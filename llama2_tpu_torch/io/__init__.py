@@ -25,4 +25,20 @@ def load_any(path: str):
     return load_checkpoint(path)
 
 
-__all__ = ["load_checkpoint", "save_checkpoint", "load_any"]
+def is_quantized(path: str) -> bool:
+    """Whether the checkpoint at ``path`` stores its matmul weights as Q8
+    already: a param-cache directory of QuantTensors, or an ak42 v2 file."""
+    import json
+
+    from llama2_tpu_torch.io.cache import is_cache_dir
+
+    if is_cache_dir(path):
+        with open(os.path.join(path, "meta.json")) as f:
+            return json.load(f)["tensors"].get("wq", {}).get("kind") == "q8"
+    if not os.path.isfile(path):
+        return False
+    with open(path, "rb") as f:
+        return f.read(4) == b"24ka"
+
+
+__all__ = ["load_checkpoint", "save_checkpoint", "load_any", "is_quantized"]

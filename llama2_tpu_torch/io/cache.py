@@ -12,8 +12,9 @@ files and the first copy of a tensor is the one to its device.
 
 The generate CLI treats a directory checkpoint path as a cache
 (``python -m llama2_tpu_torch model-cache/ ...``) and writes one with
-``--save-cache DIR``. The per-host sharded load of the JAX module is not
-ported (no tensor parallelism here yet).
+``--save-cache DIR``. A rank of a tensor- or data-parallel mesh loads only
+its own slices (:func:`load_cache_sharded`; :func:`shard_read_plan` gives
+the bytes each rank reads).
 """
 
 from __future__ import annotations
@@ -91,3 +92,46 @@ def load_cache(path: str):
 
 def is_cache_dir(path: str) -> bool:
     return os.path.isdir(path) and os.path.exists(os.path.join(path, _META))
+
+
+def _leaf_files(path: str, meta: dict):
+    """``(param name, file)`` of every array file in the cache."""
+    for name, info in meta["tensors"].items():
+        if info["kind"] == "q8":
+            yield name, os.path.join(path, f"{name}.q.npy")
+            yield name, os.path.join(path, f"{name}.scale.npy")
+        else:
+            yield name, os.path.join(path, f"{name}.npy")
+
+
+def shard_read_plan(path: str, mesh) -> dict:
+    """The bytes each rank of ``mesh`` (a Mesh or a ``(dp, tp)`` pair) reads
+    of each file under :func:`load_cache_sharded`: ``{file: {rank: nbytes}}``,
+    rank ``d * tp + t`` at mesh coordinate ``(d, t)``. A rank's host traffic
+    is the sum of its column."""
+    from llama2_tpu_torch.parallel.sharding import leaf_spec, local_slice, mesh_shape
+
+    with open(os.path.join(path, _META)) as f:
+        meta = json.load(f)
+    sizes = mesh_shape(mesh)
+    dp, tp = sizes["data"], sizes["model"]
+    plan: dict = {}
+    for name, leaf_path in _leaf_files(path, meta):
+        arr = np.load(leaf_path, mmap_mode="r")
+        spec = leaf_spec(name, arr.shape, mesh)
+        for rank in range(dp * tp):
+            part = local_slice(arr, spec, (rank // tp, rank % tp), mesh)
+            plan.setdefault(leaf_path, {})[rank] = part.size * arr.dtype.itemsize
+    return plan
+
+
+def load_cache_sharded(path: str, mesh):
+    """This rank's shards of a param cache, ``(config, params, shared)``
+    with ``params`` a ``parallel.sharding.LocalParams``: every file is
+    memory-mapped and only the rank's slices are copied out of it
+    (``parallel/sharding.py::shard_params``), so the whole tree is never one
+    host copy."""
+    from llama2_tpu_torch.parallel.sharding import shard_params
+
+    config, params, shared = load_cache(path)
+    return config, shard_params(params, mesh), shared

@@ -86,6 +86,8 @@ from llama2_tpu_torch.ops.cuda.prefill_attention import (
 )
 from llama2_tpu_torch.ops.cuda.quant_matmul import quant_matmul_stacked
 from llama2_tpu_torch.ops.linear import BACKENDS, linear
+from llama2_tpu_torch.parallel.sharding import derive
+from llama2_tpu_torch.parallel.tp import add_reduced, logits_sharded, run_layers_sharded
 from llama2_tpu_torch.quant.q8 import QuantTensor
 
 
@@ -151,11 +153,25 @@ def fuse_layer_params(params: dict, backend: str = "cuda", shards: int = 1) -> d
     init; checkpoints keep the 9-key layout. W1/W3 stay separate (the same
     tensors, no copy) when :func:`use_mlp_block` engages for ``backend``; any
     other backend, ``"torch"`` for one, gives the ``w13`` layout, on which
-    ``backend="cuda"`` runs the composed route. Tensor-parallel shard-blocked
-    layouts (``shards > 1``) are not ported.
+    ``backend="cuda"`` runs the composed route.
+
+    ``shards > 1`` gives the JAX package's SHARD-BLOCKED layout of a whole
+    tree: out-features ordered ``[q_0|k_0|v_0|q_1|k_1|v_1|...]``, block ``s``
+    holding shard ``s``'s heads, and w1/w3 always separate. A rank of a
+    tensor-parallel mesh fuses its own slices with ``shards=1``
+    (``parallel/tp.py``), which gives block ``t`` of that layout. A rank's
+    tree (``parallel.sharding.LocalParams``) keeps its record.
     """
-    if shards != 1:
-        raise NotImplementedError("tensor-parallel layouts are not yet ported to the torch package")
+
+    def chunk(w, s):
+        """Chunk ``s`` of ``shards`` along out-features."""
+        n = w.shape[-1]
+        if n % shards:
+            raise ValueError(f"{n} out-features do not split into {shards} shards")
+        c = n // shards
+        if isinstance(w, QuantTensor):
+            return QuantTensor(w.q[..., s * c : (s + 1) * c], w.scale[..., s * c : (s + 1) * c], w.group_size)
+        return w[..., s * c : (s + 1) * c]
 
     def cat(*ws):
         if isinstance(ws[0], QuantTensor):
@@ -169,12 +185,13 @@ def fuse_layer_params(params: dict, backend: str = "cuda", shards: int = 1) -> d
         return torch.cat(ws, dim=-1)
 
     out = {k: v for k, v in params.items() if k not in ("wq", "wk", "wv", "w1", "w3")}
-    out["wqkv"] = cat(params["wq"], params["wk"], params["wv"])
-    if use_mlp_block(params, backend):
+    blocks = [chunk(params[k], s) for s in range(shards) for k in ("wq", "wk", "wv")]
+    out["wqkv"] = cat(*blocks)
+    if use_mlp_block(params, backend) or shards > 1:
         out["w1"], out["w3"] = params["w1"], params["w3"]
     else:
         out["w13"] = cat(params["w1"], params["w3"])
-    return out
+    return derive(params, out)
 
 
 def _split_qkv(lp, xb, config: ModelConfig, backend: str, quant_idx):
@@ -200,8 +217,10 @@ def _qkv(x, lp, cos, sin, config: ModelConfig, backend: str, quant_idx):
     return ref.apply_rope(q, cos, sin), ref.apply_rope(k, cos, sin), v
 
 
-def _ffn(x, lp, config: ModelConfig, backend: str, quant_idx):
-    """rmsnorm + gate/up + swiglu + down projection + residual."""
+def _ffn(x, lp, config: ModelConfig, backend: str, quant_idx, group=None):
+    """rmsnorm + gate/up + swiglu + down projection + residual; under a
+    model ``group`` the down projection's partial sums are all-reduced
+    before the residual add (``parallel/tp.py::add_reduced``)."""
     xb = ref.rmsnorm(x, lp["rms_ffn"], config.norm_eps)
     if "w13" in lp:
         # fused gate+up (matmul_fused(2, {w1,w3}) analog, main.zig:405-408)
@@ -211,44 +230,54 @@ def _ffn(x, lp, config: ModelConfig, backend: str, quant_idx):
     else:
         h1 = linear(xb, lp["w1"], backend, quant_idx)
         h3 = linear(xb, lp["w3"], backend, quant_idx)
-    return x + linear(ref.swiglu(h1, h3), lp["w2"], backend, quant_idx)
+    return add_reduced(x, linear(ref.swiglu(h1, h3), lp["w2"], backend, quant_idx), group)
 
 
-def _wo_ffn(x, att, lp, config: ModelConfig, backend: str, quant_idx):
+def _wo_ffn(x, att, lp, config: ModelConfig, backend: str, quant_idx, group=None):
     """The post-attention half of a segment layer (a prefill chunk or a
     verify window, any row count): the wo projection + residual, then the
-    composed FFN block, each projection one dequant-matmul launch."""
-    x = x + linear(att, lp["wo"], backend, quant_idx)
-    return _ffn(x, lp, config, backend, quant_idx)
+    composed FFN block, each projection one dequant-matmul launch. Under a
+    model ``group`` wo's and w2's partial sums are all-reduced before their
+    residual adds."""
+    x = add_reduced(x, linear(att, lp["wo"], backend, quant_idx), group)
+    return _ffn(x, lp, config, backend, quant_idx, group)
 
 
-def _post_attention(x, att, lp, config: ModelConfig, backend: str, quant_idx):
+def _post_attention(x, att, lp, config: ModelConfig, backend: str, quant_idx, group=None):
     """The post-attention half of a decode layer: wo projection + residual,
     then the FFN block, by the fewest launches that take the weights: the
     wo + FFN megakernel (one); else wo, with its residual add in the launch's
     epilogue where ``wo`` is a stacked quantized weight on the fast CUDA
     backend, and the FFN megakernel (two); else wo and the composed rmsnorm /
-    w13 / swiglu / w2."""
+    w13 / swiglu / w2.
+
+    Under a model ``group`` (tensor parallelism) wo's and the FFN's outputs
+    are partial sums, each all-reduced before its residual add, so the
+    residual-fusing forms split: wo without its residual, then the reduce;
+    the FFN megakernel with ``residual=False``, then the reduce; the wo +
+    FFN megakernel is off (it spans both reduces)."""
     wo = lp["wo"]
     mlp_block = quant_idx is not None and use_mlp_block(lp, backend)
-    if mlp_block and attn_mlp_block_supported(wo, lp["w1"], lp["w3"], lp["w2"]):
+    if group is None and mlp_block and attn_mlp_block_supported(wo, lp["w1"], lp["w3"], lp["w2"]):
         return attn_mlp_block_stacked(
             att, x, wo, lp["rms_ffn"], lp["w1"], lp["w3"], lp["w2"], quant_idx, config.norm_eps
         )
     if (
-        backend == "cuda"
+        group is None
+        and backend == "cuda"
         and quant_idx is not None
         and isinstance(wo, QuantTensor)
         and wo.q.ndim == 3
     ):
         x = quant_matmul_stacked(att, wo, quant_idx, residual=x)
     else:
-        x = x + linear(att, wo, backend, quant_idx)
+        x = add_reduced(x, linear(att, wo, backend, quant_idx), group)
     if mlp_block:
-        return mlp_block_stacked(
-            x, lp["rms_ffn"], lp["w1"], lp["w3"], lp["w2"], quant_idx, config.norm_eps
+        ffn = mlp_block_stacked(
+            x, lp["rms_ffn"], lp["w1"], lp["w3"], lp["w2"], quant_idx, config.norm_eps, residual=group is None
         )
-    return _ffn(x, lp, config, backend, quant_idx)
+        return ffn if group is None else add_reduced(x, ffn, group)
+    return _ffn(x, lp, config, backend, quant_idx, group)
 
 
 def _dequant_attention(q, k8, ks, v8, vs, pos, n: int):
@@ -263,7 +292,7 @@ def _dequant_attention(q, k8, ks, v8, vs, pos, n: int):
 
 def _layer(
     x, lp, k_cache, v_cache, pos, cos, sin, config: ModelConfig, backend: str,
-    quant_idx=None, ks_cache=None, vs_cache=None, rows: list[int] | None = None,
+    quant_idx=None, ks_cache=None, vs_cache=None, rows: list[int] | None = None, group=None,
 ):
     """One decoder layer over a (B, T, D) prefill segment starting at ``pos``.
 
@@ -304,7 +333,7 @@ def _layer(
             att = flash_decode_attention_q8(q, k_cache, ks_cache, v_cache, vs_cache, pos + T - 1)
         else:
             att = _dequant_attention(q, k_cache, ks_cache, v_cache, vs_cache, pos, n)
-        return _wo_ffn(x, att.reshape(B, T, H * hs), lp, config, backend, quant_idx)
+        return _wo_ffn(x, att.reshape(B, T, H * hs), lp, config, backend, quant_idx, group)
     put(k_cache, k.transpose(1, 2))
     put(v_cache, v.transpose(1, 2))
     if rows is not None:
@@ -312,7 +341,7 @@ def _layer(
     else:
         attend = flash_prefill_attention if backend.startswith("cuda") else flash_prefill_attention_plain
         att = attend(q, k_cache, v_cache, pos)
-    return _wo_ffn(x, att.reshape(B, T, H * hs), lp, config, backend, quant_idx)
+    return _wo_ffn(x, att.reshape(B, T, H * hs), lp, config, backend, quant_idx, group)
 
 
 def _fused_attention(qkv3, cache: dict, cos_il, sin_il, layer_idx: int, pos, n_heads: int):
@@ -330,7 +359,7 @@ def _fused_attention(qkv3, cache: dict, cos_il, sin_il, layer_idx: int, pos, n_h
 
 def _layer_decode_stacked(
     x, lp, cache: dict, layer_idx: int, pos: torch.Tensor, cos, sin,
-    config: ModelConfig, backend: str, quant_idx=None, cos_il=None, sin_il=None,
+    config: ModelConfig, backend: str, quant_idx=None, cos_il=None, sin_il=None, group=None,
 ):
     """One decoder layer of the T=1 decode step over the LAYER-STACKED
     (L, B, KVH, S, hs) caches of ``cache``; ``pos`` is the int32 (B,) row
@@ -360,7 +389,7 @@ def _layer_decode_stacked(
         att = _fused_attention(
             qkv.reshape(B, H + 2 * KVH, hs), cache, cos_il, sin_il, layer_idx, pos, H
         )
-        return _post_attention(x, att.reshape(B, T, H * hs), lp, config, backend, quant_idx)
+        return _post_attention(x, att.reshape(B, T, H * hs), lp, config, backend, quant_idx, group)
 
     q, k, v = _qkv(x, lp, cos, sin, config, backend, quant_idx)
     k_bh = k.transpose(1, 2).contiguous()  # (B, KVH, 1, hs)
@@ -373,14 +402,14 @@ def _layer_decode_stacked(
         else:
             append_rows(*caches, tuple(t[:, :, 0] for t in rows), layer_idx, pos)
             att = _dequant_attention(q, *(c[layer_idx] for c in caches), pos, int(pos.max()) + 1)
-        return _post_attention(x, att.reshape(B, T, H * hs), lp, config, backend, quant_idx)
+        return _post_attention(x, att.reshape(B, T, H * hs), lp, config, backend, quant_idx, group)
     attend = (
         flash_decode_attention_stacked
         if backend.startswith("cuda")
         else flash_decode_attention_stacked_plain
     )
     att = attend(q, cache["k"], cache["v"], k_bh, v_bh, layer_idx, pos)
-    return _post_attention(x, att.reshape(B, T, H * hs), lp, config, backend, quant_idx)
+    return _post_attention(x, att.reshape(B, T, H * hs), lp, config, backend, quant_idx, group)
 
 
 def decode_two_launch(x, params, attend, config: ModelConfig):
@@ -443,6 +472,7 @@ def forward(
     pos,
     config: ModelConfig,
     backend: str = "cuda",
+    mesh=None,
 ) -> torch.Tensor:
     """Run T tokens at positions ``pos..pos+T-1`` through all layers.
 
@@ -455,23 +485,45 @@ def forward(
     or int8, see :func:`init_cache`) in place and returns the hidden states
     (B, T, D), already final-rmsnormed; project with
     :func:`logits_from_hidden`.
+
+    ``mesh``: this rank's place in a ``(data, model)`` mesh
+    (``parallel/mesh.py``); ``params`` and ``cache`` are then its shards
+    (``parallel/sharding.py``), ``tokens`` and ``pos`` the whole batch, and
+    the rank runs the layer stack on its rows with the local config, the
+    row-parallel outputs all-reduced over the model group
+    (``parallel/tp.py::run_layers_sharded``). Returns the rank's rows.
     """
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r}: want one of {BACKENDS}")
+    B, T = tokens.shape
+    dev = tokens.device
+    x = params["tok_emb"][tokens].to(activation_dtype(params))  # (B, T, D)
+    if isinstance(pos, torch.Tensor):
+        pos = pos.to(device=dev, dtype=torch.int32)
+        positions = pos.reshape(-1, 1) + torch.arange(T, device=dev, dtype=torch.int32)
+    else:
+        positions = torch.arange(pos, pos + T, device=dev, dtype=torch.int32)
+    cos, sin = ref.rope_angles(positions, config.head_size)
+    if mesh is not None:
+        x = run_layers_sharded(_run_layers, params, cache, x, pos, cos, sin, config, backend, mesh)
+    else:
+        x = _run_layers(params, cache, x, pos, cos, sin, config, backend)
+    return ref.rmsnorm(x, params["rms_final"], config.norm_eps)
+
+
+def _run_layers(params: dict, cache: dict, x, pos, cos, sin, config: ModelConfig, backend: str, group=None):
+    """All layers over the embedded segment ``x`` (B, T, D), without the
+    final rmsnorm; ``pos`` an int or the int32 per-row positions, ``cos`` /
+    ``sin`` the segment's RoPE rows. With a model ``group`` the weights and
+    caches are a rank's shards, ``config`` its local view, and the
+    megakernels that span the row-parallel reduces (K11-K13) are off."""
     keys = layer_keys(params)
     # quantized weights stay layer-STACKED: the kernel indexes the layer
     stacked = {k for k in keys if isinstance(params[k], QuantTensor)}
-    B, T = tokens.shape
-    dev = tokens.device
+    B, T, _ = x.shape
+    dev = x.device
     kv_quant = "k_scale" in cache
-    x = params["tok_emb"][tokens].to(activation_dtype(params))  # (B, T, D)
-    if isinstance(pos, torch.Tensor):
-        pos_t = pos.to(device=dev, dtype=torch.int32)
-        positions = pos_t.reshape(-1, 1) + torch.arange(T, device=dev, dtype=torch.int32)
-    else:
-        pos_t = None
-        positions = torch.arange(pos, pos + T, device=dev, dtype=torch.int32)
-    cos, sin = ref.rope_angles(positions, config.head_size)
+    pos_t = pos if isinstance(pos, torch.Tensor) else None
 
     def layer_params(i: int) -> dict:
         return {k: params[k] if k in stacked else params[k][i] for k in keys}
@@ -491,6 +543,7 @@ def forward(
         tail = ("wo", "w1", "w3", "w2", "wqkv")
         if (
             cos_il is not None
+            and group is None  # the tail megakernels span both row-parallel reduces
             and set(tail) <= stacked
             and layer_tail_qkv_supported(*(params[k] for k in tail))
         ):
@@ -507,30 +560,34 @@ def forward(
             for i in range(config.n_layers):
                 x = _layer_decode_stacked(
                     x, layer_params(i), cache, i, pvec, cos, sin, config,
-                    backend, i if stacked else None, cos_il, sin_il,
+                    backend, i if stacked else None, cos_il, sin_il, group,
                 )
-    else:
-        rows = None
-        if pos_t is not None:
-            # a window, each row at its own position: ONE host read of the
-            # positions a call, for every layer's slice writes
-            pos_t = pos_t.reshape(-1).expand(B)
-            rows = pos_t.tolist()
-            if max(rows) + T > cache["k"].shape[3]:
-                raise ValueError(
-                    f"a window reaching position {max(rows) + T - 1} needs a cache padded past "
-                    f"its {cache['k'].shape[3]} rows (init_cache(pad=))"
-                )
-        for i in range(config.n_layers):
-            scales = (cache["k_scale"][i], cache["v_scale"][i]) if kv_quant else (None, None)
-            x = _layer(
-                x, layer_params(i), cache["k"][i], cache["v"][i], pos if rows is None else pos_t,
-                cos, sin, config, backend, i if stacked else None, *scales, rows=rows,
+        return x
+    rows = None
+    if pos_t is not None:
+        # a window, each row at its own position: ONE host read of the
+        # positions a call, for every layer's slice writes
+        pos_t = pos_t.reshape(-1).expand(B)
+        rows = pos_t.tolist()
+        if max(rows) + T > cache["k"].shape[3]:
+            raise ValueError(
+                f"a window reaching position {max(rows) + T - 1} needs a cache padded past "
+                f"its {cache['k'].shape[3]} rows (init_cache(pad=))"
             )
-    return ref.rmsnorm(x, params["rms_final"], config.norm_eps)
+    for i in range(config.n_layers):
+        scales = (cache["k_scale"][i], cache["v_scale"][i]) if kv_quant else (None, None)
+        x = _layer(
+            x, layer_params(i), cache["k"][i], cache["v"][i], pos if rows is None else pos_t,
+            cos, sin, config, backend, i if stacked else None, *scales, rows=rows, group=group,
+        )
+    return x
 
 
-def logits_from_hidden(params: dict, hidden: torch.Tensor, backend: str = "torch") -> torch.Tensor:
+def logits_from_hidden(params: dict, hidden: torch.Tensor, backend: str = "torch", mesh=None) -> torch.Tensor:
     """Classifier head: ``hidden @ wcls`` -> (..., vocab) float32 logits. A
-    quantized classifier goes through ``backend``'s dequant-matmul."""
+    quantized classifier goes through ``backend``'s dequant-matmul. Under a
+    ``mesh`` each rank projects onto its vocab slice and the model group
+    all-gathers the full rows (``parallel/tp.py::logits_sharded``)."""
+    if mesh is not None:
+        return logits_sharded(hidden, params, mesh, backend, linear)
     return linear(hidden, params["wcls"], backend).float()

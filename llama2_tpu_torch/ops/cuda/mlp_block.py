@@ -327,7 +327,8 @@ def mlp_block_stacked(x, rms_w, w1, w3, w2, layer, eps: float = 1e-5, *, residua
     caller that reduces partial outputs before it adds the residual.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    count the launch in ``mlp_block_stacked.launches``, and by form) or raise.
+    count the launch in ``mlp_block_stacked.launches``, by form, and with
+    ``residual=False`` in ``.launches_no_residual``) or raise.
     """
     if x.device.type == "cpu":
         return mlp_block_plain(x, rms_w, w1, w3, w2, layer, eps, residual=residual)
@@ -336,10 +337,13 @@ def mlp_block_stacked(x, rms_w, w1, w3, w2, layer, eps: float = 1e-5, *, residua
     out, _ = _launch(
         mlp_block_stacked, None, x, None, rms_w, w1, w3, w2, None, None, layer, eps, residual, False
     )
+    if not residual:
+        mlp_block_stacked.launches_no_residual += 1
     return out.reshape(x.shape)
 
 
 mlp_block_stacked.launches = mlp_block_stacked.launches_mma = mlp_block_stacked.launches_fma = 0
+mlp_block_stacked.launches_no_residual = 0
 
 
 def attn_mlp_block_stacked(att, x, wo, rms_w, w1, w3, w2, layer, eps: float = 1e-5):

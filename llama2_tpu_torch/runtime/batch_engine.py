@@ -52,7 +52,25 @@ weight upload, so that the two overlap), and runs the prefill chunks of
 given prompt lengths, the decode tick and the speculative window once on a
 scratch two-layer cache of the engine's shapes, which fills the plans.
 
-Not ported: the mesh (tensor and data parallelism).
+Tensor and data parallelism (``mesh=``, a ``parallel/mesh.py`` Mesh; the
+server's ``--mesh DPxTP``): every rank runs this engine on its shards of the
+weights and the cache (``parallel/sharding.py``; kv heads on ``model``,
+slots on ``data``), the layer stack through ``forward(mesh=)``
+(``parallel/tp.py``). The ranks step in LOCKSTEP: rank 0 takes the
+submissions, and before each step it broadcasts that step's new requests
+and its stop signal over the world; every rank then applies them and steps
+alike. An admission's prefill is computed by every data group (the B = 1
+plane replicates over ``data``, as in the JAX package), and only the group
+that owns the slot writes its rows, so every rank knows the first token. A
+tick computes the rank's own ``B/dp`` rows, and the sampled tokens (a
+speculative window's targets) are all-gathered over ``data``, so that every
+scheduler agrees; a sampled slot draws from its own seed, the same on every
+rank. Where the CUDA kernels cannot shard the model
+(``tp_cuda_supported``), the engine warns and runs ``backend="torch"``,
+decided from the shapes before any launch; where not even the plain path
+shards it, every rank holds the whole model (with a warning). Under a mesh
+an error in a step is fatal (the ranks' states would part): every request
+fails and the loop ends.
 """
 
 from __future__ import annotations
@@ -61,14 +79,18 @@ import dataclasses
 import queue
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from llama2_tpu_torch.config import GenerationConfig, ModelConfig
 from llama2_tpu_torch.models.llama import BACKENDS, forward, init_cache, layer_keys, logits_from_hidden
 from llama2_tpu_torch.ops import sampling
 from llama2_tpu_torch.ops.cuda import attention, attention_q8, build, layer_block, mlp_block, quant_matmul
+from llama2_tpu_torch.parallel.sharding import LocalParams, shard_params
+from llama2_tpu_torch.parallel.tp import batch_rows, gather, local_config, tp_cuda_supported, tp_torch_supported
 from llama2_tpu_torch.quant.q8 import QuantTensor
 from llama2_tpu_torch.runtime.generator import prepare_params, resolve_device, uniform_draw
 
@@ -214,6 +236,14 @@ class BatchEngine:
     ``dtype``; ``backend`` one of ``torch``, ``cuda``, ``cuda-accurate``.
     ``spec_window`` >= 2: greedy speculative windows of that many tokens
     (``ticks_per_sync`` then counts windows); 0 or 1: none.
+
+    ``mesh``: this rank's ``(data, model)`` Mesh (see the module's
+    docstring); ``params`` the whole tree (a memory-mapped param cache: only
+    the rank's slices are read), which the engine cuts for the mesh it runs
+    (``_shard``); ``device`` defaults to the rank's. Rank 0 takes
+    submissions and runs :meth:`start`, the others :meth:`follow`.
+    ``collective="ring"`` (the overlapped ring of the JAX
+    ``parallel/collective_matmul.py``) is not ported.
     """
 
     _DENSE_CACHE = True  # PagedBatchEngine: pools replace the slot planes
@@ -232,15 +262,39 @@ class BatchEngine:
         max_retries: int = 1,
         pipeline_depth: int = 2,
         spec_window: int = 0,
+        mesh=None,
+        collective: str | None = None,
     ):
         if backend not in BACKENDS:
             raise ValueError(f"backend {backend!r}: want one of {BACKENDS}")
+        if collective not in (None, "ring"):
+            raise ValueError(f"unknown collective {collective!r}")
+        if collective == "ring":
+            raise NotImplementedError(
+                "collective='ring' (parallel/collective_matmul.py) is not yet ported to the torch package"
+            )
         self.config = config
         self.batch_size = batch_size
+        # mesh: the rank's place in the world; fwd_mesh: the one forward()
+        # runs on (the same, or replicated over model for a model that does
+        # not shard)
+        self.mesh = mesh
+        self.fwd_mesh = None
+        if mesh is not None:
+            backend, self.fwd_mesh, params = self._shard(config, params, backend, mesh)
+            device = mesh.device if device is None else device
         self.backend = backend
         self.dtype = dtype
         self.device = resolve_device(device)
         self.params = prepare_params(params, dtype, backend, self.device)
+        # the rank's view of the model and its rows of the batch
+        self.local_config = config if self.fwd_mesh is None else local_config(config, self.fwd_mesh.tp)
+        self._rows = slice(0, batch_size) if self.fwd_mesh is None else batch_rows(batch_size, self.fwd_mesh)
+        self._scratch = None  # the prefill plane of a slot another data group owns
+        self._lockstep_on = mesh is not None and mesh.size > 1
+        self._arrivals: "queue.Queue[Request]" = queue.Queue()  # the requests of the lockstep
+        self.followed: list = []  # a follower's mirrored requests' result queues, in arrival order
+        self.failed: Exception | None = None
         # how many times an in-flight request is re-executed after an engine
         # failure before its caller gets the error (guards against poison
         # requests)
@@ -284,11 +338,46 @@ class BatchEngine:
             "prefill": [], "preempted": 0, "spec_windows": 0,
         }
 
+    @staticmethod
+    def _shard(config, params, backend: str, mesh):
+        """``(backend, forward mesh, the rank's slices)`` of an engine on
+        ``mesh`` with the whole tree ``params``, decided from the shapes
+        alone: ``torch`` (warned) where the CUDA kernels cannot shard the
+        model (``tp_cuda_supported``, the JAX engine's rule), and ``mesh``
+        replicated over ``model`` (warned) where the plain path cannot
+        either."""
+        if isinstance(params, LocalParams):
+            raise TypeError(
+                "BatchEngine(mesh=) takes the whole param tree (a param cache memory-mapped by "
+                "io/cache.py::load_cache is read only where the rank's slices lie) and cuts the slices itself"
+            )
+        fwd = mesh
+        if backend.startswith("cuda"):
+            ok, why = tp_cuda_supported(params, config, mesh)
+            if not ok:
+                warnings.warn(
+                    f"mesh {mesh.dp}x{mesh.tp} with backend {backend!r}: the CUDA kernels cannot shard "
+                    f"this model ({why}); falling back to backend='torch'",
+                    stacklevel=3,
+                )
+                backend = "torch"
+        if backend == "torch":
+            ok, why = tp_torch_supported(params, config, mesh)
+            if not ok:
+                warnings.warn(
+                    f"mesh {mesh.dp}x{mesh.tp}: the model does not shard ({why}); every rank holds "
+                    "the whole model (replicated over model)",
+                    stacklevel=3,
+                )
+                fwd = mesh.replicated_over_model()
+        return backend, fwd, shard_params(params, fwd)
+
     def _make_cache(self):
         # padded past seq_len by a window, so that a window from the last
-        # position never runs off the cache onto committed rows
-        return init_cache(self.config, self.batch_size, self.dtype, self.device, self.kv_quant,
-                          pad=self.spec_window)
+        # position never runs off the cache onto committed rows; the rank's
+        # rows and kv heads under a mesh
+        rows = self._rows.stop - self._rows.start
+        return init_cache(self.local_config, rows, self.dtype, self.device, self.kv_quant, pad=self.spec_window)
 
     def _upload(self, a) -> torch.Tensor:
         """A host array as a new device tensor; on the card through pinned
@@ -305,7 +394,10 @@ class BatchEngine:
         """Enqueue a request; returns a queue that yields the BatchResult (or
         the exception that ended it)."""
         req = Request(prompt=list(prompt_tokens), gen=gen, result_q=queue.Queue())
-        self.waiting.put(req)
+        if self.failed is not None:
+            req.result_q.put(self.failed)
+        else:
+            self.waiting.put(req)
         return req.result_q
 
     def generate(self, prompt_tokens, gen, timeout=600) -> BatchResult:
@@ -324,25 +416,77 @@ class BatchEngine:
             self._thread.join(timeout=30)
 
     def run_until_idle(self, max_ticks: int = 100_000):
-        """Synchronous drive (tests, batch jobs): process the queue to completion."""
-        while self._busy() and max_ticks > 0:
+        """Synchronous drive (tests, batch jobs): process the queue to
+        completion. Under a mesh every rank calls it, rank 0 after its
+        submissions."""
+        while max_ticks > 0:
+            self._lockstep()
+            if not self._busy():
+                break
             self._step()
             max_ticks -= 1
 
+    def follow(self):
+        """A follower rank's loop (every rank but 0 under a mesh): step in
+        lockstep with rank 0 until it stops; raises what failed the loop."""
+        self._loop()
+        if self.failed is not None:
+            raise self.failed
+
     # ---- engine internals ----
 
+    def _source(self) -> "queue.Queue[Request]":
+        """Where admissions come from: the submissions, or under a mesh the
+        requests the lockstep delivered."""
+        return self._arrivals if self._lockstep_on else self.waiting
+
+    def _lockstep(self) -> bool:
+        """Under a mesh, rank 0 broadcasts the requests submitted since the
+        last step and its stop signal, and every rank queues the requests
+        for admission in that order (a follower's mirrors' results go to
+        ``followed``). Returns the stop signal."""
+        if not self._lockstep_on:
+            return self._stop.is_set()
+        new = []
+        if self.mesh.rank == 0:
+            while True:
+                try:
+                    new.append(self.waiting.get_nowait())
+                except queue.Empty:
+                    break
+            msg = [[(r.prompt, r.gen) for r in new], self._stop.is_set()]
+        else:
+            msg = [None, None]
+        dist.broadcast_object_list(msg, src=0, group=self.mesh.control_group)
+        if self.mesh.rank != 0:
+            for prompt, gen in msg[0]:
+                req = Request(prompt=prompt, gen=gen, result_q=queue.Queue())
+                self.followed.append(req.result_q)
+                new.append(req)
+        for req in new:
+            self._arrivals.put(req)
+        return msg[1]
+
     def _busy(self) -> bool:
-        return bool(not self.waiting.empty() or self._requeue or any(self.slots) or self._inflight)
+        return bool(not self._source().empty() or self._requeue or any(self.slots) or self._inflight)
 
     def _loop(self):
-        while not self._stop.is_set():
-            if not self._busy():
-                time.sleep(0.001)
-                continue
+        while True:
             try:
+                if self._lockstep():
+                    break
+                if not self._busy():
+                    time.sleep(0.005 if self._lockstep_on else 0.001)
+                    continue
                 self._step()
             except Exception as e:  # noqa: BLE001 -- rebuild and re-queue
-                self._recover(e)
+                if not self._lockstep_on:
+                    self._recover(e)
+                    continue
+                # the ranks' states may have parted: end every request and the loop
+                self.failed = e
+                self._fail_all(e)
+                break
 
     def _recover(self, err: Exception):
         """A failure mid-tick: drop the (possibly poisoned) device state,
@@ -383,12 +527,13 @@ class BatchEngine:
         for req in self._requeue:
             req.result_q.put(err)
         self._requeue.clear()
-        while True:
-            try:
-                req = self.waiting.get_nowait()
-            except queue.Empty:
-                break
-            req.result_q.put(err)
+        for source in (self._arrivals, self.waiting):
+            while True:
+                try:
+                    req = source.get_nowait()
+                except queue.Empty:
+                    break
+                req.result_q.put(err)
         self._rebuild()
 
     def _step(self):
@@ -406,7 +551,7 @@ class BatchEngine:
                 req = self._requeue.pop(0)
             else:
                 try:
-                    req = self.waiting.get_nowait()
+                    req = self._source().get_nowait()
                 except queue.Empty:
                     return
             self._start_request(slot, req)
@@ -438,12 +583,12 @@ class BatchEngine:
         remaining = feed
         while len(remaining):
             c = next(c for c in PREFILL_CHUNKS if len(remaining) >= c)
-            logits = self._chunk(self.params, self.config, cache, remaining[:c], pos)
+            logits = self._chunk(self.params, self.config, cache, remaining[:c], pos, self.fwd_mesh)
             pos += c
             remaining = remaining[c:]
         return logits
 
-    def _chunk(self, params: dict, config: ModelConfig, cache: dict, seg: np.ndarray, pos: int):
+    def _chunk(self, params: dict, config: ModelConfig, cache: dict, seg: np.ndarray, pos: int, mesh=None):
         """One prefill chunk ``seg`` at ``pos`` into a batch-1 cache: the
         last position's logits (V,)."""
         seg = torch.as_tensor(seg[None, :], device=self.device)
@@ -452,12 +597,12 @@ class BatchEngine:
             # whole layer-stacked caches: the slot's plane, copied there
             # and back (the JAX engine copies the plane for every chunk)
             plane = {k: t.contiguous() for k, t in cache.items()}
-            hidden = forward(params, plane, seg, pos, config, self.backend)
+            hidden = forward(params, plane, seg, pos, config, self.backend, mesh)
             for k, t in cache.items():
                 t.copy_(plane[k])
         else:
-            hidden = forward(params, cache, seg, pos, config, self.backend)
-        return logits_from_hidden(params, hidden[:, -1, :], self.backend)[0]
+            hidden = forward(params, cache, seg, pos, config, self.backend, mesh)
+        return logits_from_hidden(params, hidden[:, -1, :], self.backend, mesh)[0]
 
     def precompile(self, prompt_lens=(), stochastic=(False,), spec: bool = False) -> int:
         """Pay the cold start before the first request: build (:mod:`build`,
@@ -480,6 +625,9 @@ class BatchEngine:
             raise NotImplementedError(
                 "precompile covers the dense engine; the paged ticks have their own shapes"
             )
+        if self.mesh is not None:
+            warnings.warn("precompile: a mesh engine builds and plans at its first request", stacklevel=2)
+            return 0
         names = kernel_libraries(self.params, self.backend, self.kv_quant)
         if self.device.type != "cuda" or not names:
             return 0
@@ -515,10 +663,20 @@ class BatchEngine:
         if fed is None:
             return
         resume, steps, feed = fed
-        # the slot's plane of the batched cache, a view: the prefill writes it
-        plane = {k: v[:, slot : slot + 1] for k, v in self.cache.items()}
-        logits = self._prefill(plane, feed, 0)
+        logits = self._prefill(self._plane(slot), feed, 0)
         self._admitted(slot, req, resume, steps, len(feed), logits)
+
+    def _plane(self, slot: int) -> dict:
+        """The slot's plane of the batched cache, a view the prefill writes;
+        under a mesh, for a slot another data group owns, a scratch plane
+        (every data group computes the prefill, the owner keeps it)."""
+        lo, hi = self._rows.start, self._rows.stop
+        if lo <= slot < hi:
+            return {k: v[:, slot - lo : slot - lo + 1] for k, v in self.cache.items()}
+        if self._scratch is None:
+            self._scratch = init_cache(self.local_config, 1, self.dtype, self.device, self.kv_quant,
+                                       pad=self.spec_window)
+        return self._scratch
 
     def _admitted(self, slot: int, req: Request, resume: bool, steps: int, pos: int, logits) -> bool:
         """After the prefill of ``pos`` rows: sample the first token, stamp
@@ -628,7 +786,9 @@ class BatchEngine:
         for w in range(self.ticks_per_sync):
             seg = _spec_drafts(hist, tokens, pos, d, S)  # (B, d)
             hidden = self._spec_forward(seg, pos, w)
-            targets = sampling.sample_argmax(logits_from_hidden(self.params, hidden, self.backend))
+            targets = self._gather_rows(
+                sampling.sample_argmax(logits_from_hidden(self.params, hidden, self.backend, self.fwd_mesh))
+            )
             hist, tokens, pos, budget, live, em = _spec_commit(
                 seg, targets.to(seg.dtype), hist, tokens, pos, budget, live, d, S
             )
@@ -642,12 +802,20 @@ class BatchEngine:
         """Window ``w`` of a speculative tick: the (B, d, D) hidden states of
         every slot's window ``seg`` at its positions ``pos`` (the paged engine
         runs its own)."""
-        return forward(self.params, self.cache, seg, pos, self.config, self.backend)
+        return forward(self.params, self.cache, seg, pos, self.config, self.backend, self.fwd_mesh)
 
     def _decode_step(self, tokens, pos, i: int) -> torch.Tensor:
         """Step ``i`` of a window: the (B, 1, D) hidden states of one decode
-        step of every slot (the paged engine runs its own)."""
-        return forward(self.params, self.cache, tokens[:, None], pos, self.config, self.backend)
+        step of every slot, the rank's rows under a mesh (the paged engine
+        runs its own)."""
+        return forward(self.params, self.cache, tokens[:, None], pos, self.config, self.backend, self.fwd_mesh)
+
+    def _gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole batch's rows of ``t`` (the rank's rows under a mesh),
+        all-gathered over the data group."""
+        if self._rows == slice(0, self.batch_size):
+            return t
+        return gather(t, self.fwd_mesh.data_group, 0)
 
     def _dispatch_tick(self, active: np.ndarray):
         """Issue one window of ``ticks_per_sync`` decode steps. Inputs chain
@@ -676,8 +844,8 @@ class BatchEngine:
         emitted = []
         for i in range(K):
             hidden = self._decode_step(tokens, pos, i)
-            logits = logits_from_hidden(self.params, hidden[:, -1, :], self.backend)
-            nxt = self._sample(logits, sampled, None if draws is None else draws[i])
+            logits = logits_from_hidden(self.params, hidden[:, -1, :], self.backend, self.fwd_mesh)
+            nxt = self._gather_rows(self._sample(logits, sampled, None if draws is None else draws[i]))
             emitted.append(torch.where(chain_active, nxt, -1))
             # advance active, non-BOS slots; freeze the rest where they stand.
             # The budget (steps - emitted, steps <= seq_len) bounds the walk,
@@ -697,18 +865,21 @@ class BatchEngine:
         self._pos_ahead = np.minimum(self._pos_ahead + K, S - 1)
 
     def _sample(self, logits, sampled: list[int], draws) -> torch.Tensor:
-        """The next token of every slot from its (V,) logits row: the argmax,
-        or for the ``sampled`` rows the nucleus sampler with the row's draw
+        """The next token of every slot of the engine's rows (all of them,
+        or the rank's under a mesh) from its (V,) logits row: the argmax, or
+        for the ``sampled`` slots the nucleus sampler with the slot's draw
         (``top_p`` in {0, 1} samples the whole vocabulary)."""
         greedy = sampling.sample_argmax(logits)
+        lo, hi = self._rows.start, self._rows.stop
+        sampled = [b for b in sampled if lo <= b < hi]
         if not sampled:
             return greedy
         rows = list(greedy.unbind())
         for b in sampled:
             p = self._topp[b]
             p_eff = 1.0 if p <= 0.0 or p >= 1.0 else p
-            probs = sampling.probs_from_logits(logits[b], self._temp[b])
-            rows[b] = sampling.sample_top_p(probs, p_eff, draws[b])
+            probs = sampling.probs_from_logits(logits[b - lo], self._temp[b])
+            rows[b - lo] = sampling.sample_top_p(probs, p_eff, draws[b])
         return torch.stack(rows)
 
     def _drain(self, keep: int = 0):

@@ -37,6 +37,7 @@ from llama2_tpu_torch.models.llama import (
     logits_from_hidden,
 )
 from llama2_tpu_torch.ops import sampling
+from llama2_tpu_torch.parallel.sharding import derive
 from llama2_tpu_torch.quant.q8 import QuantTensor
 
 BOS = 1
@@ -78,10 +79,10 @@ def prepare_params(params: dict, dtype, backend: str, device: torch.device) -> d
     if dtype == torch.float32 and device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
-    out = {
+    out = derive(params, {
         k: v.to(device) if isinstance(v, QuantTensor) else torch.as_tensor(v).to(device, dtype)
         for k, v in params.items()
-    }
+    })
     if backend.startswith("cuda") and isinstance(out.get("wq"), QuantTensor):
         out = fuse_layer_params(out, backend)
     return out

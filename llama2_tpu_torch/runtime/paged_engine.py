@@ -59,6 +59,8 @@ class PagedBatchEngine(BatchEngine):
 
     def __init__(self, config, params: dict, batch_size: int = 8, n_pages: int | None = None,
                  page_size: int = 256, prefix_cache: bool = False, **kw):
+        if kw.get("mesh") is not None:
+            raise NotImplementedError("the paged engine's mesh (parallel/dp_paged.py) is not yet ported")
         if n_pages is None:
             n_pages = max(batch_size, (batch_size * config.seq_len) // (2 * page_size))
         super().__init__(config, params, batch_size=batch_size, **kw)

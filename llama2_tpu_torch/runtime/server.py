@@ -17,6 +17,7 @@ Run:  python -m llama2_tpu_torch.runtime.server <checkpoint> \\
           [--paged [--page-size 256] [--pages N] [--prefix-cache]]
           [--ticks-per-sync K] [--pipeline-depth P] [--kv-cache f32|int8]
           [--kernels cuda|cuda-accurate|torch] [--spec N] [--precompile L1,L2,...]
+          [--mesh DPxTP]
 
 ``--paged`` switches the KV cache to page pools (runtime/paged_engine.py):
 memory scales with the tokens in flight instead of batch_size * seq_len.
@@ -31,20 +32,39 @@ the server answers: the kernel builds start before the weight upload, then
 lengths, the decode tick (greedy and sampled) and, with ``--spec``, the
 window. The engines run on the card (``--platform gpu``, the default; exit 1
 without one) unless ``--platform cpu`` is given; prompts are encoded by the
-C++ tokenizer (``tokenizer/fast/``). ``--mesh`` and ``--collective-matmul``
-are not yet ported and exit 1.
+C++ tokenizer (``tokenizer/fast/``).
+
+``--mesh DPxTP`` serves the dense engine over a ``(data, model)`` mesh of
+``DP * TP`` ranks, one process each (``parallel/``): this process is rank 0
+and serves HTTP; it spawns the others, which load their shards and follow
+its lockstep: a param-cache directory is memory-mapped and each rank reads
+only its slices (as ``io/cache.py::load_cache_sharded``); a checkpoint file
+is read whole, once a rank, and each keeps its slices. ``--quant int8``
+under ``--mesh`` takes weights quantized ahead (a Q8 param cache or an ak42
+file; else exit 1: write one with ``--save-cache``). The
+collective backend is NCCL where every rank owns a card, else gloo (printed).
+Ctrl-C stops every rank and the server exits 0; a rank that dies ends the
+server with exit 1. ``--mesh`` with ``--paged`` (the JAX package's
+``parallel/dp_paged.py``) and ``--collective-matmul`` are not yet ported and
+exit 1, as does ``--precompile`` with ``--mesh``.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import shutil
+import signal
 import sys
+import tempfile
+import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from llama2_tpu_torch.config import GenerationConfig
 
-_UNPORTED = ("--mesh", "--collective-matmul")
+_UNPORTED = ("--collective-matmul",)
+FOLLOWER_JOIN_S = 60.0  # how long a stopped server waits for its followers
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -151,21 +171,42 @@ class _Handler(BaseHTTPRequestHandler):
         })
 
 
-def serve(engine, tokenizer, host: str = "127.0.0.1", port: int = 8000):
-    """Start the engine thread and the HTTP server (blocks until interrupted)."""
+def _watch(engine, followers, httpd, down: list) -> None:
+    """Stop serving when the engine's loop fails or a follower rank dies."""
+    while not down:
+        dead = [p for p in followers if p.exitcode is not None]
+        if engine.failed is not None or dead:
+            why = engine.failed if engine.failed is not None else f"rank exited with {dead[0].exitcode}"
+            print(f"[mesh] stopping: {why}", file=sys.stderr, flush=True)
+            down.append(why)
+            httpd.shutdown()
+            return
+        time.sleep(0.2)
+
+
+def serve(engine, tokenizer, host: str = "127.0.0.1", port: int = 8000, followers=()) -> bool:
+    """Start the engine thread and the HTTP server (blocks until interrupted,
+    or under a mesh until the engine fails or a follower rank dies). Returns
+    whether it stopped cleanly."""
     _Handler.engine = engine
     _Handler.tokenizer = tokenizer
     engine.start()
     httpd = ThreadingHTTPServer((host, port), _Handler)
     print(f"serving on http://{host}:{httpd.server_port} (slots={engine.batch_size})",
           file=sys.stderr, flush=True)
+    down: list = []
+    if engine.mesh is not None:
+        threading.Thread(target=_watch, args=(engine, followers, httpd, down), daemon=True).start()
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
+        clean = not down
+        down.append("stopped")
         httpd.server_close()
         engine.stop()
+    return clean and engine.failed is None
 
 
 def _lengths(value: str) -> list[int]:
@@ -181,13 +222,137 @@ def _die(msg: str) -> int:
     return 1
 
 
+def _mesh_shape(value: str) -> tuple[int, int]:
+    """``--mesh``'s ``DPxTP``."""
+    dp, tp = (int(v) for v in value.lower().split("x"))
+    if dp < 1 or tp < 1:
+        raise ValueError(value)
+    return dp, tp
+
+
+def _engine_kw(opts: dict, device) -> dict:
+    import torch
+
+    return dict(
+        batch_size=opts["batch"],
+        dtype=torch.float32 if opts["dtype"] == "f32" else torch.bfloat16,
+        backend=opts["kernels"],
+        device=device,
+        ticks_per_sync=opts["ticks"],
+        pipeline_depth=opts["pipeline_depth"],
+        kv_quant=opts["kv_cache"] == "int8",
+        spec_window=opts["spec"],
+    )
+
+
+def _load(opts: dict, device, mesh=None):
+    """``(config, params)``: the checkpoint, quantized on ``device`` with
+    ``--quant int8``. Under a mesh the whole tree as it loads (a param cache
+    memory-mapped, nothing read yet): the engine copies out only this rank's
+    slices; ``main`` has refused ``--quant int8`` of unquantized weights."""
+    import torch
+
+    from llama2_tpu_torch.io import load_any
+    from llama2_tpu_torch.quant.q8 import QuantTensor, quantize_params
+
+    config, params, _ = load_any(opts["path"])
+    if mesh is None and opts["quant"] == "int8" and not any(isinstance(v, QuantTensor) for v in params.values()):
+        # on the device: the quantizer gives the numpy path's bytes there
+        params = quantize_params({k: torch.as_tensor(v).to(device) for k, v in params.items()})
+    return config, params
+
+
+def _follower(opts: dict, rank: int, dp: int, tp: int, init_method: str, backend: str, device_type: str) -> None:
+    """A follower rank of ``--mesh``: join the group, load this rank's
+    shards, and step in lockstep with rank 0 until it stops."""
+    import torch
+
+    from llama2_tpu_torch.parallel import distributed
+    from llama2_tpu_torch.parallel.mesh import make_mesh
+    from llama2_tpu_torch.runtime.batch_engine import BatchEngine
+
+    signal.signal(signal.SIGINT, signal.SIG_IGN)  # rank 0's stop ends this rank
+    if device_type == "cpu":
+        torch.set_num_threads(1)  # one thread a rank: the ranks share the host's cores
+    distributed.initialize(init_method, dp * tp, rank, device_type, backend)
+    try:
+        mesh = make_mesh(dp, tp, device_type)
+        config, params = _load(opts, mesh.device, mesh)
+        engine = BatchEngine(config, params, mesh=mesh, **_engine_kw(opts, mesh.device))
+        del params
+        engine.follow()
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _serve_mesh(opts: dict, dp: int, tp: int, device_type: str) -> int:
+    """``--mesh``: spawn the follower ranks, join the group as rank 0, serve."""
+    import torch
+
+    from llama2_tpu_torch.parallel import distributed
+    from llama2_tpu_torch.parallel.mesh import make_mesh
+    from llama2_tpu_torch.runtime.batch_engine import BatchEngine
+    from llama2_tpu_torch.tokenizer.fast import load_tokenizer
+
+    world = dp * tp
+    followers, tmp = [], None
+    if world > 1:
+        backend, why = distributed.backend_rule(world, device_type)
+        print(why, file=sys.stderr, flush=True)
+        if device_type == "cuda" and opts["kernels"].startswith("cuda"):
+            from llama2_tpu_torch.ops.cuda import build
+
+            build.build_all(list(distributed.ENGINE_LIBRARIES))  # once, before the ranks load them
+        tmp = tempfile.mkdtemp(prefix="llama2-mesh-")
+        init_method = "file://" + os.path.join(tmp, "rendezvous")
+        ctx = distributed.spawn_context()
+        followers = [
+            ctx.Process(target=_follower, args=(opts, r, dp, tp, init_method, backend, device_type))
+            for r in range(1, world)
+        ]
+        for p in followers:
+            p.start()
+        if device_type == "cpu":
+            torch.set_num_threads(1)  # one thread a rank: the ranks share the host's cores
+        distributed.initialize(init_method, world, 0, device_type, backend)
+    clean, engine = False, None
+    try:
+        mesh = make_mesh(dp, tp, device_type)
+        config, params = _load(opts, mesh.device, mesh)
+        tokenizer = load_tokenizer(opts["tok_path"], config.vocab_size)
+        engine = BatchEngine(config, params, mesh=mesh, **_engine_kw(opts, mesh.device))
+        del params
+        clean = serve(engine, tokenizer, opts["host"], opts["port"], followers)
+    finally:
+        end = time.monotonic() + FOLLOWER_JOIN_S
+        for p in followers:
+            p.join(timeout=max(0.1, end - time.monotonic()))
+        stuck = [p for p in followers if p.is_alive()]
+        for p in stuck:
+            p.kill()
+            p.join(timeout=10)
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+        looping = engine is not None and engine._thread is not None and engine._thread.is_alive()
+        if stuck or looping:
+            # a rank stuck in a collective: tearing the group down could wait on it
+            print(f"[mesh] {len(stuck)} follower(s) killed, engine loop {'stuck' if looping else 'ended'}",
+                  file=sys.stderr, flush=True)
+            os._exit(1)
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    clean = clean and all(p.exitcode == 0 for p in followers)
+    return 0 if clean else 1
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     opts = {
         "path": None, "tok_path": "tokenizer.bin", "port": 8000, "host": "127.0.0.1", "batch": 8,
         "quant": "none", "dtype": "f32", "platform": "gpu", "paged": False, "page_size": 256,
         "n_pages": None, "prefix_cache": False, "ticks": 1, "pipeline_depth": 2,
-        "kv_cache": "f32", "kernels": "cuda", "spec": 0, "precompile": None,
+        "kv_cache": "f32", "kernels": "cuda", "spec": 0, "precompile": None, "mesh": None,
     }
     valued = {
         "-z": ("tok_path", str), "--port": ("port", int), "--host": ("host", str),
@@ -195,7 +360,7 @@ def main(argv=None):
         "--platform": ("platform", str), "--ticks-per-sync": ("ticks", int),
         "--pipeline-depth": ("pipeline_depth", int), "--kv-cache": ("kv_cache", str),
         "--kernels": ("kernels", str), "--page-size": ("page_size", int), "--pages": ("n_pages", int),
-        "--spec": ("spec", int), "--precompile": ("precompile", _lengths),
+        "--spec": ("spec", int), "--precompile": ("precompile", _lengths), "--mesh": ("mesh", _mesh_shape),
     }
     choices = {
         "quant": ("none", "int8"), "dtype": ("f32", "bf16"), "platform": ("cpu", "gpu"),
@@ -214,6 +379,8 @@ def main(argv=None):
             try:
                 opts[key] = kind(argv[i])
             except ValueError:
+                if a == "--mesh":
+                    return _die("--mesh must look like 2x4 (data x model)")
                 return _die(f"{a}: bad value {argv[i]!r}")
             if key in choices and opts[key] not in choices[key]:
                 return _die(f"{a} must be one of {', '.join(choices[key])}")
@@ -234,35 +401,35 @@ def main(argv=None):
         return _die("--prefix-cache requires --paged")
     if opts["precompile"] is not None and opts["paged"]:
         return _die("--precompile covers the dense engine (not --paged)")
+    if opts["mesh"] is not None and opts["paged"]:
+        return _die("--mesh with --paged (parallel/dp_paged.py) is not yet ported to the torch package")
+    if opts["precompile"] is not None and opts["mesh"] is not None:
+        return _die("--precompile covers the dense single-device engine (not --mesh)")
+    if opts["mesh"] is not None and opts["quant"] == "int8":
+        from llama2_tpu_torch.io import is_quantized
+
+        if not is_quantized(opts["path"]):
+            # quantizing here would put the whole model on the device once a rank
+            return _die(
+                "--mesh with --quant int8 serves weights quantized ahead, of which each rank keeps its "
+                "slices: write a Q8 param cache first (python -m llama2_tpu_torch <checkpoint> --quant int8 "
+                "--save-cache DIR -n 1) and serve DIR"
+            )
 
     import torch
 
     if opts["platform"] == "gpu" and not torch.cuda.is_available():
         return _die("no CUDA device available; pass --platform cpu to run on the CPU")
     device = torch.device("cuda" if opts["platform"] == "gpu" else "cpu")
+    if opts["mesh"] is not None:
+        return _serve_mesh(opts, *opts["mesh"], device.type)
 
-    from llama2_tpu_torch.io import load_any
     from llama2_tpu_torch.runtime.batch_engine import BatchEngine, start_kernel_builds
     from llama2_tpu_torch.tokenizer.fast import load_tokenizer
 
-    config, params, _ = load_any(opts["path"])
+    config, params = _load(opts, device)
     tokenizer = load_tokenizer(opts["tok_path"], config.vocab_size)
-    if opts["quant"] == "int8":
-        from llama2_tpu_torch.quant.q8 import QuantTensor, quantize_params
-
-        if not any(isinstance(v, QuantTensor) for v in params.values()):
-            # on the device: the quantizer gives the numpy path's bytes there
-            params = quantize_params({k: torch.as_tensor(v).to(device) for k, v in params.items()})
-    kw = dict(
-        batch_size=opts["batch"],
-        dtype=torch.float32 if opts["dtype"] == "f32" else torch.bfloat16,
-        backend=opts["kernels"],
-        device=device,
-        ticks_per_sync=opts["ticks"],
-        pipeline_depth=opts["pipeline_depth"],
-        kv_quant=opts["kv_cache"] == "int8",
-        spec_window=opts["spec"],
-    )
+    kw = _engine_kw(opts, device)
     if opts["paged"]:
         from llama2_tpu_torch.runtime.paged_engine import PagedBatchEngine
 

@@ -9,11 +9,13 @@ engine's (in, out) QuantTensor layout; no fp32 copy of the model exists
 (27 GB at 7B). Scales are sized so that activations stay finite through 32
 layers (an effective weight std of ~0.02, Llama's initializer).
 ``io/convert.py::random_q8_params`` draws a model of the same distribution on
-the device, from another generator.
+the device, from another generator: ``--device cuda`` writes that one, which
+is much faster at 7B than drawing on the host.
 
 Usage:
     python -m llama2_tpu_torch.tools.make_random_q8 out/llama7b-q8 --model 7b
     python -m llama2_tpu_torch.tools.make_random_q8 out/ --model 1b --seq-len 1024
+    python -m llama2_tpu_torch.tools.make_random_q8 out/ --model 7b --layers 2 --device cuda
 """
 
 from __future__ import annotations
@@ -79,12 +81,23 @@ def random_q8_params(config: ModelConfig, group_size: int = 64, seed: int = 0) -
 
 
 def build(out_dir: str, model: str = "7b", group_size: int = 64,
-          seed: int = 0, seq_len: int | None = None) -> ModelConfig:
+          seed: int = 0, seq_len: int | None = None, n_layers: int | None = None,
+          device: str | None = None) -> ModelConfig:
+    """Write the cache; ``device`` draws it there (``io/convert.py``'s
+    generator) instead of with numpy on the host."""
     shape = dict(SHAPES[model])
     if seq_len is not None:
         shape["seq_len"] = seq_len
+    if n_layers is not None:
+        shape["n_layers"] = n_layers
     config = ModelConfig(**shape)
-    save_cache(out_dir, config, random_q8_params(config, group_size, seed), shared=False)
+    if device is None:
+        params = random_q8_params(config, group_size, seed)
+    else:
+        from llama2_tpu_torch.io.convert import random_q8_params as on_device
+
+        params = on_device(config, seed, device, torch.float32, group_size)
+    save_cache(out_dir, config, params, shared=False)
     return config
 
 
@@ -95,8 +108,10 @@ def main(argv=None) -> int:
     ap.add_argument("--group-size", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--seq-len", type=int, default=None)
+    ap.add_argument("--layers", type=int, default=None)
+    ap.add_argument("--device", default=None, help="draw on this device (e.g. cuda), not with numpy")
     args = ap.parse_args(argv)
-    config = build(args.out_dir, args.model, args.group_size, args.seed, args.seq_len)
+    config = build(args.out_dir, args.model, args.group_size, args.seed, args.seq_len, args.layers, args.device)
     print(f"wrote {args.model} ({config}) cache to {args.out_dir}")
     return 0
 

@@ -191,12 +191,13 @@ def test_cli_bytes_match_jax_cli(capsysbinary, tiny_checkpoint):
 
 
 def test_port_imports_no_jax():
-    offenders = []
+    offenders, scanned = [], set()
     for root, _, files in os.walk(PORT):
         for fname in files:
             if not fname.endswith(".py"):
                 continue
             path = os.path.join(root, fname)
+            scanned.add(os.path.relpath(path, PORT))
             with open(path) as f:
                 tree = ast.parse(f.read(), path)
             for node in ast.walk(tree):
@@ -211,6 +212,9 @@ def test_port_imports_no_jax():
                     if top in ("jax", "jaxlib", "llama2_tpu"):
                         offenders.append(f"{os.path.relpath(path, REPO)}: {n}")
     assert not offenders, offenders
+    # the tensor- and data-parallel package (slice 17) among them
+    parallel = {os.path.join("parallel", f"{m}.py") for m in ("__init__", "distributed", "mesh", "sharding", "tp")}
+    assert parallel <= scanned, parallel - scanned
     chip_smoke = os.path.join(REPO, "chip_smoke.py")
     with open(chip_smoke) as f:
         tree = ast.parse(f.read())

@@ -31,6 +31,16 @@ from llama2_tpu_torch.quant import convert
 from llama2_tpu_torch.quant import q8 as tq
 from llama2_tpu_torch.runtime.generator import Generator
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch on one thread here: beside the JAX runtime's threads, and the
+    other test workers', more threads only slow these small shapes down."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -1810,3 +1810,110 @@ def test_quantize_on_card_gives_the_numpy_bytes(cuda_device):
         want, got = quantize(w, G), quantize(torch.from_numpy(w).to(cuda_device), G)
         assert got.q.device.type == "cuda"
         assert torch.equal(got.q.cpu(), want.q) and torch.equal(got.scale.cpu(), want.scale)
+
+
+# ---- tensor parallelism: the kernels at a rank's shard shapes (slice 17) ----
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mesh_shard_shapes_match_plain_on_card(cuda_device, dtype):
+    """The kernels of a sharded decode layer at the 7B model's tp = 2 and 4
+    shard shapes, each against its plain version: K10 with ``residual=False``
+    (D 4096, HD/tp 5504 and 2752; 1 and 8 rows, counted in
+    ``launches_no_residual``); K6 without the residual at the row-parallel
+    in-features (wo's 2048 and 1024, w2's 5504 and 2752; M = 1, 8, 201); K5
+    on the vocab slices (N = 16000 and 8000); K4 and K9 at 16 and 8 local
+    heads. Tolerances as the full-width tests of each kernel."""
+    from llama2_tpu_torch.ops import ref
+    from llama2_tpu_torch.ops.cuda import attention_q8 as aq
+
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    D, L, G = 4096, 2, 64
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+
+    for tp in (2, 4):
+        HD = 11008 // tp
+        w1, w3, w2 = _q8_stack(g, cuda_device, L, D, HD, G), _q8_stack(g, cuda_device, L, D, HD, G), \
+            _q8_stack(g, cuda_device, L, HD, D, G)
+        rms = 1 + 0.1 * randn(L, D)
+        for M in (1, 8):
+            x = randn(M, D)
+            n0, r0 = mb.mlp_block_stacked.launches, mb.mlp_block_stacked.launches_no_residual
+            got = mb.mlp_block_stacked(x, rms[1], w1, w3, w2, 1, residual=False)
+            assert (mb.mlp_block_stacked.launches, mb.mlp_block_stacked.launches_no_residual) == (n0 + 1, r0 + 1)
+            want = mb.mlp_block_plain(x, rms[1], w1, w3, w2, 1, residual=False)
+            tol = dict(rtol=2e-5 if dtype == torch.float32 else 2**-7, atol=2e-3 * float(want.float().abs().max()))
+            _assert_close(got, want, tol, f"K10 {tp=} {M=}")
+        del w1, w3, w2
+        for K in (D // tp, HD):
+            w = _q8_stack(g, cuda_device, L, K, D, G)
+            for M in (1, 8, 201):
+                x = randn(M, K)
+                got = quant_matmul_stacked(x, w, 1)
+                want = quant_matmul_stacked_plain(x, w, 1)
+                tol = dict(rtol=2**-7, atol=1e-3) if dtype == torch.bfloat16 else dict(rtol=4e-5, atol=4e-5)
+                _assert_close(got, want, tol, f"K6 {tp=} {K=} {M=}")
+            del w
+        w = _q8_stack(g, cuda_device, 1, D, 32000 // tp, G)[0]
+        for M in (1, 8):
+            x = randn(M, D)
+            n0 = quant_matmul.launches
+            got = quant_matmul(x, w)
+            assert quant_matmul.launches == n0 + 1
+            tol = dict(rtol=2**-7, atol=1e-3) if dtype == torch.bfloat16 else dict(rtol=4e-5, atol=4e-5)
+            _assert_close(got, quant_matmul_plain(x, w), tol, f"K5 N={32000 // tp} {M=}")
+        H = 32 // tp
+        S, hs, B = 4096, 128, 8
+        pos = torch.tensor([0, 5, 127, 128, 1000, 2047, 4000, S - 1], dtype=torch.int32, device=cuda_device)
+        cos, sin = ref.rope_angles(pos[:, None], hs)
+        cos_il = cos[:, 0].repeat_interleave(2, -1).contiguous()
+        sin_il = sin[:, 0].repeat_interleave(2, -1).contiguous()
+        qkv = randn(B, 3 * H, hs)
+        kc, vc = randn(L, B, H, S, hs), randn(L, B, H, S, hs)
+        kp, vp = kc.clone(), vc.clone()
+        got = flash_decode_attention_fused(qkv, kc, vc, cos_il, sin_il, 1, pos, n_heads=H)
+        want = flash_decode_attention_fused_plain(qkv, kp, vp, cos_il, sin_il, 1, pos, H)
+        tol = dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32 else dict(rtol=2**-7, atol=1e-3)
+        _assert_close(got, want, tol, f"K4 {H=}")
+        assert torch.equal(kc, kp) and torch.equal(vc, vp)
+        del kc, vc, kp, vp
+        caches = _int8_cache(g, cuda_device, L, B, H, S, hs)
+        runs = [[t.clone() for t in caches] for _ in range(2)]
+        got = aq.flash_decode_attention_q8_fused(qkv, *runs[0], cos_il, sin_il, 1, pos, n_heads=H)
+        want = aq.flash_decode_attention_q8_fused_plain(qkv, *runs[1], cos_il, sin_il, 1, pos, H)
+        q_rot = aq.rope_quantize_plain(qkv, cos_il, sin_il, H)[0]
+        tol = _q8kv_tol(dtype, q_rot[:, None], *[t[1] for t in runs[1]], pos.long()[:, None], lambda t: t[:, 0])
+        _assert_close(got, want, tol, f"K9 {H=}")
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+        del caches, runs
+
+
+def _gloo_rank(mesh):
+    """A CUDA tensor's all-reduce and all-gather over gloo, on cuda:0."""
+    import torch.distributed as dist
+
+    from llama2_tpu_torch.parallel.tp import add_reduced, gather
+
+    x = torch.full((4, 8), float(mesh.rank + 1), device=mesh.device, dtype=torch.bfloat16)
+    reduced = add_reduced(torch.zeros_like(x), x, mesh.model_group)
+    gathered = gather(torch.arange(3, device=mesh.device) + 10 * mesh.rank, mesh.model_group, 0)
+    return dist.get_backend(), str(mesh.device), reduced.float().cpu().tolist(), gathered.cpu().tolist()
+
+
+@pytest.mark.gpu
+def test_gloo_collectives_of_cuda_tensors_on_one_card(cuda_device):
+    """Two ranks on the one card: the backend rule picks gloo, and gloo
+    all-reduces and all-gathers tensors on cuda:0 (the mesh path's row
+    reduces and logits / token gathers)."""
+    from llama2_tpu_torch.parallel import distributed
+
+    if torch.cuda.device_count() != 1:
+        pytest.skip("the one-card rule")
+    out = distributed.launch(_gloo_rank, 1, 2, "cuda", deadline=120.0, libraries=())
+    for backend, device, reduced, gathered in out:
+        assert (backend, device) == ("gloo", "cuda:0")
+        assert reduced == [[3.0] * 8] * 4
+        assert gathered == [0, 1, 2, 10, 11, 12]

@@ -140,8 +140,16 @@ def test_unported_paths_raise():
     pcfg = port_config(_cfg())
     c = tm.init_cache(pcfg, kv_quant=True)  # ported with slice 4: int8 rows, float32 scales
     assert c["k"].dtype == torch.int8 and c["k_scale"].dtype == torch.float32
-    with pytest.raises(NotImplementedError):
-        tm.fuse_layer_params({}, shards=2)  # tensor-parallel layouts
+    # the shard-blocked layout (ported with slice 17): block s of wqkv is
+    # [q_s|k_s|v_s], w1/w3 stay separate, the same bytes as the JAX package's
+    params = random_params(_cfg(), seed=1)
+    blocked = tm.fuse_layer_params(params_from_numpy(params, "cpu", torch.float32), "torch", shards=2)
+    jb = jm.fuse_layer_params({k: jnp.asarray(v) for k, v in params.items()}, "xla", shards=2)
+    assert set(blocked) == set(jb)
+    for k in ("wqkv", "w1", "w3"):
+        np.testing.assert_array_equal(blocked[k].numpy(), np.asarray(jb[k]))
+    with pytest.raises(ValueError, match="do not split"):
+        tm.fuse_layer_params(params_from_numpy(params, "cpu", torch.float32), shards=3)
     assert tm.layer_keys({"wqkv": None}) == ("rms_att", "wqkv", "wo", "rms_ffn", "w1", "w3", "w2")
     with pytest.raises(ValueError):
         tm.forward({}, {}, torch.zeros(1, 1, dtype=torch.long), 0, pcfg, backend="xla")

@@ -37,6 +37,16 @@ from llama2_tpu_torch.ops.cuda import attention_q8 as aq
 from llama2_tpu_torch.ops.cuda import layer_block as lb
 from test_torch_layer_block import _cfg, both_trees
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch on one thread here: beside the JAX runtime's threads, and the
+    other test workers', more threads only slow these small shapes down."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 TOL = 2e-2
 
 

@@ -273,8 +273,13 @@ def test_fuse_layer_params_layout():
     assert tuple(ff["wqkv"].shape) == (3, 64, 64 + 2 * config.kv_dim)
     assert torch.equal(ff["w13"][..., :172], fp["w1"]) and torch.equal(ff["w13"][..., 172:], fp["w3"])
     assert tm.activation_dtype(fused) == torch.float32
-    with pytest.raises(NotImplementedError):
-        tm.fuse_layer_params(tp, shards=2)
+    # the shard-blocked layout (ported with slice 17): q and scales byte-equal to JAX's
+    blocked = tm.fuse_layer_params(tp, "cuda", shards=2)
+    jb = jm.fuse_layer_params(jax_params(tree), "pallas", shards=2)
+    assert set(blocked) == set(jb) and "w13" not in blocked
+    for k in ("wqkv", "w1", "w3"):
+        np.testing.assert_array_equal(blocked[k].q.numpy(), np.asarray(jb[k].q))
+        np.testing.assert_array_equal(blocked[k].scale.numpy(), np.asarray(jb[k].scale))
     mixed = dict(tp, wk=tq.QuantTensor(tp["wk"].q, tp["wk"].scale.repeat_interleave(2, -2), 8))
     with pytest.raises(ValueError, match="group size"):
         tm.fuse_layer_params(mixed)

@@ -18,6 +18,7 @@ import queue
 
 import numpy as np
 import pytest
+import torch
 
 from conftest import random_params
 from llama2_tpu.config import GenerationConfig as JaxGenerationConfig
@@ -30,6 +31,16 @@ from llama2_tpu_torch.runtime.batch_engine import BatchEngine, Request
 from llama2_tpu_torch.runtime.generator import Generator
 from llama2_tpu_torch.runtime.paged_cache import OutOfPages
 from llama2_tpu_torch.runtime.paged_engine import PagedBatchEngine
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch on one thread here: beside the JAX runtime's threads, and the
+    other test workers', more threads only slow these small shapes down."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 PROMPTS = [[5, 17], [], [320, 9, 44], [7], [250, 4, 99, 2, 18]]
 

@@ -170,7 +170,7 @@ def test_404(server):
     assert code == 404
 
 
-@pytest.mark.parametrize("flag", [["--spec", "1"], ["--mesh", "2x4"], ["--collective-matmul"],
+@pytest.mark.parametrize("flag", [["--spec", "1"], ["--mesh", "2x4", "--paged"], ["--collective-matmul"],
                                   ["--precompile", "16", "--paged"], ["--kernels", "pallas"],
                                   ["--prefix-cache"], ["--bogus"]])
 def test_unported_and_bad_flags_exit_1(tiny_checkpoint, capsys, flag):

@@ -52,6 +52,16 @@ from llama2_tpu_torch.runtime.batch_engine import BatchEngine
 from llama2_tpu_torch.runtime.generator import Generator
 from llama2_tpu_torch.runtime.paged_engine import PagedBatchEngine
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch on one thread here: beside the JAX runtime's threads, and the
+    other test workers', more threads only slow these small shapes down."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 PROMPTS = [[5, 17], [], [320, 9, 44], [7], [250, 4, 99, 2, 18]]
 WINDOWS = [(4, 1), (4, 4), (8, 2)]
 

@@ -16,6 +16,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 from conftest import TOKENIZER_BIN, random_params, tiny_config
 from llama2_tpu import cli as jax_cli
@@ -24,6 +25,16 @@ from llama2_tpu.runtime.generator import Generator as JaxGenerator
 from llama2_tpu_torch.config import GenerationConfig
 from llama2_tpu_torch.config import ModelConfig as TorchModelConfig
 from llama2_tpu_torch.runtime.generator import Generator, prompt_lookup
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch on one thread here: beside the JAX runtime's threads, and the
+    other test workers', more threads only slow these small shapes down."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
