@@ -1123,7 +1123,8 @@ def phase_kernels_paged() -> None:
 
     8 slots at paged_positions (0, page - 1, page, 1000, 4095, a mid-page
     row; two inactive slots on the scratch page), pages handed out shuffled,
-    pages of 256 and 128 rows, the 7B and a GQA head layout, layers 0 and 31
+    pages of 256 and 128 rows, the 7B and a GQA head layout and a tp = 2
+    rank's shard of the 7B one (16 heads, 16-head pools), layers 0 and 31
     of a 32-layer pool; fp32 and bf16 pools (K15, K17) and int8 pools on
     fp32 and bf16 activations (K16, K18). The bf16 and int8 pools of the 7B
     layout with 256-row pages hold 72 pages, so the last layer's offsets pass
@@ -1186,8 +1187,10 @@ def phase_kernels_paged() -> None:
             raise AssertionError(f"{wrapper.__name__}: appended rows differ from the plain version's")
         return got, want
 
-    for lname in ("7B", "GQA"):
-        H, KVH, hs = LAYOUTS[lname]
+    # and a rank's shard at tp = 2 (16 heads over a 16-head pool, the table
+    # of its local page ids: the paged mesh path's, phase_mesh_paged)
+    for lname in ("7B", "GQA", "7B/tp2"):
+        H, KVH, hs = {**LAYOUTS, "7B/tp2": SPLIT_CASES["7B/tp2"][:3]}[lname]
         for page in (256, 128):
             pos_list = paged_positions(page)
             pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
@@ -5497,10 +5500,12 @@ def phase_window_timing(cycles_per_ms: float) -> None:
 
 MESH_DIR = os.path.join(REPO, "build", "mesh")
 # (name, dp, tp, layers, the KV caches it serves over (int8 or not), speculative window)
-MESH_LEGS = (("1x2", 1, 2, 32, (False, True), 0), ("2x2", 2, 2, 2, (True,), 0), ("1x2-spec", 1, 2, 2, (True,), 4))
+# the 1x2 leg at 2 layers since slice 18 (32 before; phase_mesh_paged serves the dense engine at 1x2
+# and 8 layers): room for that phase in the script's time
+MESH_LEGS = (("1x2", 1, 2, 2, (False, True), 0), ("2x2", 2, 2, 2, (True,), 0), ("1x2-spec", 1, 2, 2, (True,), 4))
 MESH_SERVER_ARGS = ("--mesh", "1x2", "--quant", "int8", "--kernels", "cuda", "--dtype", "f32", "--port", "0")
 MESH_DEADLINE_S = 600.0
-MESH_COMM_REQUESTS = 8  # the short run that times the reduces and gathers: 8 requests, 32 new tokens each
+MESH_COMM_REQUESTS = 4  # the short run that times the reduces and gathers: 4 requests, 32 new tokens each
 MESH_F32_WINDOW = 128  # the fp32 plain logits' teacher-forced segments
 
 
@@ -5523,10 +5528,28 @@ def mesh_chunk_k1(T: int, L: int, kv_quant: bool) -> int:
     return L if T > 1 and not kv_quant else 0
 
 
+class HopCount:
+    """The ring collective matmul's hops (``collective_matmul.hops``), read
+    and reset as a wrapper's ``launches``."""
+
+    @property
+    def launches(self) -> int:
+        from llama2_tpu_torch.parallel import collective_matmul
+
+        return collective_matmul.hops
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        from llama2_tpu_torch.parallel import collective_matmul
+
+        collective_matmul.hops = n
+
+
 def mesh_counters() -> dict:
     from llama2_tpu_torch.ops.cuda.mlp_block import mlp_block_stacked
 
-    return {**count_launches(), "K10-no-residual": VariantCount(mlp_block_stacked, "launches_no_residual")}
+    return {**count_launches(), "K10-no-residual": VariantCount(mlp_block_stacked, "launches_no_residual"),
+            "hops": HopCount()}
 
 
 def mesh_served(eng, mesh, reqs, log: bool = False, comm: bool = False) -> dict:
@@ -5534,22 +5557,24 @@ def mesh_served(eng, mesh, reqs, log: bool = False, comm: bool = False) -> dict:
     runs to idle) with the launch counters at 0 just before and read just
     after: each decode tick's and each prefill chunk's launches apart, and
     the ticks' wall seconds. With ``comm`` the seconds in the reduces and
-    gathers, each timed between two synchronizations (which slow the tick
-    they time); with ``log`` the logits row behind each generated token of
-    the rank's slots (pipeline depth 1; a speculative window's rows behind
-    the tokens it committed), by prompt."""
+    gathers (and the ring's hops: each issue and each wait, apart from the
+    chunk products between them), each timed between two synchronizations
+    (which slow the tick they time); with ``log`` the logits row behind each
+    generated token of the rank's slots (pipeline depth 1; a speculative
+    window's rows behind the tokens it committed), by prompt. The dense and
+    the paged engine alike."""
     import torch
 
     from llama2_tpu_torch.models import llama
+    from llama2_tpu_torch.parallel import collective_matmul as cm
     from llama2_tpu_torch.parallel import tp as tpm
     from llama2_tpu_torch.runtime import batch_engine as be
 
     wrappers = mesh_counters()
     ticks, chunks, tick_s, spent = [], [], [], [0.0]
     rows: dict = {}
-    lo = eng._rows.start
-    hi = lo + len(eng.cache["k"][0])  # the rank's slots
-    saved = (llama.add_reduced, tpm.gather, be.gather)
+    lo, hi = eng._rows.start, eng._rows.stop  # the rank's slots
+    saved = (llama.add_reduced, tpm.gather, be.gather, cm._Ring.issue, cm._Ring.done)
     logits_from_hidden, window = be.logits_from_hidden, {}
 
     def synced(fn):
@@ -5619,7 +5644,7 @@ def mesh_served(eng, mesh, reqs, log: bool = False, comm: bool = False) -> dict:
         eng._sample, eng._sample_first, eng._start_request = logged_sample, logged_first, noted_start
         eng._spec_tick = logged_spec_tick
     if comm:
-        llama.add_reduced, tpm.gather, be.gather = (synced(f) for f in saved)
+        llama.add_reduced, tpm.gather, be.gather, cm._Ring.issue, cm._Ring.done = (synced(f) for f in saved)
     for w in wrappers.values():
         w.launches = 0
     n_followed = len(eng.followed)
@@ -5631,7 +5656,7 @@ def mesh_served(eng, mesh, reqs, log: bool = False, comm: bool = False) -> dict:
         results = [q.get(timeout=60) for q in (queues or eng.followed[n_followed:])]
         torch.cuda.synchronize()
     finally:
-        llama.add_reduced, tpm.gather, be.gather = saved
+        llama.add_reduced, tpm.gather, be.gather, cm._Ring.issue, cm._Ring.done = saved
         be.logits_from_hidden = logits_from_hidden
         for name in ("_dispatch_tick", "_chunk", "_decode_tick", "_sample", "_sample_first", "_start_request",
                      "_spec_tick"):
@@ -5801,19 +5826,23 @@ def mesh_rank(mesh, leg: dict) -> dict:
     return out
 
 
-def mesh_reference(path: str, kv_quant: bool, reqs, dtype=None, batch: int = SERVE_SLOTS) -> dict:
-    """The one-card ``BatchEngine`` on the cache at ``path`` (bf16 unless
-    ``dtype``): {prompt: (tokens, logits rows)} (pipeline depth 1, every
-    logits row behind a generated token kept), its wall seconds and ticks."""
+def mesh_reference(path: str, kv_quant: bool, reqs, dtype=None, batch: int = SERVE_SLOTS, paged: dict | None = None
+                   ) -> dict:
+    """The one-card ``BatchEngine`` (``PagedBatchEngine`` with the settings
+    ``paged``) on the cache at ``path`` (bf16 unless ``dtype``): {prompt:
+    (tokens, logits rows)} (pipeline depth 1, every logits row behind a
+    generated token kept), its wall seconds and ticks."""
     import torch
 
     from llama2_tpu_torch.config import GenerationConfig
     from llama2_tpu_torch.io.cache import load_cache
     from llama2_tpu_torch.runtime.batch_engine import BatchEngine
+    from llama2_tpu_torch.runtime.paged_engine import PagedBatchEngine
 
     config, params, _ = load_cache(path)
-    eng = BatchEngine(config, params, batch_size=batch, dtype=dtype or torch.bfloat16, backend="cuda",
-                      device="cuda", kv_quant=kv_quant, pipeline_depth=1)
+    kw = dict(batch_size=batch, dtype=dtype or torch.bfloat16, backend="cuda", device="cuda", kv_quant=kv_quant,
+              pipeline_depth=1)
+    eng = BatchEngine(config, params, **kw) if paged is None else PagedBatchEngine(config, params, **kw, **paged)
     del params
     served_run(eng, [(p[:8], GenerationConfig(temperature=0.0, steps=12)) for p, _ in reqs[:batch]])
     run = served_run(eng, reqs, log=True)
@@ -5891,7 +5920,7 @@ def phase_mesh() -> dict:
     weights (bf16 activations, ``backend="cuda"``) written once as a param
     cache (``tools/make_random_q8.py --device cuda``), memory-mapped by each
     rank, whose engine copies out only its slices, serving the served
-    workload's 12 greedy requests on 8 slots. Legs (MESH_LEGS): 1x2 at 32
+    workload's 12 greedy requests on 8 slots. Legs (MESH_LEGS): 1x2 at 2
     layers over the fp and the int8 cache, 2x2 at 2 layers over the int8
     cache, 1x2 at 2 layers with 4-token speculative windows over the int8
     cache, and the server's twin (1x2, 2 layers, fp32, the fp cache).
@@ -5997,6 +6026,382 @@ def phase_mesh() -> dict:
     return out["1x2"][0]["runs"][False]["launches"]
 
 
+# ---- slice 18: the paged engine over a (data, model) mesh, and the ring collective matmul ----
+
+MESH_PAGED_DIR = os.path.join(REPO, "build", "mesh_paged")
+# One launch of ranks a mesh shape; each run an engine on every rank: its kind, pool or cache (int8 or
+# not), speculative window, prefix cache and collective (None: the psum form); "twin": the run of the
+# same launch a ring run is held to (its psum form); "plant": a fault the tolerance must catch
+_RUN = dict(kind="paged", kv=False, spec=0, prefix=False, collective=None)
+MESH_PAGED_LAUNCHES = (
+    dict(name="1x2", dp=1, tp=2, L=8, runs=(
+        dict(_RUN, name="paged"),
+        dict(_RUN, name="paged-int8", kv=True),
+        dict(_RUN, name="paged-ring", collective="ring", twin="paged", plant="ring_hop"),
+        dict(_RUN, name="dense", kind="dense"),
+        dict(_RUN, name="dense-ring", kind="dense", collective="ring", twin="dense"),
+    )),
+    dict(name="2x2", dp=2, tp=2, L=2, runs=(
+        dict(_RUN, name="paged-prefix", prefix=True, plant="stage_write"),
+        dict(_RUN, name="paged-spec", spec=4),
+    )),
+)
+MESH_PAGED_SERVER_ARGS = ("--paged", "--mesh", "1x2", "--collective-matmul", "--quant", "int8", "--kernels", "cuda",
+                          "--dtype", "f32", "--port", "0")
+MESH_PLANT_REQUESTS = 4  # a planted fault's run: the first requests (the fault lands in the first)
+
+
+def mesh_paged_per_tick(L: int, tp: int, kind: str, kv_quant: bool, ring: bool) -> dict:
+    """A rank's decode tick at L layers: K6 twice a layer (wqkv with the
+    rmsnorm prologue; then wo without its residual, or on the ring form w13,
+    wo's and w2's products being the ring's dequantize and matmul), the
+    glue-fused attention at the rank's heads (paged: K17, K18 over an int8
+    pool; dense: K4), K10 with ``residual=False`` (psum form only), K5 once on
+    the vocab slice; the ring form's hops 2 (tp - 1) a row-parallel linear,
+    two a layer. K11-K13 never."""
+    att = ("K18" if kv_quant else "K17") if kind == "paged" else ("K9" if kv_quant else "K4")
+    if ring:
+        return {"K6": 2 * L, att: L, "K5": 1, "hops": 2 * (tp - 1) * 2 * L}
+    return {"K6": 2 * L, att: L, "K10": L, "K10-no-residual": L, "K5": 1}
+
+
+def pool_nbytes(pool) -> int:
+    return sum(t.numel() * t.element_size() for t in (pool.k, pool.v, pool.ks, pool.vs) if t is not None)
+
+
+def planted(fault: str, mesh):
+    """Install a planted fault; returns its undo. ``"stage_write"``: the
+    first admission's staged rows written by the data group that does NOT
+    own the slot (the owner keeps its zeroed pages); ``"ring_hop"``: on
+    rank 0's first forward, the first hop's received accumulator dropped
+    (zeros in its place: every rank still sends and receives, so no rank
+    waits)."""
+    import torch
+
+    from llama2_tpu_torch.parallel import collective_matmul as cm
+    from llama2_tpu_torch.parallel import dp_paged
+
+    calls = [0]
+    if fault == "stage_write":
+        orig = dp_paged.stage_write
+
+        def misrouted(pool, staging, row0, bucket, pids, rids, own=True):
+            calls[0] += 1
+            return orig(pool, staging, row0, bucket, pids, rids, own=not own if calls[0] == 1 else own)
+
+        dp_paged.stage_write = misrouted
+        return lambda: setattr(dp_paged, "stage_write", orig)
+    orig = cm._hop
+
+    def dropped(ring, t, staged, overlap=None):
+        received, value = orig(ring, t, staged, overlap)
+        calls[0] += 1
+        if calls[0] == 1 and mesh.rank == 0:
+            received = torch.zeros_like(received)
+        return received, value
+
+    cm._hop = dropped
+    return lambda: setattr(cm, "_hop", orig)
+
+
+def mesh_paged_rank(mesh, launch: dict) -> dict:
+    """One rank of a paged-mesh launch: each run is an engine on the
+    memory-mapped param cache (the rank copies out its slices), a short
+    warm-up, then the 12 greedy requests with the launches of every decode
+    tick asserted, a paged pool's bytes (1/(dp*tp) of the one-card pool at
+    the same page count) and page ids (below the group's share) checked,
+    the logged streams held to the one-card references, the reduces' or
+    hops' share timed in a short run of their own; a ring run also held to
+    its psum twin (an earlier run of the launch); with ``plant``, a run of
+    the first requests with the planted fault in place."""
+    import torch
+    import torch.distributed as dist
+
+    from llama2_tpu_torch.config import GenerationConfig
+    from llama2_tpu_torch.io.cache import load_cache
+    from llama2_tpu_torch.parallel import distributed
+    from llama2_tpu_torch.runtime.batch_engine import BatchEngine
+    from llama2_tpu_torch.runtime.paged_engine import PagedBatchEngine
+
+    backend, why = distributed.backend_rule(mesh.size, "cuda")
+    if dist.get_backend() != backend:
+        raise AssertionError(f"rank {mesh.rank}: {dist.get_backend()} where the rule says {why}")
+    config, params, _ = load_cache(launch["path"])  # memory-mapped: the engine reads the rank's slices
+    L = config.n_layers
+    reqs = [(p, GenerationConfig(**g)) for p, g in launch["reqs"]]
+    warm = [(p[:8], GenerationConfig(temperature=0.0, steps=12)) for p, _ in reqs[:SERVE_SLOTS]]
+    short = [(p[:40], GenerationConfig(temperature=0.0, steps=72)) for p, _ in reqs[:MESH_COMM_REQUESTS]]
+    leader = mesh.coord[1] == 0  # one rank of each data group logs its slots
+    out = {"rank": mesh.rank, "coord": mesh.coord, "rule": why, "runs": {}}
+    twins: dict = {}
+
+    def engine(run: dict):
+        kw = dict(mesh=mesh, backend="cuda", pipeline_depth=1, batch_size=SERVE_SLOTS, dtype=torch.bfloat16,
+                  kv_quant=run["kv"], spec_window=run["spec"], collective=run["collective"])
+        if run["kind"] == "paged":
+            eng = PagedBatchEngine(config, params, page_size=SERVE_PAGE, prefix_cache=run["prefix"], **kw)
+            if not eng._MESH_TICKS or eng._dp != (mesh.dp if mesh.dp > 1 else 0):
+                raise AssertionError(f"rank {mesh.rank}: the paged mesh path is off ({eng._dp})")
+        else:
+            eng = BatchEngine(config, params, **kw)
+        if eng.backend != "cuda" or eng.fwd_mesh is not mesh or eng.collective != run["collective"]:
+            raise AssertionError(f"rank {mesh.rank}: the engine runs {eng.backend} on {eng.fwd_mesh}")
+        if eng.params["wcls"].q.shape[-1] != config.vocab_size // mesh.tp:
+            raise AssertionError(f"rank {mesh.rank}: the classifier slice has {eng.params['wcls'].q.shape}")
+        return eng
+
+    def noted_pages(eng) -> list:
+        taken, alloc = [], eng._alloc
+
+        def noted(n, slot=0):
+            pages = alloc(n, slot)
+            taken.extend(pages)
+            return pages
+
+        eng._alloc = noted
+        return taken
+
+    for run in launch["runs"]:
+        name, kind = run["name"], run["kind"]
+        eng = engine(run)
+        taken = noted_pages(eng) if kind == "paged" else []
+        mesh_served(eng, mesh, warm)
+        torch.cuda.reset_peak_memory_stats()
+        served = mesh_served(eng, mesh, reqs, log=leader)
+        launches = served["launches"]
+        if run["spec"]:
+            if eng.metrics["spec_windows"] < 1 or launches["K11"] + launches["K12"] + launches["K13"]:
+                raise AssertionError(f"rank {mesh.rank}: the spec run ran no window, or a megakernel: {launches}")
+        else:
+            want = {k: mesh_paged_per_tick(L, mesh.tp, kind, run["kv"], run["collective"] == "ring").get(k, 0)
+                    for k in launches}
+            bad = [t for t in served["ticks"] if t != want]
+            if not served["ticks"] or bad:
+                raise AssertionError(f"rank {mesh.rank} {name}: launches per decode tick {bad[:1]}, want {want}")
+            # a paged engine prefills through its fp staging plane whatever its pool
+            k1 = {(T, c["K1"]) for T, c in served["chunks"]}
+            if any(n != mesh_chunk_k1(T, L, run["kv"] and kind == "dense") for T, n in k1):
+                raise AssertionError(f"rank {mesh.rank}: (tokens, K1) of the prefill chunks {sorted(k1)}")
+        record = {"launches": launches, "n_ticks": len(served["ticks"]), "n_chunks": len(served["chunks"]),
+                  "spec_windows": eng.metrics["spec_windows"], "tick_s": served["tick_s"],
+                  "wall_s": served["wall_s"], "peak_GiB": torch.cuda.max_memory_allocated() / 2**30}
+        if kind == "paged":
+            c, esize = config, 1 if run["kv"] else 2
+            rows = c.n_layers * eng.n_pages * c.n_kv_heads * SERVE_PAGE
+            whole = 2 * rows * c.head_size * esize + (2 * rows * 4 if run["kv"] else 0)  # the one-card pool
+            mine = pool_nbytes(eng.pool)
+            if mine * mesh.dp * mesh.tp != whole or not taken or max(taken) >= eng.pool.n_pages:
+                raise AssertionError(f"rank {mesh.rank}: pool {mine} B of {whole}, pages up to {max(taken, default=0)}"
+                                     f" of the group's {eng.pool.n_pages}")
+            record.update(pool_GiB=mine / 2**30, pool_pages=eng.pool.n_pages, max_page=max(taken),
+                          prefix_hits=eng.metrics.get("prefix_hit_pages_by_shard", [eng.metrics["prefix_hit_pages"]]))
+        timed = mesh_served(eng, mesh, short, comm=True)
+        record.update(comm_s=timed["comm_s"], comm_wall_s=timed["wall_s"], comm_tick_s=timed["tick_s"])
+        refs = torch.load(launch["refs"][name]) if served["rows"] else None
+        record["held"] = mesh_hold(served["rows"], served["tokens"], refs) if refs else []
+        if served["rows"]:
+            twins[name] = {p: (served["tokens"][p], torch.stack(rows), None) for p, rows in served["rows"].items()}
+            if run.get("twin"):
+                record["vs_psum"] = mesh_hold(served["rows"], served["tokens"], twins[run["twin"]])
+        out["runs"][name] = record
+        if run.get("plant"):
+            # the same settings, the planted fault in place: the parent's check must fail
+            if run["plant"] == "stage_write":  # a fresh engine: nothing cached from the runs before
+                del eng
+                eng = engine(run)
+            undo = planted(run["plant"], mesh)
+            try:
+                bad = mesh_served(eng, mesh, reqs[:MESH_PLANT_REQUESTS], log=leader)
+            finally:
+                undo()
+            out[f"planted-{name}"] = mesh_hold(bad["rows"], bad["tokens"], refs) if refs else []
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def twin_rule(name: str, held: list) -> list:
+    """A ring run against its psum twin (the same engine, weights and
+    requests with the all-reduce form) over the rows both computed from the
+    same prefix: the margin rule (where the streams part, the twin's top-2
+    margin at most twice the largest logits difference). Prints the
+    readings; returns the faults."""
+    dist = max(h["dist"] for h in held)
+    faults = [f"{name}: the ring parts from its psum twin where the margin allows no flip: {h}"
+              for h in held if h["part"] is not None and (h["margin"] is None or h["margin"] > 2 * dist)]
+    n_gen = sum(h["generated"] for h in held)
+    same = sum(h["generated"] if h["part"] is None else h["part"] for h in held)
+    say("mesh-paged", leg=name, against="psum_twin", tokens_equal=f"{same}/{n_gen}",
+        parted=sum(h["part"] is not None for h in held), logit_max_abs_diff=f"{dist:.4e}",
+        rule="margin", held="yes" if not faults else "NO")
+    return faults
+
+
+def mesh_paged_server(path: str) -> None:
+    """The server as a user starts it, ``--paged --mesh 1x2
+    --collective-matmul --quant int8 --kernels cuda --dtype f32`` on the
+    2-layer cache: three concurrent greedy answers, /health, SIGINT exits 0,
+    the rule and the hop staging printed. Each answer is held to the plain
+    path (its tokens teacher-forced through the one-card paged engine on
+    ``backend="torch"``, fp32): every token the plain argmax wherever the
+    plain top-2 margin exceeds twice F32_FAST_LOGIT_RTOL x the largest
+    logit (fast-mode K6 against the plain products: the fp32 bound)."""
+    import torch
+
+    from llama2_tpu_torch.config import GenerationConfig
+    from llama2_tpu_torch.io.cache import load_cache
+    from llama2_tpu_torch.tokenizer.tokenizer import Tokenizer
+
+    bodies = [{"prompt": p, "temperature": 0.0, "steps": 48} for p in SERVER_PROMPTS]
+    run = run_server(path, (), bodies, args=MESH_PAGED_SERVER_ARGS)
+    lines = "".join(run["lines"])
+    if "[mesh] 2 ranks" not in lines or "[ring] gloo: hops staged through the host" not in lines \
+            or run["health"].get("status") != "ok":
+        raise AssertionError(f"--paged --mesh 1x2 --collective-matmul server: {lines[-2000:]}, {run['health']}")
+    config, params, _ = load_cache(path)
+    tok = Tokenizer.from_file(TOKENIZER_BIN, config.vocab_size)
+    reqs = [(tok.encode(p), GenerationConfig(temperature=0.0, steps=48)) for p in SERVER_PROMPTS]
+    streams = [run["results"][i]["tokens"] for i in range(len(reqs))]
+    plain = forced_replay(config, params, reqs, streams, "torch", batch_size=8, page_size=SERVE_PAGE,
+                          dtype=torch.float32)
+    absmax = max(float(lp.abs().max()) for lp in plain)
+    bound = 2 * F32_FAST_LOGIT_RTOL * absmax
+    checked = agree = total = 0
+    for (prompt, _), toks, lp in zip(reqs, streams, plain):
+        gen = torch.tensor(toks[len(prompt):])
+        top2 = lp[: len(gen)].topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > bound
+        ok = lp[: len(gen)].argmax(-1) == gen
+        checked, agree, total = checked + int(clear.sum()), agree + int(ok[clear].sum()), total + len(gen)
+        if not bool(ok[clear].all()):
+            raise AssertionError("--paged --mesh 1x2 --collective-matmul: a served token differs from the plain "
+                                 "path where the margin allows no flip")
+    say("server", args="_".join(MESH_PAGED_SERVER_ARGS[:-2]), up_s=f"{run['up_s']:.1f}",
+        greedy_requests=len(SERVER_PROMPTS), tokens_checked=f"{checked}/{total}",
+        equal_to_plain_there=f"{agree}/{checked}", margin_bound=f"{bound:.4f}", hop_staging="printed",
+        sigint_exit=run["rc"])
+
+
+def phase_mesh_paged() -> dict:
+    """This slice's main path: ``PagedBatchEngine(mesh=)`` (pages over
+    ``data`` with an allocator a data group, kv heads over ``model``) and the
+    ring collective matmul (``collective="ring"``) on both engines, over
+    ranks on the one card (gloo, the rule printed), at full Llama-2-7B width
+    with random INT8 weights (bf16 activations, ``backend="cuda"``, 8 slots,
+    256-row pages) written once as param caches, serving the served
+    workload's 12 greedy requests. Two launches (MESH_PAGED_LAUNCHES), each
+    spawning its ranks once: 1x2 at 8 layers (the paged engine over the bf16
+    and the int8 pool, then with the ring; the dense engine, then with the
+    ring) and 2x2 at 2 layers (the paged engine with the prefix cache, the
+    even requests' 256-token prefix hitting in both data groups, and with
+    4-token speculative windows); then the ``--paged --mesh 1x2
+    --collective-matmul`` server. Asserted on every rank: the backend rule,
+    the paged mesh path taken, each decode tick's launches
+    (``mesh_paged_per_tick``), K1 a layer of every prefill chunk, the pool's
+    bytes and page ids. Every logged stream is held to the one-card engine
+    of its kind on the same weights (a stated logits tolerance,
+    ``mesh_cap``: the distance from the fp32 plain logits at most the
+    one-card bf16 engine's + BF16_MAX_MARGIN; then the margin rule), the
+    ring runs also to their psum twins (``twin_rule``). Two planted faults
+    must fail the tolerance: a stage write sent to the wrong data group
+    (2x2) and one ring hop dropped on a rank's first forward. Printed per
+    run and rank: tick ms (host wall), the reduces' or hops' share of a
+    short timed run, prefix-hit pages per data group, pool and peak GiB.
+    Ranks time-slice one card and reduce through the host: these times say
+    nothing of an overlap or of NVLink. Returns rank 0's launches of the
+    paged runs, summed."""
+    import shutil
+
+    import torch
+
+    from llama2_tpu_torch.parallel import distributed
+    from llama2_tpu_torch.tools.make_random_q8 import build
+
+    smi = nvidia_smi()
+    mark = stopwatch("phase_mesh_paged")
+    shutil.rmtree(MESH_PAGED_DIR, ignore_errors=True)
+    os.makedirs(MESH_PAGED_DIR)
+    reqs = mesh_requests()
+    plain = [(p, {"temperature": 0.0, "steps": g.steps}) for p, g in reqs]
+    paths = {}
+    for L in sorted({launch["L"] for launch in MESH_PAGED_LAUNCHES}):
+        paths[L] = os.path.join(MESH_PAGED_DIR, f"7b-{L}L")
+        build(paths[L], "7b", GROUP, SEED, seq_len=4096, n_layers=L, device="cuda")
+        torch.cuda.empty_cache()
+    mark("write_caches")
+    refs: dict = {}
+
+    def ref_file(L: int, run: dict) -> str:
+        key = (L, run["kind"], run["kv"], run["prefix"])  # the spec and ring runs share their kind's
+        if key not in refs:
+            paged = dict(page_size=SERVE_PAGE, prefix_cache=run["prefix"]) if run["kind"] == "paged" else None
+            ref = mesh_reference(paths[L], run["kv"], reqs, paged=paged)
+            f32 = mesh_f32_rows(paths[L], run["kv"], ref["ref"])
+            ref["file"] = os.path.join(MESH_PAGED_DIR, f"ref-{L}L-{'-'.join(map(str, key[1:]))}.pt")
+            torch.save({p: (t, rows, f32[p]) for p, (t, rows) in ref["ref"].items()}, ref["file"])
+            refs[key] = ref
+        return refs[key]["file"]
+
+    total: dict = {}
+    faults: list = []
+    for launch in MESH_PAGED_LAUNCHES:
+        dp, tp, L = launch["dp"], launch["tp"], launch["L"]
+        spec = dict(launch, path=paths[L], reqs=plain, refs={run["name"]: ref_file(L, run) for run in launch["runs"]})
+        mark(f"{launch['name']}/one_card")
+        ranks = distributed.launch(mesh_paged_rank, dp, tp, "cuda", spec, deadline=MESH_DEADLINE_S)
+        mark(f"{launch['name']}/mesh")
+        rule = distributed.backend_rule(dp * tp, "cuda")[1]
+        if any(r["rule"] != rule for r in ranks):
+            raise AssertionError(f"{launch['name']}: the ranks' backend rule {[r['rule'] for r in ranks]}, "
+                                 f"want {rule!r}")
+        print(rule, flush=True)
+        for run in launch["runs"]:
+            kind, name = run["kind"], run["name"]
+            dn = (f"{launch['name']}/{name}/{L}L/{'int8' if run['kv'] else 'bf16'}-"
+                  f"{'pool' if kind == 'paged' else 'cache'}")
+            runs = [r["runs"][name] for r in ranks]
+            faults += mesh_margin_rule(dn, [h for r in runs for h in r["held"]], "bf16")
+            if run.get("twin"):
+                faults += twin_rule(dn, [h for r in runs for h in r.get("vs_psum", [])])
+            for r, rec in zip(ranks, runs):
+                tick, comm_tick = sorted(rec["tick_s"]), sorted(rec["comm_tick_s"])
+                paged = {"pool_GiB": f"{rec['pool_GiB']:.3f}", "pool_pages": rec["pool_pages"],
+                         "max_page_id": rec["max_page"],
+                         "prefix_hit_pages_by_data_group": ",".join(map(str, rec["prefix_hits"]))} \
+                    if kind == "paged" else {}
+                say("mesh-paged", leg=dn, rank=r["rank"], coord=f"{r['coord'][0]},{r['coord'][1]}",
+                    decode_ticks=rec["n_ticks"], spec_windows=rec["spec_windows"], prefill_chunks=rec["n_chunks"],
+                    wall_s=f"{rec['wall_s']:.3f}",
+                    tick_ms_median=f"{1e3 * tick[len(tick) // 2]:.3f}" if tick else "none",
+                    timed_run_tick_ms_median=f"{1e3 * comm_tick[len(comm_tick) // 2]:.3f}" if comm_tick else "none",
+                    **{("hops" if run["collective"] else "reduces") + "_share_of_timed_run":
+                       f"{rec['comm_s'] / rec['comm_wall_s']:.3f}"},
+                    peak_GiB=f"{rec['peak_GiB']:.2f}", **paged,
+                    **{f"{k}_launches": v for k, v in rec["launches"].items() if v})
+            if kind == "paged":
+                for k, v in runs[0]["launches"].items():
+                    total[k] = total.get(k, 0) + v
+            ref = refs[(L, kind, run["kv"], run["prefix"])]
+            say("mesh-paged", leg=dn, one_card_wall_s=f"{ref['wall_s']:.3f}", one_card_ticks=ref["n_ticks"],
+                mesh_wall_s=f"{runs[0]['wall_s']:.3f}", rule=rule.replace(" ", "_"), card=smi.replace(" ", "_"))
+            if run.get("plant"):
+                held = [h for r in ranks for h in r[f"planted-{name}"]]
+                caught = mesh_cap(f"{dn}/planted", held, "bf16")
+                say("mesh-paged", leg=dn, planted_fault=run["plant"],
+                    vs_f32=f"{max(h['vs_f32'] for h in held):.4e}",
+                    one_card_vs_f32=f"{max(h['one_card_vs_f32'] for h in held):.4e}",
+                    tolerance="fails" if caught else "PASSES")
+                if not caught:
+                    faults.append(f"{dn}: the logits tolerance passes a planted fault ({run['plant']})")
+    mark("legs")
+    if faults:
+        raise AssertionError("; ".join(faults))
+    mesh_paged_server(paths[2])
+    mark("server")
+    shutil.rmtree(MESH_PAGED_DIR, ignore_errors=True)
+    return total
+
+
 def stopwatch(phase: str):
     """``mark(step)``: prints the seconds since the last mark (or since the
     call) on a ``[phase]`` line for ``phase/step``."""
@@ -6073,6 +6478,7 @@ def main() -> int:
         for phase in (phase_kernels, phase_kernels_q8, phase_kernels_mlp, phase_kernels_q8kv, phase_kernels_paged):
             timed(phase)
         timed(phase_mesh)
+        timed(phase_mesh_paged)
         mesh_k10_timing(warm_cycles_per_ms(), torch.Generator(device="cuda").manual_seed(SEED + 17))
         print(smi)
         return 0
@@ -6122,8 +6528,14 @@ def main() -> int:
     ppl = timed(phase_perplexity)
     q8_launches["ppl-fast"], q8_launches["ppl-accurate"] = ppl["fast"], ppl["accurate"]
     timed(phase_tools)
-    # this slice's path: tensor- and data-parallel serving over a (data, model) mesh
+    # slice 17's path: tensor- and data-parallel serving over a (data, model) mesh
     q8_launches["mesh"] = timed(phase_mesh)
+    # this slice's path: the paged engine over the mesh, and the ring collective matmul; its
+    # launches join the kernels line's counts of K5, K6 (decode rows), K10 (a rank's tick), K17, K18
+    mesh_paged = timed(phase_mesh_paged)
+    for k in ("K5", "K6"):
+        q8_launches["fast"][k] += mesh_paged.get(k, 0)
+    q8_launches["mesh"]["K10-no-residual"] += mesh_paged.get("K10-no-residual", 0)
     t_timing = time.perf_counter()
     kernels = []
     cycles_per_ms = warm_cycles_per_ms()
@@ -6131,7 +6543,8 @@ def main() -> int:
         kernels += phase_timing(dtype, launches[dtype], cycles_per_ms)
     kernels += phase_timing_q8(q8_launches, cycles_per_ms)
     kernels += phase_timing_paged({"K15": accurate[False]["K15"], "K16": accurate[True]["K16"],
-                                   "K17": served[False]["K17"], "K18": served[True]["K18"]}, cycles_per_ms)
+                                   "K17": served[False]["K17"] + mesh_paged.get("K17", 0),
+                                   "K18": served[True]["K18"] + mesh_paged.get("K18", 0)}, cycles_per_ms)
     # K15's launches on a served path are over an fp32 pool
     kernels += phase_timing_paged({"K15": accurate[False]["K15"]}, cycles_per_ms, tags=("K15",),
                                   dtype=torch.float32)

@@ -86,6 +86,7 @@ from llama2_tpu_torch.ops.cuda.prefill_attention import (
 )
 from llama2_tpu_torch.ops.cuda.quant_matmul import quant_matmul_stacked
 from llama2_tpu_torch.ops.linear import BACKENDS, linear
+from llama2_tpu_torch.parallel.collective_matmul import ring_linear_local
 from llama2_tpu_torch.parallel.sharding import derive
 from llama2_tpu_torch.parallel.tp import add_reduced, logits_sharded, run_layers_sharded
 from llama2_tpu_torch.quant.q8 import QuantTensor
@@ -142,7 +143,7 @@ def use_mlp_block(params: dict, backend: str) -> bool:
     )
 
 
-def fuse_layer_params(params: dict, backend: str = "cuda", shards: int = 1) -> dict:
+def fuse_layer_params(params: dict, backend: str = "cuda", shards: int = 1, ring: bool = False) -> dict:
     """Concatenate QKV (and, where the FFN megakernel will not take over,
     W1/W3) along out-features: wqkv (L, D, D+2*KV), w13 (L, D, 2*HD).
 
@@ -160,7 +161,9 @@ def fuse_layer_params(params: dict, backend: str = "cuda", shards: int = 1) -> d
     holding shard ``s``'s heads, and w1/w3 always separate. A rank of a
     tensor-parallel mesh fuses its own slices with ``shards=1``
     (``parallel/tp.py``), which gives block ``t`` of that layout. A rank's
-    tree (``parallel.sharding.LocalParams``) keeps its record.
+    tree (``parallel.sharding.LocalParams``) keeps its record. ``ring``
+    (a rank of the ring collective matmul, whose FFN is the composed one)
+    gives the ``w13`` layout on every backend.
     """
 
     def chunk(w, s):
@@ -187,7 +190,7 @@ def fuse_layer_params(params: dict, backend: str = "cuda", shards: int = 1) -> d
     out = {k: v for k, v in params.items() if k not in ("wq", "wk", "wv", "w1", "w3")}
     blocks = [chunk(params[k], s) for s in range(shards) for k in ("wq", "wk", "wv")]
     out["wqkv"] = cat(*blocks)
-    if use_mlp_block(params, backend) or shards > 1:
+    if (use_mlp_block(params, backend) and not ring) or shards > 1:
         out["w1"], out["w3"] = params["w1"], params["w3"]
     else:
         out["w13"] = cat(params["w1"], params["w3"])
@@ -217,10 +220,21 @@ def _qkv(x, lp, cos, sin, config: ModelConfig, backend: str, quant_idx):
     return ref.apply_rope(q, cos, sin), ref.apply_rope(k, cos, sin), v
 
 
-def _ffn(x, lp, config: ModelConfig, backend: str, quant_idx, group=None):
+def _reduce_add(x, y, w, backend: str, quant_idx, group=None, ring: bool = False):
+    """``x + y @ w`` for a row-parallel ``w``: under a model ``group`` the
+    partial sums reduced before the residual add, by the float32 all-reduce
+    (``parallel/tp.py::add_reduced``) or, with ``ring``, the ring collective
+    matmul (``parallel/collective_matmul.py``; ``w`` dequantized beside the
+    chunk products), either way added in float32 and rounded once."""
+    if ring and group is not None:
+        return (x.float() + ring_linear_local(y, w, group, quant_idx)).to(x.dtype)
+    return add_reduced(x, linear(y, w, backend, quant_idx), group)
+
+
+def _ffn(x, lp, config: ModelConfig, backend: str, quant_idx, group=None, ring: bool = False):
     """rmsnorm + gate/up + swiglu + down projection + residual; under a
-    model ``group`` the down projection's partial sums are all-reduced
-    before the residual add (``parallel/tp.py::add_reduced``)."""
+    model ``group`` the down projection's partial sums are reduced before
+    the residual add (:func:`_reduce_add`)."""
     xb = ref.rmsnorm(x, lp["rms_ffn"], config.norm_eps)
     if "w13" in lp:
         # fused gate+up (matmul_fused(2, {w1,w3}) analog, main.zig:405-408)
@@ -230,20 +244,20 @@ def _ffn(x, lp, config: ModelConfig, backend: str, quant_idx, group=None):
     else:
         h1 = linear(xb, lp["w1"], backend, quant_idx)
         h3 = linear(xb, lp["w3"], backend, quant_idx)
-    return add_reduced(x, linear(ref.swiglu(h1, h3), lp["w2"], backend, quant_idx), group)
+    return _reduce_add(x, ref.swiglu(h1, h3), lp["w2"], backend, quant_idx, group, ring)
 
 
-def _wo_ffn(x, att, lp, config: ModelConfig, backend: str, quant_idx, group=None):
+def _wo_ffn(x, att, lp, config: ModelConfig, backend: str, quant_idx, group=None, ring: bool = False):
     """The post-attention half of a segment layer (a prefill chunk or a
     verify window, any row count): the wo projection + residual, then the
     composed FFN block, each projection one dequant-matmul launch. Under a
-    model ``group`` wo's and w2's partial sums are all-reduced before their
-    residual adds."""
-    x = add_reduced(x, linear(att, lp["wo"], backend, quant_idx), group)
-    return _ffn(x, lp, config, backend, quant_idx, group)
+    model ``group`` wo's and w2's partial sums are reduced before their
+    residual adds (with ``ring``, by the ring collective matmul)."""
+    x = _reduce_add(x, att, lp["wo"], backend, quant_idx, group, ring)
+    return _ffn(x, lp, config, backend, quant_idx, group, ring)
 
 
-def _post_attention(x, att, lp, config: ModelConfig, backend: str, quant_idx, group=None):
+def _post_attention(x, att, lp, config: ModelConfig, backend: str, quant_idx, group=None, ring: bool = False):
     """The post-attention half of a decode layer: wo projection + residual,
     then the FFN block, by the fewest launches that take the weights: the
     wo + FFN megakernel (one); else wo, with its residual add in the launch's
@@ -255,7 +269,12 @@ def _post_attention(x, att, lp, config: ModelConfig, backend: str, quant_idx, gr
     are partial sums, each all-reduced before its residual add, so the
     residual-fusing forms split: wo without its residual, then the reduce;
     the FFN megakernel with ``residual=False``, then the reduce; the wo +
-    FFN megakernel is off (it spans both reduces)."""
+    FFN megakernel is off (it spans both reduces). With ``ring`` the two
+    reduces are the ring collective matmul's, whose chunk products are
+    wo's and w2's, and the FFN is the composed one (K10 off), as the JAX
+    ``_post_attention``'s ring form."""
+    if ring and group is not None:
+        return _wo_ffn(x, att, lp, config, backend, quant_idx, group, ring)
     wo = lp["wo"]
     mlp_block = quant_idx is not None and use_mlp_block(lp, backend)
     if group is None and mlp_block and attn_mlp_block_supported(wo, lp["w1"], lp["w3"], lp["w2"]):
@@ -292,7 +311,7 @@ def _dequant_attention(q, k8, ks, v8, vs, pos, n: int):
 
 def _layer(
     x, lp, k_cache, v_cache, pos, cos, sin, config: ModelConfig, backend: str,
-    quant_idx=None, ks_cache=None, vs_cache=None, rows: list[int] | None = None, group=None,
+    quant_idx=None, ks_cache=None, vs_cache=None, rows: list[int] | None = None, group=None, ring: bool = False,
 ):
     """One decoder layer over a (B, T, D) prefill segment starting at ``pos``.
 
@@ -333,7 +352,7 @@ def _layer(
             att = flash_decode_attention_q8(q, k_cache, ks_cache, v_cache, vs_cache, pos + T - 1)
         else:
             att = _dequant_attention(q, k_cache, ks_cache, v_cache, vs_cache, pos, n)
-        return _wo_ffn(x, att.reshape(B, T, H * hs), lp, config, backend, quant_idx, group)
+        return _wo_ffn(x, att.reshape(B, T, H * hs), lp, config, backend, quant_idx, group, ring)
     put(k_cache, k.transpose(1, 2))
     put(v_cache, v.transpose(1, 2))
     if rows is not None:
@@ -341,7 +360,7 @@ def _layer(
     else:
         attend = flash_prefill_attention if backend.startswith("cuda") else flash_prefill_attention_plain
         att = attend(q, k_cache, v_cache, pos)
-    return _wo_ffn(x, att.reshape(B, T, H * hs), lp, config, backend, quant_idx, group)
+    return _wo_ffn(x, att.reshape(B, T, H * hs), lp, config, backend, quant_idx, group, ring)
 
 
 def _fused_attention(qkv3, cache: dict, cos_il, sin_il, layer_idx: int, pos, n_heads: int):
@@ -359,7 +378,7 @@ def _fused_attention(qkv3, cache: dict, cos_il, sin_il, layer_idx: int, pos, n_h
 
 def _layer_decode_stacked(
     x, lp, cache: dict, layer_idx: int, pos: torch.Tensor, cos, sin,
-    config: ModelConfig, backend: str, quant_idx=None, cos_il=None, sin_il=None, group=None,
+    config: ModelConfig, backend: str, quant_idx=None, cos_il=None, sin_il=None, group=None, ring: bool = False,
 ):
     """One decoder layer of the T=1 decode step over the LAYER-STACKED
     (L, B, KVH, S, hs) caches of ``cache``; ``pos`` is the int32 (B,) row
@@ -389,7 +408,7 @@ def _layer_decode_stacked(
         att = _fused_attention(
             qkv.reshape(B, H + 2 * KVH, hs), cache, cos_il, sin_il, layer_idx, pos, H
         )
-        return _post_attention(x, att.reshape(B, T, H * hs), lp, config, backend, quant_idx, group)
+        return _post_attention(x, att.reshape(B, T, H * hs), lp, config, backend, quant_idx, group, ring)
 
     q, k, v = _qkv(x, lp, cos, sin, config, backend, quant_idx)
     k_bh = k.transpose(1, 2).contiguous()  # (B, KVH, 1, hs)
@@ -402,14 +421,14 @@ def _layer_decode_stacked(
         else:
             append_rows(*caches, tuple(t[:, :, 0] for t in rows), layer_idx, pos)
             att = _dequant_attention(q, *(c[layer_idx] for c in caches), pos, int(pos.max()) + 1)
-        return _post_attention(x, att.reshape(B, T, H * hs), lp, config, backend, quant_idx, group)
+        return _post_attention(x, att.reshape(B, T, H * hs), lp, config, backend, quant_idx, group, ring)
     attend = (
         flash_decode_attention_stacked
         if backend.startswith("cuda")
         else flash_decode_attention_stacked_plain
     )
     att = attend(q, cache["k"], cache["v"], k_bh, v_bh, layer_idx, pos)
-    return _post_attention(x, att.reshape(B, T, H * hs), lp, config, backend, quant_idx, group)
+    return _post_attention(x, att.reshape(B, T, H * hs), lp, config, backend, quant_idx, group, ring)
 
 
 def decode_two_launch(x, params, attend, config: ModelConfig):
@@ -473,6 +492,7 @@ def forward(
     config: ModelConfig,
     backend: str = "cuda",
     mesh=None,
+    collective: str | None = None,
 ) -> torch.Tensor:
     """Run T tokens at positions ``pos..pos+T-1`` through all layers.
 
@@ -492,6 +512,8 @@ def forward(
     the rank runs the layer stack on its rows with the local config, the
     row-parallel outputs all-reduced over the model group
     (``parallel/tp.py::run_layers_sharded``). Returns the rank's rows.
+    ``collective="ring"`` makes those reduces the ring collective matmul's
+    (``parallel/collective_matmul.py``); without a mesh it does nothing.
     """
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r}: want one of {BACKENDS}")
@@ -505,18 +527,21 @@ def forward(
         positions = torch.arange(pos, pos + T, device=dev, dtype=torch.int32)
     cos, sin = ref.rope_angles(positions, config.head_size)
     if mesh is not None:
-        x = run_layers_sharded(_run_layers, params, cache, x, pos, cos, sin, config, backend, mesh)
+        x = run_layers_sharded(_run_layers, params, cache, x, pos, cos, sin, config, backend, mesh,
+                               collective == "ring")
     else:
         x = _run_layers(params, cache, x, pos, cos, sin, config, backend)
     return ref.rmsnorm(x, params["rms_final"], config.norm_eps)
 
 
-def _run_layers(params: dict, cache: dict, x, pos, cos, sin, config: ModelConfig, backend: str, group=None):
+def _run_layers(params: dict, cache: dict, x, pos, cos, sin, config: ModelConfig, backend: str, group=None,
+                ring: bool = False):
     """All layers over the embedded segment ``x`` (B, T, D), without the
     final rmsnorm; ``pos`` an int or the int32 per-row positions, ``cos`` /
     ``sin`` the segment's RoPE rows. With a model ``group`` the weights and
     caches are a rank's shards, ``config`` its local view, and the
-    megakernels that span the row-parallel reduces (K11-K13) are off."""
+    megakernels that span the row-parallel reduces (K11-K13) are off; with
+    ``ring`` the reduces are the ring collective matmul's."""
     keys = layer_keys(params)
     # quantized weights stay layer-STACKED: the kernel indexes the layer
     stacked = {k for k in keys if isinstance(params[k], QuantTensor)}
@@ -560,7 +585,7 @@ def _run_layers(params: dict, cache: dict, x, pos, cos, sin, config: ModelConfig
             for i in range(config.n_layers):
                 x = _layer_decode_stacked(
                     x, layer_params(i), cache, i, pvec, cos, sin, config,
-                    backend, i if stacked else None, cos_il, sin_il, group,
+                    backend, i if stacked else None, cos_il, sin_il, group, ring,
                 )
         return x
     rows = None
@@ -578,7 +603,7 @@ def _run_layers(params: dict, cache: dict, x, pos, cos, sin, config: ModelConfig
         scales = (cache["k_scale"][i], cache["v_scale"][i]) if kv_quant else (None, None)
         x = _layer(
             x, layer_params(i), cache["k"][i], cache["v"][i], pos if rows is None else pos_t,
-            cos, sin, config, backend, i if stacked else None, *scales, rows=rows, group=group,
+            cos, sin, config, backend, i if stacked else None, *scales, rows=rows, group=group, ring=ring,
         )
     return x
 

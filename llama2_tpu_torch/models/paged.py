@@ -25,6 +25,15 @@ Routes, by backend and weights (as the JAX function's):
   ``torch`` the rows written in PyTorch and the gather-and-attend oracle
   (the JAX ``xla`` route).
 
+Under a model ``group`` (a rank of the paged mesh path,
+``parallel/dp_paged.py``) ``params``, the pools and ``config`` are the
+rank's shards and local view: the 2-launch route is off (its megakernel
+spans both row-parallel reduces, as in the JAX function), and a layer is K6
+(``wqkv`` with the rmsnorm prologue), K17 or K18 at the rank's heads, then
+``_post_attention`` with the group: ``wo`` without its residual and K10
+with ``residual=False``, each followed by the group's all-reduce, or with
+``ring`` the ring collective matmul's forms.
+
 :func:`paged_forward_window` runs a (B, T) teacher-forced window (the paged
 engine's speculative verify window): its write coordinates come from the
 table on the device, the QKV projection is K6 with its rmsnorm prologue on
@@ -77,6 +86,8 @@ def paged_forward_step(
     backend: str = "torch",
     ks_pool: torch.Tensor | None = None,
     vs_pool: torch.Tensor | None = None,
+    group=None,
+    ring: bool = False,
 ):
     """One batched decode step over the page pools.
 
@@ -87,7 +98,8 @@ def paged_forward_step(
     step's K/V rows of every layer in place and returns ``(hidden (B, 1, D),
     k_pool, v_pool)``, or ``(hidden, k_pool, ks_pool, v_pool, vs_pool)``
     for an int8 pool; ``hidden`` is final-rmsnormed (project it with
-    ``logits_from_hidden``)."""
+    ``logits_from_hidden``). ``group``/``ring``: a rank's reduces (see the
+    module's docstring)."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r}: want one of {BACKENDS}")
     B = tokens.shape[0]
@@ -118,6 +130,7 @@ def paged_forward_step(
 
     if (
         cos_il is not None
+        and group is None  # the tail megakernel spans both row-parallel reduces
         and set(_TAIL) <= stacked
         and layer_tail_qkv_supported(*(params[k] for k in _TAIL))
     ):
@@ -127,13 +140,13 @@ def paged_forward_step(
             lp = {k: params[k] if k in stacked else params[k][i] for k in keys}
             quant_idx = i if stacked else None
             x = _layer(x, lp, pools, table, pos, page_ids, row_ids, i, quant_idx, cos, sin,
-                       fused_attention if cos_il is not None else None, config, backend)
+                       fused_attention if cos_il is not None else None, config, backend, group, ring)
     x = ref.rmsnorm(x, params["rms_final"], config.norm_eps)
     return (x, *pools)
 
 
 def _layer(x, lp, pools, table, pos, page_ids, row_ids, i: int, quant_idx, cos, sin,
-           fused_attention, config: ModelConfig, backend: str):
+           fused_attention, config: ModelConfig, backend: str, group=None, ring: bool = False):
     """One decoder layer of the step: the glue-fused attention block where a
     stacked quantized ``wqkv`` runs on the fast CUDA backend, else the
     composed block; then ``_post_attention``."""
@@ -149,7 +162,7 @@ def _layer(x, lp, pools, table, pos, page_ids, row_ids, i: int, quant_idx, cos, 
             x, lp["wqkv"], quant_idx, rms_w=lp["rms_att"], eps=config.norm_eps
         )  # (B, 1, (H + 2*KVH) * hs), pre-RoPE
         att = fused_attention(qkv.reshape(B, H + 2 * KVH, hs), i)
-        return _post_attention(x, att.reshape(B, 1, H * hs), lp, config, backend, quant_idx)
+        return _post_attention(x, att.reshape(B, 1, H * hs), lp, config, backend, quant_idx, group, ring)
 
     q, k, v = _qkv(x, lp, cos, sin, config, backend, quant_idx)  # (B, 1, H|KVH, hs)
     k_bh = k.transpose(1, 2).contiguous()  # (B, KVH, 1, hs)
@@ -174,7 +187,7 @@ def _layer(x, lp, pools, table, pos, page_ids, row_ids, i: int, quant_idx, cos, 
     else:
         write_rows(pools, (k_bh[:, :, 0], v_bh[:, :, 0]), i, page_ids, row_ids)
         att = paged_attention_oracle(q, pools[0][i], pools[1][i], table, pos, scale)
-    return _post_attention(x, att.reshape(B, 1, H * hs), lp, config, backend, quant_idx)
+    return _post_attention(x, att.reshape(B, 1, H * hs), lp, config, backend, quant_idx, group, ring)
 
 
 def _write_window(pool, rows, layer: int, page_ids, row_ids) -> None:
@@ -199,6 +212,8 @@ def paged_forward_window(
     backend: str = "torch",
     ks_pool: torch.Tensor | None = None,
     vs_pool: torch.Tensor | None = None,
+    group=None,
+    ring: bool = False,
 ):
     """A (B, T) teacher-forced window over the page pools: every batch row
     runs the T tokens of ``seg`` at positions ``pos[b]..pos[b] + T - 1``,
@@ -219,7 +234,8 @@ def paged_forward_window(
     positions of the rows batched with it.
 
     Returns ``(hidden (B, T, D), *pools)`` with :func:`paged_forward_step`'s
-    pool arity; ``hidden`` is final-rmsnormed."""
+    pool arity; ``hidden`` is final-rmsnormed. ``group``/``ring``: a rank's
+    reduces, as the step's."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r}: want one of {BACKENDS}")
     B, T = seg.shape
@@ -265,6 +281,6 @@ def paged_forward_window(
             _write_window(k_pool, k_bh, i, page_ids, row_ids)
             _write_window(v_pool, v_bh, i, page_ids, row_ids)
             att = paged_attention_oracle(q, k_pool[i], v_pool[i], table, pos, scale, n_pages=n_pages)
-        x = _wo_ffn(x, att.reshape(B, T, H * hs), lp, config, backend, quant_idx)
+        x = _wo_ffn(x, att.reshape(B, T, H * hs), lp, config, backend, quant_idx, group, ring)
     x = ref.rmsnorm(x, params["rms_final"], config.norm_eps)
     return (x, *pools)

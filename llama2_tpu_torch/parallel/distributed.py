@@ -5,7 +5,7 @@ into one runtime, here every rank is a process of its own in one
 ``torch.distributed`` group:
 
     from llama2_tpu_torch.parallel import distributed
-    distributed.initialize()   # from the environment, as torchrun sets it
+    distributed.initialize()   # from the environment, as torchrun sets it; on the card
     # or explicitly:
     distributed.initialize("file:///tmp/rdv", world_size=2, rank=r, device="cuda")
 
@@ -39,9 +39,11 @@ import torch.distributed as dist
 DEFAULT_TIMEOUT_S = 120.0  # a collective that waits longer than this fails
 DEFAULT_DEADLINE_S = 900.0  # what launch() gives its ranks, all together
 
-# what the dense engine launches on the card, built once before the ranks
-# start (runtime/batch_engine.py::kernel_libraries over every cache kind)
-ENGINE_LIBRARIES = ("prefill_attention", "decode_attention", "attention_q8", "quant_matmul", "mlp_block")
+# what the engines launch on the card, built once before the ranks start
+# (runtime/batch_engine.py::kernel_libraries over every cache kind, and the
+# paged engine's attention)
+ENGINE_LIBRARIES = ("prefill_attention", "decode_attention", "attention_q8", "quant_matmul", "mlp_block",
+                    "paged_attention")
 
 
 class RankError(RuntimeError):
@@ -73,22 +75,26 @@ def initialize(
     init_method: str | None = None,
     world_size: int | None = None,
     rank: int | None = None,
-    device="cpu",
+    device=None,
     backend: str | None = None,
     timeout: float = DEFAULT_TIMEOUT_S,
 ) -> None:
     """Join the process group: from ``WORLD_SIZE`` / ``RANK`` and torchrun's
     ``MASTER_ADDR`` / ``MASTER_PORT`` (``init_method`` ``env://``) where the
-    arguments are not given. A no-op when the group is up already or the
-    world is one rank. ``backend`` defaults to :func:`backend_rule`'s, and
-    its reason is printed."""
+    arguments are not given. ``device``: the ranks' device type, None
+    meaning the card (the port's rule: without one it raises, and the CPU
+    must be asked for). A no-op when the group is up already or the world
+    is one rank. ``backend`` defaults to :func:`backend_rule`'s, and its
+    reason is printed."""
+    from llama2_tpu_torch.runtime.generator import resolve_device
+
+    device_type = resolve_device(device).type
     if dist.is_initialized():
         return
     world_size = int(os.environ.get("WORLD_SIZE", "1")) if world_size is None else world_size
     if world_size <= 1:
         return
     rank = int(os.environ["RANK"]) if rank is None else rank
-    device_type = torch.device(device).type
     if backend is None:
         backend, why = backend_rule(world_size, device_type)
         if rank == 0:

@@ -16,6 +16,11 @@ group for the engine's lockstep messages (gloo, so that Python objects can
 be broadcast whatever the collective backend). Built without groups (a
 single process, or :func:`single_device_mesh`) it still says where a rank
 would sit, which is what the sharding functions read.
+
+The device defaults to the card, by the port's rule
+(``runtime/generator.py::resolve_device``): without one, a mesh, and so an
+engine over it, raises unless the caller asks for the CPU
+(``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -33,15 +38,21 @@ AXES = (DATA_AXIS, MODEL_AXIS)
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A rank's place in a ``dp x tp`` mesh, with its process groups (None
-    on an axis of size one, or without a process group)."""
+    on an axis of size one, or without a process group). ``device``: None
+    means the card (raising without one)."""
 
     dp: int
     tp: int
     rank: int = 0
-    device: torch.device = torch.device("cpu")
+    device: torch.device | None = None
     model_group: object = None
     data_group: object = None
     control_group: object = None
+
+    def __post_init__(self):
+        from llama2_tpu_torch.runtime.generator import resolve_device
+
+        object.__setattr__(self, "device", resolve_device(self.device))
 
     @property
     def shape(self) -> dict[str, int]:
@@ -63,11 +74,16 @@ class Mesh:
         return dataclasses.replace(self, tp=1, rank=self.coord[0], model_group=None)
 
 
-def make_mesh(dp: int = 1, tp: int | None = None, device="cpu") -> Mesh:
+def make_mesh(dp: int = 1, tp: int | None = None, device=None) -> Mesh:
     """This rank's ``(data, model)`` mesh over the initialized world (one
     rank without a process group). ``tp=None`` takes the ranks ``dp``
-    leaves. Every rank must call it, in the same order: it makes the
-    groups."""
+    leaves. ``device``: the device type (None: the card, raising without
+    one); the rank's device is ``distributed.rank_device``'s. Every rank
+    must call it, in the same order: it makes the groups."""
+    from llama2_tpu_torch.parallel.distributed import rank_device
+    from llama2_tpu_torch.runtime.generator import resolve_device
+
+    device_type = resolve_device(device).type
     world = dist.get_world_size() if dist.is_initialized() else 1
     if tp is None:
         if world % dp != 0:
@@ -75,8 +91,6 @@ def make_mesh(dp: int = 1, tp: int | None = None, device="cpu") -> Mesh:
         tp = world // dp
     if dp * tp != world:
         raise ValueError(f"mesh {dp}x{tp} needs {dp * tp} ranks, have {world}")
-    from llama2_tpu_torch.parallel.distributed import rank_device
-
     rank = dist.get_rank() if world > 1 else 0
     groups = {}
     if world > 1:
@@ -90,8 +104,9 @@ def make_mesh(dp: int = 1, tp: int | None = None, device="cpu") -> Mesh:
                     groups[axis] = group
         control = dist.group.WORLD if dist.get_backend() == "gloo" else dist.new_group(backend="gloo")
         groups["control_group"] = control
-    return Mesh(dp, tp, rank, rank_device(rank, torch.device(device).type), **groups)
+    return Mesh(dp, tp, rank, rank_device(rank, device_type), **groups)
 
 
-def single_device_mesh(device="cpu") -> Mesh:
-    return Mesh(1, 1, 0, torch.device(device))
+def single_device_mesh(device=None) -> Mesh:
+    """A one-rank mesh on ``device`` (None: the card, raising without one)."""
+    return Mesh(1, 1, 0, device)

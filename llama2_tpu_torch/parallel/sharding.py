@@ -9,6 +9,9 @@ Port of ``llama2_tpu/parallel/sharding.py``. The layout is the same:
   partial sums, all-reduced over the model group once a block;
 * the KV cache: kv heads on ``model`` (head size takes the remaining ways
   when tp exceeds the kv heads), slots on ``data``;
+* the paged engine's page pools: kv heads on ``model``, and the page axis
+  on ``data`` where each data group has its own allocator
+  (``parallel/dp_paged.py``), else replicated (:func:`pool_specs`);
 * the classifier ``wcls`` vocab-sharded on ``model``; norms and the
   embedding replicated.
 
@@ -173,3 +176,34 @@ def shard_cache(cache: dict, mesh, coord: tuple[int, int] | None = None) -> dict
     coord = _coord(mesh) if coord is None else coord
     specs = cache_specs(cache, mesh)
     return {k: _owned(v, specs[k], coord, mesh) for k, v in cache.items()}
+
+
+def pool_specs(shapes: dict, mesh, pages_on_data: bool = False) -> dict[str, tuple]:
+    """Specs of the paged KV pools, ``(L, P, KVH, page, hs)`` and the int8
+    pool's ``(L, P, KVH, page)`` scales: kv heads on ``model`` (head size
+    takes the ways past them, as the dense cache's), and the page axis on
+    ``data`` with ``pages_on_data`` (per-data-group allocators: the JAX
+    ``dp_paged._pool_spec``), else replicated over it (one allocator whose
+    pages any slot may hold: the JAX ``pool_specs``)."""
+    return {k: _spec(tuple(s), mesh, model_prefs=(2, 4), data_prefs=(1,) if pages_on_data else ())
+            for k, s in shapes.items()}
+
+
+def local_shape(shape, spec: tuple, mesh) -> tuple:
+    """The shape of a rank's slice of an array of ``shape`` under ``spec``."""
+    sizes = mesh_shape(mesh)
+    return tuple(n // sizes[axis] if axis else n for n, axis in zip(shape, spec))
+
+
+def shard_pool(shape: tuple, mesh, dtype=torch.float32, device="cpu", kv_quant: bool = False,
+               pages_on_data: bool = False):
+    """A rank's shard of paged KV pools whose whole shape is ``shape`` (L,
+    P, KVH, page, hs), allocated at its local shape (:func:`pool_specs`):
+    nothing of the whole pool is built. Its page ids are local: 0 ..
+    P/dp - 1 with ``pages_on_data``."""
+    from llama2_tpu_torch.runtime.paged_cache import PagePool
+
+    spec = pool_specs({"k": shape}, mesh, pages_on_data)["k"]
+    if spec[4] is not None:
+        raise ValueError(f"pool {shape} on mesh {mesh_shape(mesh)}: the head size would split ({spec})")
+    return PagePool.zeros(local_shape(shape, spec, mesh), dtype, device, kv_quant)

@@ -10,6 +10,9 @@ the row-parallel outputs all-reduced over the model group:
   of the JAX package's SHARD-BLOCKED ``wqkv`` (``fuse_layer_params``);
 * w1/w3 column-parallel, wo/w2 row-parallel, scales sliced with their q;
 * the KV cache: kv heads on ``model``, slots on ``data``;
+* with ``collective="ring"`` the two reduces are the ring collective
+  matmul's (:mod:`.collective_matmul`: wo and w2 dequantized and cut into
+  column chunks beside the hops) and the FFN the composed one (K10 off);
 * the rank's view is a SMALLER LLAMA (:func:`local_config`: ``dim``,
   ``hidden_dim`` and the head counts over tp; head size and the GQA ratio
   do not change), so the decode layer runs unchanged but for the two
@@ -91,22 +94,32 @@ def tp_cuda_supported(params: dict, config, mesh) -> tuple[bool, str]:
     return True, ""
 
 
-def tp_torch_supported(params: dict, config, mesh) -> tuple[bool, str]:
-    """Whether the plain path shards this model: whole heads and hidden
-    columns on each rank, fp or quantized weights (a quantized one's scales
-    split with it). Else every rank holds the whole model."""
+def tp_ring_supported(params: dict, config, mesh) -> tuple[bool, str]:
+    """Whether the plain path (``backend="torch"``) and the ring collective
+    matmul (``collective="ring"``, :mod:`.collective_matmul`) shard this
+    model: the twin of the JAX ``tp_ring_supported``, with its reasons.
+    ``params`` is the whole UNFUSED tree as loaded (fp or quantized weights:
+    the plain products and the ring's dequantize a QuantTensor shard); only
+    divisibility is checked, so that each rank owns whole heads and hidden
+    columns and a quantized weight's scales split with it. Else every rank
+    holds the whole model."""
     tp = mesh_shape(mesh)["model"]
     if tp == 1:
         return True, ""
-    ok, why = _divides(config, tp)
-    if not ok:
-        return ok, why
+    if config.n_heads % tp or config.n_kv_heads % tp:
+        return False, f"tp={tp} does not divide the head counts"
+    if config.hidden_dim % tp:
+        return False, f"tp={tp} does not divide hidden_dim={config.hidden_dim}"
     for k in COLUMN + ROW:
-        w = params[k]
+        w = params.get(k)
+        if w is None:
+            return False, f"{k} missing (fused layouts not supported with ring)"
         shape, sshape = (w.q.shape, w.scale.shape) if isinstance(w, QuantTensor) else (w.shape, None)
         d = -1 if k in COLUMN else 1
-        if shape[d] % tp or (sshape is not None and sshape[d] % tp):
+        if shape[d] % tp:
             return False, f"{k} not divisible by tp={tp}"
+        if sshape is not None and sshape[d] % tp:
+            return False, f"{k} scales not divisible by tp={tp}"
     return True, ""
 
 
@@ -148,11 +161,12 @@ def gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
-def run_layers_sharded(run_layers, params: dict, cache: dict, x, pos, cos, sin, config, backend: str, mesh):
+def run_layers_sharded(run_layers, params: dict, cache: dict, x, pos, cos, sin, config, backend: str, mesh,
+                       ring: bool = False):
     """``models.llama._run_layers`` on this rank's shards: its rows of the
     embedded segment ``x`` (:func:`batch_rows`; per-row ``pos`` and RoPE
-    rows with them), the local config, and the model group for the reduces.
-    Returns the rank's rows."""
+    rows with them), the local config, and the model group for the reduces
+    (with ``ring``, the ring collective matmul's). Returns the rank's rows."""
     B = x.shape[0]
     rows = batch_rows(B, mesh)
     if rows != slice(0, B):
@@ -161,7 +175,8 @@ def run_layers_sharded(run_layers, params: dict, cache: dict, x, pos, cos, sin, 
             pos, cos, sin = pos.reshape(-1)[rows], cos[rows], sin[rows]
     tp = mesh_shape(mesh)["model"]
     group = mesh.model_group if tp > 1 else None
-    return run_layers(params, cache, x, pos, cos, sin, local_config(config, tp), backend, group)
+    return run_layers(params, cache, x, pos, cos, sin, local_config(config, tp), backend, group,
+                      ring and group is not None)
 
 
 def vocab_split(params: dict, mesh) -> bool:

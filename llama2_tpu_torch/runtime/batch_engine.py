@@ -70,7 +70,13 @@ rank. Where the CUDA kernels cannot shard the model
 decided from the shapes before any launch; where not even the plain path
 shards it, every rank holds the whole model (with a warning). Under a mesh
 an error in a step is fatal (the ranks' states would part): every request
-fails and the loop ends.
+fails and the loop ends. ``collective="ring"`` (the server's
+``--collective-matmul``) makes the row-parallel ``wo``/``w2`` reduces the
+overlapped ring collective matmul's (``parallel/collective_matmul.py``):
+a ring reduce-scatter of point-to-point hops beside the column-chunk
+products, then a ring all-gather; the FFN is then the composed one. It
+needs a model ``tp_ring_supported`` accepts, and on a paged engine the
+paged mesh path (``parallel/dp_paged.py``); without a mesh it does nothing.
 """
 
 from __future__ import annotations
@@ -90,7 +96,13 @@ from llama2_tpu_torch.models.llama import BACKENDS, forward, init_cache, layer_k
 from llama2_tpu_torch.ops import sampling
 from llama2_tpu_torch.ops.cuda import attention, attention_q8, build, layer_block, mlp_block, quant_matmul
 from llama2_tpu_torch.parallel.sharding import LocalParams, shard_params
-from llama2_tpu_torch.parallel.tp import batch_rows, gather, local_config, tp_cuda_supported, tp_torch_supported
+from llama2_tpu_torch.parallel.tp import (
+    batch_rows,
+    gather,
+    local_config,
+    tp_cuda_supported,
+    tp_ring_supported,
+)
 from llama2_tpu_torch.quant.q8 import QuantTensor
 from llama2_tpu_torch.runtime.generator import prepare_params, resolve_device, uniform_draw
 
@@ -242,11 +254,14 @@ class BatchEngine:
     the rank's slices are read), which the engine cuts for the mesh it runs
     (``_shard``); ``device`` defaults to the rank's. Rank 0 takes
     submissions and runs :meth:`start`, the others :meth:`follow`.
-    ``collective="ring"`` (the overlapped ring of the JAX
-    ``parallel/collective_matmul.py``) is not ported.
+    ``collective="ring"``: the row-parallel reduces by the overlapped ring
+    collective matmul (``parallel/collective_matmul.py``), under a mesh.
     """
 
     _DENSE_CACHE = True  # PagedBatchEngine: pools replace the slot planes
+    # whether the engine's ticks run the mesh path the ring needs (the paged
+    # engine decides it per instance: its paged mesh path, dp_paged.py)
+    _MESH_TICKS = True
 
     def __init__(
         self,
@@ -269,10 +284,6 @@ class BatchEngine:
             raise ValueError(f"backend {backend!r}: want one of {BACKENDS}")
         if collective not in (None, "ring"):
             raise ValueError(f"unknown collective {collective!r}")
-        if collective == "ring":
-            raise NotImplementedError(
-                "collective='ring' (parallel/collective_matmul.py) is not yet ported to the torch package"
-            )
         self.config = config
         self.batch_size = batch_size
         # mesh: the rank's place in the world; fwd_mesh: the one forward()
@@ -280,13 +291,25 @@ class BatchEngine:
         # not shard)
         self.mesh = mesh
         self.fwd_mesh = None
+        # the ring collective matmul for the row-parallel reduces: under a
+        # mesh only (without one it does nothing, as in the JAX engine)
+        self.collective = collective if mesh is not None else None
         if mesh is not None:
+            if collective == "ring":
+                if not self._MESH_TICKS:
+                    raise ValueError(
+                        "collective='ring' on a paged engine requires the paged mesh path "
+                        "(a dp_pool_supported mesh, parallel/dp_paged.py)"
+                    )
+                ok, why = tp_ring_supported(params, config, mesh)
+                if not ok:
+                    raise ValueError(f"collective='ring' unsupported here: {why}")
             backend, self.fwd_mesh, params = self._shard(config, params, backend, mesh)
             device = mesh.device if device is None else device
         self.backend = backend
         self.dtype = dtype
         self.device = resolve_device(device)
-        self.params = prepare_params(params, dtype, backend, self.device)
+        self.params = prepare_params(params, dtype, backend, self.device, ring=self.collective == "ring")
         # the rank's view of the model and its rows of the batch
         self.local_config = config if self.fwd_mesh is None else local_config(config, self.fwd_mesh.tp)
         self._rows = slice(0, batch_size) if self.fwd_mesh is None else batch_rows(batch_size, self.fwd_mesh)
@@ -339,38 +362,48 @@ class BatchEngine:
         }
 
     @staticmethod
-    def _shard(config, params, backend: str, mesh):
+    def _mesh_plan(config, params, backend: str, mesh) -> tuple[str, str, str]:
+        """``(backend, why it fell back to torch, why the model
+        replicates)`` of an engine on ``mesh`` with the whole tree
+        ``params``, decided from the shapes alone: ``torch`` where the CUDA
+        kernels cannot shard the model (``tp_cuda_supported``, the JAX
+        engine's rule), and every rank holding the whole model where the
+        plain path cannot either ("" where it does not)."""
+        fell = shared = ""
+        if backend.startswith("cuda"):
+            ok, fell = tp_cuda_supported(params, config, mesh)
+            if not ok:
+                backend = "torch"
+        if backend == "torch":
+            shared = tp_ring_supported(params, config, mesh)[1]
+        return backend, fell, shared
+
+    @classmethod
+    def _shard(cls, config, params, backend: str, mesh):
         """``(backend, forward mesh, the rank's slices)`` of an engine on
-        ``mesh`` with the whole tree ``params``, decided from the shapes
-        alone: ``torch`` (warned) where the CUDA kernels cannot shard the
-        model (``tp_cuda_supported``, the JAX engine's rule), and ``mesh``
-        replicated over ``model`` (warned) where the plain path cannot
-        either."""
+        ``mesh`` with the whole tree ``params`` (:meth:`_mesh_plan`; each
+        fallback warned): ``mesh``, or ``mesh`` replicated over ``model``."""
         if isinstance(params, LocalParams):
             raise TypeError(
                 "BatchEngine(mesh=) takes the whole param tree (a param cache memory-mapped by "
                 "io/cache.py::load_cache is read only where the rank's slices lie) and cuts the slices itself"
             )
+        run, fell, shared = cls._mesh_plan(config, params, backend, mesh)
+        if fell:
+            warnings.warn(
+                f"mesh {mesh.dp}x{mesh.tp} with backend {backend!r}: the CUDA kernels cannot shard "
+                f"this model ({fell}); falling back to backend='torch'",
+                stacklevel=3,
+            )
         fwd = mesh
-        if backend.startswith("cuda"):
-            ok, why = tp_cuda_supported(params, config, mesh)
-            if not ok:
-                warnings.warn(
-                    f"mesh {mesh.dp}x{mesh.tp} with backend {backend!r}: the CUDA kernels cannot shard "
-                    f"this model ({why}); falling back to backend='torch'",
-                    stacklevel=3,
-                )
-                backend = "torch"
-        if backend == "torch":
-            ok, why = tp_torch_supported(params, config, mesh)
-            if not ok:
-                warnings.warn(
-                    f"mesh {mesh.dp}x{mesh.tp}: the model does not shard ({why}); every rank holds "
-                    "the whole model (replicated over model)",
-                    stacklevel=3,
-                )
-                fwd = mesh.replicated_over_model()
-        return backend, fwd, shard_params(params, fwd)
+        if shared:
+            warnings.warn(
+                f"mesh {mesh.dp}x{mesh.tp}: the model does not shard ({shared}); every rank holds "
+                "the whole model (replicated over model)",
+                stacklevel=3,
+            )
+            fwd = mesh.replicated_over_model()
+        return run, fwd, shard_params(params, fwd)
 
     def _make_cache(self):
         # padded past seq_len by a window, so that a window from the last
@@ -597,11 +630,11 @@ class BatchEngine:
             # whole layer-stacked caches: the slot's plane, copied there
             # and back (the JAX engine copies the plane for every chunk)
             plane = {k: t.contiguous() for k, t in cache.items()}
-            hidden = forward(params, plane, seg, pos, config, self.backend, mesh)
+            hidden = forward(params, plane, seg, pos, config, self.backend, mesh, self.collective)
             for k, t in cache.items():
                 t.copy_(plane[k])
         else:
-            hidden = forward(params, cache, seg, pos, config, self.backend, mesh)
+            hidden = forward(params, cache, seg, pos, config, self.backend, mesh, self.collective)
         return logits_from_hidden(params, hidden[:, -1, :], self.backend, mesh)[0]
 
     def precompile(self, prompt_lens=(), stochastic=(False,), spec: bool = False) -> int:
@@ -802,13 +835,14 @@ class BatchEngine:
         """Window ``w`` of a speculative tick: the (B, d, D) hidden states of
         every slot's window ``seg`` at its positions ``pos`` (the paged engine
         runs its own)."""
-        return forward(self.params, self.cache, seg, pos, self.config, self.backend, self.fwd_mesh)
+        return forward(self.params, self.cache, seg, pos, self.config, self.backend, self.fwd_mesh, self.collective)
 
     def _decode_step(self, tokens, pos, i: int) -> torch.Tensor:
         """Step ``i`` of a window: the (B, 1, D) hidden states of one decode
         step of every slot, the rank's rows under a mesh (the paged engine
         runs its own)."""
-        return forward(self.params, self.cache, tokens[:, None], pos, self.config, self.backend, self.fwd_mesh)
+        return forward(self.params, self.cache, tokens[:, None], pos, self.config, self.backend, self.fwd_mesh,
+                       self.collective)
 
     def _gather_rows(self, t: torch.Tensor) -> torch.Tensor:
         """The whole batch's rows of ``t`` (the rank's rows under a mesh),

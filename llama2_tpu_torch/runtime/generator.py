@@ -69,11 +69,12 @@ def uniform_draw(seed: int, pos: int) -> float:
     return float(torch.rand((), generator=gen))
 
 
-def prepare_params(params: dict, dtype, backend: str, device: torch.device) -> dict:
+def prepare_params(params: dict, dtype, backend: str, device: torch.device, ring: bool = False) -> dict:
     """``params`` (numpy arrays, tensors or QuantTensors) on ``device``: fp
     entries as ``dtype`` (tensors already there are not copied), QuantTensors
     as they are; with a CUDA backend the QKV and W1/W3 launches of quantized
-    weights fused (``fuse_layer_params``). fp32 on the card turns TF32 off
+    weights fused (``fuse_layer_params``; ``ring``: the ring collective
+    matmul's ``w13`` layout). fp32 on the card turns TF32 off
     for the whole process, so the fp32 projections are full-precision
     products like the JAX package's ``Precision.HIGHEST``."""
     if dtype == torch.float32 and device.type == "cuda":
@@ -84,7 +85,7 @@ def prepare_params(params: dict, dtype, backend: str, device: torch.device) -> d
         for k, v in params.items()
     })
     if backend.startswith("cuda") and isinstance(out.get("wq"), QuantTensor):
-        out = fuse_layer_params(out, backend)
+        out = fuse_layer_params(out, backend, ring=ring)
     return out
 
 

@@ -54,20 +54,25 @@ class PagePool:
         kv_quant: bool = False,
     ) -> "PagePool":
         shape = (config.n_layers, n_pages, config.n_kv_heads, page_size, config.head_size)
-        free = list(range(n_pages - 1, -1, -1))
+        return cls.zeros(shape, dtype, device, kv_quant)
+
+    @classmethod
+    def zeros(cls, shape: tuple, dtype=torch.float32, device="cpu", kv_quant: bool = False) -> "PagePool":
+        """Zeroed pools of ``shape`` (L, P, KVH, page, hs), every page free."""
+        free = list(range(shape[1] - 1, -1, -1))
         if kv_quant:
             return cls(
                 k=torch.zeros(shape, dtype=torch.int8, device=device),
                 v=torch.zeros(shape, dtype=torch.int8, device=device),
                 ks=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
                 vs=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
-                page_size=page_size,
+                page_size=shape[3],
                 free=free,
             )
         return cls(
             k=torch.zeros(shape, dtype=dtype, device=device),
             v=torch.zeros(shape, dtype=dtype, device=device),
-            page_size=page_size,
+            page_size=shape[3],
             free=free,
         )
 

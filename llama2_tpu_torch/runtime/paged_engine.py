@@ -31,21 +31,36 @@ pipeline, backs every slot's table for ``ticks_per_sync * spec_window``
 positions ahead (which may preempt, as a plain tick's growth), and the
 window computes its write coordinates from the table on the device.
 
-Not ported: the mesh (``dp`` pools).
+The mesh (``mesh=``, the server's ``--paged --mesh DPxTP``;
+``parallel/dp_paged.py``), decided before the base class's set-up as the JAX
+engine's: where ``dp_pool_supported`` accepts the mesh (``n_pages`` rounded
+up to a multiple of ``dp``), slots go to data groups in contiguous blocks of
+``B/dp``, each group has its own free list of LOCAL page ids (its page 0 its
+scratch page) and its own ``PrefixCache``, and each rank holds the pool
+shard of its data group's pages and its model index's kv heads, 1/(dp*tp)
+of the pool. Every rank runs the same host scheduler for every group (the
+lockstep, the broadcast of each step's requests and the all-gather of the
+sampled tokens over ``data`` come from ``BatchEngine``), so a slot's pages,
+its preemption and the eviction of cached pages stay inside its group.
+Where the mesh is refused (``batch_size % dp``), the engine warns that the
+pool REPLICATES over data and runs as ``parallel/tp.py::batch_rows`` does
+for a ragged batch: every rank holds the whole page axis of its kv heads
+and computes every row. ``collective="ring"`` needs the accepted mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
 
 from llama2_tpu_torch.models.llama import init_cache
-from llama2_tpu_torch.models.paged import paged_forward_step, paged_forward_window
-from llama2_tpu_torch.ops.cuda.attention_q8 import dequantize_kv, quantize_kv_rows
+from llama2_tpu_torch.parallel import dp_paged
+from llama2_tpu_torch.parallel.sharding import shard_pool
 from llama2_tpu_torch.runtime.batch_engine import BatchEngine, Request
-from llama2_tpu_torch.runtime.paged_cache import OutOfPages, PagePool, PrefixCache, _bucket, write_pages
+from llama2_tpu_torch.runtime.paged_cache import OutOfPages, PrefixCache, _bucket
 
 
 class PagedBatchEngine(BatchEngine):
@@ -53,51 +68,110 @@ class PagedBatchEngine(BatchEngine):
 
     ``n_pages`` defaults to ``max(batch_size, batch_size * seq_len // (2 *
     page_size))``, half the rows of a dense cache; page 0 is the scratch page.
+    ``mesh``: see the module's docstring; ``n_pages`` then counts the pages
+    of all data groups, and ``pool`` holds the rank's shard.
     """
 
     _DENSE_CACHE = False
 
     def __init__(self, config, params: dict, batch_size: int = 8, n_pages: int | None = None,
                  page_size: int = 256, prefix_cache: bool = False, **kw):
-        if kw.get("mesh") is not None:
-            raise NotImplementedError("the paged engine's mesh (parallel/dp_paged.py) is not yet ported")
         if n_pages is None:
             n_pages = max(batch_size, (batch_size * config.seq_len) // (2 * page_size))
+        # the paged mesh path, decided before the base class's set-up (which
+        # checks the ring against it) as the JAX engine's __init__ does
+        self._dp = 0  # data groups with an allocator each (0: one allocator)
+        self._MESH_TICKS = False
+        mesh = kw.get("mesh")
+        if mesh is not None:
+            n_try = -(-n_pages // mesh.dp) * mesh.dp  # page counts round up to the groups
+            backend = BatchEngine._mesh_plan(config, params, kw.get("backend", "cuda"), mesh)[0]
+            ok, why = dp_paged.dp_pool_supported(mesh, batch_size, n_try, config, params, backend)
+            if ok:
+                self._dp = mesh.dp if mesh.dp > 1 else 0
+                self._MESH_TICKS = True
+                n_pages = n_try
+            elif mesh.dp > 1:
+                warnings.warn(f"paged pool REPLICATES over data (memory does not scale with dp): {why}",
+                              stacklevel=2)
         super().__init__(config, params, batch_size=batch_size, **kw)
+        if mesh is not None and not self._dp:
+            self._rows = slice(0, batch_size)  # every rank computes every row
+        # the model group of a rank's reduces, and whether they are the ring's
+        self._group = self.fwd_mesh.model_group if self.fwd_mesh is not None and self.fwd_mesh.tp > 1 else None
+        self._ring = self.collective == "ring"
         self.page_size = page_size
-        self.pool = self._make_pool(n_pages)
-        # page 0 is the scratch page: inactive slots' table rows are all 0, so
-        # their frozen-position decode writes land there and never touch a
-        # live request's pages
+        self.n_pages = n_pages
+        self.pool = self._make_pool()
+        # page 0 is the scratch page (of each data group's pages under a
+        # mesh): inactive slots' table rows are all 0, so their
+        # frozen-position decode writes land there and never touch a live
+        # request's pages
         self._init_free_lists()
         self.max_pages = -(-config.seq_len // page_size)
         self._tables = np.zeros((batch_size, self.max_pages), np.int32)
         self._slot_pages: list[list[int]] = [[] for _ in range(batch_size)]
-        self.prefix = PrefixCache() if prefix_cache else None
+        # one prefix cache a data group under the paged mesh path (its pages
+        # are the group's), else one
+        self.prefix = None
+        if prefix_cache:
+            self.prefix = [PrefixCache() for _ in range(self._dp)] if self._dp else PrefixCache()
         self.metrics["prefix_hit_pages"] = 0
+        if self._dp:
+            self.metrics["prefix_hit_pages_by_shard"] = [0] * self._dp
         # the dense prefill staging plane, grown on demand to the longest
         # admitted prompt (powers of two, at least 128 rows)
         self._staging = None
         self._coords = None  # the dispatched window's (table, page_ids, row_ids)
         self._spec_table = None  # a speculative tick's table
 
-    def _make_pool(self, n_pages: int) -> PagePool:
-        return PagePool.create(self.config, n_pages, self.page_size, self.dtype, self.device,
-                               self.kv_quant)
+    def _make_pool(self):
+        """The rank's pools (``parallel/sharding.py::shard_pool``): pages on
+        ``data`` under the paged mesh path, kv heads on ``model``; the whole
+        pool without a mesh."""
+        c = self.config
+        shape = (c.n_layers, self.n_pages, c.n_kv_heads, self.page_size, c.head_size)
+        return shard_pool(shape, self.fwd_mesh or (1, 1), self.dtype, self.device, self.kv_quant,
+                          pages_on_data=bool(self._dp))
 
     def _init_free_lists(self):
-        self.pool.free = [p for p in self.pool.free if p != 0]
+        """One free list of the pool's ids without page 0; under the paged
+        mesh path one a data group, of its LOCAL ids without its page 0."""
+        if self._dp:
+            self._free = [list(range(self.pool.n_pages - 1, 0, -1)) for _ in range(self._dp)]
+            self.pool.free = []  # unused: the groups' lists hold the ids
+        else:
+            self.pool.free = [p for p in self.pool.free if p != 0]
+
+    def _shard_of(self, slot: int) -> int:
+        """The data group that owns ``slot``: slots go in contiguous blocks
+        of ``B/dp``, as the rows of a tick."""
+        return slot // (self.batch_size // self._dp) if self._dp else 0
+
+    def _free_list(self, slot: int) -> list[int]:
+        return self._free[self._shard_of(slot)] if self._dp else self.pool.free
+
+    def _prefix_of(self, slot: int):
+        if self.prefix is None:
+            return None
+        return self.prefix[self._shard_of(slot)] if self._dp else self.prefix
+
+    def _owns(self, slot: int) -> bool:
+        """Whether this rank's pool shard holds ``slot``'s pages."""
+        return not self._dp or self._shard_of(slot) == self.mesh.coord[0]
 
     @property
     def _capacity(self) -> int:
-        """Pages one request can ever hold: the pool minus the scratch page."""
+        """Pages one request can ever hold: its group's pages (the rank's
+        shard's) minus the scratch page."""
         return self.pool.n_pages - 1
 
     def _rebuild(self):
-        self.pool = self._make_pool(self.pool.n_pages)
+        self.pool = self._make_pool()
         self._init_free_lists()
         if self.prefix is not None:
-            self.prefix.clear()
+            for pfx in self.prefix if self._dp else [self.prefix]:
+                pfx.clear()
         self._tables[:] = 0
         self._slot_pages = [[] for _ in range(self.batch_size)]
         self._staging = None
@@ -111,30 +185,36 @@ class PagedBatchEngine(BatchEngine):
         need = min(need, S)
         cur = 0 if self._staging is None else self._staging["k"].shape[3]
         if cur < need:
-            self._staging = init_cache(dataclasses.replace(self.config, seq_len=need), 1,
+            # the rank's kv heads under a mesh
+            self._staging = init_cache(dataclasses.replace(self.local_config, seq_len=need), 1,
                                        self.dtype, self.device)
         return self._staging
 
-    def _alloc(self, n: int) -> list[int]:
-        """Take ``n`` pages, evicting idle prefix-cache pages
-        (refcount 0, least recently idle first) under pressure."""
-        free = self.pool.free
-        if self.prefix is not None and len(free) < n and self.prefix.evictable:
-            free.extend(self.prefix.evict(n - len(free)))
+    def _alloc(self, n: int, slot: int = 0) -> list[int]:
+        """Take ``n`` pages for ``slot`` (from its data group's under the
+        paged mesh path), evicting idle prefix-cache pages (refcount 0,
+        least recently idle first) under pressure."""
+        free, pfx = self._free_list(slot), self._prefix_of(slot)
+        if pfx is not None and len(free) < n and pfx.evictable:
+            free.extend(pfx.evict(n - len(free)))
         if len(free) < n:
             raise OutOfPages(f"need {n} pages, {len(free)} free")
         return [free.pop() for _ in range(n)]
 
-    def _free_now(self) -> int:
-        """Pages obtainable right now: free ones and evictable cached ones."""
-        return len(self.pool.free) + (self.prefix.evictable if self.prefix is not None else 0)
+    def _free_now(self, slot: int) -> int:
+        """Pages obtainable right now for ``slot``: free ones and evictable
+        cached ones (of its data group)."""
+        pfx = self._prefix_of(slot)
+        return len(self._free_list(slot)) + (pfx.evictable if pfx is not None else 0)
 
-    def _release_pages(self, pages: list[int]) -> None:
-        """Return pages to the pool; shared prefix pages stay cached."""
-        if self.prefix is None:
-            self.pool.free.extend(pages)
+    def _release_pages(self, pages: list[int], slot: int) -> None:
+        """Return ``slot``'s pages to its free list; shared prefix pages stay
+        cached."""
+        free, pfx = self._free_list(slot), self._prefix_of(slot)
+        if pfx is None:
+            free.extend(pages)
         else:
-            self.pool.free.extend(p for p in pages if not self.prefix.release(p))
+            free.extend(p for p in pages if not pfx.release(p))
 
     def _start_request(self, slot: int, req: Request):
         # prefill writes pools, tables and mirrors outside the pipelined
@@ -150,9 +230,10 @@ class PagedBatchEngine(BatchEngine):
         # prefills and the first token's logits exist)
         ps = self.page_size
         hits: list[int] = []
-        if self.prefix is not None:
+        pfx = self._prefix_of(slot)
+        if pfx is not None:
             while (len(hits) + 1) * ps <= len(feed) - 1:
-                page = self.prefix.lookup(feed[: (len(hits) + 1) * ps].tobytes())
+                page = pfx.lookup(feed[: (len(hits) + 1) * ps].tobytes())
                 if page is None:
                     break
                 hits.append(page)
@@ -164,7 +245,7 @@ class PagedBatchEngine(BatchEngine):
         total = self.pool.pages_for(len(feed)) + 1
         need = total - len(hits)
         if total > self._capacity:
-            self._release_pages(hits)
+            self._release_pages(hits, slot)
             if resume:
                 # the grown stream cannot fit even an empty pool: return the
                 # tokens it has rather than an error
@@ -174,10 +255,10 @@ class PagedBatchEngine(BatchEngine):
                     f"prompt needs {total} pages; pool holds {self._capacity} -- raise n_pages/page_size"
                 ))
             return
-        if self._free_now() < need:
+        if self._free_now(slot) < need:
             # not enough memory now: retry ahead of newer arrivals once
             # running slots retire (the capacity test rules out a livelock)
-            self._release_pages(hits)
+            self._release_pages(hits, slot)
             self._requeue.append(req)
             return
 
@@ -187,15 +268,17 @@ class PagedBatchEngine(BatchEngine):
         # so the suffix attends to it; the prefill starts at p0.
         staging = self._ensure_staging(len(feed))
         if p0:
-            self._gather_prefix(staging, hits)
+            dp_paged.gather_prefix(staging, self.pool, hits, self._shard_of(slot), self.mesh)
             self.metrics["prefix_hit_pages"] += len(hits)
+            if self._dp:
+                self.metrics["prefix_hit_pages_by_shard"][self._shard_of(slot)] += len(hits)
         logits = self._prefill(staging, feed[p0:], p0)
         pos = len(feed)
 
         # move the staged rows [p0, pos) into fresh pages through a window of
         # `bucket` rows; rows of the window outside [p0, pos) go to the
         # scratch page. The slot's table is its hit pages, then the new ones.
-        pages = self._alloc(self.pool.pages_for(pos) - len(hits))
+        pages = self._alloc(self.pool.pages_for(pos) - len(hits), slot)
         full = hits + pages
         table = np.asarray(full, np.int64)
         plane_rows = staging["k"].shape[3]
@@ -213,50 +296,20 @@ class PagedBatchEngine(BatchEngine):
         page_idx = np.minimum(logical // ps, len(full) - 1)
         pids = torch.as_tensor(np.where(real, table[page_idx], 0), device=self.device)
         rids = torch.as_tensor(np.where(real, logical % ps, 0), device=self.device)
-        self._stage_write(staging, row0, bucket, pids, rids)
+        dp_paged.stage_write(self.pool, staging, row0, bucket, pids, rids, own=self._owns(slot))
 
         # register this stream's newly FULL pages so later admissions can
         # share them (a duplicate key means an identical prompt came first;
         # the page stays private and frees at retire)
-        if self.prefix is not None:
+        if pfx is not None:
             for j in range(len(hits), pos // ps):
-                self.prefix.register(feed[: (j + 1) * ps].tobytes(), full[j])
+                pfx.register(feed[: (j + 1) * ps].tobytes(), full[j])
 
         if self._admitted(slot, req, resume, steps, pos, logits):
             self._slot_pages[slot] = full
             self._tables[slot, : len(full)] = full
         else:
-            self._release_pages(full)
-
-    def _gather_prefix(self, staging: dict, hits: list[int]) -> None:
-        """Copy the cached prefix pages into the staging plane's first
-        ``len(hits) * page`` rows (dequantizing an int8 pool's: the values
-        decode attention reads)."""
-        idx = torch.as_tensor(hits, device=self.device)
-        n = len(hits) * self.page_size
-        L, _, KVH, ps, hs = self.pool.k.shape
-        for name, pool, spool in (("k", self.pool.k, self.pool.ks), ("v", self.pool.v, self.pool.vs)):
-            g = pool[:, idx]  # (L, n_hits, KVH, ps, hs)
-            if spool is not None:
-                g = dequantize_kv(g, spool[:, idx])
-            staging[name][:, 0, :, :n] = g.transpose(1, 2).reshape(L, KVH, n, hs).to(staging[name].dtype)
-
-    def _stage_write(self, staging: dict, row0: int, bucket: int, pids, rids) -> None:
-        """Move the staging plane's rows ``row0 .. row0 + bucket - 1`` to
-        ``(pids[r], rids[r])`` of the pools; into an int8 pool quantized per
-        (row, kv head) on the way (once: prefill itself stays fp)."""
-        def rows_of(name):
-            # (L, 1, KVH, rows, hs) -> (bucket, L, KVH, hs)
-            return staging[name][:, 0, :, row0 : row0 + bucket].permute(2, 0, 1, 3)
-
-        if self.kv_quant:
-            for name, pool, spool in (("k", self.pool.k, self.pool.ks), ("v", self.pool.v, self.pool.vs)):
-                q, scale = quantize_kv_rows(rows_of(name))
-                write_pages(pool, q, pids, rids)
-                write_pages(spool, scale, pids, rids)
-        else:
-            write_pages(self.pool.k, rows_of("k"), pids, rids)
-            write_pages(self.pool.v, rows_of("v"), pids, rids)
+            self._release_pages(full, slot)
 
     def _grow_tables(self, K: int) -> None:
         """Make sure pages back each active slot's next K positions, from the
@@ -273,7 +326,7 @@ class PagedBatchEngine(BatchEngine):
             if need <= 0:
                 continue
             try:
-                pgs = self._alloc(need)
+                pgs = self._alloc(need, slot)
             except OutOfPages:
                 if not self._inflight:
                     self._preempt(slot, req)
@@ -287,7 +340,7 @@ class PagedBatchEngine(BatchEngine):
                 if need <= 0:
                     continue
                 try:
-                    pgs = self._alloc(need)
+                    pgs = self._alloc(need, slot)
                 except OutOfPages:
                     self._preempt(slot, req)
                     continue
@@ -302,9 +355,11 @@ class PagedBatchEngine(BatchEngine):
 
     def _preempt(self, slot: int, req: Request):
         """Out of pages for ``slot`` (the pipeline already flushed):
-        preempt and recompute, or finish with what it has when alone."""
+        preempt and recompute, or finish with what it has when alone in its
+        data group (only the group's slots free its pages)."""
         self._release_slot(slot)
-        if any(r is not None and s != slot for s, r in enumerate(self.slots)):
+        group = self._shard_of(slot)
+        if any(r is not None and s != slot and self._shard_of(s) == group for s, r in enumerate(self.slots)):
             # drop its pages and requeue it at the head, to restart once a
             # retiring request frees memory; tokens and steps are KEPT, so
             # re-admission teacher-forces the emitted stream and resumes in
@@ -355,24 +410,19 @@ class PagedBatchEngine(BatchEngine):
 
     def _decode_step(self, tokens, pos, i: int) -> torch.Tensor:
         table, page_ids, row_ids = self._coords
-        out = paged_forward_step(
-            self.params, self.pool.k, self.pool.v, table, tokens, pos, page_ids[i], row_ids[i],
-            self.config, self.backend, self.pool.ks, self.pool.vs,
-        )
-        return out[0]
+        return dp_paged.tick(self.params, self.pool, table, tokens, pos, page_ids[i], row_ids[i],
+                             self.local_config, self.backend, self._rows, self._group, self._ring)
 
     def _spec_forward(self, seg, pos, w: int) -> torch.Tensor:
         if w == 0:
             self._spec_table = self._upload(self._tables)  # the tick's tables, grown for all its windows
-        return paged_forward_window(
-            self.params, self.pool.k, self.pool.v, self._spec_table, seg, pos, self.config,
-            self.backend, self.pool.ks, self.pool.vs,
-        )[0]
+        return dp_paged.window(self.params, self.pool, self._spec_table, seg, pos, self.local_config,
+                               self.backend, self._rows, self._group, self._ring)
 
     def _on_retire(self, slot: int) -> None:
         self._release_slot(slot)
 
     def _release_slot(self, slot: int):
-        self._release_pages(self._slot_pages[slot])
+        self._release_pages(self._slot_pages[slot], slot)
         self._slot_pages[slot] = []
         self._tables[slot, :] = 0

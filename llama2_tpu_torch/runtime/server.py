@@ -17,7 +17,7 @@ Run:  python -m llama2_tpu_torch.runtime.server <checkpoint> \\
           [--paged [--page-size 256] [--pages N] [--prefix-cache]]
           [--ticks-per-sync K] [--pipeline-depth P] [--kv-cache f32|int8]
           [--kernels cuda|cuda-accurate|torch] [--spec N] [--precompile L1,L2,...]
-          [--mesh DPxTP]
+          [--mesh DPxTP [--collective-matmul]]
 
 ``--paged`` switches the KV cache to page pools (runtime/paged_engine.py):
 memory scales with the tokens in flight instead of batch_size * seq_len.
@@ -34,7 +34,9 @@ window. The engines run on the card (``--platform gpu``, the default; exit 1
 without one) unless ``--platform cpu`` is given; prompts are encoded by the
 C++ tokenizer (``tokenizer/fast/``).
 
-``--mesh DPxTP`` serves the dense engine over a ``(data, model)`` mesh of
+``--mesh DPxTP`` serves the engine (dense, or with ``--paged`` the paged
+one, ``parallel/dp_paged.py``: pages on ``data`` with an allocator and a
+prefix cache a data group, kv heads on ``model``) over a ``(data, model)`` mesh of
 ``DP * TP`` ranks, one process each (``parallel/``): this process is rank 0
 and serves HTTP; it spawns the others, which load their shards and follow
 its lockstep: a param-cache directory is memory-mapped and each rank reads
@@ -44,9 +46,10 @@ under ``--mesh`` takes weights quantized ahead (a Q8 param cache or an ak42
 file; else exit 1: write one with ``--save-cache``). The
 collective backend is NCCL where every rank owns a card, else gloo (printed).
 Ctrl-C stops every rank and the server exits 0; a rank that dies ends the
-server with exit 1. ``--mesh`` with ``--paged`` (the JAX package's
-``parallel/dp_paged.py``) and ``--collective-matmul`` are not yet ported and
-exit 1, as does ``--precompile`` with ``--mesh``.
+server with exit 1. ``--collective-matmul`` makes the row-parallel reduces
+the overlapped ring collective matmul's (``collective="ring"``,
+``parallel/collective_matmul.py``); it needs ``--mesh`` (else exit 1), as
+in the JAX server. ``--precompile`` with ``--mesh`` exits 1.
 """
 
 from __future__ import annotations
@@ -63,7 +66,6 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from llama2_tpu_torch.config import GenerationConfig
 
-_UNPORTED = ("--collective-matmul",)
 FOLLOWER_JOIN_S = 60.0  # how long a stopped server waits for its followers
 
 
@@ -108,8 +110,10 @@ class _Handler(BaseHTTPRequestHandler):
                 "prefill_p50_ms": ms(pct["prefill_p50"]),
             }
             if getattr(eng, "prefix", None) is not None:
+                # one prefix cache a data group under the paged mesh path
+                caches = eng.prefix if isinstance(eng.prefix, list) else [eng.prefix]
                 out["prefix_hit_pages"] = eng.metrics["prefix_hit_pages"]
-                out["prefix_cached_pages"] = len(eng.prefix.key2page)
+                out["prefix_cached_pages"] = sum(len(c.key2page) for c in caches)
             self._send(200, out)
         else:
             self._send(404, {"error": "not found"})
@@ -245,6 +249,22 @@ def _engine_kw(opts: dict, device) -> dict:
     )
 
 
+def _engine(opts: dict, config, params, device, mesh=None):
+    """The engine ``opts`` ask for: paged with ``--paged``, over ``mesh``
+    with its collective."""
+    kw = _engine_kw(opts, device)
+    if mesh is not None:
+        kw.update(mesh=mesh, collective=opts["collective"])
+    if opts["paged"]:
+        from llama2_tpu_torch.runtime.paged_engine import PagedBatchEngine
+
+        return PagedBatchEngine(config, params, page_size=opts["page_size"], n_pages=opts["n_pages"],
+                                prefix_cache=opts["prefix_cache"], **kw)
+    from llama2_tpu_torch.runtime.batch_engine import BatchEngine
+
+    return BatchEngine(config, params, **kw)
+
+
 def _load(opts: dict, device, mesh=None):
     """``(config, params)``: the checkpoint, quantized on ``device`` with
     ``--quant int8``. Under a mesh the whole tree as it loads (a param cache
@@ -269,7 +289,6 @@ def _follower(opts: dict, rank: int, dp: int, tp: int, init_method: str, backend
 
     from llama2_tpu_torch.parallel import distributed
     from llama2_tpu_torch.parallel.mesh import make_mesh
-    from llama2_tpu_torch.runtime.batch_engine import BatchEngine
 
     signal.signal(signal.SIGINT, signal.SIG_IGN)  # rank 0's stop ends this rank
     if device_type == "cpu":
@@ -278,7 +297,7 @@ def _follower(opts: dict, rank: int, dp: int, tp: int, init_method: str, backend
     try:
         mesh = make_mesh(dp, tp, device_type)
         config, params = _load(opts, mesh.device, mesh)
-        engine = BatchEngine(config, params, mesh=mesh, **_engine_kw(opts, mesh.device))
+        engine = _engine(opts, config, params, mesh.device, mesh)
         del params
         engine.follow()
     finally:
@@ -292,7 +311,6 @@ def _serve_mesh(opts: dict, dp: int, tp: int, device_type: str) -> int:
 
     from llama2_tpu_torch.parallel import distributed
     from llama2_tpu_torch.parallel.mesh import make_mesh
-    from llama2_tpu_torch.runtime.batch_engine import BatchEngine
     from llama2_tpu_torch.tokenizer.fast import load_tokenizer
 
     world = dp * tp
@@ -321,7 +339,7 @@ def _serve_mesh(opts: dict, dp: int, tp: int, device_type: str) -> int:
         mesh = make_mesh(dp, tp, device_type)
         config, params = _load(opts, mesh.device, mesh)
         tokenizer = load_tokenizer(opts["tok_path"], config.vocab_size)
-        engine = BatchEngine(config, params, mesh=mesh, **_engine_kw(opts, mesh.device))
+        engine = _engine(opts, config, params, mesh.device, mesh)
         del params
         clean = serve(engine, tokenizer, opts["host"], opts["port"], followers)
     finally:
@@ -352,7 +370,7 @@ def main(argv=None):
         "path": None, "tok_path": "tokenizer.bin", "port": 8000, "host": "127.0.0.1", "batch": 8,
         "quant": "none", "dtype": "f32", "platform": "gpu", "paged": False, "page_size": 256,
         "n_pages": None, "prefix_cache": False, "ticks": 1, "pipeline_depth": 2,
-        "kv_cache": "f32", "kernels": "cuda", "spec": 0, "precompile": None, "mesh": None,
+        "kv_cache": "f32", "kernels": "cuda", "spec": 0, "precompile": None, "mesh": None, "collective": None,
     }
     valued = {
         "-z": ("tok_path", str), "--port": ("port", int), "--host": ("host", str),
@@ -369,8 +387,6 @@ def main(argv=None):
     i = 0
     while i < len(argv):
         a = argv[i]
-        if a in _UNPORTED:
-            return _die(f"{a} is not yet ported to the torch package")
         if a in valued:
             key, kind = valued[a]
             if i + 1 >= len(argv):
@@ -390,6 +406,8 @@ def main(argv=None):
             opts["paged"] = True
         elif a == "--prefix-cache":
             opts["prefix_cache"] = True
+        elif a == "--collective-matmul":
+            opts["collective"] = "ring"
         elif not a.startswith("-") and opts["path"] is None:
             opts["path"] = a
         else:
@@ -401,8 +419,8 @@ def main(argv=None):
         return _die("--prefix-cache requires --paged")
     if opts["precompile"] is not None and opts["paged"]:
         return _die("--precompile covers the dense engine (not --paged)")
-    if opts["mesh"] is not None and opts["paged"]:
-        return _die("--mesh with --paged (parallel/dp_paged.py) is not yet ported to the torch package")
+    if opts["collective"] and opts["mesh"] is None:
+        return _die("--collective-matmul requires --mesh")
     if opts["precompile"] is not None and opts["mesh"] is not None:
         return _die("--precompile covers the dense single-device engine (not --mesh)")
     if opts["mesh"] is not None and opts["quant"] == "int8":
@@ -424,27 +442,20 @@ def main(argv=None):
     if opts["mesh"] is not None:
         return _serve_mesh(opts, *opts["mesh"], device.type)
 
-    from llama2_tpu_torch.runtime.batch_engine import BatchEngine, start_kernel_builds
+    from llama2_tpu_torch.runtime.batch_engine import start_kernel_builds
     from llama2_tpu_torch.tokenizer.fast import load_tokenizer
 
     config, params = _load(opts, device)
     tokenizer = load_tokenizer(opts["tok_path"], config.vocab_size)
-    kw = _engine_kw(opts, device)
-    if opts["paged"]:
-        from llama2_tpu_torch.runtime.paged_engine import PagedBatchEngine
-
-        engine = PagedBatchEngine(config, params, page_size=opts["page_size"], n_pages=opts["n_pages"],
-                                  prefix_cache=opts["prefix_cache"], **kw)
-    else:
-        t0 = time.perf_counter()
-        if opts["precompile"] is not None and device.type == "cuda":
-            # the builds run while the weights upload
-            start_kernel_builds(params, opts["kernels"], kw["kv_quant"])
-        engine = BatchEngine(config, params, **kw)
-        if opts["precompile"] is not None:
-            n = engine.precompile(prompt_lens=opts["precompile"], stochastic=(False, True), spec=opts["spec"] > 0)
-            print(f"precompiled {n} programs in {time.perf_counter() - t0:.1f}s (builds overlapped with the "
-                  "weight upload)", file=sys.stderr, flush=True)
+    t0 = time.perf_counter()
+    if opts["precompile"] is not None and device.type == "cuda":
+        # the builds run while the weights upload
+        start_kernel_builds(params, opts["kernels"], opts["kv_cache"] == "int8")
+    engine = _engine(opts, config, params, device)
+    if opts["precompile"] is not None:
+        n = engine.precompile(prompt_lens=opts["precompile"], stochastic=(False, True), spec=opts["spec"] > 0)
+        print(f"precompiled {n} programs in {time.perf_counter() - t0:.1f}s (builds overlapped with the "
+              "weight upload)", file=sys.stderr, flush=True)
     del params
     serve(engine, tokenizer, opts["host"], opts["port"])
     return 0

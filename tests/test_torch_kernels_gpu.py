@@ -9,6 +9,7 @@ absent:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -1917,3 +1918,100 @@ def test_gloo_collectives_of_cuda_tensors_on_one_card(cuda_device):
         assert (backend, device) == ("gloo", "cuda:0")
         assert reduced == [[3.0] * 8] * 4
         assert gathered == [0, 1, 2, 10, 11, 12]
+
+
+def _ring_rank(mesh):
+    """One ring hop of a CUDA tensor over the model group (staged through
+    the host on gloo, by the backend rule), and ``ring_linear_local`` of the
+    rank's shards of a dense and a Q8 weight, on cuda:0."""
+    import torch.distributed as dist
+
+    from llama2_tpu_torch.parallel import collective_matmul as cm
+    from llama2_tpu_torch.quant.q8 import QuantTensor, dequantize, quantize
+
+    group, t = mesh.model_group, mesh.coord[1]
+    sent = torch.randn(3, 5, generator=torch.Generator().manual_seed(mesh.rank)).to(mesh.device, torch.bfloat16)
+    staged = cm._staged(group, sent.device)
+    got, _ = cm._hop(cm._Ring(group), sent, staged)
+    g = torch.Generator().manual_seed(7)
+    x, w = torch.randn(4, 256, generator=g), torch.randn(256, 64, generator=g)
+    wq = quantize(torch.randn(2, 256, 64, generator=g), 64)
+    rows = slice(t * 128, (t + 1) * 128)
+    shard = QuantTensor(wq.q[:, rows].contiguous(), wq.scale[:, 2 * t : 2 * (t + 1)].contiguous(), 64).to(mesh.device)
+    dense = cm.ring_linear_local(x[:, rows].to(mesh.device), w[rows].to(mesh.device), group)
+    q8 = cm.ring_linear_local(x[:, rows].to(mesh.device), shard, group, layer=1)
+    # numpy, not tensors: a tensor crosses the result queue as a handle to the rank's memory
+    return {"backend": dist.get_backend(group), "staged": staged, "device": str(got.device),
+            "sent": sent.float().cpu().numpy(), "got": got.float().cpu().numpy(), "dense": dense.cpu().numpy(),
+            "want_dense": (x.double() @ w.double()).numpy(), "q8": q8.cpu().numpy(),
+            "want_q8": (x.double() @ dequantize(wq[1]).double()).numpy()}
+
+
+@pytest.mark.gpu
+def test_ring_hop_and_ring_linear_of_cuda_tensors_on_one_card(cuda_device):
+    """Two ranks on the one card: gloo by the backend rule, each hop staged
+    through the host; a bf16 chunk arrives on cuda:0 bit for bit from the
+    previous rank; ``ring_linear_local`` of the ranks' shards (fp32, and a
+    layer-stacked Q8 shard) equals the dense product within 1e-5 of the
+    largest output."""
+    from llama2_tpu_torch.parallel import distributed
+
+    if torch.cuda.device_count() != 1:
+        pytest.skip("the one-card rule")
+    out = distributed.launch(_ring_rank, 1, 2, "cuda", deadline=120.0, libraries=())
+    for r, res in enumerate(out):
+        assert (res["backend"], res["staged"], res["device"]) == ("gloo", True, "cuda:0")
+        assert np.array_equal(res["got"], out[(r - 1) % 2]["sent"])  # bf16 widened exactly to float32
+        for key in ("dense", "q8"):
+            want = res[f"want_{key}"]
+            assert np.abs(res[key] - want).max() <= 1e-5 * np.abs(want).max(), key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_int8_kernels_at_a_ranks_shard_on_card(cuda_device, dtype):
+    """K16 and K18 at a rank's shard of the 7B layout at tp = 2 (16 heads
+    over a 16-head int8 pool), through a table of the shard's local page
+    ids handed out shuffled, 256- and 128-row pages, 8 slots (two inactive
+    on the scratch page): against their plain versions at the int8-cache
+    tolerance, the pools equal to the plain version's, one launch a call."""
+    from llama2_tpu_torch.ops import ref
+    from llama2_tpu_torch.ops.cuda import attention_q8 as aq
+    from llama2_tpu_torch.ops.cuda import paged_attention as tpa
+
+    g = torch.Generator(device=cuda_device).manual_seed(31)
+    cpu_g = torch.Generator().manual_seed(31)
+    S, L, act = 4096, 2, 6
+    H, KVH, hs = 16, 16, 128
+
+    def randn(*shape, dt=dtype):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dt)
+
+    for page in (256, 128):
+        pos_list = [0, page - 1, page, 1000, S - 1, 2 * page + 77, 5, 9]
+        table, wpage, wrow, pos, P = _paged_setup(cpu_g, cuda_device, pos_list, page, 2, S)
+        cos, sin = ref.rope_angles(pos[:, None], hs)
+        cos_il = cos[:, 0].repeat_interleave(2, -1).contiguous()
+        sin_il = sin[:, 0].repeat_interleave(2, -1).contiguous()
+        q, qkv = randn(8, H, hs), randn(8, H + 2 * KVH, hs)
+        q8 = _int8_cache(g, cuda_device, L, P, KVH, page, hs)
+        k8n, ksn = aq.quantize_kv_rows(randn(8, KVH, 1, hs, dt=torch.float32))
+        v8n, vsn = aq.quantize_kv_rows(randn(8, KVH, 1, hs, dt=torch.float32))
+        coords = (wpage, wrow, L - 1, pos)
+        for wrapper, plain, pre, post, kw, qt in (
+            (tpa.paged_decode_attention_q8_stacked, tpa.paged_decode_attention_q8_stacked_plain, q,
+             (table, k8n, ksn, v8n, vsn, *coords), {}, q),
+            (tpa.paged_decode_attention_q8_fused, tpa.paged_decode_attention_q8_fused_plain, qkv,
+             (table, cos_il, sin_il, *coords), {"n_heads": H}, aq.rope_quantize_plain(qkv, cos_il, sin_il, H)[0]),
+        ):
+            got_pools, want_pools = [t.clone() for t in q8], [t.clone() for t in q8]
+            n0 = wrapper.launches
+            got = wrapper(pre, *got_pools, *post, **kw)[0]
+            assert wrapper.launches == n0 + 1
+            want = plain(pre, *want_pools, *post, **kw)[0]
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(got_pools, want_pools))
+            dense = [tpa.gather_pages(t[L - 1], table, S // page)[:act] for t in want_pools]
+            tol = _q8kv_tol(dtype, qt[:act, None], *dense, pos.long()[:act, None], lambda t: t[:, 0])
+            _assert_close(got[:act], want[:act], tol, f"{wrapper.__name__} {page=}")
+            assert torch.isfinite(got.float()).all()

@@ -116,7 +116,7 @@ def test_every_rank_slice_equals_the_jax_shard(dp, tpn):
     jq, pq = q8_trees()
     jt, jqs = js.shard_params(t, jmesh), js.shard_params(jq, jmesh)
     for rank in range(dp * tpn):
-        mesh = Mesh(dp, tpn, rank)
+        mesh = Mesh(dp, tpn, rank, device="cpu")
         coord = mesh.coord
         fp, q8 = sharding.shard_params(t, mesh), sharding.shard_params(pq, mesh)
         assert q8.mesh_shape == (dp, tpn) and q8.coord == coord
@@ -147,7 +147,7 @@ def test_fuse_shard_blocked_equals_jax_and_rank_fuse_is_its_chunk(shards):
         np.testing.assert_array_equal(got[k].scale.numpy(), np.asarray(want[k].scale))
     n = got["wqkv"].q.shape[-1] // shards
     for t in range(shards):
-        local = tm.fuse_layer_params(sharding.shard_params(pq, Mesh(1, shards, t)), "cuda")
+        local = tm.fuse_layer_params(sharding.shard_params(pq, Mesh(1, shards, t, device="cpu")), "cuda")
         assert isinstance(local, sharding.LocalParams) and local.coord == (0, t)
         np.testing.assert_array_equal(local["wqkv"].q.numpy(), got["wqkv"].q[..., t * n : (t + 1) * n].numpy())
         np.testing.assert_array_equal(
@@ -174,11 +174,13 @@ def test_local_config_and_support_reasons_match_jax():
         got = tp.tp_cuda_supported(pp, port_config(c), (1, n))
         assert got == want
         reasons.append(got[1])
+        # the plain path's (and the ring's) rule: divisibility alone, fp or Q8 weights
+        assert tp.tp_ring_supported(pp, port_config(c), (1, n)) == jtp.tp_ring_supported(jp, c, jax_mesh(1, n))
     assert reasons[0] == "" and "wo scale groups" in reasons[1] and "QuantTensor" in reasons[2]
-    # the plain path shards the fp tree and the Q8 one at tp 2, not at tp 4 (w2's scales)
-    assert tp.tp_torch_supported(t, port_config(CFG), (1, 2)) == (True, "")
-    assert tp.tp_torch_supported(pq, port_config(dataclasses.replace(CFG, n_kv_heads=4)), (1, 4)) == (
-        False, "wo not divisible by tp=4")
+    # the plain path shards the fp tree and the Q8 one at tp 2, not at tp 4 (wo's scales)
+    assert tp.tp_ring_supported(t, port_config(CFG), (1, 2)) == (True, "")
+    assert tp.tp_ring_supported(pq, port_config(dataclasses.replace(CFG, n_kv_heads=4)), (1, 4)) == (
+        False, "wo scales not divisible by tp=4")
 
 
 def test_shard_read_plan_and_sharded_load_equal_jax(tmp_path):
@@ -187,7 +189,7 @@ def test_shard_read_plan_and_sharded_load_equal_jax(tmp_path):
     for dp, tpn in ((1, 2), (2, 2), (2, 4)):
         assert shard_read_plan(str(tmp_path), (dp, tpn)) == jax_read_plan(str(tmp_path), jax_mesh(dp, tpn))
         for rank in range(dp * tpn):
-            mesh = Mesh(dp, tpn, rank)
+            mesh = Mesh(dp, tpn, rank, device="cpu")
             config, local, shared = load_cache_sharded(str(tmp_path), mesh)
             assert config == port_config(CFG) and not shared and local.coord == mesh.coord
             for k, v in pq.items():
@@ -216,31 +218,33 @@ def test_backend_rule_mesh_coordinates_and_rows():
     assert distributed.backend_rule(4, "cpu") == ("gloo", "[mesh] 4 ranks on the CPU: gloo")
     assert distributed.rank_device(3, "cpu") == torch.device("cpu")
     # no process group here: one rank
-    assert make_mesh(1, 1).shape == {"data": 1, "model": 1} and make_mesh().coord == (0, 0)
+    assert make_mesh(1, 1, "cpu").shape == {"data": 1, "model": 1} and make_mesh(device="cpu").coord == (0, 0)
     with pytest.raises(ValueError, match="needs 2 ranks"):
-        make_mesh(1, 2)
+        make_mesh(1, 2, "cpu")
     with pytest.raises(ValueError, match="not divisible by dp=3"):
-        make_mesh(3)
-    m = Mesh(2, 2, rank=3)
+        make_mesh(3, device="cpu")
+    m = Mesh(2, 2, rank=3, device="cpu")
     assert m.coord == (1, 1) and m.size == 4
     r = m.replicated_over_model()
     assert (r.dp, r.tp, r.coord) == (2, 1, (1, 0))
     assert tp.batch_rows(8, m) == slice(4, 8) and tp.batch_rows(1, m) == slice(0, 1)
     with pytest.warns(UserWarning, match="does not divide dp=2"):
         assert tp.batch_rows(3, m) == slice(0, 3)
-    assert tp.batch_rows(8, Mesh(1, 2, rank=1)) == slice(0, 8)
+    assert tp.batch_rows(8, Mesh(1, 2, rank=1, device="cpu")) == slice(0, 8)
 
 
 def test_mesh_entry_points_refuse(tiny_checkpoint, capsys):
     from llama2_tpu_torch.runtime import server as srv
     from llama2_tpu_torch.runtime.batch_engine import BatchEngine
+    from llama2_tpu_torch.runtime.paged_engine import PagedBatchEngine
 
     path, _, _ = tiny_checkpoint
     for flags, msg in (
-        (["--mesh", "1x2", "--paged"], "not yet ported"),
+        # the paged engine serves a mesh now; the ring still needs one
+        (["--paged", "--collective-matmul"], "--collective-matmul requires --mesh"),
         (["--mesh", "2x"], "--mesh must look like 2x4"),
         (["--mesh", "1x2", "--precompile", "8"], "--precompile"),
-        (["--mesh", "1x2", "--collective-matmul"], "not yet ported"),
+        (["--collective-matmul"], "--collective-matmul requires --mesh"),
         # quantizing would put the whole fp32 model on the device once a rank
         (["--mesh", "1x2", "--quant", "int8"], "write a Q8 param cache first"),
     ):
@@ -253,11 +257,37 @@ def test_mesh_entry_points_refuse(tiny_checkpoint, capsys):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             BatchEngine(port_config(CFG), pq, mesh=Mesh(1, 1, device=torch.device("cuda")))
     _, pq = q8_trees()
-    with pytest.raises(NotImplementedError, match="collective_matmul"):
-        BatchEngine(port_config(CFG), pq, device="cpu", mesh=Mesh(1, 1), collective="ring")
+    # the ring runs now; a model whose heads do not split over tp is refused, with the JAX reason
+    with pytest.raises(ValueError, match="collective='ring' unsupported here: tp=2 does not divide the head counts"):
+        BatchEngine(port_config(dataclasses.replace(CFG, n_kv_heads=1)), pq, device="cpu",
+                    mesh=Mesh(1, 2, device="cpu"), collective="ring")
+    with pytest.raises(ValueError, match="unknown collective 'tree'"):
+        BatchEngine(port_config(CFG), pq, device="cpu", mesh=Mesh(1, 1, device="cpu"), collective="tree")
+    # a paged engine's ring needs the paged mesh path, which a 1x1 mesh does not take
+    with pytest.raises(ValueError, match="requires the paged mesh path"):
+        PagedBatchEngine(port_config(CFG), pq, device="cpu", page_size=8, mesh=Mesh(1, 1, device="cpu"),
+                         collective="ring")
     # the engine takes the whole tree and cuts a rank's slices itself
     with pytest.raises(TypeError, match="whole param tree"):
-        BatchEngine(port_config(CFG), sharding.shard_params(pq, Mesh(1, 1)), device="cpu", mesh=Mesh(1, 1))
+        BatchEngine(port_config(CFG), sharding.shard_params(pq, Mesh(1, 1, device="cpu")), device="cpu",
+                    mesh=Mesh(1, 1, device="cpu"))
     # the classifier under a tensor-parallel mesh reads a rank's record
     with pytest.raises(ValueError, match="shards"):
-        tm.logits_from_hidden(pq, torch.zeros(1, CFG.dim), "torch", Mesh(1, 2))
+        tm.logits_from_hidden(pq, torch.zeros(1, CFG.dim), "torch", Mesh(1, 2, device="cpu"))
+
+
+def test_parallel_entry_points_default_to_the_card():
+    """The card unless the caller asks for the CPU: without one,
+    ``distributed.initialize``'s device rule, ``make_mesh``,
+    ``single_device_mesh`` and ``Mesh`` raise (the counterpart of the
+    engine's check above); with ``device="cpu"`` they run here."""
+    from llama2_tpu_torch.parallel.mesh import single_device_mesh
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is here: the default is it")
+    for build in (lambda: distributed.initialize(), lambda: make_mesh(1, 1), single_device_mesh,
+                  lambda: Mesh(1, 2, rank=1)):
+        with pytest.raises(RuntimeError, match="no CUDA device available; pass device='cpu'"):
+            build()
+    distributed.initialize(device="cpu")  # one rank: a no-op
+    assert make_mesh(1, 1, "cpu").device == single_device_mesh("cpu").device == torch.device("cpu")

@@ -170,7 +170,8 @@ def test_404(server):
     assert code == 404
 
 
-@pytest.mark.parametrize("flag", [["--spec", "1"], ["--mesh", "2x4", "--paged"], ["--collective-matmul"],
+# --paged --mesh serves now: its case is a malformed mesh; --collective-matmul needs --mesh
+@pytest.mark.parametrize("flag", [["--spec", "1"], ["--mesh", "2x", "--paged"], ["--collective-matmul"],
                                   ["--precompile", "16", "--paged"], ["--kernels", "pallas"],
                                   ["--prefix-cache"], ["--bogus"]])
 def test_unported_and_bad_flags_exit_1(tiny_checkpoint, capsys, flag):
