@@ -41,8 +41,8 @@ non-zero:
 3. the served path, slice 5's main path: ``PagedBatchEngine`` at full
    Llama-2-7B width, INT8 weights, bf16 activations,
    ``backend="cuda"``, 8 slots, 256-row pages, the prefix cache, serving 16
-   requests over a bf16 page pool and an int8 one at 8 layers (the bf16
-   pool at 32 before slice 17),
+   requests over a bf16 page pool and an int8 one at 4 layers (8 in slices
+   17-18; the bf16 pool at 32 before slice 17),
    with the launches of
    every decode tick asserted (K6 1, K17 or K18 32, K12 31, K11 1, K5 1)
    and every admission prefill's K1 through its tensor-core variant (bf16's
@@ -52,30 +52,32 @@ non-zero:
    the greedy streams held to their plain replays, ticks profiled at short
    and long positions, and
    the dense ``BatchEngine`` on the same requests for its memory;
-   ``cuda-accurate`` in fp32 at 8 layers over both pools (K15, K16);
+   ``cuda-accurate`` in fp32 at 4 layers over both pools (K15, K16; 8
+   before slice 19);
    engine-level speculation (``spec_window=4``) on the 12 greedy requests
    through the paged engine over a bf16 pool (16 layers) and the dense
-   engine over the int8 cache (8 layers), every window's launches asserted
+   engine over the int8 cache (8 layers), then in fp32 at 4 layers on
+   ``cuda`` and ``cuda-accurate``, every window's launches asserted
    (K6 and K5 on the M > 8 tile; no decode attention kernel), the
    streams held to the same engine's plain tick by the speculative margin
    rule, served and decode tok/s, tokens and wall / device ms a window
    beside the plain tick's (``phase_serve_spec``). Then
    the earlier main paths: ``Generator.generate`` at full Llama-2-7B width (random
    weights from a seed, built on the card), a ~200-token prompt and 64 greedy
-   tokens. INT8 (Q8) weights, ``backend="cuda"``, bf16 activations, 16
-   layers (32 before slice 17): over the fp cache (the 2-launch decode layer: glue-fused attention
+   tokens. INT8 (Q8) weights, ``backend="cuda"``, bf16 activations, 8
+   layers (16 in slices 17-18, 32 before): over the fp cache (the 2-launch decode layer: glue-fused attention
    + the wo/FFN/next-QKV megakernel) and over the int8 KV cache (this slice's
    main path: one whole-layer launch a layer), each also with speculative
    decoding (4-token verify windows), and over the int8 cache with the
-   whole-layer kernel switched off (K9 + K12), each profiled at positions
-   0-16 and 4080-4095. Over 8 layers: ``cuda-accurate`` in fp32 over the
+   whole-layer kernel switched off (K9 + K12), the first two profiled at
+   positions 0-16 and 4080-4095. Over 8 layers: ``cuda-accurate`` in fp32 over the
    fp cache, with speculative decoding (its 32-layer prefill chunk runs in
    the perplexity phase); the int8 cache's other routes
    (``cuda-accurate`` in fp32 with K8, with speculative decoding; bf16
    weights with K8), fp32 activations on the 2-launch route and the composed
    dequant-matmul route (the ``w13`` layout); a 2-layer model whose ``wo``
    is left in bf16, which takes the FFN-only megakernel. bf16 and fp32
-   weights: ``backend="cuda"``, 8 layers. Each with launch counts per
+   weights: ``backend="cuda"``, 4 layers (8 before slice 19). Each with launch counts per
    prefill chunk and decode step (per verify trip for speculative decoding;
    K1's by variant: bf16 and fp32 each on its tensor-core variant; the
    accurate routes' prefill-chunk K6 on the accurate M > 8 tile),
@@ -116,7 +118,17 @@ non-zero:
    and K10 with ``residual=False`` a layer, K5 once on the 16000-column
    vocab slice), the streams held to the one-card engine by the margin
    rule, tick ms and the reduces' share; and the server with ``--mesh 1x2``
-   (``phase_mesh``);
+   (``phase_mesh``); slice 18's paged engine over the mesh and the ring
+   collective matmul (``phase_mesh_paged``); then slice 19's path, the last
+   JAX families, every rank on the one card over gloo at 7B width in fp32
+   (``phase_long_context``): ring attention and ``sp_prefill`` over a
+   ``seq`` axis against the one-card attention and ``forward``, the
+   sequence-sharded decoder (``--seq-shards``) over a 2040-token prompt
+   whose cache crosses row 2048, greedy and sampled, against the one-card
+   ``Generator``, ``pp_prefill`` / ``pp_decode`` over two stages, then four
+   ranks with ``model`` beside ``seq`` and ``stage``, and the CLI's
+   ``--seq-shards 2`` against its plain run, with a dropped ring hop and a
+   misplaced KV append planted (no kernel is on these paths);
 5. kernel timing at the main paths' shapes with CUDA events, the calls
    queued behind a device sleep so that the host's launch rate does not set
    the time, beside the bound, the plain version and a library yardstick
@@ -140,7 +152,9 @@ non-zero:
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py --tools`` builds
 the kernels and runs only slice 16's phases (``phase_perplexity``,
-``phase_tools``), ``--mesh`` only slice 17's (``phase_mesh``); ``--dense-timing``
+``phase_tools``), ``--mesh`` only slice 17's and 18's (``phase_mesh``,
+``phase_mesh_paged``), ``--long-context`` only slice 19's
+(``phase_long_context``); ``--dense-timing``
 builds the kernels and times only the dense decode attention kernels,
 ``--prefill-timing`` only the prefill segment's K1, K5 and K6,
 ``--decode-timing`` only single-stream decode on the two-launch route at
@@ -2064,10 +2078,10 @@ def run_counted(g, prompt: list[int]):
 
 
 def phase_generate_q8(route: str, backend: str, dtype, n_layers: int = 32,
-                      speculative: bool = False, fp_stream=None) -> dict:
+                      speculative: bool = False, fp_stream=None, profile: bool = False) -> dict:
     """One route of the INT8-weight path at full 7B width: generate, count
-    launches, replay teacher-forced through the plain path; at 16 layers or
-    more on ``cuda``, profile decode steps at positions 0-16 and 4080-4095; with
+    launches, replay teacher-forced through the plain path; with ``profile``
+    (on ``cuda``), profile decode steps at positions 0-16 and 4080-4095; with
     ``speculative``, then the same greedy run with 4-token verify windows.
     Routes named "int8kv..." run over the int8 KV cache ("int8kv-fp" on bf16
     weights); ``fp_stream``: the tokens of the same weights over the fp cache,
@@ -2110,12 +2124,12 @@ def phase_generate_q8(route: str, backend: str, dtype, n_layers: int = 32,
     if route == "int8kv-two-launch":
         model.layer_block_supported = lambda *a: False
     try:
-        return _generate_q8(g, config, route, backend, dtype, dn, kv_quant, speculative, fp_stream)
+        return _generate_q8(g, config, route, backend, dtype, dn, kv_quant, speculative, fp_stream, profile)
     finally:
         model.layer_block_supported = supported
 
 
-def _generate_q8(g, config, route, backend, dtype, dn, kv_quant, speculative, fp_stream) -> dict:
+def _generate_q8(g, config, route, backend, dtype, dn, kv_quant, speculative, fp_stream, profile) -> dict:
     import torch
 
     from llama2_tpu_torch.config import GenerationConfig
@@ -2149,7 +2163,7 @@ def _generate_q8(g, config, route, backend, dtype, dn, kv_quant, speculative, fp
         wall_ms_per_decode_step=f"{decode_s * 1e3 / steps:.3f}",
         reference_protocol_tok_s=f"{res.tokens_per_sec:.2f}",
         peak_mem_GiB=f"{peak / 2**30:.2f}")
-    if L >= 16 and backend == "cuda":
+    if profile and backend == "cuda":
         decode_profile(g, dn)
         long_context_profile(g, config, dn)
 
@@ -2748,8 +2762,8 @@ def phase_serve_timing() -> None:
 
 def phase_serve(kv_quant: bool, n_layers: int = 32) -> dict:
     """Slice 5's main path: ``PagedBatchEngine`` at full Llama-2-7B width,
-    ``n_layers`` layers (8 over either pool, to make room in the script's
-    time), INT8 weights, bf16 activations, backend ``cuda``, 8 slots,
+    ``n_layers`` layers (4 over either pool since slice 19, 8 before: room in
+    the script's time), INT8 weights, bf16 activations, backend ``cuda``, 8 slots,
     256-row pages, the prefix cache on, over a bf16 or an int8 pool, serving
     serve_workload(). Three runs on fresh engines (the prefix cache starts
     empty each time): timed, at pipeline depth 2; at depth 1 with every
@@ -2998,7 +3012,7 @@ def phase_serve_spec() -> None:
     ``ticks_per_sync=1``, serving the greedy requests of serve_workload()
     through ``PagedBatchEngine`` over a bf16 pool (256-row pages, the
     prefix cache; 16 layers) and through the dense ``BatchEngine`` over the
-    int8 cache (8 layers); then the paged engine in fp32 at 8 layers on ``cuda`` (fast
+    int8 cache (8 layers); then the paged engine in fp32 at 4 layers on ``cuda`` (fast
     mode: the bf16 legs' kernels) and on ``cuda-accurate``. Per leg: a
     logged speculative run with every window's launches asserted
     (SPEC_WINDOWS: no decode attention kernel and no megakernel in a window)
@@ -3021,9 +3035,10 @@ def phase_serve_spec() -> None:
 
     t0 = time.perf_counter()
     reqs = [r for i, r in enumerate(serve_workload()) if i not in SAMPLED]
-    # the dense int8-cache leg at 8 layers: room for slice 16's phases in the script's time
+    # the dense int8-cache leg at 8 layers: room for slice 16's phases in the script's time; the fp32 legs
+    # at 4 since slice 19 (8 before): room for its phase
     legs = (("paged", 16, torch.bfloat16, "cuda"), ("dense", 8, torch.bfloat16, "cuda"),
-            ("paged", 8, torch.float32, "cuda"), ("paged", 8, torch.float32, "cuda-accurate"))
+            ("paged", 4, torch.float32, "cuda"), ("paged", 4, torch.float32, "cuda-accurate"))
     params, built = None, None
     for kind, L, dtype, backend in legs:
         t_leg = time.perf_counter()
@@ -3106,7 +3121,8 @@ def phase_serve_spec() -> None:
 
 
 def phase_serve_accurate(kv_quant: bool) -> dict:
-    """``cuda-accurate`` in fp32 at 8 layers, the paged engine over an fp32 or
+    """``cuda-accurate`` in fp32 at 4 layers (8 before slice 19: room in the
+    script's time), the paged engine over an fp32 or
     an int8 pool (the composed layer: K6 four a layer, K15 or K16 one a
     layer, K5): launches per tick asserted, and the greedy streams of a
     logged run held to the plain path by the fp32 rules of PERF.md section 2
@@ -3118,7 +3134,7 @@ def phase_serve_accurate(kv_quant: bool) -> dict:
     from llama2_tpu_torch.io.convert import random_q8_params
     from llama2_tpu_torch.runtime.paged_engine import PagedBatchEngine
 
-    config = config_7b(8)
+    config = config_7b(4)
     L = config.n_layers
     dn = f"q8/f32/cuda-accurate/paged-{'int8' if kv_quant else 'f32'}-pool/{L}L"
     params = random_q8_params(config, SEED, "cuda", torch.float32, group_size=GROUP)
@@ -5498,6 +5514,117 @@ def phase_window_timing(cycles_per_ms: float) -> None:
 
 # ---- slice 17: tensor- and data-parallel serving over a (data, model) mesh ----
 
+POOL_DEADLINE_S = 3600.0  # a pool's ranks, all their tasks together
+POOL_TASK_S = 900.0  # one task on every rank of a pool
+
+
+class RankPool:
+    """Ranks of one world size started once (``distributed.launch`` of
+    ``pool_rank`` in a thread) and given the mesh phases' tasks in turn: a
+    rank's start-up (the interpreter, torch, the card, the process group)
+    costs seconds, paid once a world size instead of once a launch.
+    ``run(fn, dp, tp, arg, axis)`` is ``distributed.launch(fn, dp, tp,
+    device, arg, axis=axis)`` on the live ranks: every rank runs
+    ``fn(mesh, arg)`` over a ``(axis, model)`` mesh of ``dp x tp`` (its
+    groups made at the first task that names it) and the values come back
+    rank 0's first; the first failure is raised. The tasks and results
+    travel through queues of a ``multiprocessing`` manager."""
+
+    def __init__(self, world: int, device: str):
+        import threading
+
+        from llama2_tpu_torch.parallel import distributed
+
+        self.world = world
+        self.manager = distributed.spawn_context().Manager()
+        self.tasks = [self.manager.Queue() for _ in range(world)]
+        self.results = self.manager.Queue()
+        self.failed: list = []
+
+        def serve():
+            try:
+                distributed.launch(pool_rank, world, 1, device, self.tasks, self.results, deadline=POOL_DEADLINE_S,
+                                   libraries=())
+            except BaseException as e:  # noqa: BLE001 -- raised by the next run()
+                self.failed.append(e)
+
+        self.thread = threading.Thread(target=serve, daemon=True)
+        self.thread.start()
+
+    def run(self, fn, dp: int, tp: int, arg, axis: str = "data") -> list:
+        import queue
+
+        from llama2_tpu_torch.parallel.distributed import RankError
+
+        if dp * tp != self.world:
+            raise ValueError(f"a {dp}x{tp} mesh on a pool of {self.world} ranks")
+        for q in self.tasks:
+            q.put((fn.__name__, dp, tp, axis, arg))
+        got, end = {}, time.monotonic() + POOL_TASK_S
+        while len(got) < self.world:
+            if self.failed:
+                raise self.failed[0]
+            try:
+                rank, ok, value = self.results.get(timeout=1.0)
+            except queue.Empty:
+                if time.monotonic() > end:
+                    raise TimeoutError(f"{fn.__name__}: ranks {sorted(set(range(self.world)) - set(got))} did not "
+                                       "finish") from None
+                continue
+            if not ok:
+                raise RankError(f"{fn.__name__}: rank {rank} failed:\n{value}")
+            got[rank] = value
+        return [got[r] for r in range(self.world)]
+
+    def close(self) -> None:
+        for q in self.tasks:
+            q.put(None)
+        self.thread.join(timeout=120)
+        self.manager.shutdown()
+
+
+_POOLS: dict = {}
+
+
+def rank_pool(world: int, device: str = "cuda") -> RankPool:
+    """The live pool of ``world`` ranks on ``device``, started at its first use."""
+    if (world, device) not in _POOLS:
+        _POOLS[world, device] = RankPool(world, device)
+    return _POOLS[world, device]
+
+
+def close_rank_pools() -> None:
+    """End every pool's ranks (and its manager)."""
+    while _POOLS:
+        _POOLS.popitem()[1].close()
+
+
+def pool_rank(mesh, tasks, results) -> None:
+    """A pool's rank: run each task ``(function name, dp, tp, axis, arg)``
+    of its queue on the mesh of that shape and post ``(rank, ok, value or
+    traceback)``, until ``None``; a failed task ends the rank (the others
+    then fail at their next collective). The card's cached blocks are freed
+    after each task, for the one-card references the parent runs between
+    them."""
+    import traceback
+
+    import torch
+
+    from llama2_tpu_torch.parallel.mesh import make_mesh
+
+    meshes: dict = {}
+    while (task := tasks[mesh.rank].get()) is not None:
+        name, dp, tp, axis, arg = task
+        try:
+            if (dp, tp, axis) not in meshes:  # every rank makes the groups, in the same order
+                meshes[dp, tp, axis] = make_mesh(dp, tp, mesh.device.type, axis)
+            results.put((mesh.rank, True, globals()[name](meshes[dp, tp, axis], arg)))
+        except Exception:
+            results.put((mesh.rank, False, traceback.format_exc()))
+            raise
+        torch.cuda.empty_cache()
+
+
 MESH_DIR = os.path.join(REPO, "build", "mesh")
 # (name, dp, tp, layers, the KV caches it serves over (int8 or not), speculative window)
 # the 1x2 leg at 2 layers since slice 18 (32 before; phase_mesh_paged serves the dense engine at 1x2
@@ -5556,36 +5683,25 @@ def mesh_served(eng, mesh, reqs, log: bool = False, comm: bool = False) -> dict:
     """Serve ``reqs`` on this rank's mesh engine (rank 0 submits, every rank
     runs to idle) with the launch counters at 0 just before and read just
     after: each decode tick's and each prefill chunk's launches apart, and
-    the ticks' wall seconds. With ``comm`` the seconds in the reduces and
-    gathers (and the ring's hops: each issue and each wait, apart from the
-    chunk products between them), each timed between two synchronizations
-    (which slow the tick they time); with ``log`` the logits row behind each
+    the ticks' wall seconds. With ``comm`` the seconds in the collectives
+    (``CommClock``: the reduces, gathers and broadcasts, and the ring's hops,
+    each issue and each wait, apart from the chunk products between them),
+    each timed between two synchronizations (which slow the tick they
+    time); with ``log`` the logits row behind each
     generated token of the rank's slots (pipeline depth 1; a speculative
     window's rows behind the tokens it committed), by prompt. The dense and
     the paged engine alike."""
+    import contextlib
+
     import torch
 
-    from llama2_tpu_torch.models import llama
-    from llama2_tpu_torch.parallel import collective_matmul as cm
-    from llama2_tpu_torch.parallel import tp as tpm
     from llama2_tpu_torch.runtime import batch_engine as be
 
     wrappers = mesh_counters()
-    ticks, chunks, tick_s, spent = [], [], [], [0.0]
+    ticks, chunks, tick_s = [], [], []
     rows: dict = {}
     lo, hi = eng._rows.start, eng._rows.stop  # the rank's slots
-    saved = (llama.add_reduced, tpm.gather, be.gather, cm._Ring.issue, cm._Ring.done)
     logits_from_hidden, window = be.logits_from_hidden, {}
-
-    def synced(fn):
-        def run(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            spent[0] += time.perf_counter() - t0
-            return out
-        return run
 
     def counted(fn):
         def run(*a, **kw):
@@ -5643,20 +5759,19 @@ def mesh_served(eng, mesh, reqs, log: bool = False, comm: bool = False) -> dict:
     if log:
         eng._sample, eng._sample_first, eng._start_request = logged_sample, logged_first, noted_start
         eng._spec_tick = logged_spec_tick
-    if comm:
-        llama.add_reduced, tpm.gather, be.gather, cm._Ring.issue, cm._Ring.done = (synced(f) for f in saved)
     for w in wrappers.values():
         w.launches = 0
     n_followed = len(eng.followed)
+    clock = CommClock()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
-        queues = [eng.submit(p, g) for p, g in reqs] if mesh.rank == 0 else []
-        eng.run_until_idle()
-        results = [q.get(timeout=60) for q in (queues or eng.followed[n_followed:])]
-        torch.cuda.synchronize()
+        with clock if comm else contextlib.nullcontext():
+            queues = [eng.submit(p, g) for p, g in reqs] if mesh.rank == 0 else []
+            eng.run_until_idle()
+            results = [q.get(timeout=60) for q in (queues or eng.followed[n_followed:])]
+            torch.cuda.synchronize()
     finally:
-        llama.add_reduced, tpm.gather, be.gather, cm._Ring.issue, cm._Ring.done = saved
         be.logits_from_hidden = logits_from_hidden
         for name in ("_dispatch_tick", "_chunk", "_decode_tick", "_sample", "_sample_first", "_start_request",
                      "_spec_tick"):
@@ -5666,7 +5781,7 @@ def mesh_served(eng, mesh, reqs, log: bool = False, comm: bool = False) -> dict:
         if isinstance(r, Exception):
             raise AssertionError(f"rank {mesh.rank}: a request failed: {r!r}")
     return {"launches": {k: w.launches for k, w in wrappers.items()}, "ticks": ticks, "chunks": chunks,
-            "tick_s": tick_s, "comm_s": spent[0], "wall_s": wall, "rows": rows,
+            "tick_s": tick_s, "comm_s": clock.s, "wall_s": wall, "rows": rows,
             "tokens": {tuple(r.tokens[: r.prompt_len]): r.tokens for r in results}}
 
 
@@ -5982,7 +6097,7 @@ def phase_mesh() -> dict:
             twin_ref = mesh_reference(paths[L], False, twin_reqs, torch.float32, 8)["ref"]
             torch.save({p: (t, rows, None) for p, (t, rows) in twin_ref.items()}, leg["twin_ref"])
         mark(f"{name}/one_card")
-        ranks = distributed.launch(mesh_rank, dp, tp, "cuda", leg, deadline=MESH_DEADLINE_S)
+        ranks = rank_pool(dp * tp).run(mesh_rank, dp, tp, leg)
         mark(f"{name}/mesh")
         rule = distributed.backend_rule(dp * tp, "cuda")[1]
         if any(r["rule"] != rule for r in ranks):
@@ -6034,7 +6149,8 @@ MESH_PAGED_DIR = os.path.join(REPO, "build", "mesh_paged")
 # same launch a ring run is held to (its psum form); "plant": a fault the tolerance must catch
 _RUN = dict(kind="paged", kv=False, spec=0, prefix=False, collective=None)
 MESH_PAGED_LAUNCHES = (
-    dict(name="1x2", dp=1, tp=2, L=8, runs=(
+    # 1x2 at 2 layers since slice 19 (8 before): room for phase_long_context in the script's time
+    dict(name="1x2", dp=1, tp=2, L=2, runs=(
         dict(_RUN, name="paged"),
         dict(_RUN, name="paged-int8", kv=True),
         dict(_RUN, name="paged-ring", collective="ring", twin="paged", plant="ring_hop"),
@@ -6290,7 +6406,7 @@ def phase_mesh_paged() -> dict:
     with random INT8 weights (bf16 activations, ``backend="cuda"``, 8 slots,
     256-row pages) written once as param caches, serving the served
     workload's 12 greedy requests. Two launches (MESH_PAGED_LAUNCHES), each
-    spawning its ranks once: 1x2 at 8 layers (the paged engine over the bf16
+    spawning its ranks once: 1x2 at 2 layers (the paged engine over the bf16
     and the int8 pool, then with the ring; the dense engine, then with the
     ring) and 2x2 at 2 layers (the paged engine with the prefix cache, the
     even requests' 256-token prefix hitting in both data groups, and with
@@ -6348,7 +6464,7 @@ def phase_mesh_paged() -> dict:
         dp, tp, L = launch["dp"], launch["tp"], launch["L"]
         spec = dict(launch, path=paths[L], reqs=plain, refs={run["name"]: ref_file(L, run) for run in launch["runs"]})
         mark(f"{launch['name']}/one_card")
-        ranks = distributed.launch(mesh_paged_rank, dp, tp, "cuda", spec, deadline=MESH_DEADLINE_S)
+        ranks = rank_pool(dp * tp).run(mesh_paged_rank, dp, tp, spec)
         mark(f"{launch['name']}/mesh")
         rule = distributed.backend_rule(dp * tp, "cuda")[1]
         if any(r["rule"] != rule for r in ranks):
@@ -6400,6 +6516,736 @@ def phase_mesh_paged() -> dict:
     mark("server")
     shutil.rmtree(MESH_PAGED_DIR, ignore_errors=True)
     return total
+
+
+# ---- slice 19: the seq and stage families (ring attention, sp prefill, the seq-sharded decoder, GPipe) ----
+
+LONG_DIR = os.path.join(REPO, "build", "long_context")
+LONG_LAYERS = 4  # 7B width, fp32, seed SEED: a full-depth fp32 copy is 27 GB a rank, and the ranks share the card
+LONG_RING = (1, 2048, 32, 128)  # (B, T, H, hs) of the ring attention leg
+LONG_RING_GQA = 8  # the kv heads of its GQA form
+LONG_RING_ATOL = 1e-4
+LONG_SP = (2048, 32)  # sp_prefill's segment, then greedy steps from the gathered cache
+LONG_DECODER = (2040, 64)  # the decoder leg's prompt and new tokens: the cache crosses row 2048, the second rank's
+LONG_SAMPLED = dict(temperature=0.8, top_p=0.9, seed=7, steps=96)
+LONG_SAMPLED_PROMPTS = (24, 40)  # the sampled call's two prompts: the first tokens of prompt_tokens()
+LONG_PP = dict(M=2, B=4, T=256, n=32)  # two stages of two layers: M microbatches of B rows, then n steps
+# launch 2's decoder: seq_len 512, so that the second seq rank's rows (256-511) are reached in 280 + 64
+# steps of four ranks (launch 1 crosses row 2048 in 2104 steps of two)
+LONG_SHORT_SEQ = 512
+LONG_TP = dict(L=2, prompt=280, new=64)
+# the planted append, at seq_len 256: the row of position 130 lands on the rank that does not own it
+LONG_PLANT = dict(seq_len=256, pos=130)
+LONG_CLI_STEPS = 96
+LONG_DEADLINE_S = 900.0
+
+
+class CommClock:
+    """Host seconds this process spends in the collectives and hops of the
+    parallel families (``dist.all_reduce`` / ``broadcast`` / ``all_gather``,
+    a ring hop's issue and wait), the card synchronized before each so that
+    queued compute is not counted; patched in on ``with``, out after."""
+
+    def __init__(self):
+        self.s = 0.0
+        self._undo = []
+
+    def _wrap(self, owner, name: str) -> None:
+        import torch
+
+        real = getattr(owner, name)
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*a, **k)
+            torch.cuda.synchronize()
+            self.s += time.perf_counter() - t0
+            return out
+
+        setattr(owner, name, timed)
+        self._undo.append((owner, name, real))
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        from llama2_tpu_torch.parallel import collective_matmul as cm
+
+        for owner, name in ((dist, "all_reduce"), (dist, "broadcast"), (dist, "all_gather"), (cm._Ring, "issue"),
+                            (cm._Ring, "done")):
+            self._wrap(owner, name)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, real in reversed(self._undo):
+            setattr(owner, name, real)
+
+
+def long_timed(run) -> tuple:
+    """``run()`` under a CommClock: ``(its value, wall s, comm s)``."""
+    import torch
+
+    torch.cuda.synchronize()
+    with CommClock() as clock:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, wall, clock.s
+
+
+def held(toks, logits, ref_toks, ref_logits) -> dict:
+    """A stream ``toks`` with the logits that chose them against the
+    one-card ``ref_toks`` / ``ref_logits`` (a row a position, float32): the
+    first parting position, the largest logit distance over the rows both
+    computed from the same prefix, and the one-card top-2 margin where they
+    part (the margin rule: a parting is allowed only there, where the margin
+    is at most twice that distance)."""
+    import torch
+
+    n = min(len(toks), len(ref_toks))
+    part = next((i for i in range(n) if toks[i] != ref_toks[i]), None if len(toks) == len(ref_toks) else n)
+    rows = (n if part is None else min(part + 1, n))
+    d = (logits[:rows].float().cpu() - ref_logits[:rows].float().cpu()).abs()
+    margin = None
+    if part is not None and part < len(ref_logits):
+        top = torch.topk(ref_logits[part].float(), 2).values
+        margin = float(top[0] - top[1])
+    return {"part": part, "generated": len(ref_toks), "dist": float(d.max()) if rows else 0.0, "margin": margin}
+
+
+def held_faults(name: str, hs: list, atol: float = F32_LOGIT_ATOL, sampled: bool = False) -> list:
+    """The fp32 rule over held streams (``held``): logits within ``atol``
+    of the one-card logits over the rows computed from the same prefix, then
+    tokens equal, or (greedy) parting only where the one-card margin is at
+    most twice the largest distance; a sampled parting is held by
+    ``sample_rule`` instead. Prints a line; returns the faults."""
+    dist = max(h["dist"] for h in hs)
+    faults = [f"{name}: logits {dist:.3e} from the one-card path, past {atol}"] if dist > atol else []
+    for h in hs:
+        if not sampled and h["part"] is not None and (h["margin"] is None or h["margin"] > 2 * dist):
+            faults.append(f"{name}: a stream parts where the margin allows no flip: {h}")
+    n = sum(h["generated"] for h in hs)
+    same = sum(h["generated"] if h["part"] is None else h["part"] for h in hs)
+    say("long", leg=name, streams=len(hs), tokens_equal_before_parting=f"{same}/{n}",
+        parted=sum(h["part"] is not None for h in hs), logit_max_abs_diff=f"{dist:.4e}", atol=atol,
+        held="yes" if not faults else "NO")
+    return faults
+
+
+def greedy_from(params, config, cache, hidden_last, pos: int, n: int) -> tuple:
+    """One card, ``backend="torch"``: ``n`` greedy tokens a row from the
+    last prefill hidden ``(B, D)``, decoding from ``cache`` at ``pos``;
+    returns ``(tokens (B, n), logits (B, n, V))``."""
+    import torch
+
+    from llama2_tpu_torch.models.llama import forward, logits_from_hidden
+
+    logits = [logits_from_hidden(params, hidden_last).float()]
+    toks = []
+    for i in range(n):
+        toks.append(torch.argmax(logits[-1], dim=-1))
+        if i < n - 1:
+            h = forward(params, cache, toks[-1][:, None], pos + i, config, "torch")
+            logits.append(logits_from_hidden(params, h[:, -1]).float())
+    return torch.stack(toks, dim=1).cpu(), torch.stack(logits, dim=1)
+
+
+def long_ring(mesh) -> dict:
+    """(a) ``ring_attention`` at LONG_RING over ``seq`` (MHA and GQA), fp32,
+    against the one-card ``dense_causal_attention``; K1's fp32 output on
+    the same rows as a reading; ms a call and the hops' share of three timed
+    calls; then one ring hop's chunk dropped on the last rank (planted)."""
+    import torch
+
+    from llama2_tpu_torch.ops.cuda.prefill_attention import flash_prefill_attention
+    from llama2_tpu_torch.parallel import collective_matmul as cm
+    from llama2_tpu_torch.parallel import ring
+    from llama2_tpu_torch.parallel.mesh import SEQ_AXIS
+
+    B, T, H, hs = LONG_RING
+    S, i = mesh.shape[SEQ_AXIS], mesh.index(SEQ_AXIS)
+    rows = slice(i * T // S, (i + 1) * T // S)
+    g = torch.Generator(device=mesh.device).manual_seed(SEED + 19)
+    out = {}
+    for name, KVH in (("mha", H), ("gqa", LONG_RING_GQA)):
+        q, k, v = (torch.randn(B, T, n, hs, generator=g, device=mesh.device) for n in (H, KVH, KVH))
+        want = ring.dense_causal_attention(q, k, v)[:, rows]
+        got = ring.ring_attention(q, k, v, mesh)
+        k1 = flash_prefill_attention(q, k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous(), 0)[:, rows]
+        _, wall, comm = long_timed(lambda: [ring.ring_attention(q, k, v, mesh) for _ in range(3)])
+        out[name] = {"err": float((got - want).abs().max()), "k1_err": float((k1 - want).abs().max()),
+                     "ms": 1e3 * wall / 3, "share": comm / wall, "finite": bool(torch.isfinite(got).all())}
+        if name == "gqa":  # planted: the first hop's chunk dropped on the last rank (the hop itself still made)
+            real, dropped = cm._hop, []
+
+            def drop(r, t, staged, overlap=None):
+                got = real(r, t, staged, overlap)
+                if i == S - 1 and not dropped:
+                    dropped.append(1)
+                    return t, got[1]
+                return got
+
+            cm._hop = drop
+            try:
+                planted = ring.ring_attention(q, k, v, mesh)
+            finally:
+                cm._hop = real
+            out["planted"] = float((planted - want).abs().max())
+    return out
+
+
+def long_sp(mesh, params, config, model_axis: bool) -> dict:
+    """(b) ``sp_prefill`` of a (1, T) segment, then ``cache_from_segments``:
+    the rank's hidden rows, its KV rows and the gathered cache against the
+    one-card ``forward`` (``backend="torch"``); on rank 0, greedy steps from
+    the gathered cache against the one card's from its own prefill."""
+    import dataclasses
+
+    import torch
+
+    from llama2_tpu_torch.models.llama import forward, init_cache
+    from llama2_tpu_torch.parallel import sp
+    from llama2_tpu_torch.parallel.tp import gather
+
+    T, n = LONG_SP
+    S, i = mesh.shape[sp.SEQ_AXIS], mesh.index(sp.SEQ_AXIS)
+    dev = mesh.device
+    cfg = dataclasses.replace(config, seq_len=T + n)
+    tokens = torch.randint(0, config.vocab_size, (1, T), generator=torch.Generator().manual_seed(SEED + 7))
+    (hidden, k_seg, v_seg), wall, comm = long_timed(lambda: sp.sp_prefill(params, tokens, config, mesh, model_axis))
+    cache = sp.cache_from_segments(init_cache(cfg, 1, device=dev), k_seg, v_seg, mesh)
+    whole = gather(hidden, mesh.group(sp.SEQ_AXIS), 1)
+    ref_cache = init_cache(cfg, 1, device=dev)
+    h_ref = forward(params, ref_cache, tokens.to(dev), 0, cfg, "torch")
+    rows = slice(i * T // S, (i + 1) * T // S)
+    kvh = k_seg.shape[2]
+    heads = slice(mesh.index("model") * kvh, (mesh.index("model") + 1) * kvh)
+    out = {"ms": 1e3 * wall, "share": comm / wall,
+           "hidden_err": float((hidden - h_ref[:, rows]).abs().max()),
+           "kv_err": max(float((seg - ref_cache[name][:, :, heads, rows]).abs().max())
+                         for name, seg in (("k", k_seg), ("v", v_seg))),
+           "gathered_err": max(float((cache[name][:, :, :, :T] - ref_cache[name][:, :, :, :T]).abs().max())
+                               for name in ("k", "v")),
+           "kv_heads": kvh, "rows": k_seg.shape[3]}
+    if mesh.rank == 0:
+        toks, logits = greedy_from(params, cfg, cache, whole[:, -1], T, n)
+        ref_toks, ref_logits = greedy_from(params, cfg, ref_cache, h_ref[:, -1], T, n)
+        out["held"] = [held(toks[0].tolist(), logits[0], ref_toks[0].tolist(), ref_logits[0])]
+    return out
+
+
+def long_decoder(mesh, params, config, prompt: list[int], new: int, ref_backend: str = "torch",
+                 sampled: bool = False, plant: bool = False) -> dict:
+    """(c) ``SeqShardedDecoder.generate_batch`` (the CLI's path) on a greedy
+    prompt: ms a step, the logits of every generated position recorded
+    (``step`` wrapped), the rank's cache (rows, bytes) and the rows it
+    wrote; on rank 0 the one-card ``Generator`` (``ref_backend``, fp32) on
+    the same weights and its teacher-forced logits. With ``sampled``: the
+    LONG_SAMPLED call over two prompts, timed with the merges' share,
+    against the ``Generator`` at seed 7 and 8. With ``plant``: a
+    teacher-forced run at LONG_PLANT's seq_len whose row of LONG_PLANT's
+    position lands on the rank that does not own it, its logits against the
+    one card's."""
+    import dataclasses
+
+    import torch
+
+    from llama2_tpu_torch.config import GenerationConfig
+    from llama2_tpu_torch.parallel import ring_decode
+    from llama2_tpu_torch.runtime.generator import Generator
+
+    dec = ring_decode.SeqShardedDecoder(config, params, mesh)
+    caches, recorded = [], []
+    real_cache, real_step = dec._cache, dec.step
+    dec._cache = lambda b: caches.append(real_cache(b)) or caches[-1]
+
+    def step(cache, token, pos):
+        logits = real_step(cache, token, pos)
+        if pos >= len(prompt):
+            recorded.append(logits[0])
+        return logits
+
+    dec.step = step
+    steps = len(prompt) + new
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = dec.generate_batch([prompt], GenerationConfig(temperature=0.0, steps=steps))[0]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kc = caches[0][0]
+    # the one card's cache of the same kv heads: seq_len rows, float32, K and V
+    whole = 2 * config.n_layers * (config.n_kv_heads // mesh.tp) * config.seq_len * config.head_size * 4
+    out = {"tokens": toks, "ms": 1e3 * wall / steps, "steps": steps, "cache_shape": tuple(kc.shape),
+           "cache_bytes": 2 * kc.numel() * kc.element_size(), "one_card_cache_bytes": whole,
+           "rows_written": int((kc[0, 0, 0].abs().sum(-1) != 0).sum()), "s_local": dec.s_local}
+    if mesh.rank == 0:
+        g = Generator(config, params, backend=ref_backend, device=mesh.device)
+        ref = g.generate(prompt, GenerationConfig(temperature=0.0, steps=steps)).tokens
+        ref_logits = teacher_forced_logits(g.params, config, [1] + ref, len(prompt), ref_backend)
+        out["held"] = [held(toks[len(prompt):], torch.stack(recorded), ref[len(prompt):], ref_logits[:new])]
+    if sampled:
+        out["sampled"] = long_sampled(dec, real_step, mesh, params, config)
+    if plant:
+        out["planted"] = long_planted_append(mesh, params, dataclasses.replace(config, seq_len=LONG_PLANT["seq_len"]))
+    return out
+
+
+def long_sampled(dec, real_step, mesh, params, config) -> dict:
+    """The sampled call of (c): ``generate_batch`` over two prompts with
+    LONG_SAMPLED (t 0.8, top-p 0.9, seed 7; row ``b`` draws with seed 7 +
+    b), timed with the merges' share, every row's logits recorded. On rank
+    0, each row against the one-card ``Generator`` at seed 7 + b: the
+    sampled tokens equal, or, where they part, the fp32 rule over the rows
+    before it and both tokens the sampler's choice on their own logits with
+    the one draw (``held`` + ``sample_rule``)."""
+    import torch
+
+    from llama2_tpu_torch.config import GenerationConfig
+    from llama2_tpu_torch.runtime.generator import Generator
+
+    prompts = [prompt_tokens()[:n] for n in LONG_SAMPLED_PROMPTS]
+    recorded = []
+
+    def step(cache, token, pos):
+        logits = real_step(cache, token, pos)
+        recorded.append(logits)
+        return logits
+
+    dec.step = step
+    rows, wall, comm = long_timed(lambda: dec.generate_batch(prompts, GenerationConfig(**LONG_SAMPLED)))
+    dec.step = real_step
+    out = {"ms": 1e3 * wall / len(recorded), "share": comm / wall, "held": [], "rule": []}
+    if mesh.rank != 0:
+        return out
+    g = Generator(config, params, backend="torch", device=mesh.device)
+    for b, p in enumerate(prompts):
+        seed = LONG_SAMPLED["seed"] + b
+        want = g.generate(p, GenerationConfig(**dict(LONG_SAMPLED, seed=seed))).tokens
+        n = len(p)
+        ref_logits = teacher_forced_logits(g.params, config, [1] + want, n, "torch")
+        logits = torch.stack([r[b] for r in recorded[n : n + len(rows[b]) - n]])
+        h = held(rows[b][n:], logits, want[n:], ref_logits[: len(want) - n])
+        out["held"].append(h)
+        if h["part"] is not None:
+            out["rule"].append(sample_rule(logits[h["part"]], ref_logits[h["part"]], seed, n + h["part"],
+                                           rows[b][n + h["part"]], want[n + h["part"]]))
+    return out
+
+
+def sample_rule(logits, ref_logits, seed: int, pos: int, tok: int, ref_tok: int) -> bool:
+    """Where a sampled stream parts from the one card's: both tokens are the
+    sampler's choice (LONG_SAMPLED's temperature and top-p, the draw
+    ``uniform_draw(seed, pos)``) on their own logits: the parting is the
+    logits' difference, nothing else."""
+    from llama2_tpu_torch.ops import sampling
+    from llama2_tpu_torch.runtime.generator import uniform_draw
+
+    t, p = LONG_SAMPLED["temperature"], LONG_SAMPLED["top_p"]
+    mode, r = sampling.choose_mode(t, p), uniform_draw(seed, pos)
+    return (int(sampling.sample(logits.float().cpu(), mode, t, p, r)) == tok
+            and int(sampling.sample(ref_logits.float().cpu(), mode, t, p, r)) == ref_tok)
+
+
+def long_planted_append(mesh, params, config) -> float:
+    """A decoder at ``config.seq_len`` teacher-forced through position
+    LONG_PLANT["pos"] + 8, that position's KV row written on the rank below
+    the owner (at its last row) and not on the owner: the largest distance
+    of the recorded logits past the fault from the one card's."""
+    import torch
+
+    from llama2_tpu_torch.config import GenerationConfig
+    from llama2_tpu_torch.parallel import ring_decode
+    from llama2_tpu_torch.runtime.generator import Generator
+
+    prompt = [int(t) for t in torch.randint(2, config.vocab_size, (LONG_PLANT["pos"] + 8,),
+                                            generator=torch.Generator().manual_seed(SEED + 3))]
+    dec = ring_decode.SeqShardedDecoder(config, params, mesh)
+    real_append, real_step, recorded = ring_decode._append_local, dec.step, []
+
+    def append(cache, rows, pos, my_off, s_local):
+        if pos == LONG_PLANT["pos"]:  # the owner skips it; the rank below writes it at its clamped last row
+            owner = pos // s_local
+            if my_off == (owner - 1) * s_local:
+                cache[:, :, s_local - 1] = rows[:, :, -1]
+            return cache
+        return real_append(cache, rows, pos, my_off, s_local)
+
+    def step(cache, token, pos):
+        logits = real_step(cache, token, pos)
+        if pos >= LONG_PLANT["pos"]:
+            recorded.append(logits[0])
+        return logits
+
+    ring_decode._append_local, dec.step = append, step
+    try:
+        dec.generate_batch([prompt], GenerationConfig(temperature=0.0, steps=len(prompt)))
+    finally:
+        ring_decode._append_local = real_append
+    if mesh.rank != 0:
+        return 0.0
+    g = Generator(config, params, backend="torch", device=mesh.device)
+    ref = teacher_forced_logits(g.params, config, [1] + prompt, LONG_PLANT["pos"], "torch")
+    return float((torch.stack(recorded).cpu() - ref[: len(recorded)]).abs().max())
+
+
+def long_pp(mesh, params, config, model_axis: bool) -> dict:
+    """(d) ``pp_prefill`` of M microbatches over the stages, then
+    ``pp_decode`` of their greedy continuation: the hidden and the stage's
+    KV rows against the one-card ``forward`` (``backend="torch"``), the
+    stage's weight bytes (what ``rank_params`` gave it) against the whole
+    stack's; on the last stage (model index 0) the tokens and the
+    classifier's logits (recorded) against the one card's greedy loop.
+    With ``model_axis`` the prefill alone: ``pp_decode`` has no model axis
+    (the JAX one neither), and the prefill's KV is cut over it."""
+    import dataclasses
+
+    import torch
+
+    from llama2_tpu_torch.models.llama import forward, init_cache
+    from llama2_tpu_torch.ops import sampling
+    from llama2_tpu_torch.parallel import pp
+    from llama2_tpu_torch.parallel.sp import COLUMN, LAYER_KEYS, ROW
+
+    M, B, T, n = (LONG_PP[k] for k in ("M", "B", "T", "n"))
+    S, s = mesh.shape[pp.STAGE_AXIS], mesh.index(pp.STAGE_AXIS)
+    dev = mesh.device
+    cfg = dataclasses.replace(config, seq_len=T + n)
+    tokens = torch.randint(0, config.vocab_size, (M, B, T), generator=torch.Generator().manual_seed(SEED + 5))
+    held_bytes, real_rank_params = [], pp.rank_params
+
+    def rank_params(*a, **k):
+        local = real_rank_params(*a, **k)
+        held_bytes.append(sum(local[key].numel() * local[key].element_size() for key in LAYER_KEYS))
+        return local
+
+    pp.rank_params = rank_params
+    try:
+        (hidden, k_seg, v_seg), wall, comm = long_timed(lambda: pp.pp_prefill(params, tokens, config, mesh,
+                                                                              model_axis))
+    finally:
+        pp.rank_params = real_rank_params
+    whole_bytes = sum(params[k].numel() * params[k].element_size() for k in LAYER_KEYS)
+    tp = mesh.tp if model_axis else 1
+    # a stage's share: 1/S of every layer-stacked weight, the matmul weights 1/tp of that again
+    want_bytes = sum(params[k].numel() * params[k].element_size() // S // (tp if k in COLUMN + ROW else 1)
+                     for k in LAYER_KEYS)
+    out = {"prefill_ms": 1e3 * wall, "prefill_share": comm / wall, "layer_bytes": held_bytes[0],
+           "want_layer_bytes": want_bytes, "whole_bytes": whole_bytes, "kv_layers": k_seg.shape[0],
+           "want_kv_layers": config.n_layers // S, "hidden_err": 0.0, "kv_err": 0.0}
+    layers = slice(s * config.n_layers // S, (s + 1) * config.n_layers // S)
+    kvh = k_seg.shape[3]
+    heads = slice(mesh.index("model") * kvh, (mesh.index("model") + 1) * kvh)
+    refs = []
+    for m in range(M):
+        ref_cache = init_cache(cfg, B, device=dev)
+        h_ref = forward(params, ref_cache, tokens[m].to(dev), 0, cfg, "torch")
+        refs.append((ref_cache, h_ref))
+        out["hidden_err"] = max(out["hidden_err"], float((hidden[m] - h_ref).abs().max()))
+        for name, seg in (("k", k_seg), ("v", v_seg)):
+            out["kv_err"] = max(out["kv_err"], float((seg[:, m] - ref_cache[name][layers, :, heads, :T]).abs().max()))
+    if model_axis:  # pp_decode has no model axis (as in JAX): the prefill alone
+        return out
+    wcls = params["wcls"].float()
+    tokens0 = torch.argmax(hidden[:, :, -1].float() @ wcls, dim=-1)
+    pad = (0, 0, 0, n)
+    recorded, real_argmax = [], sampling.sample_argmax
+    sampling.sample_argmax = lambda logits: recorded.append(logits) or real_argmax(logits)
+    try:
+        (got, _, _), wall, comm = long_timed(lambda: pp.pp_decode(
+            params, torch.nn.functional.pad(k_seg, pad), torch.nn.functional.pad(v_seg, pad), tokens0,
+            torch.full((M, B), T), n, config, mesh))
+    finally:
+        sampling.sample_argmax = real_argmax
+    steps = S * n + S - 1
+    out.update(decode_ms=1e3 * wall / steps, decode_steps=steps, decode_share=comm / wall)
+    if s == S - 1 and mesh.index("model") == 0:
+        out["held"] = []
+        for m, (ref_cache, h_ref) in enumerate(refs):
+            ref_toks, ref_logits = greedy_from(params, cfg, ref_cache, h_ref[:, -1], T, n)
+            logits = torch.stack([recorded[r * S + m] for r in range(n)], dim=1)  # (B, n, V)
+            for b in range(B):
+                # the continuation's first token is tokens0, chosen from the prefill: pp_decode's stream
+                # follows it, the one card's starts with it
+                pp_stream = [int(tokens0[m, b])] + got[m, b].tolist()[:-1]
+                pp_logits = torch.cat([(hidden[m, b, -1].float() @ wcls)[None], logits[b, :-1]])
+                out["held"].append(held(pp_stream, pp_logits, ref_toks[b].tolist(), ref_logits[b]))
+    return out
+
+
+def long_rank(mesh, leg: dict) -> dict:
+    """One rank of a launch of ``phase_long_context``: the leg's weights
+    (7B width, fp32, ``leg["L"]`` layers, seed SEED) made on the card, the
+    same on every rank; then the legs in ``leg["legs"]`` in turn, the
+    ``pp`` one over the same ranks viewed as a ``(stage, model)`` mesh.
+    Returns numbers, tokens and CPU tensors only."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from llama2_tpu_torch.io.convert import random_params
+    from llama2_tpu_torch.parallel import distributed
+    from llama2_tpu_torch.parallel.mesh import STAGE_AXIS
+
+    config = config_7b(leg["L"])
+    if leg.get("seq_len"):
+        config = dataclasses.replace(config, seq_len=leg["seq_len"])
+    params = random_params(config, SEED, mesh.device)
+    model = mesh.tp > 1
+    out = {"rank": mesh.rank, "coord": mesh.coord, "backend": dist.get_backend(),
+           "rule": distributed.backend_rule(mesh.size, "cuda")[1]}
+    runs = {
+        "ring": lambda: long_ring(mesh),
+        "sp": lambda: long_sp(mesh, params, config, model),
+        "decoder": lambda: long_decoder(mesh, params, config, leg["prompt"], leg["new"],
+                                        leg.get("ref_backend", "torch"), leg.get("sampled", False),
+                                        leg.get("plant", False)),
+        "pp": lambda: long_pp(dataclasses.replace(mesh, axis=STAGE_AXIS), params, config, model),
+    }
+    for name in leg["legs"]:
+        t0 = time.perf_counter()
+        out[name] = runs[name]()
+        torch.cuda.synchronize()
+        if mesh.rank == 0:  # progress, on stderr: a fault in a later leg leaves this one's time
+            print(f"[long] rank=0 leg={name} seconds={time.perf_counter() - t0:.1f}", file=sys.stderr, flush=True)
+    return out
+
+
+def long_prompt(n: int, seed: int) -> list[int]:
+    """``n`` seeded token ids (2 .. 31999: no BOS inside)."""
+    import torch
+
+    return [int(t) for t in torch.randint(2, 32000, (n,), generator=torch.Generator().manual_seed(seed))]
+
+
+def long_report(name: str, ranks: list, faults: list) -> None:
+    """Print a launch's readings and add its faults: every leg's tolerance
+    (``held_faults``), the planted faults caught, the ranks' holdings."""
+    lead = ranks[0]
+    if "ring" in lead:
+        for r in ranks:
+            for kind in ("mha", "gqa"):
+                a = r["ring"][kind]
+                say("long", leg=f"{name}/ring/{kind}", rank=r["rank"], ms_a_call=f"{a['ms']:.3f}",
+                    hops_share=f"{a['share']:.3f}", max_abs_err=f"{a['err']:.3e}", atol=LONG_RING_ATOL,
+                    k1_f32_max_abs_err=f"{a['k1_err']:.3e}")
+                if a["err"] > LONG_RING_ATOL or not a["finite"]:
+                    faults.append(f"{name}/ring/{kind} rank {r['rank']}: {a['err']:.3e} past {LONG_RING_ATOL}")
+        planted = max(r["ring"]["planted"] for r in ranks)
+        say("long", leg=f"{name}/ring/planted", fault="one_hop_dropped_on_the_last_rank", max_abs_err=f"{planted:.3e}",
+            tolerance="fails" if planted > LONG_RING_ATOL else "PASSES")
+        if planted <= LONG_RING_ATOL:
+            faults.append(f"{name}: the ring tolerance passes a dropped hop")
+    if "sp" in lead:
+        for r in ranks:
+            a = r["sp"]
+            say("long", leg=f"{name}/sp_prefill", rank=r["rank"], coord=f"{r['coord'][0]},{r['coord'][1]}",
+                ms_a_call=f"{a['ms']:.3f}", hops_and_reduces_share=f"{a['share']:.3f}",
+                hidden_err=f"{a['hidden_err']:.3e}", kv_err=f"{a['kv_err']:.3e}",
+                gathered_cache_err=f"{a['gathered_err']:.3e}", kv_heads=a["kv_heads"], rows=a["rows"])
+            if max(a["hidden_err"], a["kv_err"], a["gathered_err"]) > F32_LOGIT_ATOL:
+                faults.append(f"{name}/sp_prefill rank {r['rank']}: past {F32_LOGIT_ATOL}: {a}")
+        faults += held_faults(f"{name}/sp_prefill/decode_from_gathered_cache", lead["sp"]["held"])
+    if "decoder" in lead:
+        a = lead["decoder"]
+        if any(r["decoder"]["tokens"] != a["tokens"] for r in ranks):
+            faults.append(f"{name}/decoder: the ranks' streams differ")
+        for r in ranks:
+            d = r["decoder"]
+            say("long", leg=f"{name}/decoder", rank=r["rank"], coord=f"{r['coord'][0]},{r['coord'][1]}",
+                ms_a_step=f"{d['ms']:.3f}", steps=d["steps"], cache_shape="x".join(map(str, d["cache_shape"])),
+                cache_GiB=f"{d['cache_bytes'] / 2**30:.3f}", one_card_cache_GiB=f"{d['one_card_cache_bytes'] / 2**30:.3f}",
+                rows_written=d["rows_written"])
+            sp = len({x["coord"][0] for x in ranks})
+            if d["cache_shape"][3] != d["s_local"] or d["cache_bytes"] * sp != d["one_card_cache_bytes"]:
+                faults.append(f"{name}/decoder rank {r['rank']}: cache {d['cache_shape']}, {d['cache_bytes']} B")
+        last = max(ranks, key=lambda x: x["coord"][0])["decoder"]
+        if last["rows_written"] == 0:
+            faults.append(f"{name}/decoder: the last seq rank wrote no row")
+        faults += held_faults(f"{name}/decoder/greedy", a["held"])
+        if "sampled" in a:
+            s = a["sampled"]
+            say("long", leg=f"{name}/decoder/sampled", ms_a_step=f"{s['ms']:.3f}", merges_share=f"{s['share']:.3f}",
+                rows_equal_to_generator_at_seed_plus_b=",".join(str(h["part"] is None) for h in s["held"]),
+                parted_at=",".join(str(h["part"]) for h in s["held"]), sampler_explains_parting=s["rule"])
+            faults += held_faults(f"{name}/decoder/sampled", s["held"], sampled=True)
+            if not all(s["rule"]):
+                faults.append(f"{name}/decoder/sampled: a parting the sampler's draw does not explain")
+        if "planted" in a:
+            say("long", leg=f"{name}/decoder/planted", fault="an_append_on_the_rank_that_does_not_own_the_row",
+                logit_max_abs_diff=f"{a['planted']:.3e}", tolerance="fails" if a["planted"] > F32_LOGIT_ATOL
+                else "PASSES")
+            if a["planted"] <= F32_LOGIT_ATOL:
+                faults.append(f"{name}: the decoder's tolerance passes a misplaced append")
+    if "pp" in lead:
+        for r in ranks:
+            a = r["pp"]
+            decode = {} if "decode_ms" not in a else dict(
+                decode_ms_a_step=f"{a['decode_ms']:.3f}", decode_steps=a["decode_steps"],
+                decode_hops_share=f"{a['decode_share']:.3f}")
+            say("long", leg=f"{name}/pp", rank=r["rank"], coord=f"{r['coord'][0]},{r['coord'][1]}",
+                prefill_ms=f"{a['prefill_ms']:.3f}", prefill_hops_share=f"{a['prefill_share']:.3f}", **decode,
+                hidden_err=f"{a['hidden_err']:.3e}",
+                kv_err=f"{a['kv_err']:.3e}", layer_bytes=a["layer_bytes"], whole_bytes=a["whole_bytes"],
+                kv_layers=a["kv_layers"])
+            if max(a["hidden_err"], a["kv_err"]) > F32_LOGIT_ATOL:
+                faults.append(f"{name}/pp rank {r['rank']}: past {F32_LOGIT_ATOL}: {a['hidden_err']}, {a['kv_err']}")
+            if (a["layer_bytes"], a["kv_layers"]) != (a["want_layer_bytes"], a["want_kv_layers"]):
+                faults.append(f"{name}/pp rank {r['rank']}: holds {a['layer_bytes']} B of the layer stack and "
+                              f"{a['kv_layers']} layers of KV, want {a['want_layer_bytes']} and {a['want_kv_layers']}")
+        held_rows = [h for r in ranks for h in r["pp"].get("held", [])]
+        if "decode_ms" in lead["pp"]:
+            faults += held_faults(f"{name}/pp_decode", held_rows)
+
+
+def long_cli(path: str, *extra: str) -> tuple[bytes, str, int]:
+    """``python -m llama2_tpu_torch`` on ``path`` with ``-t 0 -n
+    LONG_CLI_STEPS -i CLI_PROMPT``: (stdout, stderr, exit code)."""
+    cmd = [sys.executable, "-m", "llama2_tpu_torch", path, "-t", "0", "-n", str(LONG_CLI_STEPS), "-i", CLI_PROMPT,
+           "-z", TOKENIZER_BIN, "-v", *extra]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, timeout=600, cwd=REPO)
+    err = r.stderr.decode(errors="replace")
+    tps = [line for line in err.splitlines() if "tokens per second" in line]
+    say("long", leg="cli", args="_".join(extra) or "none", rc=r.returncode,
+        seconds=f"{time.perf_counter() - t0:.1f}", stdout_bytes=len(r.stdout),
+        report=tps[0].strip().replace(" ", "_") if tps else "none")
+    return r.stdout, err, r.returncode
+
+
+def cli_in_process(*args: str) -> tuple[bytes, str, int]:
+    """``llama2_tpu_torch.cli.main(args)`` in this process, as ``python -m
+    llama2_tpu_torch`` runs it: (stdout bytes, stderr, exit code)."""
+    import contextlib
+    import io
+
+    from llama2_tpu_torch import cli
+
+    out, err = io.BytesIO(), io.StringIO()
+    stdout = io.TextIOWrapper(out, write_through=True)
+    with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(err):
+        try:
+            rc = cli.main(list(args))
+        except SystemExit as e:
+            rc = e.code
+    stdout.flush()
+    return out.getvalue(), err.getvalue(), rc
+
+
+def long_cli_launch(faults: list, device: str = "cuda") -> None:
+    """Launch 3 of ``phase_long_context``: the CLI on a param cache of the
+    launch-1 weights (``--save-cache``'s format, written here), ``-t 0 -n
+    LONG_CLI_STEPS --seq-shards 2 -v`` (a subprocess, as a user runs it)
+    printing the plain run's bytes (where they part, the first parting token
+    held by the margin rule through a decoder run), logging the shards and
+    the backend rule; ``--quant int8 --seq-shards 2`` exits 1 with the JAX
+    message. The plain run and the refusal run ``cli.main`` in this process
+    (``cli_in_process``): a process start costs seconds."""
+    import shutil
+
+    import torch
+
+    from llama2_tpu_torch.io.cache import save_cache
+    from llama2_tpu_torch.io.convert import random_params
+    from llama2_tpu_torch.parallel import distributed
+    from llama2_tpu_torch.tokenizer.tokenizer import Tokenizer
+
+    shutil.rmtree(LONG_DIR, ignore_errors=True)
+    config = config_7b(LONG_LAYERS)
+    path = os.path.join(LONG_DIR, f"7b-{LONG_LAYERS}L-f32")
+    platform = ("--platform", "cpu") if device == "cpu" else ()
+    params = random_params(config, SEED, device)
+    save_cache(path, config, params, shared=True)
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    plain, _, rc = cli_in_process(path, "-t", "0", "-n", str(LONG_CLI_STEPS), "-i", CLI_PROMPT, "-z", TOKENIZER_BIN,
+                                  *platform)
+    say("long", leg="cli/plain_in_process", rc=rc, seconds=f"{time.perf_counter() - t0:.1f}", stdout_bytes=len(plain))
+    torch.cuda.empty_cache()
+    seq, err, rc_seq = long_cli(path, "--seq-shards", "2", *platform)
+    if rc or rc_seq or not plain:
+        faults.append(f"cli: exit codes {rc}, {rc_seq}:\n{err[-2000:]}")
+    elif (f"seq shards: 2 (rows per shard: {config.seq_len // 2})" not in err
+          or distributed.backend_rule(2, device)[1] not in err):
+        faults.append(f"cli --seq-shards 2: the log lacks the shards or the rule:\n{err[-2000:]}")
+    elif seq != plain:
+        tok = Tokenizer.from_file(TOKENIZER_BIN, 32000)
+        prompt = tok.encode(CLI_PROMPT)
+        leg = dict(L=LONG_LAYERS, legs=("decoder",), prompt=prompt, new=LONG_CLI_STEPS - len(prompt),
+                   ref_backend="cuda")
+        lead = rank_pool(2, device).run(long_rank, 2, 1, leg, axis="seq")[0]
+        n = next((i for i, (a, b) in enumerate(zip(seq, plain)) if a != b), min(len(seq), len(plain)))
+        say("long", leg="cli/parted", first_differing_byte=n, first_differing_token=lead["decoder"]["held"][0]["part"])
+        faults += held_faults("cli/--seq-shards_2_vs_plain", lead["decoder"]["held"])
+        if lead["decoder"]["held"][0]["part"] is None:
+            faults.append("cli --seq-shards 2: its bytes part from the plain run's where the decoder's tokens do not")
+    say("long", leg="cli/--seq-shards_2", bytes_equal_to_plain=seq == plain, stdout_bytes=len(seq))
+    _, err, rc = cli_in_process(path, "--quant", "int8", "--seq-shards", "2", *platform)
+    refused = rc == 1 and "--quant int8 is not supported on this path" in err
+    say("long", leg="cli/--quant_int8_--seq-shards_2", rc=rc, refused_with_the_jax_message=refused)
+    if not refused:
+        faults.append(f"cli --quant int8 --seq-shards 2: exit {rc}:\n{err[-2000:]}")
+    shutil.rmtree(LONG_DIR, ignore_errors=True)
+
+
+def phase_long_context() -> None:
+    """This slice's paths, the last JAX families: ring attention and
+    sequence-parallel prefill (``parallel/ring.py``, ``parallel/sp.py``), the
+    sequence-sharded decoder (``parallel/ring_decode.py``, the CLI's
+    ``--seq-shards``) and GPipe prefill and decode (``parallel/pp.py``), at
+    7B width (fp32, random weights of seed SEED, LONG_LAYERS layers, seq_len
+    4096), every rank a process on the one card (gloo, the rule and
+    ``[ring] gloo: hops staged through the host`` printed). No kernel of
+    ``ops/cuda`` is on these paths (the JAX package runs them in XLA): K1
+    appears only as a reading beside the ring.
+
+    Launch 1, two ranks: (a) ``ring_attention`` at (1, 2048, 32, 128), MHA
+    and GQA, within 1e-4 of the one-card oracle, K1 fp32 beside it, a
+    dropped hop planted; (b) ``sp_prefill`` of 2048 tokens, hidden, KV rows
+    and the gathered cache within 1e-3 of the one-card ``forward``, then 32
+    greedy steps from the gathered cache against the one card's; (c) the
+    ``SeqShardedDecoder`` on a 2040-token prompt and 64 new tokens (the
+    cache crosses row 2048: the second rank writes rows), against the
+    one-card ``Generator`` by the fp32 rule (``held_faults``), each rank's
+    cache ``seq_len / 2`` rows and half the one-card bytes, a sampled call
+    (two prompts, t 0.8, top-p 0.9, seed 7, 96 steps) equal to the
+    ``Generator`` at seed 7 and 8, and a misplaced append planted; (d)
+    ``pp_prefill`` over two stages of two layers (M = 2 microbatches of 4
+    rows, T = 256), then 32 ``pp_decode`` steps, against the one card, each
+    stage holding half the layer stack's bytes and its layers of KV.
+    Launch 2, four ranks, 2 layers: the decoder over ``make_sp_tp_mesh(2,
+    2)`` (seq_len LONG_SHORT_SEQ, 280 + 64 tokens), ``sp_prefill`` with
+    ``model``, ``pp_prefill`` / ``pp_decode`` over ``(stage, model)`` 2x2.
+    Launch 3, the CLI (``long_cli_launch``). Every leg is printed before a
+    fault fails the phase. Two ranks time-slice one card and hop through the
+    host: these times say nothing of a seq or stage axis across cards."""
+    from llama2_tpu_torch.parallel import distributed
+
+    smi = nvidia_smi()
+    mark = stopwatch("phase_long_context")
+    faults: list = []
+    rule = distributed.backend_rule(2, "cuda")[1]
+    launch1 = dict(L=LONG_LAYERS, legs=("ring", "sp", "decoder", "pp"), prompt=long_prompt(LONG_DECODER[0], SEED + 1),
+                   new=LONG_DECODER[1], sampled=True, plant=True)
+    ranks = rank_pool(2).run(long_rank, 2, 1, launch1, axis="seq")
+    print(rule, flush=True)
+    if any(r["rule"] != rule or r["backend"] != "gloo" for r in ranks):
+        faults.append(f"launch 1: the ranks' backend {[(r['backend'], r['rule']) for r in ranks]}, want gloo")
+    long_report("2", ranks, faults)
+    mark("launch1")
+    launch2 = dict(L=LONG_TP["L"], seq_len=LONG_SHORT_SEQ, legs=("sp", "decoder", "pp"),
+                   prompt=long_prompt(LONG_TP["prompt"], SEED + 2), new=LONG_TP["new"])
+    ranks = rank_pool(4).run(long_rank, 2, 2, launch2, axis="seq")
+    print(distributed.backend_rule(4, "cuda")[1], flush=True)
+    long_report("2x2", ranks, faults)
+    mark("launch2")
+    long_cli_launch(faults)
+    mark("launch3_cli")
+    say("long", card=smi.replace(" ", "_"), note="ranks_time_slice_one_card_over_gloo")
+    if faults:
+        raise AssertionError("; ".join(faults))
 
 
 def stopwatch(phase: str):
@@ -6479,7 +7325,14 @@ def main() -> int:
             timed(phase)
         timed(phase_mesh)
         timed(phase_mesh_paged)
+        close_rank_pools()
         mesh_k10_timing(warm_cycles_per_ms(), torch.Generator(device="cuda").manual_seed(SEED + 17))
+        print(smi)
+        return 0
+    if sys.argv[1:] == ["--long-context"]:
+        # this slice's phase alone: the seq and stage families
+        timed(phase_long_context)
+        close_rank_pools()
         print(smi)
         return 0
     if sys.argv[1:] == ["--q8kv-timing"]:
@@ -6490,19 +7343,20 @@ def main() -> int:
                   phase_kernels_batch8, phase_kernels_paged, phase_kernels_bench):
         timed(phase)
     # slice 5's main path, served: the paged engine over both pools
-    # both pools at 8 layers (the bf16 one at 32 until slice 16, 16 in slice 17): room for slices 16's and
-    # 17's phases in the script's time
-    served = {kv: timed(phase_serve, kv, 8) for kv in (False, True)}
+    # both pools at 4 layers since slice 19 (8 in slices 17-18; the bf16 one at 32 until slice 16): room for
+    # the later slices' phases in the script's time
+    served = {kv: timed(phase_serve, kv, 4) for kv in (False, True)}
     accurate = {kv: timed(phase_serve_accurate, kv) for kv in (False, True)}
     # engine-level speculation on the served path: the paged bf16 pool and the dense int8 cache
     timed(phase_serve_spec)
     # the fp-cache main path of slice 3, then slice 4's: the int8 cache
     # at 16 layers since slice 17 (32 before): room for its phase in the script's time
-    fast = timed(phase_generate_q8, "two-launch", "cuda", torch.bfloat16, 16, speculative=True)
+    # the two main single-stream routes at 8 layers since slice 19 (16 in slices 17-18, 32 before), profiled
+    fast = timed(phase_generate_q8, "two-launch", "cuda", torch.bfloat16, 8, speculative=True, profile=True)
     q8_launches = {
         "fast": fast,
-        "int8kv": timed(phase_generate_q8, "int8kv", "cuda", torch.bfloat16, 16, speculative=True,
-                        fp_stream=fast["tokens"]),
+        "int8kv": timed(phase_generate_q8, "int8kv", "cuda", torch.bfloat16, 8, speculative=True,
+                        fp_stream=fast["tokens"], profile=True),
         # the route K13 replaces, end to end (8 layers since slice 17, 16 and 32 before)
         "int8kv-two-launch": timed(phase_generate_q8, "int8kv-two-launch", "cuda", torch.bfloat16, 8),
         # fp32 activations keep T = 1 and T = 4 logits close: the spec check
@@ -6522,7 +7376,7 @@ def main() -> int:
     }
     launches = {}
     for dtype in (torch.bfloat16, torch.float32):
-        launches[dtype] = timed(phase_generate, dtype, 8)
+        launches[dtype] = timed(phase_generate, dtype, 4)  # 4 layers since slice 19 (8 before)
     timed(phase_cli)
     # this slice's path: the INT8 perplexity gate, then the importer, --profile, the tokenizer, --precompile
     ppl = timed(phase_perplexity)
@@ -6536,6 +7390,10 @@ def main() -> int:
     for k in ("K5", "K6"):
         q8_launches["fast"][k] += mesh_paged.get(k, 0)
     q8_launches["mesh"]["K10-no-residual"] += mesh_paged.get("K10-no-residual", 0)
+    # this slice's path: ring attention, sp prefill, the seq-sharded decoder and the pipeline (no kernel)
+    timed(phase_long_context)
+    # the mesh phases' ranks (a pool a world size, started at its first launch) end here
+    close_rank_pools()
     t_timing = time.perf_counter()
     kernels = []
     cycles_per_ms = warm_cycles_per_ms()

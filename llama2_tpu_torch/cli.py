@@ -9,9 +9,19 @@ verbose report. Runs on the card unless ``--platform cpu`` asks for the CPU.
 speculative decoding (greedy only). ``--profile DIR`` traces the timed
 ``generate`` with ``torch.profiler`` (the CPU, and the card when it runs
 there) and writes a Chrome trace into DIR. The prompt is encoded by the C++
-tokenizer (``tokenizer/fast/``). ``--seq-shards N``, whose path is not
-ported to the torch package yet, exits 1 with a message rather than being
-ignored.
+tokenizer (``tokenizer/fast/``).
+
+``--seq-shards N`` (N >= 2) decodes through the sequence-sharded decoder
+(``parallel/ring_decode.py::SeqShardedDecoder``): N ranks spawned by
+``parallel/distributed.py::launch`` over a ``(seq,)`` mesh, each loading the
+checkpoint itself and holding ``seq_len / N`` rows of the KV cache (on the
+card they share it over gloo; ``--platform cpu`` runs them on the CPU).
+Rank 0's tokens come back here and print with the plain path's framing. It
+is the fp path, as the JAX CLI's: ``--quant int8``, or a Q8 checkpoint or
+param cache, exits 1; ``--spec``, ``--kv-cache`` and ``--kernels`` warn that
+they do not apply and are ignored. The port's default ``--kernels`` is
+``cuda`` (the JAX CLI's is ``xla``), so that warning fires only where
+``--kernels`` was passed.
 """
 
 from __future__ import annotations
@@ -49,8 +59,8 @@ GPU options:
  --warmup                  run a warmup generate before the timed one
  --profile <dir>           write a torch.profiler Chrome trace of the timed
                            generate into dir
-Not yet ported to the torch package (exit 1 when set):
- --seq-shards <int>
+ --seq-shards <int>        decode with the KV cache's sequence axis cut over
+                           this many ranks (>= 2; fp weights only)
 """
 
 
@@ -85,6 +95,7 @@ def parse_args(argv: list[str]) -> dict | None:
         "save_cache": None,
         "warmup": False,
         "seq_shards": 0,
+        "kernels_given": False,
     }
 
     def take_value(i: int, name: str) -> tuple[str, int]:
@@ -157,6 +168,7 @@ def parse_args(argv: list[str]) -> dict | None:
             opts["platform"], i = take_choice(i, "platform", ("cpu", "gpu"))
         elif arg == "--kernels":
             opts["kernels"], i = take_choice(i, "kernels", ("torch", "cuda", "cuda-accurate"))
+            opts["kernels_given"] = True
         elif arg == "--save-cache":
             opts["save_cache"], i = take_value(i, "save-cache")
         elif arg == "--seq-shards":
@@ -176,17 +188,18 @@ def parse_args(argv: list[str]) -> dict | None:
     return opts
 
 
-def _refuse_unported(opts: dict) -> None:
-    """Exit 1 for a flag whose path the torch package does not have yet."""
-    if opts["seq_shards"] >= 2:
-        _die("--seq-shards is not yet ported to the torch package")
+SEQ_QUANT_REFUSAL = ("--seq-shards runs the fp/XLA sequence-sharded decoder; "
+                     "--quant int8 is not supported on this path")
+SEQ_DEADLINE_S = 7 * 24 * 3600.0  # the ranks' deadline under --seq-shards: a user's run, not a test's
 
 
 def main(argv: list[str] | None = None) -> int:
     opts = parse_args(sys.argv[1:] if argv is None else argv)
     if opts is None:
         return 0
-    _refuse_unported(opts)
+    if opts["seq_shards"] >= 2 and opts["quant"] == "int8":
+        # the JAX CLI's refusal, made before the weights are read
+        _die(SEQ_QUANT_REFUSAL)
 
     # import lazily so `-h` costs nothing
     import torch
@@ -231,6 +244,13 @@ def main(argv: list[str] | None = None) -> int:
 
         save_cache(opts["save_cache"], config, params, shared)
         log(f"wrote param cache to {opts['save_cache']}")
+    if opts["seq_shards"] >= 2:
+        from llama2_tpu_torch.quant.q8 import QuantTensor
+
+        if any(isinstance(v, QuantTensor) for v in params.values()):
+            _die(SEQ_QUANT_REFUSAL)
+        del params
+        return _run_seq_sharded(opts, config, prompt_tokens, tokenizer, device, log)
 
     generator = Generator(
         config,
@@ -269,6 +289,52 @@ def main(argv: list[str] | None = None) -> int:
     sys.stdout.buffer.flush()
     log(f"\n\n{int(result.tokens_per_sec)} tokens per second")
     log(f"ttft: {result.ttft_s * 1e3:.1f} ms")
+    return 0
+
+
+def _seq_shard_rank(mesh, path: str, prompt_tokens: list[int], gen) -> tuple[list[int], float]:
+    """One rank of ``--seq-shards``: the checkpoint loaded here, the decoder
+    over ``mesh``; returns the emitted tokens and the decode's seconds."""
+    import time
+
+    from llama2_tpu_torch.io import load_any
+    from llama2_tpu_torch.parallel.ring_decode import SeqShardedDecoder
+
+    config, params, _ = load_any(path)
+    decoder = SeqShardedDecoder(config, params, mesh)
+    del params
+    t0 = time.perf_counter()
+    tokens = decoder.generate_batch([prompt_tokens], gen)[0]
+    return tokens, time.perf_counter() - t0
+
+
+def _run_seq_sharded(opts, config, prompt_tokens: list[int], tokenizer, device, log) -> int:
+    """``--seq-shards N``: the sequence-sharded decoder over N spawned ranks
+    (no CUDA kernel on this path: nothing is built), with the Generator
+    path's sampling flags and output framing."""
+    from llama2_tpu_torch.config import GenerationConfig
+    from llama2_tpu_torch.parallel import distributed
+    from llama2_tpu_torch.parallel.mesh import SEQ_AXIS
+    from llama2_tpu_torch.tokenizer.tokenizer import BOS
+
+    for flag, given in (("--spec", opts["spec"] != 0), ("--kv-cache", opts["kv_cache"] != "f32"),
+                        ("--kernels", opts["kernels_given"])):
+        if given:
+            print(f"warning: {flag} does not apply to --seq-shards (the fp sequence-sharded decoder); ignored",
+                  file=sys.stderr)
+    n = opts["seq_shards"]
+    if config.seq_len % n:
+        _die(f"seq_len={config.seq_len} not divisible by sp={n}")
+    gen = GenerationConfig(temperature=opts["temperature"], top_p=opts["top_p"], steps=opts["seq_len"],
+                           seed=opts["seed"])
+    log(f"seq shards: {n} (rows per shard: {config.seq_len // n})")
+    ranks = distributed.launch(_seq_shard_rank, n, 1, device.type, opts["bin_path"], prompt_tokens, gen,
+                               axis=SEQ_AXIS, libraries=(), deadline=SEQ_DEADLINE_S)
+    tokens, total_s = ranks[0]
+    sys.stdout.buffer.write(tokenizer.decode(tokens, first_prev=BOS))
+    sys.stdout.buffer.flush()
+    tps = (len(tokens) - 1) / total_s if len(tokens) > 1 and total_s > 0 else 0.0
+    log(f"\n\n{int(tps)} tokens per second")
     return 0
 
 

@@ -101,6 +101,21 @@ def _hop(ring: _Ring, t: torch.Tensor, staged: bool, overlap=None):
     return ring.done(pending, t.device), value
 
 
+class Hop:
+    """A group's ring as one call: ``hop(t)`` sends ``t`` to the next rank
+    and returns the previous rank's (``t`` itself without a group), staged
+    through the host where ``_staged`` says so; the hops of the ring
+    attention (``parallel/ring.py``) and of the pipeline's stages
+    (``parallel/pp.py``)."""
+
+    def __init__(self, group, device: torch.device):
+        self.ring = None if group is None else _Ring(group)
+        self.staged = group is not None and _staged(group, device)
+
+    def __call__(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.ring is None else _hop(self.ring, t, self.staged)[0]
+
+
 def ring_rs_matmul(y: torch.Tensor, w_local: torch.Tensor, group) -> torch.Tensor:
     """Row-parallel partial products and a ring reduce-scatter, overlapped.
 

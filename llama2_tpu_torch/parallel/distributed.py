@@ -11,6 +11,8 @@ into one runtime, here every rank is a process of its own in one
 
     # or spawn the ranks of a dp x tp mesh from one process:
     results = distributed.launch(fn, dp, tp, "cpu", *args)  # fn(mesh, *args) on each rank
+    # a (seq, model) or (stage, model) mesh: the leading axis named
+    results = distributed.launch(fn, sp, tp, "cpu", *args, axis="seq")
 
 The collective backend follows from the ranks and the cards
 (:func:`backend_rule`): NCCL where every rank owns a card of its own (rank
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import pickle
 import queue
 import shutil
 import sys
@@ -107,10 +110,11 @@ def initialize(
     )
 
 
-def _rank_main(fn, rank: int, dp: int, tp: int, init_method: str, backend: str, device_type: str,
-               timeout: float, results, args) -> None:
+def _rank_main(fn, rank: int, dp: int, tp: int, axis: str, init_method: str, backend: str, device_type: str,
+               timeout: float, results, args_path: str) -> None:
     """One rank of :func:`launch`: join the group, build the mesh, run
-    ``fn(mesh, *args)`` and post ``(rank, ok, value or traceback)``."""
+    ``fn(mesh, *args)`` (``args`` read from the file the launcher wrote)
+    and post ``(rank, ok, value or traceback)``."""
     from llama2_tpu_torch.parallel.mesh import make_mesh
 
     if device_type == "cpu":
@@ -118,7 +122,9 @@ def _rank_main(fn, rank: int, dp: int, tp: int, init_method: str, backend: str, 
         torch.set_num_threads(1)
     try:
         initialize(init_method, dp * tp, rank, device_type, backend, timeout)
-        value = fn(make_mesh(dp, tp, device_type), *args)
+        with open(args_path, "rb") as f:
+            args = pickle.load(f)
+        value = fn(make_mesh(dp, tp, device_type, axis), *args)
         results.put((rank, True, value))
     except BaseException:  # noqa: BLE001 -- reported to the launcher, which raises
         results.put((rank, False, traceback.format_exc()))
@@ -135,13 +141,18 @@ def spawn_context():
     return mp.get_context("spawn")
 
 
-def launch(fn, dp: int, tp: int, device, *args, deadline: float = DEFAULT_DEADLINE_S,
+def launch(fn, dp: int, tp: int, device, *args, axis: str = "data", deadline: float = DEFAULT_DEADLINE_S,
            timeout: float = DEFAULT_TIMEOUT_S, libraries=ENGINE_LIBRARIES) -> list:
     """Run ``fn(mesh, *args)`` on each of ``dp * tp`` spawned ranks and
-    return their values (picklable host values), rank 0's first.
+    return their values (picklable host values), rank 0's first. ``mesh``
+    is the rank's ``(axis, model)`` mesh: ``dp`` is the size of the leading
+    axis, ``data`` (the default), ``seq`` or ``stage``.
 
     The ranks meet through a ``file://`` rendezvous in a new temporary
-    directory (no port to race for). On the card the kernel ``libraries``
+    directory (no port to race for), where ``args`` are written once for
+    every rank to read: sent down a rank's start pipe, a large argument
+    would hold the next rank's start until this one had imported ``fn``'s
+    module. On the card the kernel ``libraries``
     are built here once first, so that the ranks load them and do not each
     run the builds. The first rank to fail, or a rank that dies, ends every
     rank, and its error is raised as :class:`RankError`; past ``deadline``
@@ -158,9 +169,12 @@ def launch(fn, dp: int, tp: int, device, *args, deadline: float = DEFAULT_DEADLI
     results = ctx.Queue()
     tmp = tempfile.mkdtemp(prefix="llama2-mesh-")
     init_method = "file://" + os.path.join(tmp, "rendezvous")
+    args_path = os.path.join(tmp, "args.pkl")
+    with open(args_path, "wb") as f:
+        pickle.dump(args, f, protocol=pickle.HIGHEST_PROTOCOL)
     procs = [
         ctx.Process(target=_rank_main, daemon=True,
-                    args=(fn, r, dp, tp, init_method, backend, device_type, timeout, results, args))
+                    args=(fn, r, dp, tp, axis, init_method, backend, device_type, timeout, results, args_path))
         for r in range(world)
     ]
     try:

@@ -53,7 +53,11 @@ MODEL_PREFS: dict[str, tuple[int, ...]] = {
 
 
 def mesh_shape(mesh) -> dict[str, int]:
-    """``{"data": dp, "model": tp}`` of a Mesh or a ``(dp, tp)`` pair."""
+    """``{"data": dp, "model": tp}`` of a Mesh or a ``(dp, tp)`` pair. A
+    ``seq`` or ``stage`` Mesh names its leading axis so, and has no
+    ``data`` entry: the specs here serve the ``(data, model)`` engines (the
+    ``seq`` and ``stage`` families cut their weights with
+    ``sp.rank_params``)."""
     if isinstance(mesh, tuple):
         return {DATA_AXIS: mesh[0], MODEL_AXIS: mesh[1]}
     return mesh.shape

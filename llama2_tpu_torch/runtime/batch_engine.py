@@ -95,6 +95,7 @@ from llama2_tpu_torch.config import GenerationConfig, ModelConfig
 from llama2_tpu_torch.models.llama import BACKENDS, forward, init_cache, layer_keys, logits_from_hidden
 from llama2_tpu_torch.ops import sampling
 from llama2_tpu_torch.ops.cuda import attention, attention_q8, build, layer_block, mlp_block, quant_matmul
+from llama2_tpu_torch.parallel.mesh import require_data_axis
 from llama2_tpu_torch.parallel.sharding import LocalParams, shard_params
 from llama2_tpu_torch.parallel.tp import (
     batch_rows,
@@ -284,6 +285,7 @@ class BatchEngine:
             raise ValueError(f"backend {backend!r}: want one of {BACKENDS}")
         if collective not in (None, "ring"):
             raise ValueError(f"unknown collective {collective!r}")
+        require_data_axis(mesh, type(self).__name__)
         self.config = config
         self.batch_size = batch_size
         # mesh: the rank's place in the world; fwd_mesh: the one forward()

@@ -58,6 +58,7 @@ import torch
 
 from llama2_tpu_torch.models.llama import init_cache
 from llama2_tpu_torch.parallel import dp_paged
+from llama2_tpu_torch.parallel.mesh import require_data_axis
 from llama2_tpu_torch.parallel.sharding import shard_pool
 from llama2_tpu_torch.runtime.batch_engine import BatchEngine, Request
 from llama2_tpu_torch.runtime.paged_cache import OutOfPages, PrefixCache, _bucket
@@ -83,6 +84,7 @@ class PagedBatchEngine(BatchEngine):
         self._dp = 0  # data groups with an allocator each (0: one allocator)
         self._MESH_TICKS = False
         mesh = kw.get("mesh")
+        require_data_axis(mesh, type(self).__name__)
         if mesh is not None:
             n_try = -(-n_pages // mesh.dp) * mesh.dp  # page counts round up to the groups
             backend = BatchEngine._mesh_plan(config, params, kw.get("backend", "cuda"), mesh)[0]

@@ -173,8 +173,9 @@ def test_cli_save_cache_then_run_from_the_directory(capfd, tiny_checkpoint, tmp_
 def test_cli_as_a_module_takes_a_cache_directory(tmp_path):
     """``python -m llama2_tpu_torch DIR`` on a directory from the random-Q8
     tool, also over the int8 KV cache with speculative decoding, and with
-    ``--profile d`` (a trace in d, the same bytes); ``--seq-shards``, still
-    unported, exits 1."""
+    ``--profile d`` (a trace in d, the same bytes); ``--seq-shards 2``, the
+    fp sequence-sharded decoder, exits 1 on the Q8 cache with the JAX
+    CLI's message."""
     env = dict(os.environ, PYTHONPATH=REPO)
     env.pop("JAX_PLATFORMS", None)
     cdir = str(tmp_path / "tiny-q8")
@@ -195,5 +196,5 @@ def test_cli_as_a_module_takes_a_cache_directory(tmp_path):
         elif flag[0] == "--profile":  # ported with slice 16
             assert r.returncode == 0 and r.stdout == plain, r.stderr.decode()
             assert [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
-        else:
-            assert r.returncode == 1 and b"not yet ported" in r.stderr
+        else:  # ported with slice 19: the fp path refuses Q8 weights
+            assert r.returncode == 1 and b"--quant int8 is not supported on this path" in r.stderr

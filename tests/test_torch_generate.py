@@ -149,7 +149,7 @@ def run_main(capsys, *argv):
         (("ck.bin", "--quant", "int4"), 1, "err", "unable to parse --quant"),
         (("ck.bin", "--kv-cache", "int4"), 1, "err", "unable to parse --kv-cache"),
         (("ck.bin", "--spec", "65"), 1, "err", "--spec must be 0 (off) or 2..64"),
-        (("ck.bin", "--seq-shards", "2"), 1, "err", "not yet ported to the torch package"),
+        (("ck.bin", "--seq-shards", "-1"), 1, "err", "--seq-shards must be >= 0"),
         (("ck.bin", "--save-cache"), 1, "err", "missing argument"),
         (("ck.bin", "--profile"), 1, "err", "missing argument"),
     ],

@@ -2015,3 +2015,64 @@ def test_paged_int8_kernels_at_a_ranks_shard_on_card(cuda_device, dtype):
             tol = _q8kv_tol(dtype, qt[:act, None], *dense, pos.long()[:act, None], lambda t: t[:, 0])
             _assert_close(got[:act], want[:act], tol, f"{wrapper.__name__} {page=}")
             assert torch.isfinite(got.float()).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", [(32, 32, 128), (32, 8, 128)], ids=["7B", "GQA"])
+def test_seq_decode_attention_on_card_matches_plain_attention(cuda_device, layout):
+    """``ring_decode.seq_decode_attention`` at sp = 1 (the local statistics
+    and the merge, no collective) on cuda:0, fp32, against
+    ``ops/ref.py::attention`` over the same cache: T = 1 and a 4-row window,
+    at positions 0, 2047 and 4095, within 2e-5."""
+    from llama2_tpu_torch.ops import ref
+    from llama2_tpu_torch.parallel.ring_decode import seq_decode_attention
+
+    H, KVH, hs = layout
+    S, B = 4096, 2
+    g = torch.Generator(device=cuda_device).manual_seed(41)
+    k = torch.randn(B, KVH, S, hs, generator=g, device=cuda_device)
+    v = torch.randn(B, KVH, S, hs, generator=g, device=cuda_device)
+    for T in (1, 4):
+        for pos in (T - 1, 2047, 4095):
+            q = torch.randn(B, T, H, hs, generator=g, device=cuda_device)
+            got = seq_decode_attention(q, k, v, pos, None, S, 1.0 / hs**0.5)
+            want = ref.attention(q, k, v, pos - (T - 1))
+            assert got.device.type == "cuda" and torch.isfinite(got).all()
+            assert (got - want).abs().max().item() <= 2e-5, (T, pos)
+
+
+def _stage_hop_rank(mesh):
+    """One stage hop of a CUDA activation (a bf16 and an fp32 one) over the
+    stage group, on cuda:0 (staged through the host on gloo)."""
+    import torch.distributed as dist
+
+    from llama2_tpu_torch.parallel import collective_matmul as cm
+    from llama2_tpu_torch.parallel.mesh import STAGE_AXIS
+
+    hop = cm.Hop(mesh.group(STAGE_AXIS), mesh.device)
+    out = {"backend": dist.get_backend(mesh.group(STAGE_AXIS)), "staged": hop.staged, "hops": cm.hops}
+    for dt in (torch.bfloat16, torch.float32):
+        sent = torch.randn(4, 256, 4096, generator=torch.Generator().manual_seed(mesh.rank)).to(mesh.device, dt)
+        got = hop(sent)
+        # numpy, not tensors: a tensor crosses the result queue as a handle to the rank's memory
+        out[dt] = (str(got.device), got.dtype == dt, sent.float().cpu().numpy(), got.float().cpu().numpy())
+    out["hops"] = cm.hops - out["hops"]
+    return out
+
+
+@pytest.mark.gpu
+def test_stage_hop_of_a_cuda_activation_between_two_ranks_on_one_card(cuda_device):
+    """Two stages on the one card: gloo by the backend rule, the hop staged
+    through the host; each stage's (4, 256, 4096) activation arrives on
+    cuda:0 at the next stage bit for bit, in its dtype."""
+    from llama2_tpu_torch.parallel import distributed
+
+    if torch.cuda.device_count() != 1:
+        pytest.skip("the one-card rule")
+    out = distributed.launch(_stage_hop_rank, 2, 1, "cuda", axis="stage", deadline=120.0, libraries=())
+    for r, res in enumerate(out):
+        assert (res["backend"], res["staged"], res["hops"]) == ("gloo", True, 2)
+        for dt in (torch.bfloat16, torch.float32):
+            device, same_dtype, _, got = res[dt]
+            assert device == "cuda:0" and same_dtype
+            assert np.array_equal(got, out[(r - 1) % 2][dt][2])
